@@ -1,0 +1,579 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (Hopper).
+
+    python3 chip_smoke.py
+
+Drives ``openmg_tpu_torch`` through the entry points a user calls, on the
+card, and fails (non-zero exit, no result line) if any phase fails:
+
+1. ``env``     versions, the card's name and power limit, and the measured
+               device-to-device copy bandwidth;
+2. ``build``   builds the CUDA kernels from ``openmg_tpu_torch/csrc``;
+3. ``kernels`` holds each kernel against its plain PyTorch version on the
+               card, in every mode the V-cycle uses, at shapes whose dims
+               are not multiples of 32 and on a 19-point stencil (the
+               kernel's generic tap count), and times both;
+4. ``solve``   the 3D Poisson 256³ defect-correction solve (five levels,
+               V(2,2) red-black, linear transfers, double-float outer loop)
+               from a float32 tensor on the card, checked in float64 on the
+               host; a small solve against the same solve run on the CPU;
+               a numpy-float64 solve through ``mg_solve``; a V(2,0) cycle
+               against the CPU; and two cases the kernel does not take,
+               which the card must refuse instead of running plain tensor
+               code.
+
+Each phase prints one line ``<phase> <json>``.  Then come the line
+``{"kernels": [...]}``, the card's name and power limit as ``nvidia-smi``
+gives them, and last ``{"ok": true, "device": {...}}``.
+
+Tolerances.  K1 (``fused_stages_const_3d``) against its plain version:
+2e-6 · max|ref| for an iterate; for a residual or restricted residual
+2e-6 · max|b|, the size of the terms whose difference it is.  Float32, the
+same order of summation, but nvcc fuses multiply-adds and the region rows
+divide where the plain version divides too — a few ulp.  K2
+(``df_update_residual_const_3d``): ``x_hi'``, ``x_lo'``, ``r_hi`` equal bit
+for bit; the partial sums' total within 1e-6 relative of ``sum(r_hi²)``.
+
+``bound_ms`` is the least time the card could take: the larger of the bytes
+that must move (each input read once, each output written once) over
+3.35 TB/s and the float32 operations needed over 67 TFLOP/s (the H100 SXM
+data sheet's rates).  ``bound_ms_copy_bw`` divides the same bytes by the
+copy bandwidth measured in this run instead.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+import types
+
+import numpy as np
+import torch
+
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+K1_TOL = 2e-6
+OMEGA = 2.0 / 3.0
+
+
+def emit(phase, obj):
+    print(f"{phase} {json.dumps(obj)}", flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def run_text(cmd):
+    return subprocess.run(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        timeout=60, check=True,
+    ).stdout.strip()
+
+
+def time_ms(fn, reps, warm=2):
+    """Median milliseconds of ``fn()`` by CUDA events, after warm-up."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def randn(shape, seed, dev, scale=1.0):
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(a * np.float32(scale)).to(dev)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_env(dev):
+    smi = run_text(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
+    )
+    try:
+        from openmg_tpu_torch._build import _nvcc
+
+        nvcc = run_text([_nvcc(), "--version"]).splitlines()[-2:]
+    except RuntimeError as e:
+        fail(str(e))
+    n = 1 << 28  # 1 GiB of float32
+    src = torch.empty(n, dtype=torch.float32, device=dev).normal_()
+    dst = torch.empty_like(src)
+    ms = time_ms(lambda: dst.copy_(src), reps=10)
+    copy_bw = 2 * n * 4 / (ms * 1e-3)
+    del src, dst
+    try:
+        import triton
+
+        triton_version = triton.__version__
+    except ImportError:
+        triton_version = None
+    emit("env", {
+        "python": sys.version.split()[0],
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "triton": triton_version,
+        "nvcc": nvcc,
+        "nvidia_smi": smi,
+        "capability": list(torch.cuda.get_device_capability(0)),
+        "copy_bandwidth_GBps": copy_bw / 1e9,
+        "copy_ms_1GiB": ms,
+    })
+    return smi, copy_bw
+
+
+def phase_build():
+    from openmg_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    _build.load()
+    wall = time.perf_counter() - t0
+    used = [
+        ln.strip() for ln in _build.info.get("log", "").splitlines()
+        if "registers" in ln or "spill" in ln
+    ]
+    emit("build", {
+        "seconds": wall, "cached": _build.info.get("cached"),
+        "library": _build.info.get("path", "").split("/")[-1],
+        "flags": " ".join(_build.NVCC_FLAGS), "ptxas": used,
+    })
+    return wall
+
+
+def k1_modes(fused, op, tr, b, x, ec):
+    """name -> (callable on (b, x, ec), kinds of the outputs)."""
+    V, O = op.values, op.offsets
+    corner = fused._corner_info(op)
+    rb4 = fused.stages_for("rbgs", 2, OMEGA)
+    jac6 = fused.stages_for("jacobi", 6, OMEGA)
+
+    def make(**kw):
+        return lambda impl, bb, xx: impl(V, O, bb, xx, corner=corner, **kw)
+
+    return {
+        "down: zero start, 4 rb stages, restrict": (
+            make(stages=rb4, emit_residual=True, restrict_transfer=tr),
+            False, ("x", "r")),
+        "up: x + P ec, 4 rb stages": (
+            make(stages=rb4, ec=ec, prolong_transfer=tr), True, ("x",)),
+        "x + P ec, no stages": (
+            make(stages=(), ec=ec, prolong_transfer=tr), True, ("x",)),
+        "6 jacobi stages": (make(stages=jac6), True, ("x",)),
+        "residual + restrict, no x out": (
+            make(stages=(), emit_residual=True, restrict_transfer=tr,
+                 emit_x=False), True, ("r",)),
+        "zero start, 4 rb stages, residual": (
+            make(stages=rb4, emit_residual=True), False, ("x", "r")),
+    }
+
+
+def k1_bound(mode, n, nc, K):
+    """(bytes, flops) the mode needs at n fine and nc coarse points."""
+    stage_rb = n / 2 * 2 * K          # one colour: K−1 mul-adds, sub, mul
+    stage_j = n * (2 * K + 3)
+    resid = n * 2 * K
+    restr = nc * 2 * 27
+    if mode.startswith("down"):
+        return 4 * (n + n + nc), 4 * stage_rb + resid + restr
+    if mode.startswith("up"):
+        return 4 * (n + n + nc + n), 4 * stage_rb + n * 8
+    if mode.startswith("x + P ec"):
+        return 4 * (n + nc + n), n * 8
+    if mode.startswith("6 jacobi"):
+        return 4 * 3 * n, 6 * stage_j
+    if mode.startswith("residual + restrict"):
+        return 4 * (2 * n + nc), resid + restr
+    return 4 * 3 * n, 4 * stage_rb + resid
+
+
+def phase_kernels(dev, copy_bw):
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.ops import doublefloat as df
+    from openmg_tpu_torch.ops import fused, kernels
+    from openmg_tpu_torch.ops.stencil import StencilOperator
+
+    reps = 12
+    plain_reps = 3
+    cfg = mg.SolverConfig(
+        smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
+        max_dense_coarse=4096,
+    )
+    big = (256,) * 3
+    h_big = mg.setup(big, cfg, device=dev).hierarchy
+    h_odd = mg.setup(
+        (20, 36, 72), mg.SolverConfig(
+            smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
+            gridlevels=3, max_dense_coarse=1024),
+        device=dev,
+    ).hierarchy
+    tr = h_big.transfer
+    levels = [("main", L) for L in h_big.levels[:-1]]
+    levels += [("odd", L) for L in h_odd.levels[:-1]]
+    # a stencil whose tap count is neither 7 nor 27 takes the kernel's
+    # generic instantiation: a 19-point operator (faces and edges)
+    offs19 = tuple(
+        (dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+        for dx in (-1, 0, 1) if abs(dz) + abs(dy) + abs(dx) <= 2
+    )
+    vals19 = [
+        {0: 24.0, 1: -2.0, 2: -1.0}[abs(o[0]) + abs(o[1]) + abs(o[2])]
+        for o in offs19
+    ]
+    op19 = StencilOperator(
+        None, offs19, torch.tensor(vals19, dtype=torch.float32, device=dev),
+        (20, 36, 72),
+    )
+    levels.append(("generic", types.SimpleNamespace(A=op19, grid_shape=op19.grid_shape)))
+
+    rows = []
+    for tag, L in levels:
+        op = L.A
+        shape = L.grid_shape
+        n = int(np.prod(shape))
+        cshape = tuple(s // 2 for s in shape)
+        nc = int(np.prod(cshape))
+        kind = "const" if op.is_constant else "cornered"
+        b = randn(shape, 1, dev)
+        x = randn(shape, 2, dev)
+        ec = randn(cshape, 3, dev)
+        for mode, (call, has_x, outs) in k1_modes(fused, op, tr, b, x, ec).items():
+            xin = x if has_x else None
+            got = call(fused.fused_stages_const_3d, b, xin)
+            torch.cuda.synchronize()
+            ref = call(fused.fused_stages_const_3d_plain, b, xin)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            worst = 0.0
+            errs = {}
+            for name, g, r in zip(outs, got, ref):
+                if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+                    fail(f"K1 {mode} {shape}: bad output {name}")
+                err = float((g - r).abs().max())
+                scale = float((b if name == "r" else r).abs().max())
+                errs[name] = {
+                    "max_abs_err": err, "max_ref": float(r.abs().max()),
+                    "tolerance": K1_TOL * scale,
+                }
+                worst = max(worst, err)
+                if err > K1_TOL * scale:
+                    fail(f"K1 {mode} {kind} {shape} {name}: err {err:.3e} "
+                         f"> {K1_TOL * scale:.3e}")
+            del got, ref
+            row = {"level": tag, "kind": kind, "shape": list(shape),
+                   "taps": len(op.offsets), "mode": mode, "errors": errs,
+                   "max_abs_err": worst}
+            if tag == "main":
+                nbytes, flops = k1_bound(mode, n, nc, len(op.offsets))
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_F32_FLOPS * 1e3
+                row.update(
+                    ms=time_ms(lambda: call(fused.fused_stages_const_3d, b, xin), reps),
+                    plain_ms=time_ms(
+                        lambda: call(fused.fused_stages_const_3d_plain, b, xin),
+                        plain_reps, warm=1),
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bound_ms_copy_bw=nbytes / copy_bw * 1e3,
+                    bytes=nbytes, flops=flops,
+                )
+            rows.append(row)
+        del b, x, ec
+        torch.cuda.empty_cache()
+
+    # coarse solve, for the breakdown of a cycle (a library product, as in
+    # the JAX package; not a kernel of the port)
+    from openmg_tpu_torch.core.cycle import coarse_solve
+
+    bc = randn(h_big.levels[-1].grid_shape, 4, dev)
+    coarse_ms = time_ms(lambda: coarse_solve(h_big, bc), reps)
+
+    # K2
+    offs = h_big.fine_hi.offsets
+    terms = tuple(df.pow2_terms(float(v)) for v in h_big.fine_hi.values.cpu().numpy())
+    k2_rows = []
+    for tag, shape in (("main", big), ("odd", (20, 36, 72))):
+        rng = np.random.default_rng(5)
+        xh, xl = df.df_split(rng.standard_normal(shape), dev)
+        bh, bl = df.df_split(rng.standard_normal(shape), dev)
+        e = randn(shape, 6, dev, scale=1e-3)
+        n = int(np.prod(shape))
+        for emit_norm in (True, False):
+            got = kernels.df_update_residual_const_3d(
+                offs, terms, xh, xl, e, bh, bl, emit_norm=emit_norm)
+            torch.cuda.synchronize()
+            ref = kernels.df_update_residual_const_3d_plain(
+                offs, terms, xh, xl, e, bh, bl, emit_norm=emit_norm)
+            torch.cuda.synchronize()
+            worst = 0.0
+            for name, g, r in zip(("x_hi", "x_lo", "r_hi"), got, ref):
+                err = float((g - r).abs().max())
+                worst = max(worst, err)
+                if not torch.equal(g, r):
+                    fail(f"K2 {shape} emit_norm={emit_norm}: {name} differs "
+                         f"from the plain version (max {err:.3e})")
+            row = {"level": tag, "shape": list(shape), "emit_norm": emit_norm,
+                   "max_abs_err": worst, "bit_equal": True}
+            if emit_norm:
+                have = float(torch.sum(got[3]))
+                want = float(torch.sum(ref[2] * ref[2]))
+                rel = abs(have - want) / want
+                if rel > 1e-6:
+                    fail(f"K2 {shape}: partial sums {have!r} vs {want!r}")
+                # two runs give the same bits: no float atomics
+                again = kernels.df_update_residual_const_3d(
+                    offs, terms, xh, xl, e, bh, bl, emit_norm=True)
+                if not torch.equal(again[3], got[3]):
+                    fail("K2: partial sums differ between two runs")
+                row.update(norm_rel_err=rel, partials=int(got[3].numel()))
+            del got, ref
+            if tag == "main":
+                nterms = sum(len(t) for t in terms)
+                nbytes = 32 * n
+                flops = n * (8 + 13 * nterms + (2 if emit_norm else 0))
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_F32_FLOPS * 1e3
+                row.update(
+                    ms=time_ms(lambda: kernels.df_update_residual_const_3d(
+                        offs, terms, xh, xl, e, bh, bl, emit_norm=emit_norm), reps),
+                    plain_ms=time_ms(
+                        lambda: kernels.df_update_residual_const_3d_plain(
+                            offs, terms, xh, xl, e, bh, bl, emit_norm=emit_norm),
+                        plain_reps, warm=1),
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bound_ms_copy_bw=nbytes / copy_bw * 1e3,
+                    bytes=nbytes, flops=flops,
+                )
+            k2_rows.append(row)
+        del xh, xl, bh, bl, e
+        torch.cuda.empty_cache()
+
+    emit("kernels", {
+        "K1": rows, "K2": k2_rows, "coarse_solve_ms": coarse_ms,
+        "k1_tolerance": "2e-6*max|ref| (x), 2e-6*max|b| (r, bc)",
+        "k2_tolerance": "bit-equal x_hi, x_lo, r_hi; partial sum 1e-6 relative",
+        "timed_launches": reps,
+    })
+    return rows, k2_rows, coarse_ms
+
+
+def residual_norm_host(b64, x64):
+    """‖b − A x‖₂ of the 7-point Poisson operator in float64 (numpy shifts,
+    no matrix)."""
+    ax = 6.0 * x64
+    for axis in range(3):
+        lo = [slice(None)] * 3
+        hi = [slice(None)] * 3
+        lo[axis] = slice(0, -1)
+        hi[axis] = slice(1, None)
+        ax[tuple(lo)] -= x64[tuple(hi)]
+        ax[tuple(hi)] -= x64[tuple(lo)]
+    r = b64 - ax
+    return float(np.sqrt(np.sum(r * r)))
+
+
+def phase_solve(dev):
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.ops import fused, kernels
+
+    shape = (256,) * 3
+    cfg = mg.SolverConfig(
+        smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
+        max_dense_coarse=4096, cycles=60,
+    )
+    t0 = time.perf_counter()
+    solver = mg.setup(shape, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    levels = [list(s[0]) for s in solver.hierarchy.stats]
+
+    bnp = mg.rhs_random(shape, seed=1)
+    bnp /= np.linalg.norm(bnp.ravel())
+    b = torch.from_numpy(bnp.astype(np.float32)).to(dev)
+
+    # the main path, with the launch counts read around it
+    fused.LAUNCHES = 0
+    kernels.LAUNCHES = 0
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    k1, k2 = fused.LAUNCHES, kernels.LAUNCHES
+    cycles = info["cycles"]
+    visits = 2 * (solver.hierarchy.num_levels - 1)
+    if not info["converged"] or not info["final_norm"] < 1e-10:
+        fail(f"solve did not converge: {info['residual_norms']}")
+    if cycles > 9:
+        fail(f"solve took {cycles} cycles (> 9)")
+    if k1 != visits * cycles or k2 != cycles or cycles == 0:
+        fail(f"launch counts K1={k1} K2={k2} for {cycles} cycles, "
+             f"{visits} level visits each")
+    if not (isinstance(x, torch.Tensor) and x.dtype == torch.float32
+            and x.is_cuda and tuple(x.shape) == shape):
+        fail("solve did not deliver a float32 tensor on the card")
+    hi, lo = info["x_df"]
+    if not bool(torch.isfinite(hi).all() and torch.isfinite(lo).all()):
+        fail("solution is not finite")
+    x64 = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+    rn64 = residual_norm_host(b.cpu().numpy().astype(np.float64), x64)
+    if not rn64 < 2e-10:
+        fail(f"float64 residual of the merged pair is {rn64:.3e}")
+
+    # second solve, warm: the times
+    torch.cuda.reset_peak_memory_stats()
+    x2, info2 = solver.solve(b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(x2, x):
+        fail("two solves of the same system differ")
+
+    # a small solve on the card against the same solve on the CPU (plain
+    # versions): same cycle count, solutions within the threshold's reach
+    small = (32, 32, 64)
+    scfg = mg.SolverConfig(
+        smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
+        gridlevels=3, max_dense_coarse=1024,
+    )
+    bs = mg.rhs_random(small, seed=0)
+    bs /= np.linalg.norm(bs.ravel())
+    xg, ig = mg.solve(small, bs, scfg, device=dev)
+    xc, ic = mg.solve(small, bs, scfg, device="cpu")
+    lam_min = sum(4.0 * np.sin(np.pi / (2 * (n + 1))) ** 2 for n in small)
+    dx = float(np.linalg.norm((xg - xc).ravel()))
+    if not (ig["converged"] and ig["cycles"] == ic["cycles"]
+            and dx <= 2e-10 / lam_min):
+        fail(f"small solve: card {ig['cycles']} cycles, CPU {ic['cycles']}, "
+             f"|dx| = {dx:.3e}")
+
+    # numpy float64 in, numpy float64 out, through mg_solve and its parameters dict
+    mshape = (64,) * 3
+    bm = mg.rhs_random(mshape, seed=3)
+    bm /= np.linalg.norm(bm.ravel())
+    xm, im = mg.mg_solve(None, bm.ravel(), {
+        "problemshape": mshape, "transfer": "linear", "max_dense_coarse": 4096,
+    })
+    rm = float(np.linalg.norm(bm.ravel() - mg.poisson(mshape) @ xm))
+    if not (im["converged"] and xm.dtype == np.float64 and rm < 1e-10 * 1.05):
+        fail(f"mg_solve: converged={im['converged']} residual {rm:.3e}")
+
+    # V(2,0): the up-leg is the kernel's stage-free prolongation and add;
+    # on the card against the same cycle on the CPU (plain versions)
+    from openmg_tpu_torch.core.cycle import v_cycle
+
+    hg = mg.setup(small, scfg, device=dev).hierarchy
+    hc = mg.setup(small, scfg, device="cpu").hierarchy
+    rs = randn(small, 7, dev)
+    before = fused.LAUNCHES
+    yg = v_cycle(hg, rs, None, pre=2, post=0, x_zero=True)
+    torch.cuda.synchronize()
+    v20_launches = fused.LAUNCHES - before
+    yc = v_cycle(hc, rs.cpu(), None, pre=2, post=0, x_zero=True)
+    v20_err = float((yg.cpu() - yc).abs().max())
+    v20_tol = 5e-6 * float(yc.abs().max())
+    if v20_launches != 2 * (hg.num_levels - 1) or not v20_err <= v20_tol:
+        fail(f"V(2,0): {v20_launches} K1 launches, err {v20_err:.3e} "
+             f"(tolerance {v20_tol:.3e})")
+
+    # what the kernel does not take is refused on the card, never run as
+    # plain tensor code: a 2D grid by setup, a float64 right-hand side by
+    # the cycle
+    refused = []
+    for what, call in (
+        ("2D grid", lambda: mg.setup((64, 64), scfg, device=dev)),
+        ("float64 cycle", lambda: v_cycle(hg, rs.double(), None, x_zero=True)),
+    ):
+        try:
+            call()
+        except NotImplementedError:
+            refused.append(what)
+        else:
+            fail(f"{what}: ran on the card without the kernel")
+
+    emit("solve", {
+        "shape": list(shape), "levels": levels,
+        "cycles": cycles, "final_norm": info["final_norm"],
+        "residual_norms": info["residual_norms"],
+        "residual_float64_host": rn64,
+        "launches": {"fused_stages_const_3d": k1,
+                     "df_update_residual_const_3d": k2},
+        "setup_s": t_setup,
+        "first_solve_ms": info["solve_time_s"] * 1e3,
+        "solve_ms": info2["solve_time_s"] * 1e3,
+        "ms_per_cycle": info2["solve_time_s"] * 1e3 / max(info2["cycles"], 1),
+        "peak_memory_MB": peak / 2 ** 20,
+        "small_solve": {"shape": list(small), "cycles_card": ig["cycles"],
+                        "cycles_cpu": ic["cycles"], "dx_norm": dx,
+                        "dx_bound": 2e-10 / lam_min},
+        "mg_solve": {"shape": list(mshape), "cycles": im["cycles"],
+                     "residual_float64": rm},
+        "v20": {"launches": v20_launches, "max_abs_err": v20_err,
+                "tolerance": v20_tol},
+        "refused_on_card": refused,
+    })
+    return k1, k2
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only",
+              file=sys.stderr)
+        sys.exit(2)
+    import openmg_tpu_torch  # noqa: F401  (fails here when run without the package)
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi, copy_bw = phase_env(dev)
+    phase_build()
+    rows, k2_rows, _ = phase_kernels(dev, copy_bw)
+    k1_launches, k2_launches = phase_solve(dev)
+
+    def entry(name, source, replaces, launches, main_row, all_rows):
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in all_rows),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": None,
+            "shape": main_row["shape"],
+            "mode": main_row.get("mode", "emit_norm"),
+            "bound_ms_copy_bw": main_row["bound_ms_copy_bw"],
+        }
+
+    k1_main = next(r for r in rows if r["level"] == "main"
+                   and r["mode"].startswith("down"))
+    k2_main = next(r for r in k2_rows if r["level"] == "main" and r["emit_norm"])
+    print(json.dumps({"kernels": [
+        entry("fused_stages_const_3d",
+              "openmg_tpu_torch/csrc/fused_stages.cu",
+              "openmg_tpu/ops/fused.py:578", k1_launches, k1_main, rows),
+        entry("df_update_residual_const_3d",
+              "openmg_tpu_torch/csrc/df_update.cu",
+              "openmg_tpu/ops/kernels.py:860", k2_launches, k2_main, k2_rows),
+    ]}), flush=True)
+    emit("total", {"seconds": time.perf_counter() - t_start})
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,150 @@
+"""Cycle engine (twin of ``openmg_tpu/core/cycle.py``): the V-cycle.
+
+The recursion runs over the static level list as plain Python.  Each level
+visit is one call of the fused kernel on the way down (pre-smoothing from a
+zero start + residual + restriction) and one on the way up (prolongation +
+add + post-smoothing); the coarsest level is one matrix–vector product with
+the precomputed dense inverse.
+
+Ported: ``coarse_solve``, ``v_cycle`` with ``x_zero`` and ``gamma=1``,
+``run_cycle("v")``.  W-cycles, FMG and ``pcg_solve`` wait for a later slice
+and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from openmg_tpu_torch.core.hierarchy import Hierarchy
+from openmg_tpu_torch.ops import fused
+from openmg_tpu_torch.ops.smoothers import smooth
+from openmg_tpu_torch.ops.stencil import residual
+from openmg_tpu_torch.ops.transfer import prolong, restrict
+
+__all__ = ["v_cycle", "coarse_solve", "run_cycle", "fmg_cycle", "pcg_solve"]
+
+_LATER = "is not ported yet (ROADMAP queue 1, item 14: FMG, W-cycle, PCG)"
+
+
+def coarse_solve(hierarchy: Hierarchy, b: torch.Tensor) -> torch.Tensor:
+    """Direct solve at the coarsest level via the precomputed dense inverse:
+    one matrix–vector product, left to the library as the JAX package
+    leaves it to its compiler."""
+    # The product must run in full float32: TF32 keeps about three decimal
+    # digits, which would cap the cycle's contraction.  False is PyTorch's
+    # default; it is set here so that a caller's global setting cannot
+    # change what this solve computes.
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        x = torch.matmul(hierarchy.coarse_inv, b.reshape(-1))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return x.reshape(b.shape)
+
+
+def v_cycle(
+    hierarchy: Hierarchy,
+    b,
+    x,
+    level: int = 0,
+    pre: int = 2,
+    post: int = 2,
+    smoother: str = "rbgs",
+    omega: float = 2.0 / 3.0,
+    gamma: int = 1,
+    x_zero: bool = False,
+):
+    """One V-cycle starting at ``level``; returns the improved ``x``.
+
+    ``x_zero`` declares that ``x`` is all-zero — true at every level of the
+    defect-correction cycle (the fine level solves ``A e = r`` from zero;
+    each coarse visit starts from a zero correction).  The pre-smoothing
+    then reads only ``b``, and ``x`` may be None.
+
+    Every visit goes through the fused kernel.  Where its entry point
+    declines a case (it returns None: a non-3D or non-float32 grid, a
+    smoother that is not a stage list, an odd dimension with a transfer) the
+    visit is composed from the separate tensor functions for CPU tensors
+    only; on the card that would be the per-pass kernel of the JAX package,
+    which is not ported yet, so it raises.
+    """
+    if gamma != 1:
+        raise NotImplementedError(f"gamma={gamma} (W-cycle) {_LATER}")
+    if x is None and not x_zero:
+        raise ValueError("x=None needs x_zero=True")
+    L = hierarchy.levels[level]
+    if level == hierarchy.num_levels - 1:
+        return coarse_solve(hierarchy, b)
+    tr = hierarchy.transfer
+    if pre > 0:
+        out = fused.presmooth_restrict_fused(
+            smoother, L.A, b, None if x_zero else x, pre, omega, tr
+        )
+    else:
+        if x is None:
+            x = torch.zeros_like(b)
+        bc = fused.residual_restrict_fused(L.A, b, x, tr)
+        out = None if bc is None else (x, bc)
+    if out is None:
+        _composed_only(b, smoother, L)
+        if x is None:
+            x = torch.zeros_like(b)
+        x = smooth(smoother, L.A, L.inv_diag, b, x, pre, omega)
+        out = x, restrict(residual(L.A, b, x), tr)
+    x, bc = out
+    # every coarse visit starts from a zero correction: declared, not stored
+    ec = v_cycle(
+        hierarchy, bc, None, level + 1, pre, post, smoother, omega, gamma,
+        x_zero=True,
+    )
+    # post == 0 is the kernel's stage-free mode: prolongation and add alone
+    y = fused.prolong_smooth_fused(smoother, L.A, b, x, ec, post, omega, tr)
+    if y is None:
+        _composed_only(b, smoother, L)
+        x = x + prolong(ec, L.grid_shape, tr)
+        y = smooth(smoother, L.A, L.inv_diag, b, x, post, omega)
+    return y
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def _composed_only(b, smoother, L):
+    """The composed level visit is plain tensor code: CPU tensors only."""
+    if not _on_cpu(b):
+        raise NotImplementedError(
+            f"a level visit with smoother={smoother!r} on a {tuple(L.grid_shape)} "
+            f"{b.dtype} grid is not taken by the fused kernel, and the "
+            "per-pass smoother kernel it would need on the card is not ported "
+            "yet (ROADMAP queue 2, K3)"
+        )
+
+
+def fmg_cycle(*args, **kwargs):
+    raise NotImplementedError(f"fmg_cycle {_LATER}")
+
+
+def pcg_solve(*args, **kwargs):
+    raise NotImplementedError(f"pcg_solve {_LATER}")
+
+
+def run_cycle(
+    hierarchy: Hierarchy,
+    r,
+    cycle_type: str = "v",
+    pre: int = 2,
+    post: int = 2,
+    smoother: str = "rbgs",
+    omega: float = 2.0 / 3.0,
+):
+    """Error-correction cycle ``e ≈ A⁻¹ r`` from zero, by cycle type."""
+    if cycle_type == "v":
+        # the zero start is declared, so the iterate argument is never read
+        return v_cycle(
+            hierarchy, r, None, 0, pre, post, smoother, omega, 1, x_zero=True
+        )
+    if cycle_type in ("w", "f"):
+        raise NotImplementedError(f"cycle_type={cycle_type!r} {_LATER}")
+    raise ValueError(f"unknown cycle_type {cycle_type!r}; choose v|w|f")

@@ -1,0 +1,351 @@
+"""Public API (twin of ``openmg_tpu/core/solver.py``).
+
+Two entry points:
+
+* :func:`mg_solve` — ``mg_solve(A, b, parameters)`` with the original
+  parameters-dict vocabulary; ported for ``A=None`` (Poisson assembled from
+  ``problemshape``).
+* :func:`setup` / :func:`solve` — build a :class:`Solver` once (hierarchy),
+  then solve many right-hand sides.
+
+Convergence loop (defect-correction form): because every cycle component
+is linear, ``V(b, x) == x + V(b − A x, 0)``, so the solver iterates
+``x ← x + V(r, 0)`` with the residual ``r = b − A x`` evaluated in
+**double-float** (two-f32 compensated arithmetic,
+:mod:`openmg_tpu_torch.ops.doublefloat`) while the V-cycle itself runs in
+f32.  This is classical iterative refinement and is how an f32 cycle
+reaches a 1e-10 absolute tolerance; no float64 touches the device.
+
+The outer loop is a Python loop: per cycle one V-cycle, one launch of the
+double-float update/residual kernel, and one scalar read of ‖r‖.
+
+**Device rule.**  ``setup``, ``solve`` and ``mg_solve`` run on
+``torch.device("cuda")`` when ``device`` is None and raise when there is no
+CUDA device.  The CPU is used only when the caller passes ``device="cpu"``.
+
+Waiting for later slices (each raises ``NotImplementedError``):
+``Solver.solve_many``, checkpoint/resume, the plain float64/float32
+residual modes, non-dyadic fine operators, ``krylov="pcg"``, W/FMG cycles,
+the chebyshev smoother, stencil-pair problems and scipy-matrix
+``mg_solve``.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from openmg_tpu_torch.core.config import ProblemConfig, SolverConfig
+from openmg_tpu_torch.core.cycle import run_cycle
+from openmg_tpu_torch.core.hierarchy import Hierarchy, build_hierarchy_structured
+from openmg_tpu_torch.models.poisson import poisson_offsets
+from openmg_tpu_torch.ops import kernels
+from openmg_tpu_torch.ops.doublefloat import df_merge, df_split, df_sub, pow2_terms
+from openmg_tpu_torch.ops.stencil import shift
+from openmg_tpu_torch.ops.transfer import TRANSFERS
+
+__all__ = ["Solver", "setup", "solve", "mg_solve", "exact_residual_terms"]
+
+
+def _resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another.  Never falls back to the CPU by itself."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: openmg_tpu_torch runs on the GPU by "
+                "default; pass device='cpu' explicitly to run on the CPU"
+            )
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but no CUDA device is there")
+    return device
+
+
+def _resolve_residual_mode(name):
+    if name in ("doublefloat", "auto"):
+        return "doublefloat"
+    raise NotImplementedError(
+        f"residual_dtype={name!r}: only the double-float outer loop is "
+        "ported; the plain float64/float32 modes are ROADMAP queue 1 "
+        "(slice B)"
+    )
+
+
+def exact_residual_terms(hierarchy: Hierarchy):
+    """Static per-tap power-of-two decompositions of the fine operator, or
+    None when the exact residual does not apply (varying coefficients, a
+    nonzero double-float lo part, or non-dyadic taps).  Reads the (K,)
+    value vectors once, at solver construction."""
+    fh, fl = hierarchy.fine_hi, hierarchy.fine_hi_lo
+    if fl is None or not fh.is_constant or not fl.is_constant:
+        return None
+    if np.any(fl.values.cpu().numpy()):
+        return None
+    terms = tuple(pow2_terms(float(v)) for v in fh.values.cpu().numpy())
+    if any(t is None for t in terms):
+        return None
+    return terms
+
+
+def _residual_norm_df_exact(offsets, terms, b_df, x_df):
+    """Double-float residual ``b − A x`` for a constant operator with dyadic
+    taps, and ‖r_hi‖₂, in plain tensor code (it runs once per solve, for a
+    caller's nonzero ``x0``; the per-cycle residual is the kernel's)."""
+    acc = b_df
+    for off, tp in zip(offsets, terms):
+        xh = shift(x_df[0], off)
+        xl = shift(x_df[1], off)
+        for p in tp:
+            acc = df_sub(acc, (float(p) * xh, float(p) * xl))
+    rn = torch.sqrt(torch.sum(acc[0] * acc[0]))
+    return acc, rn
+
+
+class Solver:
+    """A configured multigrid solver bound to one operator hierarchy."""
+
+    def __init__(self, hierarchy: Hierarchy, config: SolverConfig):
+        self.hierarchy = hierarchy
+        self.config = config
+        self.device = hierarchy.device
+        if config.dtype != "float32":
+            raise NotImplementedError(
+                f"dtype={config.dtype!r}: the cycle is ported for float32 only"
+            )
+        self.residual_mode = _resolve_residual_mode(config.residual_dtype)
+        if len(hierarchy.grid_shape) != 3:
+            raise NotImplementedError(
+                f"a {len(hierarchy.grid_shape)}D grid: the fused level visit and "
+                "the double-float update are ported for 3D grids only (ROADMAP "
+                "queue 1, item 17)"
+            )
+        if hierarchy.fine_hi_lo is None:
+            raise ValueError(
+                "hierarchy was not built with residual_dtype='doublefloat'"
+            )
+        if config.krylov not in (None, "none"):
+            raise NotImplementedError(
+                f"krylov={config.krylov!r} is not ported yet (ROADMAP queue 1, "
+                "item 14)"
+            )
+        if config.cycle_type != "v":
+            raise NotImplementedError(
+                f"cycle_type={config.cycle_type!r} is not ported yet (ROADMAP "
+                "queue 1, item 14)"
+            )
+        if config.smoother == "chebyshev":
+            raise NotImplementedError(
+                "the chebyshev smoother is not ported yet (ROADMAP queue 1, "
+                "item 15)"
+            )
+        self._exact_terms = exact_residual_terms(hierarchy)
+        if self._exact_terms is None:
+            raise NotImplementedError(
+                "the fine operator's taps are not sums of powers of two: the "
+                "general double-float residual (Dekker products) is not "
+                "ported yet (ROADMAP queue 1, slice B)"
+            )
+
+    @property
+    def grid_shape(self):
+        return self.hierarchy.grid_shape
+
+    def solve(
+        self,
+        b,
+        x0=None,
+        *,
+        checkpoint_path=None,
+        checkpoint_every: int = 1,
+        resume: bool = False,
+    ):
+        """Solve ``A x = b`` to the configured threshold.
+
+        ``b`` is grid-shaped (or flat; it is reshaped).  Returns
+        ``(x, info)`` with the per-cycle residual-norm history.
+
+        Result type follows the input (see :meth:`_deliver`): numpy/f64
+        ``b`` → exact float64 numpy ``x``; a float32 tensor ``b`` on the
+        solver's device → float32 tensor ``x`` on that device, with the
+        full-precision pair in ``info['x_df']``.
+        """
+        if checkpoint_path is not None or resume:
+            raise NotImplementedError(
+                "checkpoint/resume is not ported yet (ROADMAP queue 1, item 19)"
+            )
+        cfg = self.config
+        h = self.hierarchy
+        shape = self.grid_shape
+        dev = self.device
+
+        device_native = isinstance(b, torch.Tensor) and b.dtype == torch.float32
+        if device_native:
+            if b.device != dev:
+                raise ValueError(
+                    f"b is on {b.device} but the solver was set up on {dev}"
+                )
+            b_hi = b.reshape(shape).contiguous()
+            b_lo = torch.zeros_like(b_hi)
+        else:
+            if isinstance(b, torch.Tensor):
+                b = b.detach().cpu().numpy()
+            b_hi, b_lo = df_split(
+                np.asarray(b, dtype=np.float64).reshape(shape), dev
+            )
+        offs = h.fine_hi.offsets
+        terms = self._exact_terms
+        limit = cfg.cycles if cfg.cycles > 0 else 10_000
+        threshold = float(cfg.threshold)
+
+        t_start = time.perf_counter()
+        if x0 is None:
+            # the residual of the zero iterate is b itself
+            x_hi = torch.zeros_like(b_hi)
+            x_lo = torch.zeros_like(b_hi)
+            r = b_hi
+            rn = torch.sqrt(torch.sum(b_hi * b_hi))
+        else:
+            if isinstance(x0, torch.Tensor):
+                x0 = x0.detach().cpu().numpy()
+            x_hi, x_lo = df_split(
+                np.asarray(x0, dtype=np.float64).reshape(shape), dev
+            )
+            r_pair, rn = _residual_norm_df_exact(
+                offs, terms, (b_hi, b_lo), (x_hi, x_lo)
+            )
+            r = r_pair[0]
+        rnorm = float(rn)  # one scalar read
+        history = [rnorm]
+        if cfg.verbose:
+            print(f"[openmg_tpu_torch] cycle 0: ‖r‖ = {rnorm:.3e}")
+        k = 0
+        converged = rnorm < threshold
+        while not converged and k < limit:
+            e = run_cycle(
+                h, r, cfg.cycle_type, cfg.pre_iterations, cfg.post_iterations,
+                cfg.smoother, cfg.omega,
+            )
+            x_hi, x_lo, r, pn = kernels.df_update_residual_const_3d(
+                offs, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm=True
+            )
+            rnorm = float(torch.sqrt(torch.sum(pn)))  # one scalar read
+            k += 1
+            history.append(rnorm)
+            if cfg.verbose:
+                print(f"[openmg_tpu_torch] cycle {k}: ‖r‖ = {rnorm:.3e}")
+            converged = rnorm < threshold
+        solve_time = time.perf_counter() - t_start
+
+        info = {
+            "residual_norms": history,
+            "cycles": k,
+            "converged": bool(converged),
+            "final_norm": history[-1],
+            "gridlevels": h.num_levels,
+            "level_stats": h.stats,
+            "transfer": h.transfer.name,
+            "residual_mode": "doublefloat",
+            "mean_cycle_time_s": solve_time / max(k, 1),
+            "outer_loop": "host",
+            "solve_time_s": solve_time,
+        }
+        return self._deliver((x_hi, x_lo), device_native, info), info
+
+    def solve_many(self, bs, x0s=None):
+        raise NotImplementedError(
+            "solve_many is not ported yet (ROADMAP queue 1, item 13)"
+        )
+
+    @staticmethod
+    def _deliver(x, device_native, info):
+        """Result delivery policy: a host caller (numpy/f64 input) gets the
+        exact float64 merge of the pair on the host; a device-native caller
+        (f32 tensor input) gets the f32 solution as a tensor on the device,
+        with the full-precision ``(hi, lo)`` pair in ``info['x_df']`` —
+        never a device→host→device round trip."""
+        if device_native:
+            info["x_df"] = x
+            return x[0]
+        return df_merge(x)
+
+
+def setup(problem, config: SolverConfig | None = None, *, device=None) -> Solver:
+    """Build a :class:`Solver` on ``device`` (CUDA when None; see the
+    module's device rule).
+
+    ``problem`` is a :class:`ProblemConfig` or a grid shape tuple (Poisson
+    is assembled).  An ``(offsets, coeffs)`` stencil pair is not ported yet.
+    """
+    device = _resolve_device(device)
+    config = config or SolverConfig()
+    if config.transfer not in TRANSFERS:
+        raise ValueError(
+            f"unknown transfer {config.transfer!r}; choose from {sorted(TRANSFERS)}"
+        )
+    _resolve_residual_mode(config.residual_dtype)
+    if isinstance(problem, ProblemConfig):
+        shape = tuple(problem.shape)
+    elif isinstance(problem, (tuple, list)) and all(
+        isinstance(s, (int, np.integer)) for s in problem
+    ):
+        shape = tuple(int(s) for s in problem)
+    elif isinstance(problem, tuple) and len(problem) == 2:
+        raise NotImplementedError(
+            "setup from an (offsets, coeffs) stencil pair is not ported yet "
+            "(ROADMAP queue 1, item 16: build_hierarchy)"
+        )
+    else:
+        raise TypeError(f"unsupported problem spec: {type(problem)}")
+    d = len(shape)
+    hierarchy = build_hierarchy_structured(
+        poisson_offsets(d),
+        [2.0 * d] + [-1.0] * (2 * d),
+        shape,
+        gridlevels=config.gridlevels,
+        dtype=torch.float32,
+        residual_dtype="doublefloat",
+        transfer=TRANSFERS[config.transfer],
+        max_dense_coarse=config.max_dense_coarse,
+        min_coarse_dim=config.min_coarse_dim,
+        device=device,
+    )
+    return Solver(hierarchy, config)
+
+
+def solve(problem, b, config: SolverConfig | None = None, x0=None, *, device=None):
+    """One-shot native API: setup + solve."""
+    return setup(problem, config, device=device).solve(b, x0)
+
+
+def mg_solve(A, b, parameters: dict, *, device=None):
+    """Parameters-dict entry point.  ``A=None`` assembles the Poisson operator
+    over ``parameters['problemshape']``; ``b`` is flat or grid-shaped.
+    Returns ``(x, info)`` with ``x`` a flat numpy vector.
+
+    The hierarchy comes from ``build_hierarchy_structured``, which yields exactly
+    the operators of the direct Galerkin chain the JAX package's
+    ``mg_solve`` builds.  A scipy matrix ``A`` and the general sparse
+    formats wait for later slices.
+    """
+    if "problemshape" not in parameters:
+        raise ValueError("parameters must include 'problemshape'")
+    shape = tuple(int(s) for s in parameters["problemshape"])
+    config = SolverConfig.from_parameters(parameters)
+    if A is not None:
+        raise NotImplementedError(
+            "mg_solve with a matrix A is not ported yet (ROADMAP queue 1, "
+            "slice C: stencil_from_csr and the sparse engine); pass A=None"
+        )
+    if config.format not in ("auto", "stencil"):
+        raise NotImplementedError(
+            f"format={config.format!r} is not ported yet (ROADMAP queue 1, "
+            "slice C)"
+        )
+    x, info = setup(shape, config, device=device).solve(b)
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x).reshape(-1), info

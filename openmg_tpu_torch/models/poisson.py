@@ -1,0 +1,133 @@
+"""Poisson problem generators (twin of ``openmg_tpu/models/poisson.py``).
+
+Host-side numpy/scipy only, copied: the d-dimensional negative Laplacian on
+a regular grid with homogeneous Dirichlet boundaries, as a scipy CSR matrix
+(``poisson``) and in stencil form (``poisson_stencil``: per-offset
+coefficient grids, zero where the neighbour leaves the domain), plus the
+reproducible right-hand sides.  ``rhs_random`` is bit-identical to the JAX
+package's for the same seed (numpy's ``default_rng``).
+
+``stencil_to_csr`` is kept because the hierarchy's coarsest-level dense
+inverse is built from it.  The diffusion generators, ``stencil_from_csr``
+and the device-side assemblies wait for later slices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+
+__all__ = [
+    "poisson",
+    "poisson_stencil",
+    "poisson_offsets",
+    "stencil_to_csr",
+    "rhs_random",
+    "rhs_ones",
+]
+
+
+def _lap1d(n: int) -> sp.csr_matrix:
+    """1D tridiagonal (-1, 2, -1) operator (Dirichlet)."""
+    return sp.diags(
+        [-np.ones(n - 1), 2.0 * np.ones(n), -np.ones(n - 1)],
+        offsets=[-1, 0, 1],
+        format="csr",
+    )
+
+
+def poisson(shape) -> sp.csr_matrix:
+    """d-dim Poisson matrix on a regular grid, row-major (C) ordering.
+
+    Kron-sum of 1D Laplacians: diagonal ``2*d``, ``-1`` per face neighbour.
+    """
+    shape = tuple(int(s) for s in shape)
+    if len(shape) == 0 or any(s < 1 for s in shape):
+        raise ValueError(f"invalid problem shape {shape}")
+    eyes = [sp.identity(s, format="csr") for s in shape]
+    n = int(np.prod(shape))
+    A = sp.csr_matrix((n, n))
+    for axis in range(len(shape)):
+        term = None
+        for ax in range(len(shape)):
+            M = _lap1d(shape[ax]) if ax == axis else eyes[ax]
+            term = M if term is None else sp.kron(term, M, format="csr")
+        A = A + term
+    A = A.tocsr()
+    A.sum_duplicates()
+    return A
+
+
+def poisson_offsets(ndim: int) -> tuple:
+    """Stencil offsets of the (2d+1)-point Poisson operator: centre first,
+    then -/+ unit offsets per axis."""
+    offs = [(0,) * ndim]
+    for axis in range(ndim):
+        for s in (-1, 1):
+            o = [0] * ndim
+            o[axis] = s
+            offs.append(tuple(o))
+    return tuple(offs)
+
+
+def poisson_stencil(shape, dtype=np.float64):
+    """Analytic stencil form of :func:`poisson`.
+
+    Returns ``(offsets, coeffs)`` with ``coeffs`` of shape ``(K, *shape)``:
+    ``coeffs[k][i] == A[i, i + offsets[k]]`` and 0 where ``i + offsets[k]``
+    is outside the grid.
+    """
+    shape = tuple(int(s) for s in shape)
+    d = len(shape)
+    offsets = poisson_offsets(d)
+    coeffs = np.empty((len(offsets),) + shape, dtype=dtype)
+    coeffs[0] = 2.0 * d
+    coeffs[1:] = -1.0
+    for k, off in enumerate(offsets[1:], start=1):
+        for axis, o in enumerate(off):
+            if o == 0:
+                continue
+            idx = [slice(None)] * d
+            idx[axis] = slice(0, 1) if o == -1 else slice(shape[axis] - 1, None)
+            coeffs[(k,) + tuple(idx)] = 0.0
+    return offsets, coeffs
+
+
+def stencil_to_csr(offsets, coeffs) -> sp.csr_matrix:
+    """Materialize a stencil operator as scipy CSR (oracles, tests and the
+    coarsest-level dense inverse)."""
+    coeffs = np.asarray(coeffs)
+    shape = coeffs.shape[1:]
+    n = int(np.prod(shape))
+    rows_list, cols_list, vals_list = [], [], []
+    grid = np.indices(shape)  # (d, *shape)
+    flat_rows = np.arange(n).reshape(shape)
+    for k, off in enumerate(offsets):
+        nbr = grid + np.asarray(off).reshape((-1,) + (1,) * len(shape))
+        valid = np.ones(shape, dtype=bool)
+        for axis, s in enumerate(shape):
+            valid &= (nbr[axis] >= 0) & (nbr[axis] < s)
+        vals = coeffs[k][valid]
+        nz = vals != 0
+        cols = np.ravel_multi_index(
+            tuple(nbr[axis][valid] for axis in range(len(shape))), shape
+        )
+        rows_list.append(flat_rows[valid][nz])
+        cols_list.append(cols[nz])
+        vals_list.append(vals[nz])
+    rows = np.concatenate(rows_list)
+    cols = np.concatenate(cols_list)
+    vals = np.concatenate(vals_list)
+    A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    A.sum_duplicates()
+    return A
+
+
+def rhs_random(shape, seed: int = 0, dtype=np.float64) -> np.ndarray:
+    """Reproducible random right-hand side on the grid."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(tuple(int(s) for s in shape)).astype(dtype)
+
+
+def rhs_ones(shape, dtype=np.float64) -> np.ndarray:
+    return np.ones(tuple(int(s) for s in shape), dtype=dtype)

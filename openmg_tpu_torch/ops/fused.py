@@ -1,0 +1,469 @@
+"""Fused V-cycle level visits (twin of ``openmg_tpu/ops/fused.py``).
+
+One call does everything a level visit of the V-cycle needs from the
+smoother: S stages (weighted-Jacobi steps or red/black half-sweeps) of a
+constant or cornered radius-1 3D stencil, optionally from a zero start
+(only ``b`` is read), optionally from ``x + P·ec`` (the prolongation is
+never stored), optionally followed by the residual ``b − A x`` or by its
+restriction ``bc = R (b − A x)`` (the fine residual is never stored).
+
+:func:`fused_stages_const_3d` dispatches on the device of ``b`` alone:
+
+* a CUDA tensor launches the hand-written kernel
+  (``csrc/fused_stages.cu``, built on first use by
+  :mod:`openmg_tpu_torch._build`) or raises;
+* a CPU tensor runs :func:`fused_stages_const_3d_plain`, whole-grid tensor
+  code stage by stage.  The tests and the on-card comparison of
+  ``chip_smoke.py`` use it; nothing on the main path does when the tensors
+  are on the card.
+
+``LAUNCHES`` counts the calls that launched the kernel; every call that
+reaches the kernel launches at least once.
+
+The entry points (:func:`smooth_fused`, :func:`presmooth_residual_fused`,
+:func:`presmooth_restrict_fused`, :func:`residual_restrict_fused`,
+:func:`prolong_smooth_fused`) keep the JAX package's signatures and return
+None only for what the kernel truly does not take: not 3D, not float32, a
+stencil of radius > 1, a smoother that is not a list of stages, or an odd
+dimension with a transfer.  The JAX package's fit models and lane rules
+describe its own hardware's memory and are not copied.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from openmg_tpu_torch.ops.stencil import CorneredOperator, diag_index, shift
+from openmg_tpu_torch.ops.transfer import prolong, restrict
+
+__all__ = [
+    "LAUNCHES",
+    "stages_for",
+    "fused_stages_const_3d",
+    "fused_stages_const_3d_plain",
+    "smooth_fused",
+    "presmooth_residual_fused",
+    "presmooth_restrict_fused",
+    "prolong_smooth_fused",
+    "residual_restrict_fused",
+]
+
+# calls of fused_stages_const_3d that launched the CUDA kernel
+LAUNCHES = 0
+
+_KIND_CODE = {"jacobi": 0, "rb": 1}
+
+
+def stages_for(name: str, iterations: int, omega: float):
+    """Half-sweep stage list for a smoother, or None if not stage-fusable."""
+    if name == "jacobi":
+        return (("jacobi", float(omega)),) * iterations
+    if name == "rbgs":
+        return (("rb", 0), ("rb", 1)) * iterations
+    return None
+
+
+def _norm_stages(stages):
+    return tuple(
+        (str(k), (float(p) if k == "jacobi" else int(p))) for k, p in stages
+    )
+
+
+def _axis_weights(taps):
+    """Weights of taps −1, 0, +1 (0.0 where the transfer has no such tap),
+    or None for taps of radius > 1."""
+    w = {-1: 0.0, 0: 0.0, 1: 0.0}
+    for t, v in taps:
+        if t not in w:
+            return None
+        w[t] += float(v)
+    return (w[-1], w[0], w[1])
+
+
+def _row_map(corner):
+    """For each mask of zero coordinates (bit a set: coordinate a is 0) the
+    row of the region table a point uses, −1 for the interior values."""
+    if not corner:
+        return (-1,) * 8
+    regions = tuple(tuple(R) for R in corner[0])
+    face_axes = sorted({a for R in regions for a in R})
+    out = []
+    for m in range(8):
+        R = tuple(a for a in face_axes if m >> a & 1)
+        out.append(regions.index(R) if R else -1)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _tap_field(values, offsets, corner, k, shape):
+    """Tap of offset k at every point: the interior value, overwritten on
+    the low faces/edges/corner by the region table (ascending regions, so
+    the deepest region a point lies in wins).  A 0-d tensor for a constant
+    operator."""
+    if not corner:
+        return values[k]
+    regions, tbl = corner
+    f = torch.zeros(shape, dtype=values.dtype, device=values.device) + values[k]
+    for r, R in enumerate(regions):
+        idx = tuple(
+            slice(0, 1) if a in R else slice(None) for a in range(len(shape))
+        )
+        f[idx] = tbl[r, k]
+    return f
+
+
+def fused_stages_const_3d_plain(
+    values, offsets, b, x, stages, emit_residual: bool = False,
+    corner=None, restrict_transfer=None, ec=None, prolong_transfer=None,
+    emit_x: bool = True,
+):
+    """Plain PyTorch version of :func:`fused_stages_const_3d`: the same
+    function in whole-grid tensor operations, one stage after the other.
+
+    Follows the kernel's arithmetic: taps summed in the order of
+    ``offsets``; interior points multiply by the reciprocal of the
+    interior diagonal, region points divide by their own diagonal.  Not bit
+    for bit the kernel (which may fuse multiply-adds), but within a few ulp.
+    """
+    offsets = tuple(tuple(o) for o in offsets)
+    stages = _norm_stages(stages)
+    shape = tuple(b.shape)
+    di = diag_index(offsets)
+    fields = [_tap_field(values, offsets, corner, k, shape) for k in range(len(offsets))]
+    inv_d = 1.0 / values[di]
+    if corner:
+        regions = corner[0]
+        in_region = torch.zeros(shape, dtype=torch.bool, device=b.device)
+        for R in regions:
+            idx = tuple(
+                slice(0, 1) if a in R else slice(None) for a in range(3)
+            )
+            in_region[idx] = True
+    else:
+        in_region = None
+
+    def acc_of(X, skip_diag):
+        acc = None
+        for k, off in enumerate(offsets):
+            if skip_diag and k == di:
+                continue
+            term = fields[k] * shift(X, off)
+            acc = term if acc is None else acc + term
+        if acc is None:  # diagonal-only operator, diagonal skipped
+            acc = torch.zeros_like(X)
+        return acc
+
+    X = torch.zeros_like(b) if x is None else x
+    if ec is not None:
+        X = X + prolong(ec, shape, prolong_transfer)
+
+    par = None
+    for kind, p in stages:
+        if kind == "jacobi":
+            res = b - acc_of(X, False)
+            Xn = X + p * (inv_d * res)
+            if in_region is not None:
+                Xn = torch.where(in_region, X + (p * res) / fields[di], Xn)
+        elif kind == "rb":
+            res = b - acc_of(X, True)
+            xn = inv_d * res
+            if in_region is not None:
+                xn = torch.where(in_region, res / fields[di], xn)
+            if par is None:
+                iz = torch.arange(shape[0], device=b.device).view(-1, 1, 1)
+                iy = torch.arange(shape[1], device=b.device).view(1, -1, 1)
+                ix = torch.arange(shape[2], device=b.device).view(1, 1, -1)
+                par = (iz + iy + ix) & 1
+            Xn = torch.where(par == p, xn, X)
+        else:
+            raise ValueError(f"unknown stage kind {kind!r}")
+        X = Xn
+
+    if not emit_residual:
+        return X
+    r = b - acc_of(X, False)
+    if restrict_transfer is not None:
+        r = restrict(r, restrict_transfer)
+    if not emit_x:
+        return r
+    return X, r
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrapper
+# ---------------------------------------------------------------------------
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from openmg_tpu_torch import _build
+
+        fn = _build.load().omg_fused_stages
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [
+            p, p, p, i, p,        # values, table, offs, K, rowmap
+            p, p, p,              # b, x, ec
+            p, p, p,              # x_out, tmp, r_out
+            i, i, i,              # nz, ny, nx
+            i, p, p, i,           # n_stages, kinds, pars, emit_residual
+            p, p, p,              # rw, pw, stream
+        ]
+        fn.restype = i
+        _fn = fn
+    return _fn
+
+
+def _check(name, t, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _fused_stages_cuda(
+    values, offsets, b, x, stages, emit_residual, corner, restrict_transfer,
+    ec, prolong_transfer, emit_x,
+):
+    global LAUNCHES
+    dev = b.device
+    if b.ndim != 3:
+        raise ValueError(f"b must be 3D, got shape {tuple(b.shape)}")
+    shape = tuple(b.shape)
+    nz, ny, nx = shape
+    K = len(offsets)
+    _check("b", b, None, dev)
+    _check("values", values, (K,), dev)
+    if K > 27 or any(abs(o) > 1 for off in offsets for o in off):
+        raise ValueError("the kernel takes radius-1 stencils of at most 27 taps")
+    if x is not None:
+        _check("x", x, shape, dev)
+    table = None
+    if corner:
+        table = corner[1]
+        _check("region table", table, (len(corner[0]), K), dev)
+    cshape = tuple(s // 2 for s in shape)
+    rw = pw = (0.0, 0.0, 0.0)
+    if restrict_transfer is not None:
+        rw = _axis_weights(restrict_transfer.r_taps)
+    if ec is not None:
+        if prolong_transfer is None:
+            raise ValueError("ec needs prolong_transfer")
+        pw = _axis_weights(prolong_transfer.p_taps)
+        _check("ec", ec, cshape, dev)
+    if rw is None or pw is None:
+        raise ValueError("the kernel takes transfer taps of radius 1 only")
+    if (restrict_transfer is not None or ec is not None) and any(
+        s % 2 for s in shape
+    ):
+        raise ValueError(f"in-kernel transfers need even dims, got {shape}")
+
+    n = len(stages)
+    writes_x = n > 0 or ec is not None
+    if writes_x:
+        # the stages, or the stage-free x + P·ec, write the iterate
+        x_out = torch.empty_like(b)
+    elif emit_x:
+        # a residual of the iterate as it came
+        x_out = torch.zeros_like(b) if x is None else x.clone()
+    else:
+        x_out = None
+    tmp = torch.empty_like(b) if n > 1 else None
+    mode = 0
+    r_out = None
+    if emit_residual:
+        if restrict_transfer is not None:
+            mode, r_out = 2, torch.empty(cshape, dtype=b.dtype, device=dev)
+        else:
+            mode, r_out = 1, torch.empty_like(b)
+
+    offs_c = (ctypes.c_int * (3 * K))(*[o for off in offsets for o in off])
+    rowmap_c = (ctypes.c_int * 8)(*_row_map(corner))
+    kinds_c = (ctypes.c_int * max(n, 1))(*[_KIND_CODE[k] for k, _ in stages])
+    pars_c = (ctypes.c_float * max(n, 1))(*[float(p) for _, p in stages])
+    rw_c = (ctypes.c_float * 3)(*rw)
+    pw_c = (ctypes.c_float * 3)(*pw)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _kernel()(
+            ptr(values), ptr(table), offs_c, K, rowmap_c,
+            ptr(b), ptr(x), ptr(ec),
+            ptr(x_out) if writes_x else None, ptr(tmp), ptr(r_out),
+            nz, ny, nx, n, kinds_c, pars_c, mode, rw_c, pw_c, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"omg_fused_stages failed with code {rc}")
+    LAUNCHES += 1
+    if not emit_residual:
+        return x_out
+    if not emit_x:
+        return r_out
+    return x_out, r_out
+
+
+def fused_stages_const_3d(
+    values, offsets, b, x, stages, emit_residual: bool = False,
+    corner=None, restrict_transfer=None, ec=None, prolong_transfer=None,
+    emit_x: bool = True,
+):
+    """Run ``stages`` half-sweeps (and optionally the final residual) for a
+    constant or cornered 3D stencil.  ``x=None`` means a zero initial guess
+    (the tensor is never read).  Returns ``x_out``, ``(x_out, r)``, or
+    ``r`` alone with ``emit_x=False``.
+
+    ``values``: ``(K,)`` interior taps (a tensor on ``b``'s device);
+    ``offsets``: the K static offsets.  ``corner``: optional ``(regions,
+    (n_regions, K) tap table)`` of a
+    :class:`~openmg_tpu_torch.ops.stencil.CorneredOperator`.
+    ``restrict_transfer`` (with ``emit_residual``): return the restricted
+    coarse rhs ``bc = R r`` (shape halved per dim) in place of the fine
+    residual.  ``ec`` + ``prolong_transfer``: start from ``x + P ec``.  Both
+    need even grid dims.
+
+    Inputs are never modified.  On a CUDA tensor the kernel is enqueued on
+    the current stream and the call does not wait for it.
+    """
+    offsets = tuple(tuple(int(o) for o in off) for off in offsets)
+    stages = _norm_stages(stages)
+    if not emit_x and not (emit_residual and not stages):
+        raise ValueError(
+            "emit_x=False only applies to stage-free residual(+restrict) calls"
+        )
+    if restrict_transfer is not None and not emit_residual:
+        raise ValueError("restrict_transfer needs emit_residual")
+    if not stages and not emit_residual and ec is None:
+        raise ValueError("nothing to do: no stages, no ec, no residual")
+    if b.device.type == "cpu":
+        return fused_stages_const_3d_plain(
+            values, offsets, b, x, stages, emit_residual, corner,
+            restrict_transfer, ec, prolong_transfer, emit_x,
+        )
+    if b.device.type != "cuda":
+        raise ValueError(f"unsupported device {b.device}")
+    return _fused_stages_cuda(
+        values, offsets, b, x, stages, emit_residual, corner,
+        restrict_transfer, ec, prolong_transfer, emit_x,
+    )
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+
+def _stencil_ok(op, b) -> bool:
+    return (
+        (op.is_constant or isinstance(op, CorneredOperator))
+        and b.dtype == torch.float32
+        and b.ndim == 3
+        and len(op.offsets) <= 27
+        and all(abs(o) <= 1 for off in op.offsets for o in off)
+    )
+
+
+def _corner_info(op):
+    """``(regions, (n_regions, K) tap table)`` of a cornered operator, else
+    None."""
+    if isinstance(op, CorneredOperator):
+        return op.regions, op.table
+    return None
+
+
+def _transfer_ok(shape, transfer) -> bool:
+    return (
+        transfer is not None
+        and _axis_weights(transfer.r_taps) is not None
+        and _axis_weights(transfer.p_taps) is not None
+        and all(s % 2 == 0 for s in shape)
+    )
+
+
+def smooth_fused(name, op, b, x, iterations: int, omega: float):
+    """All stages of ``iterations`` sweeps on an existing iterate.  Returns
+    the smoothed ``x`` or None when the kernel does not take the case."""
+    stages = stages_for(name, iterations, omega)
+    if stages is None or not stages or not _stencil_ok(op, b):
+        return None
+    return fused_stages_const_3d(
+        op.values, op.offsets, b, x, stages, corner=_corner_info(op)
+    )
+
+
+def presmooth_residual_fused(name, op, b, iterations: int, omega: float):
+    """Zero-initial-guess pre-smoothing with the level residual: returns
+    ``(x, r)`` reading only ``b``, or None when unsupported."""
+    stages = stages_for(name, iterations, omega)
+    if stages is None or not stages or not _stencil_ok(op, b):
+        return None
+    return fused_stages_const_3d(
+        op.values, op.offsets, b, None, stages, emit_residual=True,
+        corner=_corner_info(op),
+    )
+
+
+def presmooth_restrict_fused(name, op, b, x, iterations: int, omega: float,
+                             transfer):
+    """Pre-smoothing with the level residual AND its restriction: returns
+    ``(x, bc)`` where ``bc = R (b − A x)`` is the next level's rhs, or None
+    when unsupported.  ``x=None`` is the zero-start path (reads only
+    ``b``).  The fine residual is never stored."""
+    stages = stages_for(name, iterations, omega)
+    if (
+        stages is None
+        or not stages
+        or not _stencil_ok(op, b)
+        or not _transfer_ok(b.shape, transfer)
+    ):
+        return None
+    return fused_stages_const_3d(
+        op.values, op.offsets, b, x, stages, emit_residual=True,
+        corner=_corner_info(op), restrict_transfer=transfer,
+    )
+
+
+def residual_restrict_fused(op, b, x, transfer):
+    """The level residual with its restriction, no smoothing stages:
+    ``bc = R (b − A x)`` without storing the fine residual or rewriting
+    ``x``.  Returns ``bc`` or None when unsupported."""
+    if not _stencil_ok(op, b) or not _transfer_ok(b.shape, transfer):
+        return None
+    return fused_stages_const_3d(
+        op.values, op.offsets, b, x, (), emit_residual=True,
+        corner=_corner_info(op), restrict_transfer=transfer, emit_x=False,
+    )
+
+
+def prolong_smooth_fused(name, op, b, x, ec, iterations: int, omega: float,
+                         transfer):
+    """Coarse-correction prolongation + add with post-smoothing: returns
+    ``smooth(b, x + P ec)`` without storing ``P ec``, or None when
+    unsupported.  ``iterations=0`` is the prolongation and add alone."""
+    stages = stages_for(name, iterations, omega)
+    if (
+        stages is None
+        or not _stencil_ok(op, b)
+        or not _transfer_ok(b.shape, transfer)
+    ):
+        return None
+    return fused_stages_const_3d(
+        op.values, op.offsets, b, x, stages, corner=_corner_info(op),
+        ec=ec, prolong_transfer=transfer,
+    )

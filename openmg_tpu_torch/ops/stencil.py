@@ -1,0 +1,331 @@
+"""Stencil (DIA-on-grid) operators (twin of ``openmg_tpu/ops/stencil.py``).
+
+Every matrix whose rows/columns live on a regular grid and whose couplings
+use a bounded set of multi-index offsets is stored per static offset
+``offsets[k]``; SpMV is shift–multiply–add over dense grid tensors: no
+gather, no index traffic.
+
+Ported here: :class:`StencilOperator` (constant and varying storage),
+:class:`CorneredOperator` (the O(K) exact form of the linear-transfer
+Galerkin levels), ``region_table``, ``diag_index``, ``shift``, ``apply``
+and ``residual``.  These are plain tensor code.  On the card the V-cycle
+does not call them: each level visit goes through the hand-written kernel
+of :mod:`openmg_tpu_torch.ops.fused`, which evaluates the same operator
+definition per point.  ``FacedStencilOperator`` waits for a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import itertools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "StencilOperator",
+    "CorneredOperator",
+    "shift",
+    "apply",
+    "residual",
+    "diag_index",
+    "region_table",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilOperator:
+    """Sparse operator in DIA-on-grid form.
+
+    Two storage modes:
+
+    * **varying** (general): ``coeffs`` is ``(K, *grid_shape)`` with
+      ``coeffs[k][i] = A[i, i + offsets[k]]``, zero where the neighbour
+      leaves the grid; ``values is None``.
+    * **constant**: ``coeffs is None`` and ``values`` is a ``(K,)`` vector —
+      the operator is translation-invariant with Dirichlet (zero)
+      truncation at the grid boundary, i.e. ``A[i, i+o_k] = values[k]``
+      whenever ``i + o_k`` is in the grid.  SpMV then reads only ``x``.
+
+    offsets: static tuple of K integer d-tuples.
+    shape: static grid shape (required in constant mode).
+    """
+
+    coeffs: torch.Tensor | None
+    offsets: tuple
+    values: torch.Tensor | None = None
+    shape: tuple | None = None
+
+    @property
+    def is_constant(self) -> bool:
+        return self.coeffs is None
+
+    @property
+    def grid_shape(self) -> tuple:
+        if self.coeffs is not None:
+            return tuple(self.coeffs.shape[1:])
+        return tuple(self.shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.offsets[0])
+
+    @property
+    def n(self) -> int:
+        return int(np.prod(self.grid_shape))
+
+    @property
+    def num_offsets(self) -> int:
+        return len(self.offsets)
+
+    @property
+    def dtype(self):
+        return self.coeffs.dtype if self.coeffs is not None else self.values.dtype
+
+    @property
+    def device(self):
+        return self.coeffs.device if self.coeffs is not None else self.values.device
+
+    def coeff(self, k: int):
+        """The k-th coefficient (grid tensor or 0-d tensor)."""
+        return self.coeffs[k] if self.coeffs is not None else self.values[k]
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return apply(self, x)
+
+    def diag(self):
+        return self.coeff(diag_index(self.offsets))
+
+    def astype(self, dtype) -> "StencilOperator":
+        if self.coeffs is not None:
+            return StencilOperator(self.coeffs.to(dtype), self.offsets)
+        return StencilOperator(
+            None, self.offsets, self.values.to(dtype), self.shape
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CorneredOperator:
+    """Corner-collapsed boundary-corrected constant stencil — the compact
+    exact form of Galerkin coarsenings of constant Dirichlet-truncated
+    operators under separable radius-1 transfers.
+
+    For those operators **the tap value at row ``i`` for offset ``o``
+    depends only on the set of axes ``{b : i_b == 0 and o_b == 0}``** (every
+    1D transfer/operator factor is Toeplitz except its ``[0, 0]`` entry).
+    Storage is O(K): the interior taps ``values`` plus one ``(K,)``
+    deviation row per nonempty axis subset ``S`` (inclusion–exclusion form,
+    rows stacked into one ``(n_subsets, K)`` tensor) —
+
+        tap(i, k) = values[k] + Σ_{S ∈ subsets, S ⊆ Z(i) ∩ Z(o_k)} deltas[S][k]
+
+    with ``Z(i) = {b : i_b = 0}`` and ``Z(o) = {b : o_b = 0}``.  The whole
+    table is at most 8 rows of 27 floats, which is what lets one kernel
+    thread pick its row of taps from three comparisons.
+    """
+
+    values: torch.Tensor  # (K,) interior taps
+    deltas: torch.Tensor  # (n_subsets, K) deviation rows, aligned with subsets
+    offsets: tuple
+    shape: tuple
+    subsets: tuple  # static nonempty axis subsets (tuples), ascending |S|
+
+    @property
+    def is_constant(self) -> bool:
+        return False
+
+    @property
+    def is_cornered(self) -> bool:
+        return True
+
+    @property
+    def grid_shape(self) -> tuple:
+        return tuple(self.shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.offsets[0])
+
+    @property
+    def n(self) -> int:
+        return int(np.prod(self.shape))
+
+    @property
+    def num_offsets(self) -> int:
+        return len(self.offsets)
+
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+    @property
+    def device(self):
+        return self.values.device
+
+    @property
+    def face_axes(self) -> tuple:
+        """Axes carrying any boundary deviation (union of the subsets)."""
+        return tuple(sorted({b for S in self.subsets for b in S}))
+
+    @property
+    def regions(self) -> tuple:
+        """All nonempty subsets of ``face_axes``, ascending |S|.  A row
+        whose zero coordinates (within ``face_axes``) are exactly ``R`` uses
+        the region-table row of ``R``; written in this order, deeper regions
+        overwrite shallower ones."""
+        axes = self.face_axes
+        out = []
+        for size in range(1, len(axes) + 1):
+            out.extend(tuple(c) for c in itertools.combinations(axes, size))
+        return tuple(out)
+
+    @property
+    def const_op(self) -> StencilOperator:
+        """The interior constant stencil as a plain operator."""
+        return StencilOperator(None, self.offsets, self.values, self.shape)
+
+    @functools.cached_property
+    def table(self) -> torch.Tensor:
+        """:func:`region_table` of this operator, computed once (the
+        instance is immutable, so the table cannot go stale)."""
+        return region_table(self)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return apply(self, x)
+
+    def astype(self, dtype) -> "CorneredOperator":
+        return dataclasses.replace(
+            self, values=self.values.to(dtype), deltas=self.deltas.to(dtype)
+        )
+
+    def to_varying(self) -> StencilOperator:
+        """Materialize the full ``(K, *grid)`` coefficient tensor."""
+        tbl = self.table
+        ks = []
+        for k, off in enumerate(self.offsets):
+            tap = torch.full(
+                self.shape, 0.0, dtype=self.dtype, device=self.device
+            ) + self.values[k]
+            for r, R in enumerate(self.regions):
+                if not all(off[b] == 0 for b in R):
+                    continue
+                idx = tuple(
+                    slice(0, 1) if b in R else slice(None)
+                    for b in range(len(self.shape))
+                )
+                tap[idx] = tbl[r, k]
+            for axis, o in enumerate(off):
+                if o == 0:
+                    continue
+                idx = [slice(None)] * len(self.shape)
+                n = self.shape[axis]
+                idx[axis] = slice(max(0, n - o), n) if o > 0 else slice(0, min(n, -o))
+                tap[tuple(idx)] = 0
+            ks.append(tap)
+        return StencilOperator(torch.stack(ks), self.offsets)
+
+
+def region_table(op: CorneredOperator) -> torch.Tensor:
+    """Per-(region, offset) cumulative tap table, ``(n_regions, K)``.
+
+    ``tbl[r, k] = values[k] + Σ_{S ⊆ R_r ∩ Z(o_k)} deltas[S][k]`` — the
+    exact tap a row in region ``R_r`` uses for offset ``k``.  Summed in the
+    operator's dtype in the order of ``subsets``, so the table equals the
+    JAX package's bit for bit.
+    """
+    rows = []
+    for R in op.regions:
+        row = op.values
+        for si, S in enumerate(op.subsets):
+            if not set(S) <= set(R):
+                continue
+            m = torch.tensor(
+                [all(off[b] == 0 for b in S) for off in op.offsets],
+                dtype=op.values.dtype,
+                device=op.values.device,
+            )
+            row = row + op.deltas[si] * m
+        rows.append(row)
+    return torch.stack(rows)
+
+
+def diag_index(offsets) -> int:
+    zero = (0,) * len(offsets[0])
+    return tuple(offsets).index(zero)
+
+
+def shift(x: torch.Tensor, off) -> torch.Tensor:
+    """``z[i] = x[i + off]`` with zeros outside the domain (static offset)."""
+    if all(o == 0 for o in off):
+        return x
+    pad = []
+    for o in reversed(tuple(off)):  # F.pad lists the last dim first
+        pad += [max(0, -o), max(0, o)]
+    xp = F.pad(x, pad)
+    idx = tuple(slice(max(0, o), max(0, o) + n) for o, n in zip(off, x.shape))
+    return xp[idx]
+
+
+def _region_rows(x, R, index=0):
+    """Rows with ``i_b == index_b`` for each ``b ∈ R`` (size-1 kept dims)."""
+    out = x
+    for b in R:
+        ib = index[b] if isinstance(index, dict) else index
+        out = out.narrow(b, ib, 1)
+    return out
+
+
+def _region_apply(op: CorneredOperator, tbl, r: int, R, x, exclude_diag=False):
+    """Exact ``(A x)`` (or ``(A − D) x``) restricted to the region rows of
+    ``R``; taps are the 0-d ``tbl[r, k]`` entries."""
+    di = diag_index(op.offsets)
+    acc = None
+    for k, off in enumerate(op.offsets):
+        if exclude_diag and k == di:
+            continue
+        if any(off[b] < 0 for b in R):
+            continue  # neighbour at i_b = −1 is outside the domain
+        src = _region_rows(x, R, index={b: off[b] for b in R})
+        rest = tuple(0 if b in R else o for b, o in enumerate(off))
+        term = tbl[r, k] * shift(src, rest)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def _write_region(arr, R, block):
+    """Write ``block`` (size-1 dims on axes in R) into the index-0 rows of
+    ``arr`` in place; ``arr`` must be a fresh tensor owned by the caller."""
+    idx = tuple(
+        slice(0, 1) if b in R else slice(None) for b in range(arr.ndim)
+    )
+    arr[idx] = block
+    return arr
+
+
+def apply(op, x: torch.Tensor) -> torch.Tensor:
+    """SpMV ``y = A x`` on grid-shaped ``x`` (gather-free)."""
+    if isinstance(op, CorneredOperator):
+        y = apply(op.const_op, x)
+        tbl = op.table
+        for r, R in enumerate(op.regions):
+            y = _write_region(y, R, _region_apply(op, tbl, r, R, x))
+        return y
+    y = None
+    for k, off in enumerate(op.offsets):
+        t = op.coeff(k) * shift(x, off)
+        y = t if y is None else y + t
+    return y
+
+
+def residual(op, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``r = b − A x``."""
+    if isinstance(op, CorneredOperator):
+        r = b - apply(op.const_op, x)
+        tbl = op.table
+        for ri, R in enumerate(op.regions):
+            rr = _region_rows(b, R) - _region_apply(op, tbl, ri, R, x)
+            r = _write_region(r, R, rr)
+        return r
+    return b - apply(op, x)

@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Where a solve of the PyTorch/CUDA port spends its time, by kernel.
+
+    python3 scripts/profile_torch_solve.py [--n 256] [--out DIR]
+
+Sets up the 3D Poisson n³ solve of ``chip_smoke.py`` (V(2,2) red-black,
+linear transfers, double-float outer loop, dense coarsest level of at most
+4096 points), runs it once to warm up, then once under ``torch.profiler``
+and prints one JSON line: the solve's wall time, the device time summed by
+kernel name, the device's busy and idle share of the solve, and the host
+time of the outer loop.  With ``--out`` the Chrome trace is written there.
+Needs a CUDA device; fails without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=256)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    import openmg_tpu_torch as mg
+    from torch.profiler import ProfilerActivity, profile
+
+    shape = (args.n,) * 3
+    cfg = mg.SolverConfig(
+        smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
+        max_dense_coarse=4096, cycles=60,
+    )
+    solver = mg.setup(shape, cfg)
+    bnp = mg.rhs_random(shape, seed=1)
+    bnp /= np.linalg.norm(bnp.ravel())
+    b = torch.from_numpy(bnp.astype(np.float32)).cuda()
+    solver.solve(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, plain_info = solver.solve(b)
+    torch.cuda.synchronize()
+    wall_unprofiled = time.perf_counter() - t0
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, info = solver.solve(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or getattr(
+            ev, "self_cuda_time_total", 0)
+        if dev_us > 0 and str(ev.device_type).endswith("CUDA"):
+            by_kernel[ev.key] = {"ms": dev_us / 1e3, "count": ev.count}
+    busy = sum(v["ms"] for v in by_kernel.values())
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]["ms"])[:12])
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.out, f"solve_{args.n}.json"))
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0),
+        "shape": list(shape), "cycles": info["cycles"],
+        "solve_ms_unprofiled": wall_unprofiled * 1e3,
+        "solve_ms_profiled": wall * 1e3,
+        "device_busy_ms": busy,
+        "device_idle_share_of_profiled_solve": max(0.0, 1.0 - busy / (wall * 1e3)),
+        "kernels": {k[:70]: v for k, v in top.items()},
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,102 @@
+"""Shared helpers of the port's parity tests (``tests/test_torch_*.py``).
+
+Every input is made with numpy from a seed and handed to both packages: as
+a float32 ``jnp`` array to the JAX package (``tests/conftest.py`` enables
+x64, so the cast is explicit) and as a float32 CPU tensor to the port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# the test run uses several worker processes; one thread each is enough at
+# these sizes and keeps them from oversubscribing the machine
+torch.set_num_threads(1)
+
+
+def rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def to_t(a):
+    """numpy → float32 CPU tensor (None passes through)."""
+    if a is None:
+        return None
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def to_j(a):
+    """numpy → float32 jnp array (None passes through)."""
+    import jax.numpy as jnp
+
+    if a is None:
+        return None
+    return jnp.asarray(np.asarray(a), dtype=jnp.float32)
+
+
+def to_n(a):
+    """tensor or jax array → numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def assert_close(got, ref, factor=2e-6, what="", scale=None):
+    """|got − ref| ≤ factor · max|ref| everywhere (absolute, scaled by the
+    reference's size: float32 sums taken in another order).  ``scale``
+    replaces ``ref`` as the array whose largest entry sets the scale, for a
+    result that is a small difference of larger terms (a residual after
+    smoothing carries the rounding of ``b`` and ``A x``, not of itself)."""
+    got, ref = to_n(got), to_n(ref)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    size = to_n(scale) if scale is not None else ref
+    tol = factor * max(float(np.max(np.abs(size))), 1e-30)
+    err = float(np.max(np.abs(got.astype(np.float64) - ref.astype(np.float64))))
+    assert err <= tol, f"{what}: max err {err:.3e} > {tol:.3e}"
+
+
+def port_op(op, device="cpu"):
+    """The port's operator for a JAX-package constant or cornered operator
+    (tables copied as numpy)."""
+    from openmg_tpu.ops.stencil import CorneredOperator as JC
+    from openmg_tpu_torch.ops.stencil import CorneredOperator, StencilOperator
+
+    offsets = tuple(tuple(int(o) for o in off) for off in op.offsets)
+    shape = tuple(int(s) for s in op.grid_shape)
+    if isinstance(op, JC):
+        return CorneredOperator(
+            values=to_t(op.values).to(device),
+            deltas=to_t(op.deltas).to(device),
+            offsets=offsets,
+            shape=shape,
+            subsets=tuple(tuple(S) for S in op.subsets),
+        )
+    assert op.is_constant
+    return StencilOperator(None, offsets, to_t(op.values).to(device), shape)
+
+
+def spec_from_jax_hierarchy(h):
+    """Plain-numpy ``spec`` of a JAX-package hierarchy, in the layout of
+    ``openmg_tpu_torch.utils.convert.hierarchy_from_numpy``."""
+    from openmg_tpu.ops.stencil import CorneredOperator as JC
+
+    levels = []
+    for L in h.levels:
+        A = L.A
+        lv = {
+            "kind": "cornered" if isinstance(A, JC) else "const",
+            "offsets": tuple(A.offsets),
+            "shape": tuple(A.grid_shape),
+            "values": np.asarray(A.values),
+        }
+        if isinstance(A, JC):
+            lv["deltas"] = np.asarray(A.deltas)
+            lv["subsets"] = tuple(A.subsets)
+        levels.append(lv)
+    return {
+        "transfer": h.transfer.name,
+        "levels": levels,
+        "coarse_inv": np.asarray(h.coarse_inv),
+        "stats": tuple(h.stats),
+    }

@@ -1,0 +1,68 @@
+"""The port stands on its own: no module of ``openmg_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FILES = sorted((ROOT / "openmg_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "openmg_tpu")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.module
+
+
+def test_port_has_all_its_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for want in (
+        "openmg_tpu_torch/__init__.py", "openmg_tpu_torch/_build.py",
+        "openmg_tpu_torch/core/config.py", "openmg_tpu_torch/core/cycle.py",
+        "openmg_tpu_torch/core/hierarchy.py", "openmg_tpu_torch/core/solver.py",
+        "openmg_tpu_torch/core/structured.py", "openmg_tpu_torch/models/poisson.py",
+        "openmg_tpu_torch/ops/doublefloat.py", "openmg_tpu_torch/ops/fused.py",
+        "openmg_tpu_torch/ops/galerkin.py", "openmg_tpu_torch/ops/kernels.py",
+        "openmg_tpu_torch/ops/smoothers.py", "openmg_tpu_torch/ops/stencil.py",
+        "openmg_tpu_torch/ops/transfer.py", "openmg_tpu_torch/utils/convert.py",
+        "chip_smoke.py",
+    ):
+        assert want in names, want
+    assert (ROOT / "openmg_tpu_torch/csrc/fused_stages.cu").exists()
+    assert (ROOT / "openmg_tpu_torch/csrc/df_update.cu").exists()
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_import(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys, openmg_tpu_torch, openmg_tpu_torch.utils.convert, "
+        "openmg_tpu_torch.ops.fused, openmg_tpu_torch.ops.kernels, "
+        "openmg_tpu_torch._build; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'openmg_tpu')]; "
+        "assert not bad, bad"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)
+
+
+def test_kernel_sources_call_no_library():
+    for src in (ROOT / "openmg_tpu_torch/csrc").glob("*.cu"):
+        text = src.read_text()
+        for lib in ("cublas", "cudnn", "cutlass", "cub/", "thrust"):
+            assert lib not in text.lower(), (src.name, lib)
+        assert "#include <cuda_runtime.h>" in text

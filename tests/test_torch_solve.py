@@ -1,0 +1,321 @@
+"""The slice as a whole: the port's 3D Poisson defect-correction solve on
+the CPU against one solve of the JAX package (Pallas in interpret mode),
+and one V-cycle with the setup held equal.
+
+The reference solve is traced once (module-scoped fixture); it dominates
+this file's time.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import openmg_tpu as jmg
+import openmg_tpu_torch as tmg
+from openmg_tpu_torch.core import cycle as tcycle
+from openmg_tpu_torch.core import hierarchy as thier
+from openmg_tpu_torch.utils.convert import hierarchy_from_numpy
+
+from _torch_parity import assert_close, rand, spec_from_jax_hierarchy, to_n, to_t
+
+SHAPE = (32, 32, 64)
+CFG_KW = dict(
+    smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
+    gridlevels=3, max_dense_coarse=1024,
+)
+
+
+def _rhs():
+    b = tmg.rhs_random(SHAPE, seed=0)
+    return b / np.linalg.norm(b.ravel())
+
+
+@pytest.fixture(scope="module")
+def reference():
+    solver = jmg.setup(SHAPE, jmg.SolverConfig(**CFG_KW))
+    x, info = solver.solve(_rhs())
+    return solver, np.asarray(x), info
+
+
+@pytest.fixture(scope="module")
+def port():
+    solver = tmg.setup(SHAPE, tmg.SolverConfig(**CFG_KW), device="cpu")
+    x, info = solver.solve(_rhs())
+    return solver, x, info
+
+
+def test_solve_matches_reference_history(reference, port):
+    _, _, ri = reference
+    _, x, pi = port
+    assert isinstance(x, np.ndarray) and x.dtype == np.float64 and x.shape == SHAPE
+    assert pi["converged"] and ri["converged"]
+    assert pi["cycles"] == ri["cycles"] == 7
+    assert len(pi["residual_norms"]) == len(ri["residual_norms"])
+    for k, (a, b) in enumerate(zip(pi["residual_norms"], ri["residual_norms"])):
+        # the f32 cycles round differently; entries below 1e-9 sit near the
+        # double-float floor ‖A‖·‖x‖·2⁻⁴⁹, where the last bits decide more
+        bound = 1.5 if b < 1e-9 else 1.1
+        assert b / bound <= a <= b * bound, (k, a, b)
+    assert pi["final_norm"] == pi["residual_norms"][-1] < 1e-10
+
+
+def test_solve_info_keys(reference, port):
+    _, _, ri = reference
+    _, _, pi = port
+    for key in ("residual_norms", "cycles", "converged", "final_norm",
+                "gridlevels", "level_stats", "transfer", "residual_mode",
+                "solve_time_s"):
+        assert key in pi, key
+    assert pi["gridlevels"] == ri["gridlevels"] == 3
+    assert pi["level_stats"] == tuple(ri["level_stats"])
+    assert pi["transfer"] == ri["transfer"] == "linear"
+    assert pi["residual_mode"] == ri["residual_mode"] == "doublefloat"
+
+
+def test_solution_residual_in_float64(port):
+    _, x, _ = port
+    A = tmg.poisson(SHAPE)
+    r = _rhs().ravel() - A @ x.ravel()
+    assert np.linalg.norm(r) < 1e-10 * 1.05
+
+
+def test_solution_matches_reference(reference, port):
+    """Both solutions are within the threshold of the same exact solution,
+    so they differ by at most 2e-10 / λ_min(A)."""
+    _, xr, _ = reference
+    _, xp, _ = port
+    lam_min = sum(4.0 * np.sin(np.pi / (2 * (n + 1))) ** 2 for n in SHAPE)
+    assert np.linalg.norm((xp - xr).ravel()) <= 2e-10 / lam_min
+
+
+def test_v_cycle_with_equal_setup(reference):
+    """The reference hierarchy carried across as numpy; one V(2,2) cycle of
+    each side on the same right-hand side.  5e-6·max|ref|: two level visits
+    and a dense coarse solve, each within the kernels' 2e-6.
+
+    The reference cycle is its solver's first outer step, which reuses the
+    program the fixture's solve compiled: a right-hand side of norm just
+    above the threshold converges after exactly one cycle from the zero
+    iterate, and the solution is then the cycle's output, exactly (the
+    double-float sum 0 + e)."""
+    solver = reference[0]
+    hj = solver.hierarchy
+    ht = hierarchy_from_numpy(spec_from_jax_hierarchy(hj), "cpu")
+    assert [L.grid_shape for L in ht.levels] == [tuple(L.grid_shape) for L in hj.levels]
+    # ‖rand‖ ≈ 256, so ‖r‖ ≈ 1.16e-10; the power of two keeps float32 exact
+    r = rand(SHAPE, 3) * np.float32(2.0 ** -41)
+    assert 1e-10 < np.linalg.norm(r.astype(np.float64)) < 2e-10
+    want, info = solver.solve(r.astype(np.float64))
+    assert info["cycles"] == 1 and info["converged"]
+    got = tcycle.run_cycle(ht, to_t(r), "v", 2, 2, "rbgs", 2.0 / 3.0)
+    assert_close(got, np.asarray(want), factor=5e-6, what="v_cycle")
+
+
+def test_v_cycle_x_zero_flag_is_sound(port):
+    h = port[0].hierarchy
+    r = to_t(rand(SHAPE, 4))
+    fast = tcycle.v_cycle(h, r, None, x_zero=True)
+    slow = tcycle.v_cycle(h, r, torch.zeros_like(r), x_zero=False)
+    assert_close(fast, slow, factor=1e-6)
+    with pytest.raises(ValueError):
+        tcycle.v_cycle(h, r, None, x_zero=False)
+
+
+def test_f32_tensor_rhs_is_delivered_on_the_device(port):
+    solver = port[0]
+    b = torch.from_numpy(_rhs().astype(np.float32))
+    x, info = solver.solve(b)
+    assert isinstance(x, torch.Tensor) and x.dtype == torch.float32
+    assert x.device == b.device and tuple(x.shape) == SHAPE
+    hi, lo = info["x_df"]
+    assert x is hi and lo.dtype == torch.float32
+    assert info["converged"] and info["cycles"] == 7
+    # the pair, merged on the host, solves the float32 right-hand side
+    xm = to_n(hi).astype(np.float64) + to_n(lo).astype(np.float64)
+    r = to_n(b).astype(np.float64).ravel() - tmg.poisson(SHAPE) @ xm.ravel()
+    assert np.linalg.norm(r) < 1e-10 * 1.05
+
+
+def test_x0_and_flat_rhs(port):
+    solver, x, _ = port
+    x2, info = solver.solve(_rhs().ravel(), x0=x)
+    assert info["cycles"] == 0 and info["converged"]
+    np.testing.assert_array_equal(x2, x)
+
+
+def test_mg_solve_default_parameters():
+    shape = (8, 8, 16)
+    b = tmg.rhs_random(shape, seed=2)
+    b /= np.linalg.norm(b)
+    params = {"problemshape": shape, "gridlevels": 2, "max_dense_coarse": 128}
+    x, info = tmg.mg_solve(None, b.ravel(), params, device="cpu")
+    assert x.shape == (b.size,) and info["converged"]
+    assert info["transfer"] == "aggregate"
+    assert np.linalg.norm(b.ravel() - tmg.poisson(shape) @ x) < 1e-10 * 1.05
+    xs, _ = tmg.solve(shape, b, tmg.SolverConfig(gridlevels=2, max_dense_coarse=128),
+                      device="cpu")
+    np.testing.assert_array_equal(xs.ravel(), x)
+
+
+@pytest.mark.parametrize("call", ["setup", "solve", "mg_solve"])
+def test_entry_points_need_cuda_unless_cpu_is_named(call):
+    """No entry point chooses the CPU by itself."""
+    assert not torch.cuda.is_available(), "this test describes a CPU-only machine"
+    b = np.ones((4, 4, 4))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if call == "setup":
+            tmg.setup((4, 4, 4))
+        elif call == "solve":
+            tmg.solve((4, 4, 4), b)
+        else:
+            tmg.mg_solve(None, b, {"problemshape": (4, 4, 4)})
+
+
+def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
+    """The wrappers choose by the tensor's device alone: for a tensor that
+    is not on the CPU they go for the kernel (here: fail to build it)
+    instead of running the plain version."""
+    from openmg_tpu_torch.ops import fused, kernels
+
+    meta = torch.empty((4, 4, 4), dtype=torch.float32, device="meta")
+    vals = torch.empty((7,), dtype=torch.float32, device="meta")
+    offs = tmg.models.poisson.poisson_offsets(3)
+    called = []
+    monkeypatch.setattr(
+        fused, "fused_stages_const_3d_plain", lambda *a, **k: called.append(1)
+    )
+    monkeypatch.setattr(
+        kernels, "df_update_residual_const_3d_plain", lambda *a, **k: called.append(1)
+    )
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused.fused_stages_const_3d(vals, offs, meta, meta, (("rb", 0),))
+    with pytest.raises(ValueError, match="unsupported device"):
+        kernels.df_update_residual_const_3d(
+            offs, ((4.0, 2.0),) + ((-1.0,),) * 6, meta, meta, meta, meta, meta
+        )
+    assert not called
+
+
+STUB_CONFIGS = [
+    dict(krylov="pcg"),
+    dict(cycle_type="w"),
+    dict(cycle_type="f"),
+    dict(smoother="chebyshev"),
+    dict(residual_dtype="float64"),
+    dict(residual_dtype="float32"),
+    dict(residual_dtype=None),
+    dict(dtype="float64"),
+]
+
+
+@pytest.mark.parametrize("kw", STUB_CONFIGS, ids=lambda kw: "-".join(map(str, kw.values())))
+def test_unported_configurations_raise(kw):
+    cfg = tmg.SolverConfig(**{**dict(gridlevels=2, max_dense_coarse=64), **kw})
+    with pytest.raises(NotImplementedError):
+        tmg.setup((4, 4, 8), cfg, device="cpu")
+
+
+def test_unported_entry_points_raise(port):
+    import scipy.sparse as sp
+
+    solver = port[0]
+    h = solver.hierarchy
+    r = torch.zeros(SHAPE)
+    with pytest.raises(NotImplementedError):
+        solver.solve_many([_rhs()])
+    with pytest.raises(NotImplementedError):
+        solver.solve(_rhs(), checkpoint_path="ckpt.npz")
+    with pytest.raises(NotImplementedError):
+        solver.solve(_rhs(), resume=True)
+    for ct in ("w", "f"):
+        with pytest.raises(NotImplementedError):
+            tcycle.run_cycle(h, r, ct)
+    with pytest.raises(ValueError):
+        tcycle.run_cycle(h, r, "z")
+    with pytest.raises(NotImplementedError):
+        tcycle.v_cycle(h, r, r, gamma=2)
+    with pytest.raises(NotImplementedError):
+        tcycle.pcg_solve(h, r)
+    with pytest.raises(NotImplementedError):
+        tcycle.fmg_cycle(h, r)
+    with pytest.raises(NotImplementedError):
+        tmg.mg_solve(sp.identity(64, format="csr"), np.ones(64),
+                     {"problemshape": (4, 4, 4)}, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tmg.mg_solve(None, np.ones(64), {"problemshape": (4, 4, 4), "format": "ell"},
+                     device="cpu")
+    with pytest.raises(NotImplementedError):
+        tmg.setup(tmg.poisson_stencil((4, 4, 4)), device="cpu")
+    with pytest.raises(ValueError):
+        tmg.mg_solve(None, np.ones(64), {}, device="cpu")
+
+
+@pytest.mark.parametrize("shape", [(32, 32), (64,)])
+def test_unported_grid_dimensions_raise(shape):
+    with pytest.raises(NotImplementedError, match="3D"):
+        tmg.setup(shape, tmg.SolverConfig(gridlevels=2, max_dense_coarse=512), device="cpu")
+
+
+@pytest.mark.parametrize("pre,post", [(2, 0), (0, 2), (0, 0)])
+def test_v_cycle_without_pre_or_post_sweeps(port, monkeypatch, pre, post):
+    """Zero sweeps on a leg still go through the fused function (its
+    stage-free modes), and equal the composition of the separate ones."""
+    from openmg_tpu_torch.ops import fused
+    from openmg_tpu_torch.ops.smoothers import smooth
+    from openmg_tpu_torch.ops.stencil import residual
+    from openmg_tpu_torch.ops.transfer import prolong, restrict
+
+    h = port[0].hierarchy
+    r = to_t(rand(SHAPE, 5))
+    calls = []
+    real = fused.fused_stages_const_3d
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(fused, "fused_stages_const_3d", counted)
+    got = tcycle.v_cycle(h, r, None, pre=pre, post=post, x_zero=True)
+    assert len(calls) == 2 * (h.num_levels - 1)
+
+    def composed(level, b):
+        L = h.levels[level]
+        if level == h.num_levels - 1:
+            return tcycle.coarse_solve(h, b)
+        x = smooth("rbgs", L.A, L.inv_diag, b, torch.zeros_like(b), pre, 2.0 / 3.0)
+        ec = composed(level + 1, restrict(residual(L.A, b, x), h.transfer))
+        x = x + prolong(ec, L.grid_shape, h.transfer)
+        return smooth("rbgs", L.A, L.inv_diag, b, x, post, 2.0 / 3.0)
+
+    assert_close(got, composed(0, r), factor=5e-6, what=f"V({pre},{post})")
+
+
+def test_card_refuses_what_the_kernel_does_not_take(port, monkeypatch):
+    """Where a fused entry point declines a visit, only CPU tensors take the
+    composed plain path: on any other device the cycle raises."""
+    from openmg_tpu_torch.ops import fused
+
+    h = port[0].hierarchy
+    r = to_t(rand(SHAPE, 6))
+    for name in ("presmooth_restrict_fused", "prolong_smooth_fused"):
+        with monkeypatch.context() as m:
+            m.setattr(fused, name, lambda *a, **k: None)
+            want = tcycle.v_cycle(h, r, None, x_zero=True)  # CPU: composed
+            assert torch.isfinite(want).all()
+            m.setattr(tcycle, "_on_cpu", lambda t: False)
+            with pytest.raises(NotImplementedError, match="K3"):
+                tcycle.v_cycle(h, r, None, x_zero=True)
+
+
+@pytest.mark.parametrize("kind", ["faced", "varying"])
+def test_unported_level_kinds_raise(monkeypatch, kind):
+    """A level that classifies as faced or varying is refused by name."""
+    real = thier.classify_level
+
+    def fake(offsets, rep):
+        k, payload = real(offsets, rep)
+        return (kind, None) if k == "cornered" else (k, payload)
+
+    monkeypatch.setattr(thier, "classify_level", fake)
+    with pytest.raises(NotImplementedError, match=kind):
+        tmg.setup(SHAPE, tmg.SolverConfig(**CFG_KW), device="cpu")
