@@ -9,7 +9,8 @@ card, and fails (non-zero exit, no result line) if any phase fails:
 1. ``env``     versions, the card's name and power limit, and the measured
                device-to-device copy bandwidth;
 2. ``build``   builds the CUDA kernels from ``openmg_tpu_torch/csrc``;
-3. ``kernels`` holds each kernel against its plain PyTorch version on the
+3. ``kernels`` holds the fused level-visit kernel (K1) and the double-float
+               outer step (K2) against their plain PyTorch versions on the
                card, in every mode the V-cycle uses, at shapes whose dims
                are not multiples of 32 and on a 19-point stencil (the
                kernel's generic tap count), and times both;
@@ -20,7 +21,23 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                a numpy-float64 solve through ``mg_solve``; a V(2,0) cycle
                against the CPU; and two cases the kernel does not take,
                which the card must refuse instead of running plain tensor
-               code.
+               code;
+5. ``sweeps``  as ``kernels``, for the per-pass kernel with constant or
+               cornered taps (K3) and with per-point coefficient grids (K4,
+               on the diffusion hierarchy set up just before it): Jacobi,
+               both red/black colours and the residual, at 256³ with 7
+               taps, at 128³ with 27 taps, at (20,36,72) and on a 2D
+               operand lifted to (1, ny, nx); ``F.conv3d`` is timed beside
+               K3's residual as a yardstick (the port never calls it);
+6. ``solve_vary`` the 256³ variable-coefficient diffusion solve from a
+               stencil pair (host Galerkin chain, four varying levels, every
+               level visit composed of K4 passes, the general double-float
+               residual), checked in float64 on the host; the (32,32,64)
+               diffusion solve against the CPU; ``mg_solve`` with a scipy
+               Poisson matrix; the 256³ Poisson solve with a float32 outer
+               residual (one K3 launch per residual); and ``residual`` /
+               ``smooth`` called with CUDA tensors on a constant, a cornered
+               and a varying operator.
 
 Each phase prints one line ``<phase> <json>``.  Then come the line
 ``{"kernels": [...]}``, the card's name and power limit as ``nvidia-smi``
@@ -33,12 +50,17 @@ same order of summation, but nvcc fuses multiply-adds and the region rows
 divide where the plain version divides too — a few ulp.  K2
 (``df_update_residual_const_3d``): ``x_hi'``, ``x_lo'``, ``r_hi`` equal bit
 for bit; the partial sums' total within 1e-6 relative of ``sum(r_hi²)``.
+K3 and K4 (one pass of ``csrc/half_sweep.cu``) against ``half_sweep_plain``
+/ ``half_sweep_vary_plain``: 2e-6 · max|ref| for an iterate, 2e-6 · max|b|
+for a residual, for the same reason as K1.
 
 ``bound_ms`` is the least time the card could take: the larger of the bytes
 that must move (each input read once, each output written once) over
 3.35 TB/s and the float32 operations needed over 67 TFLOP/s (the H100 SXM
 data sheet's rates).  ``bound_ms_copy_bw`` divides the same bytes by the
-copy bandwidth measured in this run instead.
+copy bandwidth measured in this run instead.  A red/black pass of K3/K4 is
+charged what one colour needs (see ``sweep_bound``); ``bound_ms_sectors``
+beside it counts whole 32-byte sectors, which is every array in full.
 """
 
 from __future__ import annotations
@@ -52,11 +74,26 @@ import types
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 K1_TOL = 2e-6
+SWEEP_TOL = 2e-6
 OMEGA = 2.0 / 3.0
+# float32 outer residual: the threshold a float32 residual can reach with
+# ‖b‖₂ = 1 (its rounding floor is about eps·‖A‖·‖x‖, a few 1e-6 here)
+F32_THRESHOLD = 1e-5
+BIG = (256, 256, 256)  # the full-width grid of every phase
+DIFFUSION_CFG = dict(
+    smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
+    max_dense_coarse=4096,
+)
+
+
+def medium(shape):
+    """The smooth random medium of the diffusion runs, κ in [0.5, 1.5)."""
+    return 0.5 + np.random.default_rng(12).random(shape)
 
 
 def emit(phase, obj):
@@ -214,7 +251,7 @@ def phase_kernels(dev, copy_bw):
         smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
         max_dense_coarse=4096,
     )
-    big = (256,) * 3
+    big = BIG
     h_big = mg.setup(big, cfg, device=dev).hierarchy
     h_odd = mg.setup(
         (20, 36, 72), mg.SolverConfig(
@@ -393,7 +430,7 @@ def phase_solve(dev):
     import openmg_tpu_torch as mg
     from openmg_tpu_torch.ops import fused, kernels
 
-    shape = (256,) * 3
+    shape = BIG
     cfg = mg.SolverConfig(
         smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
         max_dense_coarse=4096, cycles=60,
@@ -528,6 +565,413 @@ def phase_solve(dev):
     return k1, k2
 
 
+SWEEP_MODES = (
+    ("jacobi", "jacobi", 0), ("rb colour 0", "rbgs", 0),
+    ("rb colour 1", "rbgs", 1), ("residual", "residual", 0),
+)
+
+
+def sweep_bound(n, offsets, vary, mode):
+    """(bytes, flops, sector bytes) that one pass over n points needs.
+
+    Jacobi and residual: b and x read, out written, and for per-point
+    coefficients the K grids read.  One red/black colour computes at half
+    the points: out is written everywhere, but b and the K grids are needed
+    at the colour's points only, and x at the other colour's points (copied
+    through, and the neighbours) plus, where a tap couples points of one
+    colour (27-point levels), at the colour's own points too.  The third
+    number is what moves when every 32-byte sector that holds a needed
+    value is read whole: with the colours interleaved along x that is every
+    array in full, the Jacobi figure."""
+    K = len(offsets)
+    full = 4 * n * (3 + (K if vary else 0))
+    if mode != "rbgs":
+        return full, n * (2 * K + 3), full
+    same_colour = any(sum(off) % 2 == 0 and any(off) for off in offsets)
+    x_bytes = 4 * n if same_colour else 2 * n
+    nbytes = 4 * n + x_bytes + 2 * n + (2 * n * K if vary else 0)
+    return nbytes, (n // 2) * (2 * K + 1), full
+
+
+def conv3d_ms(op, x, reps):
+    """Milliseconds of ``A x`` as one library call (cuDNN in full float32)
+    for a constant operator: the yardstick beside K3's residual."""
+    w = torch.zeros((1, 1, 3, 3, 3), dtype=torch.float32, device=x.device)
+    for k, (dz, dy, dx) in enumerate(op.offsets):
+        w[0, 0, dz + 1, dy + 1, dx + 1] = op.values[k]
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        x5 = x[None, None]
+        got = F.conv3d(x5, w, padding=1)[0, 0]
+        ms = time_ms(lambda: F.conv3d(x5, w, padding=1), reps)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return ms, got
+
+
+def phase_sweeps(dev, copy_bw, h_vary):
+    """K3 and K4 against their plain versions, pass by pass."""
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.ops import fused, kernels
+    from openmg_tpu_torch.ops.stencil import StencilOperator, apply
+
+    reps, plain_reps = 12, 3
+    cfg = mg.SolverConfig(**DIFFUSION_CFG)
+    odd = (20, 36, 72)
+    odd_cfg = mg.SolverConfig(**{**DIFFUSION_CFG, "gridlevels": 3,
+                                 "max_dense_coarse": 1024})
+    h_big = mg.setup(BIG, cfg, device=dev).hierarchy
+    h_odd = mg.setup(odd, odd_cfg, device=dev).hierarchy
+    hv_odd = mg.setup(mg.diffusion_stencil(medium(odd)), odd_cfg,
+                      device=dev).hierarchy
+    offs2, cf2 = mg.diffusion_stencil(medium((36, 72)))
+    op2v = StencilOperator(
+        torch.from_numpy(cf2.astype(np.float32)).to(dev), offs2)
+    op2c = StencilOperator(
+        None, offs2,
+        torch.tensor([4.0, -1, -1, -1, -1], dtype=torch.float32, device=dev),
+        (36, 72))
+    # (tag, operator, timed)
+    cases = [
+        ("main 256^3", h_big.levels[0].A, True),
+        ("main 128^3", h_big.levels[1].A, True),
+        ("main 64^3", h_big.levels[2].A, False),
+        ("main 32^3", h_big.levels[3].A, False),
+        ("odd", h_odd.levels[0].A, False),
+        ("odd coarse", h_odd.levels[1].A, False),
+        ("2D lift", op2c, False),
+        ("main 256^3", h_vary.levels[0].A, True),
+        ("main 128^3", h_vary.levels[1].A, True),
+        ("main 64^3", h_vary.levels[2].A, False),
+        ("main 32^3", h_vary.levels[3].A, False),
+        ("odd", hv_odd.levels[0].A, False),
+        ("odd coarse", hv_odd.levels[1].A, False),
+        ("2D lift", op2v, False),
+    ]
+    rows = {"K3": [], "K4": []}
+    for tag, op, timed in cases:
+        shape = op.grid_shape
+        n = int(np.prod(shape))
+        K = len(op.offsets)
+        vary = not (op.is_constant or hasattr(op, "table"))
+        kern = "K4" if vary else "K3"
+        kind = "varying" if vary else ("const" if op.is_constant else "cornered")
+        b = randn(shape, 11, dev)
+        x = randn(shape, 12, dev)
+        lift = len(shape) == 2
+        for mode_name, mode, color in SWEEP_MODES:
+            if vary:
+                coef, kw = op.coeffs, {}
+                half, plain = kernels._half_sweep_vary, kernels.half_sweep_vary_plain
+            else:
+                coef, kw = op.values, {"corner": fused._corner_info(op)}
+                half, plain = kernels._half_sweep, kernels.half_sweep_plain
+            if lift:
+                # through the public entry points, which lift to (1, ny, nx)
+                name = {"jacobi": "jacobi", "residual": "residual",
+                        "rbgs": "rbgs_half_sweep"}[mode]
+                fn = getattr(kernels, f"{name}_{'vary' if vary else 'const'}_3d")
+                args = {"jacobi": (1, OMEGA), "rbgs": (color,), "residual": ()}[mode]
+                run = lambda bb, xx: fn(coef, op.offsets, bb, xx, *args)
+                c3 = coef[:, None] if vary else coef
+                o3 = kernels._lift2d(op.offsets)
+                ref = plain(c3, o3, b[None], x[None], mode, OMEGA, color)[0]
+            else:
+                run = lambda bb, xx: half(
+                    coef, bb, xx, offsets=op.offsets, mode=mode, omega=OMEGA,
+                    color=color, **kw)
+                ref = plain(coef, op.offsets, b, x, mode, OMEGA, color, **kw)
+            before = kernels.LAUNCHES_K4 if vary else kernels.LAUNCHES_K3
+            got = run(b, x)
+            torch.cuda.synchronize()
+            after = kernels.LAUNCHES_K4 if vary else kernels.LAUNCHES_K3
+            if after - before != 1:
+                fail(f"{kern} {tag} {mode_name}: {after - before} launches counted")
+            if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+                fail(f"{kern} {tag} {mode_name} {shape}: bad output")
+            err = float((got - ref).abs().max())
+            scale = float((b if mode == "residual" else ref).abs().max())
+            if err > SWEEP_TOL * scale:
+                fail(f"{kern} {tag} {kind} {shape} {mode_name}: err {err:.3e} "
+                     f"> {SWEEP_TOL * scale:.3e}")
+            row = {"level": tag, "kind": kind, "shape": list(shape), "taps": K,
+                   "mode": mode_name, "max_abs_err": err,
+                   "tolerance": SWEEP_TOL * scale}
+            del got
+            if timed:
+                nbytes, flops, sectors = sweep_bound(n, op.offsets, vary, mode)
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_F32_FLOPS * 1e3
+                row.update(
+                    ms=time_ms(lambda: run(b, x), reps),
+                    plain_ms=time_ms(
+                        lambda: plain(coef, op.offsets, b, x, mode, OMEGA,
+                                      color, **kw), plain_reps, warm=1),
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bound_ms_copy_bw=nbytes / copy_bw * 1e3,
+                    bound_ms_sectors=sectors / PEAK_BYTES_PER_S * 1e3,
+                    bytes=nbytes, flops=flops, library_ms=None,
+                )
+                if kind == "const" and mode == "residual" and K <= 27:
+                    # b − conv3d(x): the one library call that computes A x
+                    lib_ms, ax = conv3d_ms(op, x, reps)
+                    lib_err = float((ax - apply(op, x)).abs().max())
+                    if lib_err > 2e-6 * float(x.abs().max()) * 12:
+                        fail(f"conv3d yardstick disagrees: {lib_err:.3e}")
+                    row.update(library_ms=lib_ms, library="F.conv3d 3x3x3, "
+                               "zero padding, TF32 off (computes A x only)")
+                    del ax
+            del ref
+            rows[kern].append(row)
+        del b, x
+        torch.cuda.empty_cache()
+    emit("sweeps", {
+        **rows,
+        "tolerance": "2e-6*max|ref| (iterate), 2e-6*max|b| (residual)",
+        "timed_launches": reps,
+    })
+    return rows
+
+
+def setup_vary(dev):
+    """The 256³ diffusion solver: stencil pair → host Galerkin chain."""
+    import openmg_tpu_torch as mg
+
+    shape = BIG
+    t0 = time.perf_counter()
+    offsets, coeffs = mg.diffusion_stencil(medium(shape))
+    t_stencil = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solver = mg.setup(
+        (offsets, coeffs), mg.SolverConfig(**DIFFUSION_CFG, cycles=60), device=dev
+    )
+    torch.cuda.synchronize()
+    return solver, offsets, coeffs, t_stencil, time.perf_counter() - t0
+
+
+def residual_norm_host_stencil(offsets, coeffs, b64, x64):
+    """‖b − A x‖₂ in float64 from the coefficient grids by numpy shifts
+    (no matrix)."""
+    r = b64.copy()
+    for k, off in enumerate(offsets):
+        src = tuple(slice(max(0, o), x64.shape[a] + min(0, o))
+                    for a, o in enumerate(off))
+        dst = tuple(slice(max(0, -o), x64.shape[a] - max(0, o))
+                    for a, o in enumerate(off))
+        r[dst] -= coeffs[k][dst] * x64[src]
+    return float(np.sqrt(np.sum(r * r)))
+
+
+def counts():
+    from openmg_tpu_torch.ops import fused, kernels
+
+    return {"K1": fused.LAUNCHES, "K2": kernels.LAUNCHES,
+            "K3": kernels.LAUNCHES_K3, "K4": kernels.LAUNCHES_K4}
+
+
+def zero_counts():
+    from openmg_tpu_torch.ops import fused, kernels
+
+    fused.LAUNCHES = kernels.LAUNCHES = 0
+    kernels.LAUNCHES_K3 = kernels.LAUNCHES_K4 = 0
+
+
+def phase_solve_vary(dev, vary):
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.core import solver as solver_mod
+    from openmg_tpu_torch.core.cycle import run_cycle
+    from openmg_tpu_torch.ops import smoothers, stencil
+
+    solver, offsets, coeffs, t_stencil, t_setup = vary
+    h = solver.hierarchy
+    shape = h.grid_shape
+    kinds = ["const" if L.A.is_constant else "varying" for L in h.levels]
+    bnp = mg.rhs_random(shape, seed=1)
+    bnp /= np.linalg.norm(bnp.ravel())
+    b = torch.from_numpy(bnp.astype(np.float32)).to(dev)
+
+    # the main path of this slice, with the launch counts read around it
+    zero_counts()
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    main_counts = counts()
+    cycles = info["cycles"]
+    cfg = solver.config
+    # a composed visit: pre and post sweeps of two passes each, one residual
+    passes = 2 * (cfg.pre_iterations + cfg.post_iterations) + 1
+    varying_levels = sum(k == "varying" for k in kinds[:-1])
+    if not info["converged"] or not info["final_norm"] < 1e-10:
+        fail(f"diffusion solve did not converge: {info['residual_norms']}")
+    if (varying_levels != 4 or cycles == 0
+            or main_counts != {"K1": 0, "K2": 0, "K3": 0,
+                               "K4": passes * varying_levels * cycles}):
+        fail(f"diffusion solve: launches {main_counts} for {cycles} cycles, "
+             f"{varying_levels} varying levels, {passes} passes a visit")
+    hi, lo = info["x_df"]
+    if not bool(torch.isfinite(hi).all() and torch.isfinite(lo).all()):
+        fail("diffusion solution is not finite")
+    x64 = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+    rn64 = residual_norm_host_stencil(
+        offsets, coeffs, b.cpu().numpy().astype(np.float64), x64)
+    if not rn64 < 2e-10:
+        fail(f"diffusion: float64 residual of the merged pair is {rn64:.3e}")
+
+    torch.cuda.reset_peak_memory_stats()
+    x2, info2 = solver.solve(b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(x2, x):
+        fail("two diffusion solves of the same system differ")
+    del x2
+    # a cycle's two parts, by CUDA events
+    bz = torch.zeros_like(b)
+    vcycle_ms = time_ms(
+        lambda: run_cycle(h, b, "v", cfg.pre_iterations, cfg.post_iterations,
+                          cfg.smoother, cfg.omega), 3, warm=1)
+    resid_ms = time_ms(
+        lambda: solver_mod._residual_norm_df(
+            h.fine_hi, h.fine_hi_lo, (b, bz), info["x_df"]), 3, warm=1)
+    del coeffs, x64, bz
+
+    # the (32,32,64) diffusion solve on the card against the CPU
+    small = (32, 32, 64)
+    scfg = mg.SolverConfig(**{**DIFFUSION_CFG, "gridlevels": 3,
+                              "max_dense_coarse": 1024})
+    sst = mg.diffusion_stencil(medium(small))
+    bs = mg.rhs_random(small, seed=0)
+    bs /= np.linalg.norm(bs.ravel())
+    xg, ig = mg.solve(sst, bs, scfg, device=dev)
+    xc, ic = mg.solve(sst, bs, scfg, device="cpu")
+    # both are within the threshold of one exact solution: ‖Δx‖ ≤ 2e-10/λ_min,
+    # and λ_min(A) ≥ min κ · λ_min(Poisson) for the diffusion operator
+    lam_min = 0.5 * sum(4.0 * np.sin(np.pi / (2 * (n + 1))) ** 2 for n in small)
+    dx = float(np.linalg.norm((xg - xc).ravel()))
+    if not (ig["converged"] and ig["cycles"] == ic["cycles"]
+            and dx <= 2e-10 / lam_min):
+        fail(f"small diffusion solve: card {ig['cycles']} cycles, CPU "
+             f"{ic['cycles']}, |dx| = {dx:.3e}")
+
+    # mg_solve with a scipy matrix: the fine level is detected constant (K1,
+    # K2), the Galerkin levels below it are stored as coefficient grids (K4)
+    mshape = (64,) * 3
+    A = mg.poisson(mshape)
+    bm = mg.rhs_random(mshape, seed=3)
+    bm /= np.linalg.norm(bm.ravel())
+    zero_counts()
+    xm, im = mg.mg_solve(A, bm.ravel(), {
+        "problemshape": mshape, "transfer": "linear", "max_dense_coarse": 4096,
+    })
+    m_counts = counts()
+    rm = float(np.linalg.norm(bm.ravel() - A @ xm))
+    mc = im["cycles"]
+    # 64³ → 32³ → 16³ (dense): one constant and one varying level
+    if not (im["converged"] and rm < 1e-10 * 1.05 and mc > 0
+            and m_counts == {"K1": 2 * mc, "K2": mc, "K3": 0, "K4": passes * mc}):
+        fail(f"matrix mg_solve: converged={im['converged']} residual {rm:.3e} "
+             f"launches {m_counts} for {mc} cycles")
+
+    # float32 outer residual: one K3 launch per residual, cycles + 1 of them
+    pcfg = dict(smoother="rbgs", transfer="linear", residual_dtype="float32",
+                max_dense_coarse=4096, threshold=F32_THRESHOLD)
+    big = BIG
+    psolver = mg.setup(big, mg.SolverConfig(**pcfg), device=dev)
+    zero_counts()
+    xf, i32 = psolver.solve(b)
+    torch.cuda.synchronize()
+    f_counts = counts()
+    fc = i32["cycles"]
+    if not (i32["converged"] and fc > 0 and xf.dtype == torch.float32
+            and f_counts == {"K1": 8 * fc, "K2": 0, "K3": fc + 1, "K4": 0}):
+        fail(f"float32 residual solve: {i32['residual_norms']} launches "
+             f"{f_counts} for {fc} cycles")
+    t32 = time.perf_counter()
+    _, i32b = psolver.solve(b)
+    torch.cuda.synchronize()
+    t32 = time.perf_counter() - t32
+    del xf, psolver
+    spcfg = mg.SolverConfig(**{**pcfg, "gridlevels": 3, "max_dense_coarse": 1024})
+    _, jg = mg.solve(small, bs, spcfg, device=dev)
+    _, jc = mg.solve(small, bs, spcfg, device="cpu")
+    if not (jg["converged"] and jg["cycles"] == jc["cycles"]):
+        fail(f"small float32-residual solve: card {jg['cycles']} cycles, "
+             f"CPU {jc['cycles']}")
+
+    # the public residual and smooth with CUDA tensors: they launch the
+    # kernels (never tensor code) and agree with the CPU
+    hp = mg.setup(small, scfg, device=dev).hierarchy
+    hpc = mg.setup(small, scfg, device="cpu").hierarchy
+    hv = mg.setup(sst, scfg, device=dev).hierarchy
+    hvc = mg.setup(sst, scfg, device="cpu").hierarchy
+    direct = []
+    for what, L, Lc, want_res, want_smooth in (
+        ("constant", hp.levels[0], hpc.levels[0], {"K3": 1}, {"K1": 1}),
+        ("cornered", hp.levels[1], hpc.levels[1], {"K3": 1}, {"K1": 1}),
+        ("varying", hv.levels[0], hvc.levels[0], {"K4": 1}, {"K4": 4}),
+    ):
+        bb = randn(L.grid_shape, 21, dev)
+        xx = randn(L.grid_shape, 22, dev)
+        for fn_name, call, want in (
+            ("residual", lambda l, b_, x_: stencil.residual(l.A, b_, x_), want_res),
+            ("smooth", lambda l, b_, x_: smoothers.smooth(
+                "rbgs", l.A, l.inv_diag, b_, x_, 2, OMEGA), want_smooth),
+        ):
+            zero_counts()
+            got = call(L, bb, xx)
+            torch.cuda.synchronize()
+            moved = {k: v for k, v in counts().items() if v}
+            ref = call(Lc, bb.cpu(), xx.cpu())
+            err = float((got.cpu() - ref).abs().max())
+            tol = 5e-6 * float((bb if fn_name == "residual" else ref).abs().max())
+            if moved != want or not err <= tol:
+                fail(f"{fn_name} on a {what} operator: launches {moved} "
+                     f"(expected {want}), err {err:.3e} (tolerance {tol:.3e})")
+            direct.append({"operator": what, "function": fn_name,
+                           "launches": moved, "max_abs_err": err,
+                           "tolerance": tol})
+
+    # a float64 cycle on a varying hierarchy is refused on the card
+    try:
+        run_cycle(hv, randn(small, 23, dev).double())
+    except NotImplementedError:
+        refused = ["float64 cycle on varying levels"]
+    else:
+        fail("a float64 cycle ran on the card without a kernel")
+
+    k = max(info2["cycles"], 1)
+    emit("solve_vary", {
+        "shape": list(shape), "levels": [list(s[0]) for s in h.stats],
+        "taps": [s[1] for s in h.stats], "level_kinds": kinds,
+        "cycles": cycles, "final_norm": info["final_norm"],
+        "residual_norms": info["residual_norms"],
+        "residual_float64_host": rn64,
+        "launches": main_counts,
+        "passes_per_level_visit": passes,
+        "stencil_s": t_stencil, "setup_s": t_setup,
+        "first_solve_ms": info["solve_time_s"] * 1e3,
+        "solve_ms": info2["solve_time_s"] * 1e3,
+        "ms_per_cycle": info2["solve_time_s"] * 1e3 / k,
+        "v_cycle_ms": vcycle_ms, "outer_residual_ms": resid_ms,
+        "outer_residuals_per_solve": info2["cycles"] + 1,
+        "peak_memory_MB": peak / 2 ** 20,
+        "small_solve": {"shape": list(small), "cycles_card": ig["cycles"],
+                        "cycles_cpu": ic["cycles"], "dx_norm": dx,
+                        "dx_bound": 2e-10 / lam_min},
+        "mg_solve_matrix": {"shape": list(mshape), "cycles": mc,
+                            "residual_float64": rm, "launches": m_counts},
+        "float32_residual_solve": {
+            "shape": list(big), "threshold": F32_THRESHOLD, "cycles": fc,
+            "residual_norms": i32["residual_norms"], "launches": f_counts,
+            "solve_ms": t32 * 1e3, "cycles_warm": i32b["cycles"],
+            "small": {"shape": list(small), "cycles_card": jg["cycles"],
+                      "cycles_cpu": jc["cycles"]}},
+        "direct_calls": direct,
+        "refused_on_card": refused,
+    })
+    return main_counts, f_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -542,6 +986,11 @@ def main():
     phase_build()
     rows, k2_rows, _ = phase_kernels(dev, copy_bw)
     k1_launches, k2_launches = phase_solve(dev)
+    # the diffusion hierarchy is built after the Poisson solve, whose peak
+    # memory would otherwise count it
+    vary = setup_vary(dev)
+    sweeps = phase_sweeps(dev, copy_bw, vary[0].hierarchy)
+    vary_counts, f32_counts = phase_solve_vary(dev, vary)
 
     def entry(name, source, replaces, launches, main_row, all_rows):
         return {
@@ -550,7 +999,7 @@ def main():
             "max_abs_err": max(r["max_abs_err"] for r in all_rows),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-            "library_ms": None,
+            "library_ms": main_row.get("library_ms"),
             "shape": main_row["shape"],
             "mode": main_row.get("mode", "emit_norm"),
             "bound_ms_copy_bw": main_row["bound_ms_copy_bw"],
@@ -559,6 +1008,12 @@ def main():
     k1_main = next(r for r in rows if r["level"] == "main"
                    and r["mode"].startswith("down"))
     k2_main = next(r for r in k2_rows if r["level"] == "main" and r["emit_norm"])
+    # K3 on its solve's path is the 256³ constant residual; K4 on the
+    # diffusion solve's path is mostly red/black passes at 256³
+    k3_main = next(r for r in sweeps["K3"] if r["level"] == "main 256^3"
+                   and r["mode"] == "residual")
+    k4_main = next(r for r in sweeps["K4"] if r["level"] == "main 256^3"
+                   and r["mode"] == "rb colour 0")
     print(json.dumps({"kernels": [
         entry("fused_stages_const_3d",
               "openmg_tpu_torch/csrc/fused_stages.cu",
@@ -566,6 +1021,14 @@ def main():
         entry("df_update_residual_const_3d",
               "openmg_tpu_torch/csrc/df_update.cu",
               "openmg_tpu/ops/kernels.py:860", k2_launches, k2_main, k2_rows),
+        entry("half_sweep (constant / cornered taps)",
+              "openmg_tpu_torch/csrc/half_sweep.cu",
+              "openmg_tpu/ops/kernels.py:344", f32_counts["K3"], k3_main,
+              sweeps["K3"]),
+        entry("half_sweep_vary (per-point coefficients)",
+              "openmg_tpu_torch/csrc/half_sweep.cu",
+              "openmg_tpu/ops/kernels.py:612", vary_counts["K4"], k4_main,
+              sweeps["K4"]),
     ]}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

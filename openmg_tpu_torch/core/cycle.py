@@ -1,10 +1,15 @@
 """Cycle engine (twin of ``openmg_tpu/core/cycle.py``): the V-cycle.
 
-The recursion runs over the static level list as plain Python.  Each level
-visit is one call of the fused kernel on the way down (pre-smoothing from a
-zero start + residual + restriction) and one on the way up (prolongation +
-add + post-smoothing); the coarsest level is one matrix–vector product with
-the precomputed dense inverse.
+The recursion runs over the static level list as plain Python.  On a
+constant or cornered level a visit is one call of the fused kernel on the
+way down (pre-smoothing from a zero start + residual + restriction) and one
+on the way up (prolongation + add + post-smoothing).  On a level the fused
+kernel does not take (varying coefficients) the visit is composed from
+``smooth``, ``residual``, ``restrict`` and ``prolong``: the first two are
+the per-pass kernel on the card, the transfers are tensor code on any
+device, as they are array code outside any kernel in the JAX package.  The
+coarsest level is one matrix–vector product with the precomputed dense
+inverse.
 
 Ported: ``coarse_solve``, ``v_cycle`` with ``x_zero`` and ``gamma=1``,
 ``run_cycle("v")``.  W-cycles, FMG and ``pcg_solve`` wait for a later slice
@@ -62,12 +67,12 @@ def v_cycle(
     each coarse visit starts from a zero correction).  The pre-smoothing
     then reads only ``b``, and ``x`` may be None.
 
-    Every visit goes through the fused kernel.  Where its entry point
-    declines a case (it returns None: a non-3D or non-float32 grid, a
-    smoother that is not a stage list, an odd dimension with a transfer) the
-    visit is composed from the separate tensor functions for CPU tensors
-    only; on the card that would be the per-pass kernel of the JAX package,
-    which is not ported yet, so it raises.
+    A visit goes to the fused kernel first.  Where its entry point
+    declines a case (it returns None: a varying operator, a non-3D or
+    non-float32 grid, a smoother that is not a stage list, an odd dimension
+    with a transfer) the visit is composed from ``smooth`` and ``residual``,
+    which on the card launch the per-pass kernel or raise (a float64 cycle
+    does), and the tensor transfers.
     """
     if gamma != 1:
         raise NotImplementedError(f"gamma={gamma} (W-cycle) {_LATER}")
@@ -87,7 +92,6 @@ def v_cycle(
         bc = fused.residual_restrict_fused(L.A, b, x, tr)
         out = None if bc is None else (x, bc)
     if out is None:
-        _composed_only(b, smoother, L)
         if x is None:
             x = torch.zeros_like(b)
         x = smooth(smoother, L.A, L.inv_diag, b, x, pre, omega)
@@ -101,25 +105,9 @@ def v_cycle(
     # post == 0 is the kernel's stage-free mode: prolongation and add alone
     y = fused.prolong_smooth_fused(smoother, L.A, b, x, ec, post, omega, tr)
     if y is None:
-        _composed_only(b, smoother, L)
         x = x + prolong(ec, L.grid_shape, tr)
         y = smooth(smoother, L.A, L.inv_diag, b, x, post, omega)
     return y
-
-
-def _on_cpu(t: torch.Tensor) -> bool:
-    return t.device.type == "cpu"
-
-
-def _composed_only(b, smoother, L):
-    """The composed level visit is plain tensor code: CPU tensors only."""
-    if not _on_cpu(b):
-        raise NotImplementedError(
-            f"a level visit with smoother={smoother!r} on a {tuple(L.grid_shape)} "
-            f"{b.dtype} grid is not taken by the fused kernel, and the "
-            "per-pass smoother kernel it would need on the card is not ported "
-            "yet (ROADMAP queue 2, K3)"
-        )
 
 
 def fmg_cycle(*args, **kwargs):

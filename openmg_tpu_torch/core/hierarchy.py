@@ -1,20 +1,27 @@
 """Grid-hierarchy construction (twin of ``openmg_tpu/core/hierarchy.py``).
 
-Ported here: the structured setup :func:`build_hierarchy_structured` for
-constant fine stencils (Poisson), with its level classification.  The whole
-Galerkin chain is computed on the host in boundary-collapsed form
-(:mod:`openmg_tpu_torch.core.structured`); a level that is exactly
-constant is stored as a ``(K,)`` value vector, a level that is constant
-away from its low faces/edges/corner as a
-:class:`~openmg_tpu_torch.ops.stencil.CorneredOperator` (an O(K) table).
-Neither kind streams coefficient grids during a sweep.  Only these small
-tables and the coarsest level's dense inverse are placed on ``device``.
+Two build functions:
 
-A level that classifies as ``faced`` or ``varying`` raises
-``NotImplementedError``: those representations (``FacedStencilOperator``,
-per-point coefficient grids and the functions ``build_hierarchy`` /
-``build_hierarchy_device``) are ROADMAP queue 1 items 15–16 (slice B).
-The port never substitutes another representation silently.
+* :func:`build_hierarchy_structured` for constant fine stencils (Poisson),
+  with its level classification.  The whole Galerkin chain is computed on
+  the host in boundary-collapsed form
+  (:mod:`openmg_tpu_torch.core.structured`); a level that is exactly
+  constant is stored as a ``(K,)`` value vector, a level that is constant
+  away from its low faces/edges/corner as a
+  :class:`~openmg_tpu_torch.ops.stencil.CorneredOperator` (an O(K) table).
+  Neither kind streams coefficient grids during a sweep.  A level that
+  classifies as ``faced`` or ``varying`` here raises
+  ``NotImplementedError`` (``FacedStencilOperator`` is ROADMAP queue 1,
+  item 15); the port never substitutes another representation silently.
+* :func:`build_hierarchy` for a general ``(offsets, coeffs)`` stencil pair
+  (diffusion, a matrix's extracted stencil): the Galerkin chain on full
+  coefficient arrays on the host (:mod:`openmg_tpu_torch.ops.galerkin`),
+  each level stored as a constant operator where it is exactly one and as
+  ``(K, *grid)`` coefficient grids otherwise, with a grid of inverse
+  diagonals.  The device-side build (``build_hierarchy_device``) waits for
+  a later slice.
+
+Level data and the coarsest level's dense inverse are placed on ``device``.
 
 The coarsest level is factored into an explicit dense inverse so the
 in-cycle coarse solve is a single matrix–vector product.
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from openmg_tpu_torch.models.poisson import stencil_to_csr
+from openmg_tpu_torch.ops.galerkin import galerkin_rap_stencil
 from openmg_tpu_torch.ops.stencil import (
     CorneredOperator,
     StencilOperator,
@@ -38,6 +46,7 @@ from openmg_tpu_torch.ops.transfer import AGGREGATE, Transfer
 __all__ = [
     "Level",
     "Hierarchy",
+    "build_hierarchy",
     "build_hierarchy_structured",
     "default_gridlevels",
     "detect_constant",
@@ -49,7 +58,8 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class Level:
     A: StencilOperator | CorneredOperator
-    inv_diag: torch.Tensor  # 0-d (constant / cornered interior) 1/diag
+    # 1/diag: 0-d (constant / cornered interior) or a grid (varying)
+    inv_diag: torch.Tensor
 
     @property
     def grid_shape(self):
@@ -63,7 +73,7 @@ class Hierarchy:
     fine_hi: StencilOperator  # fine operator for the outer residual
     # double-float residual mode: fine_hi holds the f32 hi coefficients and
     # fine_hi_lo the f32 lo remainders (exact two-f32 split of the f64
-    # operator).
+    # operator).  Plain modes: fine_hi in the residual dtype, fine_hi_lo None.
     fine_hi_lo: StencilOperator | None
     stats: tuple  # static per-level (shape, num_offsets, true_nnz)
     transfer: Transfer  # static intergrid transfer spec
@@ -259,6 +269,124 @@ def detect_constant(offsets, coeffs):
     return np.asarray(vals, dtype=coeffs.dtype)
 
 
+def _put(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _np_dtype(dtype) -> np.dtype:
+    return np.dtype(str(dtype).replace("torch.", ""))
+
+
+def _level_from_np(offs, cfs_np, dtype, device):
+    """Build a Level (constant representation when detected) from numpy
+    coefficient arrays."""
+    offs = tuple(offs)
+    di = diag_index(offs)
+    diag = cfs_np[di]
+    if np.any(diag == 0):
+        raise ValueError("operator has zero diagonal entries")
+    np_dtype = _np_dtype(dtype)
+    vals = detect_constant(offs, cfs_np)
+    shape = tuple(int(s) for s in cfs_np.shape[1:])
+    if vals is not None:
+        op = StencilOperator(None, offs, _put(vals.astype(np_dtype), device), shape)
+        inv_diag = _put(np.asarray(1.0 / vals[di]).astype(np_dtype), device)
+    else:
+        op = StencilOperator(_put(cfs_np.astype(np_dtype), device), offs)
+        inv_diag = _put((1.0 / diag).astype(np_dtype), device)
+    return Level(A=op, inv_diag=inv_diag)
+
+
+def _residual_op_from_np(offs, cfs_np, device):
+    """Residual-path operator: constant representation when possible (the
+    zero lo part of an exactly-representable operator costs no memory)."""
+    vals = detect_constant(offs, cfs_np)
+    shape = tuple(int(s) for s in cfs_np.shape[1:])
+    if vals is not None:
+        return StencilOperator(None, offs, _put(vals, device), shape)
+    return StencilOperator(_put(cfs_np, device), offs)
+
+
+def build_hierarchy(
+    offsets,
+    coeffs,
+    gridlevels=None,
+    dtype=torch.float32,
+    residual_dtype=None,
+    transfer: Transfer = AGGREGATE,
+    max_dense_coarse: int = 512,
+    min_coarse_dim: int = 1,
+    setup_dtype="float32",
+    *,
+    device,
+) -> Hierarchy:
+    """Host-path hierarchy build from a fine-level stencil (numpy coeffs).
+
+    Levels are cast to ``dtype`` for the cycle; the fine operator is
+    additionally kept at ``residual_dtype`` precision for the outer
+    defect-correction residual: ``"doublefloat"`` stores an exact two-f32
+    split of the *original* (full-precision) input instead of one array, a
+    torch dtype stores one array of that type.  ``device`` is where the
+    level data and the coarse inverse are placed.
+    """
+    device = torch.device(device)
+    orig_coeffs = np.asarray(coeffs)
+    shape = tuple(int(s) for s in orig_coeffs.shape[1:])
+    if gridlevels is None:
+        gridlevels = default_gridlevels(shape, max_dense_coarse, min_coarse_dim)
+    coeffs = np.asarray(orig_coeffs, dtype=np.dtype(setup_dtype))
+
+    chain = [(tuple(tuple(int(o) for o in off) for off in offsets), coeffs)]
+    for _ in range(int(gridlevels) - 1):
+        offs, cfs = chain[-1]
+        c_offs, c_cfs = galerkin_rap_stencil(offs, cfs, transfer=transfer)
+        chain.append((tuple(c_offs), c_cfs))
+
+    coarse_inv = _coarse_inverse(
+        chain[-1], max_dense_coarse, single_level=len(chain) == 1
+    )
+
+    levels, stats = [], []
+    for offs, cfs in chain:
+        levels.append(_level_from_np(offs, cfs, dtype, device))
+        stats.append(
+            (
+                tuple(int(s) for s in cfs.shape[1:]),
+                len(offs),
+                int(np.count_nonzero(cfs)),
+            )
+        )
+
+    fine_offs = chain[0][0]
+    rdtype = residual_dtype or dtype
+    fine_hi_lo = None
+    if rdtype == "doublefloat":
+        if orig_coeffs.dtype == np.float32:
+            hi, lo = orig_coeffs, np.zeros_like(orig_coeffs)
+        else:
+            o64 = orig_coeffs.astype(np.float64, copy=False)
+            hi = o64.astype(np.float32)
+            lo = (o64 - hi).astype(np.float32)
+        fine_hi = _residual_op_from_np(fine_offs, hi, device)
+        fine_hi_lo = _residual_op_from_np(fine_offs, lo, device)
+    else:
+        fine_hi = StencilOperator(
+            _put(
+                orig_coeffs.astype(np.float64, copy=False).astype(_np_dtype(rdtype)),
+                device,
+            ),
+            fine_offs,
+        )
+    return Hierarchy(
+        levels=tuple(levels),
+        coarse_inv=_put(coarse_inv.astype(_np_dtype(dtype)), device),
+        fine_hi=fine_hi,
+        fine_hi_lo=fine_hi_lo,
+        stats=tuple(stats),
+        transfer=transfer,
+    )
+
+
 _UNCOARSENABLE_DENSE_CAP = 4096  # hard guard for the single-level escape
 
 
@@ -293,7 +421,8 @@ def _coarse_inverse(coarsest, max_dense_coarse, single_level: bool = False):
 def classify_level(offsets, rep):
     """``(kind, payload)`` of one boundary-collapsed level: ``const`` with
     its ``(K,)`` values, ``cornered`` with ``(values, subsets, deltas)``,
-    ``faced`` or ``varying`` (no payload; not ported)."""
+    ``faced`` or ``varying`` (no payload; the structured setup stores
+    neither)."""
     vals = detect_constant(offsets, rep)
     if vals is not None:
         return "const", vals
@@ -324,13 +453,8 @@ def build_hierarchy_structured(
     where the level tables and the coarse inverse are placed."""
     from openmg_tpu_torch.core.structured import expand_rep_np, structured_chain
 
-    if residual_dtype != "doublefloat":
-        raise NotImplementedError(
-            "only residual_dtype='doublefloat' is ported; the plain "
-            "float64/float32 outer loops are ROADMAP queue 1 (slice B)"
-        )
     device = torch.device(device)
-    np_dtype = np.dtype(str(dtype).replace("torch.", ""))
+    np_dtype = _np_dtype(dtype)
     shape = tuple(int(s) for s in shape)
     offsets = tuple(tuple(o) for o in offsets)
     if gridlevels is None:
@@ -340,7 +464,7 @@ def build_hierarchy_structured(
     )
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return _put(a, device)
 
     levels, stats = [], []
     for i, lvl in enumerate(slevels):
@@ -363,9 +487,8 @@ def build_hierarchy_structured(
         else:
             raise NotImplementedError(
                 f"level {i} {lvl.real_shape} classifies as {kind!r}: the "
-                "faced and varying level representations are not ported yet "
-                "(ROADMAP queue 1, items 15-16: FacedStencilOperator, "
-                "build_hierarchy / build_hierarchy_device)"
+                "structured setup stores constant and cornered levels only "
+                "(ROADMAP queue 1, item 15: FacedStencilOperator)"
             )
         inv_diag = put(np.asarray(1.0 / vals[di]).astype(np_dtype))
         levels.append(Level(A=op, inv_diag=inv_diag))
@@ -385,16 +508,21 @@ def build_hierarchy_structured(
     fine_op = levels[0].A
     if not fine_op.is_constant:
         raise ValueError("structured setup requires a constant fine operator")
-    fine_hi_lo = StencilOperator(
-        None,
-        fine_op.offsets,
-        put(np.zeros(len(fine_op.offsets), dtype=np_dtype)),
-        fine_op.grid_shape,
-    )
+    if residual_dtype == "doublefloat":
+        fine_hi = fine_op
+        fine_hi_lo = StencilOperator(
+            None,
+            fine_op.offsets,
+            put(np.zeros(len(fine_op.offsets), dtype=np_dtype)),
+            fine_op.grid_shape,
+        )
+    else:
+        fine_hi = fine_op.astype(residual_dtype)
+        fine_hi_lo = None
     return Hierarchy(
         levels=tuple(levels),
         coarse_inv=put(coarse_inv.astype(np_dtype)),
-        fine_hi=fine_op,
+        fine_hi=fine_hi,
         fine_hi_lo=fine_hi_lo,
         stats=tuple(stats),
         transfer=transfer,

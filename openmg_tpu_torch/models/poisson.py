@@ -7,9 +7,11 @@ coefficient grids, zero where the neighbour leaves the domain), plus the
 reproducible right-hand sides.  ``rhs_random`` is bit-identical to the JAX
 package's for the same seed (numpy's ``default_rng``).
 
-``stencil_to_csr`` is kept because the hierarchy's coarsest-level dense
-inverse is built from it.  The diffusion generators, ``stencil_from_csr``
-and the device-side assemblies wait for later slices.
+Also the variable-coefficient diffusion operator (``diffusion_stencil``,
+``diffusion``) and ``stencil_from_csr``, which extracts the exact stencil
+form of a grid-structured sparse matrix.  ``stencil_to_csr`` serves the
+oracles and the hierarchy's coarsest-level dense inverse.  The device-side
+assemblies wait for later slices.
 """
 
 from __future__ import annotations
@@ -22,6 +24,9 @@ __all__ = [
     "poisson_stencil",
     "poisson_offsets",
     "stencil_to_csr",
+    "stencil_from_csr",
+    "diffusion_stencil",
+    "diffusion",
     "rhs_random",
     "rhs_ones",
 ]
@@ -121,6 +126,98 @@ def stencil_to_csr(offsets, coeffs) -> sp.csr_matrix:
     A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
     A.sum_duplicates()
     return A
+
+
+def stencil_from_csr(A, shape, max_offsets: int = 125):
+    """Extract the exact stencil (DIA-on-grid) form of a grid-structured
+    sparse matrix.
+
+    Every sparse matrix whose row/column indices live on a regular grid of
+    ``shape`` is exactly representable as a set of per-offset coefficient
+    arrays; the number of distinct multi-index offsets must stay bounded
+    (``max_offsets``) or a ``ValueError`` is raised.
+    """
+    shape = tuple(int(s) for s in shape)
+    n = int(np.prod(shape))
+    A = sp.csr_matrix(A)
+    if A.shape != (n, n):
+        raise ValueError(f"matrix shape {A.shape} != grid size {n}")
+    coo = A.tocoo()
+    rc = np.stack(np.unravel_index(coo.row, shape), axis=1)  # (nnz, d)
+    cc = np.stack(np.unravel_index(coo.col, shape), axis=1)
+    deltas = cc - rc  # (nnz, d)
+    uniq, inverse = np.unique(deltas, axis=0, return_inverse=True)
+    if len(uniq) > max_offsets:
+        raise ValueError(
+            f"matrix has {len(uniq)} distinct grid offsets (> {max_offsets}); "
+            "not stencil-representable within budget"
+        )
+    offsets = tuple(tuple(int(v) for v in row) for row in uniq)
+    coeffs = np.zeros((len(offsets),) + shape, dtype=coo.data.dtype)
+    flat = coeffs.reshape(len(offsets), n)
+    # accumulate (duplicates summed, matching CSR semantics)
+    np.add.at(flat, (np.asarray(inverse).reshape(-1), coo.row), coo.data)
+    # put the zero offset first if present (diagonal-first convention)
+    zero = (0,) * len(shape)
+    if zero in offsets:
+        z = offsets.index(zero)
+        if z != 0:
+            order = [z] + [i for i in range(len(offsets)) if i != z]
+            offsets = tuple(offsets[i] for i in order)
+            coeffs = coeffs[order]
+    return offsets, coeffs
+
+
+def diffusion_stencil(kappa, harmonic: bool = True, dtype=np.float64):
+    """Variable-coefficient diffusion operator ``−∇·(κ∇u)`` on a regular
+    grid (Dirichlet), finite-volume form with face coefficients.
+
+    ``kappa``: positive cell coefficient field, shape = grid shape.  Face
+    coefficient between neighbouring cells is the harmonic (default) or
+    arithmetic mean — harmonic is the standard finite-volume choice for
+    discontinuous media.  Returns ``(offsets, coeffs)`` with the diagonal
+    equal to the sum of the face coefficients (an SPD M-matrix; reduces
+    exactly to :func:`poisson_stencil` for ``kappa ≡ 1``).
+    """
+    kappa = np.asarray(kappa, dtype=dtype)
+    if np.any(kappa <= 0):
+        raise ValueError("kappa must be strictly positive")
+    shape = kappa.shape
+    d = len(shape)
+    offsets = poisson_offsets(d)
+    coeffs = np.zeros((len(offsets),) + shape, dtype=dtype)
+
+    def face(a, b):
+        return 2.0 * a * b / (a + b) if harmonic else 0.5 * (a + b)
+
+    k = 1
+    for axis in range(d):
+        lo = [slice(None)] * d
+        hi = [slice(None)] * d
+        lo[axis] = slice(0, shape[axis] - 1)
+        hi[axis] = slice(1, None)
+        f = face(kappa[tuple(lo)], kappa[tuple(hi)])  # interior faces
+        # offsets ordered (-1) then (+1) per axis (poisson_offsets)
+        coeffs[(k,) + tuple(hi)] = -f  # coupling to the −1 neighbour
+        coeffs[(k + 1,) + tuple(lo)] = -f  # coupling to the +1 neighbour
+        k += 2
+        # boundary faces (Dirichlet): cell couples to the wall with its
+        # own κ, contributing to the diagonal only
+        wall_lo = [slice(None)] * d
+        wall_lo[axis] = slice(0, 1)
+        wall_hi = [slice(None)] * d
+        wall_hi[axis] = slice(shape[axis] - 1, None)
+        coeffs[0][tuple(wall_lo)] += kappa[tuple(wall_lo)]
+        coeffs[0][tuple(wall_hi)] += kappa[tuple(wall_hi)]
+    # diagonal = − Σ off-diagonal couplings + boundary terms
+    coeffs[0] += -np.sum(coeffs[1:], axis=0)
+    return offsets, coeffs
+
+
+def diffusion(kappa, harmonic: bool = True) -> sp.csr_matrix:
+    """CSR form of :func:`diffusion_stencil` (oracle/interchange)."""
+    offsets, coeffs = diffusion_stencil(kappa, harmonic)
+    return stencil_to_csr(offsets, coeffs)
 
 
 def rhs_random(shape, seed: int = 0, dtype=np.float64) -> np.ndarray:

@@ -14,9 +14,13 @@ kernel of :mod:`openmg_tpu_torch.ops.kernels` repeats the same sequences
 with ``__fadd_rn`` / ``__fmul_rn``.
 
 Ported: ``two_sum``, ``quick_two_sum``, ``df_add``, ``df_add_f32``,
-``df_neg``, ``df_sub`` and the host-side ``pow2_terms`` / ``df_split`` /
-``df_merge``.  The Dekker products (``two_prod``, ``df_mul``) are only
-needed by the non-dyadic residual, which waits for a later slice.
+``df_neg``, ``df_sub``, the Dekker products ``two_prod`` / ``df_mul`` /
+``df_mul_f32`` (the residual of an operator whose taps are not dyadic) and
+the host-side ``pow2_terms`` / ``df_split`` / ``df_merge``.
+
+The products rely on ``a*b − p`` NOT being contracted into a fused
+multiply-add, which eager PyTorch guarantees (one kernel per operation);
+do not wrap them in ``torch.compile``.
 """
 
 from __future__ import annotations
@@ -36,7 +40,13 @@ __all__ = [
     "df_add_f32",
     "df_sub",
     "df_neg",
+    "two_prod",
+    "df_mul",
+    "df_mul_f32",
 ]
+
+# Dekker/Veltkamp splitter for a 24-bit mantissa: 2^12 + 1
+_SPLIT = 4097.0
 
 
 def pow2_terms(v, max_terms: int = 3):
@@ -94,6 +104,21 @@ def quick_two_sum(a, b):
     return s, e
 
 
+def _split32(a):
+    c = _SPLIT * a
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def two_prod(a, b):
+    """Error-free product: a * b = p + e exactly (Dekker split)."""
+    p = a * b
+    a_hi, a_lo = _split32(a)
+    b_hi, b_lo = _split32(b)
+    e = ((a_hi * b_hi - p) + a_hi * b_lo + a_lo * b_hi) + a_lo * b_lo
+    return p, e
+
+
 def df_add(x, y):
     """Double-float + double-float."""
     s, e = two_sum(x[0], y[0])
@@ -114,3 +139,17 @@ def df_neg(x):
 
 def df_sub(x, y):
     return df_add(x, df_neg(y))
+
+
+def df_mul(x, y):
+    """Double-float × double-float."""
+    p, e = two_prod(x[0], y[0])
+    e = e + (x[0] * y[1] + x[1] * y[0])
+    return quick_two_sum(p, e)
+
+
+def df_mul_f32(x, a):
+    """Double-float × plain f32."""
+    p, e = two_prod(x[0], a)
+    e = e + x[1] * a
+    return quick_two_sum(p, e)

@@ -15,8 +15,8 @@ the stencil invariant (coeff = 0 where row + offset leaves the grid).
 
 The arithmetic and its order are the JAX package's numpy path exactly, so
 the level tables built from it are equal bit for bit.  The traced
-(on-device) RAP of the JAX package waits with the varying-coefficient
-slice.
+(on-device) RAP of the JAX package waits with the device-side hierarchy
+build.
 """
 
 from __future__ import annotations

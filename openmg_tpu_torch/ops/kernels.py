@@ -1,7 +1,22 @@
-"""The double-float outer step (twin of the
-``df_update_residual_const_3d`` part of ``openmg_tpu/ops/kernels.py``).
+"""Per-pass stencil kernels and the double-float outer step (twin of
+``openmg_tpu/ops/kernels.py``).
 
-One pass per outer cycle of the defect-correction loop:
+**One pass of a radius-1 stencil** (K3, K4: the JAX module's ``_half_sweep``
+and ``_half_sweep_vary``), in three modes:
+
+    jacobi    x + ω·D⁻¹(b − A x)
+    residual  b − A x
+    rbgs      D⁻¹(b − (A − D) x) on the points of one colour, x elsewhere
+
+for a constant operator (a ``(K,)`` vector of taps; with ``corner=`` a
+cornered one), or for per-point coefficient grids ``(K, nz, ny, nx)``.  The
+entry points keep the JAX package's names and argument order
+(``residual_const_3d``, ``jacobi_const_3d``, ``rbgs_const_3d``,
+``rbgs_half_sweep_const_3d`` and their ``_vary_3d`` twins) and lift a 2D
+operand to ``(1, ny, nx)``.
+
+**The double-float outer step** (K2), one pass per outer cycle of the
+defect-correction loop:
 
     (x_hi', x_lo') = df_add_f32((x_hi, x_lo), e)
     r_hi           = hi(b − A x')      in double-float
@@ -12,16 +27,19 @@ float32, only compensated adds remain.  With ``emit_norm`` the call also
 returns partial sums of ``r_hi²`` whose total is ‖r_hi‖²; their number and
 layout belong to the implementation (the caller sums them).
 
-:func:`df_update_residual_const_3d` dispatches on the device of ``x_hi``
-alone: a CUDA tensor launches the hand-written kernel
-(``csrc/df_update.cu``) or raises; a CPU tensor runs
-:func:`df_update_residual_const_3d_plain`, which applies the same sequence
-of float32 operations in the same order, so the three arrays agree with the
-kernel bit for bit.  ``LAUNCHES`` counts the calls that launched the kernel.
+Every entry point dispatches on the device of its grid tensor alone: a CUDA
+tensor launches the hand-written kernel (``csrc/half_sweep.cu``,
+``csrc/df_update.cu``) or raises; a CPU tensor runs the plain version
+(:func:`half_sweep_plain`, :func:`half_sweep_vary_plain`,
+:func:`df_update_residual_const_3d_plain`), which applies the same float32
+operations in the same order.  K2's three arrays agree with the kernel bit
+for bit; K3/K4 within a few ulp (the compiler contracts multiply-adds).
+``LAUNCHES`` (K2), ``LAUNCHES_K3`` and ``LAUNCHES_K4`` count launched
+kernels: one per pass for K3/K4.
 
-The other kernels of the JAX module (per-half-sweep smoothers, varying
-coefficients, the 2D whole-plane kernel) and this kernel's 2D lift wait for
-later slices.
+Waiting for later slices: the ``halos=`` variants of these kernels (the
+row-partitioned tier), the folded-2D tier, the 2D whole-plane kernel and
+K2's 2D lift.
 """
 
 from __future__ import annotations
@@ -31,16 +49,32 @@ import ctypes
 import torch
 
 from openmg_tpu_torch.ops.doublefloat import df_add_f32, two_sum
-from openmg_tpu_torch.ops.stencil import shift
+from openmg_tpu_torch.ops.stencil import diag_index, kernel_taps_ok, shift
 
 __all__ = [
     "LAUNCHES",
+    "LAUNCHES_K3",
+    "LAUNCHES_K4",
     "df_update_residual_const_3d",
     "df_update_residual_const_3d_plain",
+    "half_sweep_plain",
+    "half_sweep_vary_plain",
+    "residual_const_3d",
+    "jacobi_const_3d",
+    "rbgs_const_3d",
+    "rbgs_half_sweep_const_3d",
+    "residual_vary_3d",
+    "jacobi_vary_3d",
+    "rbgs_vary_3d",
+    "rbgs_half_sweep_vary_3d",
 ]
 
 # calls of df_update_residual_const_3d that launched the CUDA kernel
 LAUNCHES = 0
+# passes that launched the half-sweep kernel: constant / cornered taps (K3)
+LAUNCHES_K3 = 0
+# ... and per-point coefficient grids (K4)
+LAUNCHES_K4 = 0
 
 
 def df_update_residual_const_3d_plain(
@@ -170,4 +204,304 @@ def df_update_residual_const_3d(
         raise ValueError(f"unsupported device {x_hi.device}")
     return _df_update_residual_cuda(
         offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm
+    )
+
+
+# ---------------------------------------------------------------------------
+# one pass of a radius-1 stencil (K3 constant / cornered, K4 varying)
+# ---------------------------------------------------------------------------
+
+_MODE_CODE = {"jacobi": 0, "rbgs": 1, "residual": 2}
+
+
+def _lift2d(offsets):
+    return tuple((0,) + tuple(o) for o in offsets)
+
+
+def _norm_offsets(offsets):
+    return tuple(tuple(int(o) for o in off) for off in offsets)
+
+
+def _pass_plain(fields, offsets, b, x, mode, omega, color, inv_d, region):
+    """One pass in the kernel's order: the taps summed in the order of
+    ``offsets`` (the diagonal skipped in a red/black pass), then
+    ``inv_d · (b − sum)``; the points of ``region`` (a boolean grid, or
+    None) divide by their own diagonal instead."""
+    if mode not in _MODE_CODE:
+        raise ValueError(f"unknown mode {mode!r}; choose jacobi|rbgs|residual")
+    di = diag_index(offsets)
+    acc = None
+    for k, off in enumerate(offsets):
+        if mode == "rbgs" and k == di:
+            continue
+        term = fields[k] * shift(x, off)
+        acc = term if acc is None else acc + term
+    if acc is None:  # diagonal-only operator, diagonal skipped
+        acc = torch.zeros_like(x)
+    res = b - acc
+    if mode == "residual":
+        return res
+    if mode == "jacobi":
+        out = x + omega * (inv_d * res)
+        if region is not None:
+            out = torch.where(region, x + (omega * res) / fields[di], out)
+        return out
+    xn = inv_d * res
+    if region is not None:
+        xn = torch.where(region, res / fields[di], xn)
+    nz, ny, nx = x.shape
+    dev = x.device
+    par = (
+        torch.arange(nz, device=dev).view(-1, 1, 1)
+        + torch.arange(ny, device=dev).view(1, -1, 1)
+        + torch.arange(nx, device=dev).view(1, 1, -1)
+    ) & 1
+    return torch.where(par == int(color), xn, x)
+
+
+def half_sweep_plain(values, offsets, b, x, mode, omega=0.0, color=0, corner=None):
+    """Plain PyTorch version of one constant-tap pass (3D operands).
+    ``corner``: optional ``(regions, (n_regions, K) table)`` of a cornered
+    operator; its low faces, edges and corner take their own tap rows."""
+    offsets = _norm_offsets(offsets)
+    shape = tuple(x.shape)
+    fields, region = [values[k] for k in range(len(offsets))], None
+    if corner:
+        regions, tbl = corner
+        region = torch.zeros(shape, dtype=torch.bool, device=x.device)
+        fields = [
+            torch.zeros(shape, dtype=values.dtype, device=x.device) + values[k]
+            for k in range(len(offsets))
+        ]
+        # ascending regions: the deepest region a point lies in wins
+        for r, R in enumerate(regions):
+            idx = tuple(slice(0, 1) if a in R else slice(None) for a in range(3))
+            region[idx] = True
+            for k in range(len(offsets)):
+                fields[k][idx] = tbl[r, k]
+    inv_d = 1.0 / values[diag_index(offsets)]
+    return _pass_plain(fields, offsets, b, x, mode, omega, color, inv_d, region)
+
+
+def half_sweep_vary_plain(coeffs, offsets, b, x, mode, omega=0.0, color=0):
+    """Plain PyTorch version of one varying-coefficient pass (3D operands):
+    ``coeffs`` is ``(K, nz, ny, nx)``, ``inv_d = 1 / coeffs[diag]`` per
+    point."""
+    offsets = _norm_offsets(offsets)
+    inv_d = 1.0 / coeffs[diag_index(offsets)]
+    return _pass_plain(coeffs, offsets, b, x, mode, omega, color, inv_d, None)
+
+
+_sweep_fn = None
+
+
+def _sweep_kernel():
+    global _sweep_fn
+    if _sweep_fn is None:
+        from openmg_tpu_torch import _build
+
+        fn = _build.load().omg_half_sweep
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [
+            p, p, p, i, p,      # coef, table, offs, K, rowmap
+            i, i, f, i,         # vary, mode, omega, color
+            p, p, p,            # b, x, out
+            i, i, i, p,         # nz, ny, nx, stream
+        ]
+        fn.restype = i
+        _sweep_fn = fn
+    return _sweep_fn
+
+
+def _half_sweep_cuda(coef, offsets, b, x, mode, omega, color, vary, corner):
+    """Launch one pass of ``csrc/half_sweep.cu``; returns the new array."""
+    global LAUNCHES_K3, LAUNCHES_K4
+    from openmg_tpu_torch.ops.fused import _check, _row_map
+
+    if mode not in _MODE_CODE:
+        raise ValueError(f"unknown mode {mode!r}; choose jacobi|rbgs|residual")
+    dev = x.device
+    if x.ndim != 3 or any(len(off) != 3 for off in offsets):
+        raise ValueError(
+            f"the kernel takes 3D grids and taps, got shape {tuple(x.shape)}"
+        )
+    shape = tuple(x.shape)
+    K = len(offsets)
+    why = kernel_taps_ok(offsets)
+    if why is not None:
+        raise ValueError(f"the kernel does not take {why}")
+    _check("x", x, shape, dev)
+    _check("b", b, shape, dev)
+    table = None
+    if vary:
+        _check("coeffs", coef, (K,) + shape, dev)
+        if corner:
+            raise ValueError("corner= belongs to constant taps")
+    else:
+        _check("values", coef, (K,), dev)
+        if corner:
+            table = corner[1]
+            _check("region table", table, (len(corner[0]), K), dev)
+    out = torch.empty_like(x)
+    offs_c = (ctypes.c_int * (3 * K))(*[o for off in offsets for o in off])
+    rowmap_c = (ctypes.c_int * 8)(*_row_map(corner))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _sweep_kernel()(
+            coef.data_ptr(), None if table is None else table.data_ptr(),
+            offs_c, K, rowmap_c, int(bool(vary)), _MODE_CODE[mode],
+            float(omega), int(color), b.data_ptr(), x.data_ptr(),
+            out.data_ptr(), shape[0], shape[1], shape[2], stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"omg_half_sweep failed with code {rc}")
+    if vary:
+        LAUNCHES_K4 += 1
+    else:
+        LAUNCHES_K3 += 1
+    return out
+
+
+def _half_sweep(values, b, x, *, offsets, mode, omega, color, corner=None):
+    """One constant-tap pass (K3) on 3D operands, by the device of ``x``.
+
+    A cornered operator (``corner=``) is one launch too: the kernel picks a
+    point's tap row and diagonal from the region table by its coordinates,
+    as the fused kernel does.  (The JAX package runs its constant kernel and
+    then repairs the low faces, edges and corner in separate passes.)"""
+    if x.device.type == "cpu":
+        return half_sweep_plain(values, offsets, b, x, mode, omega, color, corner)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _half_sweep_cuda(values, offsets, b, x, mode, omega, color, False, corner)
+
+
+def _half_sweep_vary(coeffs, b, x, *, offsets, mode, omega, color):
+    """One varying-coefficient pass (K4) on 3D operands, by the device of
+    ``x``."""
+    if x.device.type == "cpu":
+        return half_sweep_vary_plain(coeffs, offsets, b, x, mode, omega, color)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _half_sweep_cuda(coeffs, offsets, b, x, mode, omega, color, True, None)
+
+
+def _lifted(fn, first, offsets, b, x, *rest, vary=False, **kw):
+    """Run a 3D entry point on 2D operands lifted to ``(1, ny, nx)``."""
+    if kw.get("corner"):
+        raise NotImplementedError(
+            "a cornered 2D operator: the lift to (1, ny, nx) is ported for "
+            "constant and varying operators only (ROADMAP queue 1, item 17)"
+        )
+    first = first[:, None] if vary else first
+    return fn(first, _lift2d(offsets), b[None], x[None], *rest, **kw)[0]
+
+
+def residual_const_3d(values, offsets, b, x, corner=None):
+    """Residual ``r = b − A x`` of a 2D/3D constant (or, with ``corner=``,
+    cornered) stencil: one pass."""
+    if x.ndim == 2:
+        return _lifted(residual_const_3d, values, offsets, b, x, corner=corner)
+    return _half_sweep(
+        values, b, x, offsets=_norm_offsets(offsets), mode="residual",
+        omega=0.0, color=0, corner=corner,
+    )
+
+
+def jacobi_const_3d(values, offsets, b, x, iterations: int, omega: float,
+                    corner=None):
+    """Weighted-Jacobi sweeps of a 2D/3D constant stencil, one pass each."""
+    if x.ndim == 2:
+        return _lifted(
+            jacobi_const_3d, values, offsets, b, x, iterations, omega,
+            corner=corner,
+        )
+    offsets = _norm_offsets(offsets)
+    for _ in range(iterations):
+        x = _half_sweep(
+            values, b, x, offsets=offsets, mode="jacobi", omega=omega,
+            color=0, corner=corner,
+        )
+    return x
+
+
+def rbgs_const_3d(values, offsets, b, x, iterations: int, corner=None):
+    """Red–black Gauss–Seidel sweeps of a 2D/3D constant stencil, two
+    passes each."""
+    if x.ndim == 2:
+        return _lifted(
+            rbgs_const_3d, values, offsets, b, x, iterations, corner=corner
+        )
+    offsets = _norm_offsets(offsets)
+    for _ in range(iterations):
+        for color in (0, 1):
+            x = _half_sweep(
+                values, b, x, offsets=offsets, mode="rbgs", omega=0.0,
+                color=color, corner=corner,
+            )
+    return x
+
+
+def rbgs_half_sweep_const_3d(values, offsets, b, x, color: int, corner=None):
+    """One single-colour red/black pass of a 2D/3D constant stencil."""
+    if x.ndim == 2:
+        return _lifted(
+            rbgs_half_sweep_const_3d, values, offsets, b, x, color,
+            corner=corner,
+        )
+    return _half_sweep(
+        values, b, x, offsets=_norm_offsets(offsets), mode="rbgs", omega=0.0,
+        color=color, corner=corner,
+    )
+
+
+def jacobi_vary_3d(coeffs, offsets, b, x, iterations: int, omega: float):
+    """Weighted-Jacobi sweeps of a varying-coefficient 2D/3D stencil (one
+    pass per sweep: K coefficient grids, x and b in, x out)."""
+    if x.ndim == 2:
+        return _lifted(
+            jacobi_vary_3d, coeffs, offsets, b, x, iterations, omega, vary=True
+        )
+    offsets = _norm_offsets(offsets)
+    for _ in range(iterations):
+        x = _half_sweep_vary(
+            coeffs, b, x, offsets=offsets, mode="jacobi", omega=omega, color=0
+        )
+    return x
+
+
+def rbgs_vary_3d(coeffs, offsets, b, x, iterations: int):
+    """Red–black Gauss–Seidel sweeps of a varying-coefficient 2D/3D
+    stencil."""
+    if x.ndim == 2:
+        return _lifted(rbgs_vary_3d, coeffs, offsets, b, x, iterations, vary=True)
+    offsets = _norm_offsets(offsets)
+    for _ in range(iterations):
+        for color in (0, 1):
+            x = _half_sweep_vary(
+                coeffs, b, x, offsets=offsets, mode="rbgs", omega=0.0,
+                color=color,
+            )
+    return x
+
+
+def rbgs_half_sweep_vary_3d(coeffs, offsets, b, x, color: int):
+    """One single-colour red/black pass of a varying-coefficient stencil."""
+    if x.ndim == 2:
+        return _lifted(
+            rbgs_half_sweep_vary_3d, coeffs, offsets, b, x, color, vary=True
+        )
+    return _half_sweep_vary(
+        coeffs, b, x, offsets=_norm_offsets(offsets), mode="rbgs", omega=0.0,
+        color=color,
+    )
+
+
+def residual_vary_3d(coeffs, offsets, b, x):
+    """Residual of a varying-coefficient 2D/3D stencil: one pass."""
+    if x.ndim == 2:
+        return _lifted(residual_vary_3d, coeffs, offsets, b, x, vary=True)
+    return _half_sweep_vary(
+        coeffs, b, x, offsets=_norm_offsets(offsets), mode="residual",
+        omega=0.0, color=0,
     )

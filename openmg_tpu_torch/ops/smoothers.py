@@ -9,19 +9,25 @@
   27-point Galerkin levels same-colour points are coupled and the
   half-sweep is a coloured Jacobi step, as in the JAX package.
 
-Both are written through :func:`openmg_tpu_torch.ops.stencil.residual`
-(``x_i + r_i / a_ii``), with the exact per-point diagonal on cornered
-operators.  That makes them a formulation independent of the stage-by-stage
-plain version in :mod:`openmg_tpu_torch.ops.fused`, which the tests hold
-against them.  On the card the V-cycle goes through the fused kernel, not
-through this module.  Chebyshev smoothing and faced operators wait for a
-later slice.
+:func:`jacobi` and :func:`rbgs` are written through
+:func:`openmg_tpu_torch.ops.stencil.residual` (``x_i + r_i / a_ii``), with
+the exact per-point diagonal on cornered and varying operators.  That makes
+them a formulation independent of the pass-by-pass plain versions in
+:mod:`openmg_tpu_torch.ops.fused` and :mod:`openmg_tpu_torch.ops.kernels`,
+which the tests hold against them.
+
+:func:`smooth` dispatches on the device of ``b``: CPU tensors take
+``jacobi`` / ``rbgs``; on the card a constant or cornered operator goes to
+the fused kernel first and to the per-pass kernel where that declines, a
+varying operator to the per-pass kernel, and what neither takes raises.
+Chebyshev smoothing and faced operators wait for a later slice.
 """
 
 from __future__ import annotations
 
 import torch
 
+from openmg_tpu_torch.ops import stencil as _stencil
 from openmg_tpu_torch.ops.stencil import (
     CorneredOperator,
     StencilOperator,
@@ -46,8 +52,8 @@ def red_mask(shape, device="cpu") -> torch.Tensor:
 
 def diag_full(op):
     """The operator's diagonal: a 0-d tensor for a constant operator, the
-    full grid (interior value, region-table value on the low
-    faces/edges/corner) for a cornered one."""
+    full grid for a varying one and for a cornered one (interior value,
+    region-table value on the low faces/edges/corner)."""
     di = diag_index(op.offsets)
     if isinstance(op, CorneredOperator):
         d = torch.zeros(op.shape, dtype=op.dtype, device=op.device) + op.values[di]
@@ -87,9 +93,45 @@ def rbgs(op, inv_diag, b, x, iterations: int):
     return x
 
 
+def _smooth_kernel(name, op, b, x, iterations, omega):
+    """``smooth`` through the kernels, or raise: nothing here is plain
+    tensor code."""
+    from openmg_tpu_torch.ops import fused, kernels
+
+    if name == "chebyshev":
+        raise NotImplementedError(
+            "the chebyshev smoother is not ported (ROADMAP queue 1, item 15)"
+        )
+    if name not in ("jacobi", "rbgs"):
+        raise ValueError(f"unknown smoother {name!r}")
+    why = _stencil.kernel_operands_ok(op, x)
+    if why is not None:
+        raise NotImplementedError(
+            f"smooth on {b.device}: {why} is not taken by the smoother "
+            "kernels, and plain tensor code does not run on the card"
+        )
+    if isinstance(op, CorneredOperator) or op.is_constant:
+        y = fused.smooth_fused(name, op, b, x, iterations, omega)
+        if y is not None:
+            return y
+        corner = fused._corner_info(op)
+        if name == "jacobi":
+            return kernels.jacobi_const_3d(
+                op.values, op.offsets, b, x, iterations, omega, corner=corner
+            )
+        return kernels.rbgs_const_3d(
+            op.values, op.offsets, b, x, iterations, corner=corner
+        )
+    if name == "jacobi":
+        return kernels.jacobi_vary_3d(op.coeffs, op.offsets, b, x, iterations, omega)
+    return kernels.rbgs_vary_3d(op.coeffs, op.offsets, b, x, iterations)
+
+
 def smooth(name: str, op, inv_diag, b, x, iterations: int, omega: float):
     if iterations <= 0:
         return x
+    if not _stencil._on_cpu(b):
+        return _smooth_kernel(name, op, b, x, iterations, omega)
     if name == "jacobi":
         return jacobi(op, inv_diag, b, x, iterations, omega)
     if name == "rbgs":

@@ -8,10 +8,13 @@ gather, no index traffic.
 Ported here: :class:`StencilOperator` (constant and varying storage),
 :class:`CorneredOperator` (the O(K) exact form of the linear-transfer
 Galerkin levels), ``region_table``, ``diag_index``, ``shift``, ``apply``
-and ``residual``.  These are plain tensor code.  On the card the V-cycle
-does not call them: each level visit goes through the hand-written kernel
-of :mod:`openmg_tpu_torch.ops.fused`, which evaluates the same operator
-definition per point.  ``FacedStencilOperator`` waits for a later slice.
+and ``residual``.  ``apply`` is plain tensor code on any device, as it is
+array code outside any kernel in the JAX package.  ``residual`` dispatches
+on the device of ``b``: CPU tensors take the plain tensor code below; CUDA
+float32 operands of a radius-1 3D (or lifted 2D) operator go to the
+per-pass kernel of :mod:`openmg_tpu_torch.ops.kernels` (constant and
+cornered taps, or per-point coefficient grids); any other case on the card
+raises.  ``FacedStencilOperator`` waits for a later slice.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ __all__ = [
     "shift",
     "apply",
     "residual",
+    "kernel_operands_ok",
+    "kernel_taps_ok",
     "diag_index",
     "region_table",
 ]
@@ -319,8 +324,55 @@ def apply(op, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def kernel_taps_ok(offsets):
+    """None if the per-pass kernel takes these taps, else the reason it does
+    not: the one statement on the Python side of what the kernel reads (the
+    CUDA source's own check is the last guard)."""
+    if len(offsets) > 27 or any(abs(o) > 1 for off in offsets for o in off):
+        return "a stencil of radius > 1 or of more than 27 taps"
+    return None
+
+
+def kernel_operands_ok(op, x: torch.Tensor):
+    """None if the per-pass kernel takes ``op`` on ``x``, else the reason it
+    does not (used where a CUDA tensor must reach a kernel or raise)."""
+    if x.dtype != torch.float32 or op.dtype != torch.float32:
+        return f"{x.dtype} operands with a {op.dtype} operator (float32 only)"
+    if x.ndim not in (2, 3) or op.ndim != x.ndim:
+        return f"a {x.ndim}D grid with a {op.ndim}D operator (2D and 3D only)"
+    if isinstance(op, CorneredOperator) and x.ndim != 3:
+        return "a cornered 2D operator"
+    return kernel_taps_ok(op.offsets)
+
+
+def _residual_kernel(op, b, x):
+    """``b − A x`` through the per-pass kernel (one launch), or raise."""
+    from openmg_tpu_torch.ops import kernels
+
+    why = kernel_operands_ok(op, x)
+    if why is not None:
+        raise NotImplementedError(
+            f"residual on {b.device}: {why} is not taken by the per-pass "
+            "kernel, and plain tensor code does not run on the card"
+        )
+    if isinstance(op, CorneredOperator):
+        return kernels.residual_const_3d(
+            op.values, op.offsets, b, x, corner=(op.regions, op.table)
+        )
+    if op.is_constant:
+        return kernels.residual_const_3d(op.values, op.offsets, b, x)
+    return kernels.residual_vary_3d(op.coeffs, op.offsets, b, x)
+
+
 def residual(op, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``r = b − A x``."""
+    """``r = b − A x``: plain tensor code for CPU tensors, the per-pass
+    kernel for any other device (see the module docstring)."""
+    if not _on_cpu(b):
+        return _residual_kernel(op, b, x)
     if isinstance(op, CorneredOperator):
         r = b - apply(op.const_op, x)
         tbl = op.table

@@ -20,8 +20,10 @@ never coarsened.
 Only the strided-slice form is ported: on grid-shaped tensors the products
 are parity slices and interleaves.  (The JAX package's tap-matrix matmul
 form exists for its own hardware's layout rules and is not copied.)  On
-the main path these functions are not called on the card at all: the fused
-kernel of :mod:`openmg_tpu_torch.ops.fused` applies the same taps itself.
+constant and cornered levels these functions are not called on the card at
+all: the fused kernel of :mod:`openmg_tpu_torch.ops.fused` applies the same
+taps itself.  On varying levels the V-cycle calls them on any device, as
+the JAX package runs them as array code outside any kernel there.
 """
 
 from __future__ import annotations

@@ -12,19 +12,24 @@ numpy and the port.
     {
       "transfer": "linear" | "aggregate",
       "levels": [            # finest first
-        {"kind": "const" | "cornered",
+        {"kind": "const" | "cornered" | "varying",
          "offsets": ((0,0,0), ...), "shape": (nz, ny, nx),
-         "values": (K,) array,
+         "values": (K,) array,             # const, cornered
          # cornered only:
-         "deltas": (n_subsets, K) array, "subsets": ((0,), (1,), ...)},
+         "deltas": (n_subsets, K) array, "subsets": ((0,), (1,), ...),
+         # varying only:
+         "coeffs": (K, nz, ny, nx) array},
         ...
       ],
       "coarse_inv": (nc, nc) array,
       "stats": ((shape, n_offsets, nnz), ...),   # optional
+      # optional: the double-float fine operator, each {"offsets", "shape",
+      # and "values" or "coeffs"}
+      "fine_hi": {...}, "fine_hi_lo": {...},
     }
 
-The double-float fine operator is the first level's ``values`` (hi) with a
-zero lo part: the ported outer loop takes dyadic constant fine operators.
+Without ``fine_hi`` the double-float fine operator is the first level's
+``values`` (hi) with a zero lo part, which needs a constant first level.
 """
 
 from __future__ import annotations
@@ -50,35 +55,48 @@ def hierarchy_from_numpy(spec: dict, device) -> Hierarchy:
         a = np.array(a, dtype=np.float32)  # a writable, contiguous copy
         return torch.from_numpy(a).to(device)
 
+    def plain_op(d):
+        offsets = tuple(tuple(int(o) for o in off) for off in d["offsets"])
+        if d.get("coeffs") is not None:
+            return StencilOperator(put(d["coeffs"]), offsets)
+        shape = tuple(int(s) for s in d["shape"])
+        return StencilOperator(None, offsets, put(d["values"]), shape)
+
     levels, stats = [], []
     for lv in spec["levels"]:
-        offsets = tuple(tuple(int(o) for o in off) for off in lv["offsets"])
-        shape = tuple(int(s) for s in lv["shape"])
-        values = np.asarray(lv["values"], dtype=np.float32)
-        if lv["kind"] == "const":
-            op = StencilOperator(None, offsets, put(values), shape)
-        elif lv["kind"] == "cornered":
+        kind = lv["kind"]
+        if kind in ("const", "varying"):
+            op = plain_op(lv)
+        elif kind == "cornered":
             op = CorneredOperator(
-                values=put(values),
+                values=put(lv["values"]),
                 deltas=put(lv["deltas"]),
-                offsets=offsets,
-                shape=shape,
+                offsets=tuple(tuple(int(o) for o in off) for off in lv["offsets"]),
+                shape=tuple(int(s) for s in lv["shape"]),
                 subsets=tuple(tuple(int(a) for a in S) for S in lv["subsets"]),
             )
         else:
             raise NotImplementedError(
-                f"level kind {lv['kind']!r} is not ported (ROADMAP queue 1, "
-                "items 15-16)"
+                f"level kind {kind!r} is not ported (ROADMAP queue 1, item 15)"
             )
-        inv_diag = put(np.float32(1.0) / values[diag_index(offsets)])
-        levels.append(Level(A=op, inv_diag=inv_diag))
-        stats.append((shape, len(offsets), None))
-    fine = levels[0].A
-    if not fine.is_constant:
-        raise ValueError("the fine level must be a constant operator")
-    fine_lo = StencilOperator(
-        None, fine.offsets, put(np.zeros(len(fine.offsets))), fine.grid_shape
-    )
+        di = diag_index(op.offsets)
+        diag = np.asarray(
+            lv["coeffs"][di] if kind == "varying" else lv["values"][di],
+            dtype=np.float32,
+        )
+        levels.append(Level(A=op, inv_diag=put(np.float32(1.0) / diag)))
+        stats.append((op.grid_shape, len(op.offsets), None))
+    if spec.get("fine_hi") is not None:
+        fine, fine_lo = plain_op(spec["fine_hi"]), plain_op(spec["fine_hi_lo"])
+    else:
+        fine = levels[0].A
+        if not fine.is_constant:
+            raise ValueError(
+                "without 'fine_hi' the fine level must be a constant operator"
+            )
+        fine_lo = StencilOperator(
+            None, fine.offsets, put(np.zeros(len(fine.offsets))), fine.grid_shape
+        )
     return Hierarchy(
         levels=tuple(levels),
         coarse_inv=put(spec["coarse_inv"]),

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Where a solve of the PyTorch/CUDA port spends its time, by kernel.
 
-    python3 scripts/profile_torch_solve.py [--n 256] [--out DIR]
+    python3 scripts/profile_torch_solve.py [--problem poisson|diffusion]
+                                           [--n 256] [--out DIR]
 
-Sets up the 3D Poisson n³ solve of ``chip_smoke.py`` (V(2,2) red-black,
-linear transfers, double-float outer loop, dense coarsest level of at most
-4096 points), runs it once to warm up, then once under ``torch.profiler``
-and prints one JSON line: the solve's wall time, the device time summed by
-kernel name, the device's busy and idle share of the solve, and the host
-time of the outer loop.  With ``--out`` the Chrome trace is written there.
-Needs a CUDA device; fails without one.
+Sets up an n³ solve of ``chip_smoke.py`` (V(2,2) red-black, linear
+transfers, double-float outer loop, dense coarsest level of at most 4096
+points): ``poisson`` from the grid shape (fused level visits, the
+double-float update kernel), or ``diffusion`` from the stencil pair of a
+random medium (per-pass kernel on varying levels, the general double-float
+residual in tensor code).  Runs it once to warm up, then once under
+``torch.profiler`` and prints one JSON line: the card's name and power
+limit, the solve's wall time, the device time summed by kernel name, and
+the device's busy and idle share of the solve.  With ``--out`` the Chrome
+trace is written there.  Needs a CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -28,6 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--problem", choices=("poisson", "diffusion"), default="poisson")
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
@@ -42,7 +48,16 @@ def main():
         smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
         max_dense_coarse=4096, cycles=60,
     )
-    solver = mg.setup(shape, cfg)
+    if args.problem == "diffusion":
+        kappa = 0.5 + np.random.default_rng(12).random(shape)
+        problem = mg.diffusion_stencil(kappa)
+    else:
+        problem = shape
+    t0 = time.perf_counter()
+    solver = mg.setup(problem, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    del problem
     bnp = mg.rhs_random(shape, seed=1)
     bnp /= np.linalg.norm(bnp.ravel())
     b = torch.from_numpy(bnp.astype(np.float32)).cuda()
@@ -63,20 +78,31 @@ def main():
         dev_us = getattr(ev, "self_device_time_total", 0) or getattr(
             ev, "self_cuda_time_total", 0)
         if dev_us > 0 and str(ev.device_type).endswith("CUDA"):
-            by_kernel[ev.key] = {"ms": dev_us / 1e3, "count": ev.count}
+            # names are cut to 70 characters; kernels that then share a name
+            # (PyTorch's elementwise kernels by functor) are summed
+            row = by_kernel.setdefault(ev.key[:70], {"ms": 0.0, "count": 0})
+            row["ms"] += dev_us / 1e3
+            row["count"] += ev.count
     busy = sum(v["ms"] for v in by_kernel.values())
-    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]["ms"])[:12])
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]["ms"])[:16])
     if args.out:
         os.makedirs(args.out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.out, f"solve_{args.n}.json"))
+        prof.export_chrome_trace(
+            os.path.join(args.out, f"solve_{args.problem}_{args.n}.json"))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, text=True, check=True,
+    ).stdout.strip()
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
-        "shape": list(shape), "cycles": info["cycles"],
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "problem": args.problem,
+        "shape": list(shape), "cycles": info["cycles"], "setup_s": setup_s,
+        "launches_profiled": sum(v["count"] for v in by_kernel.values()),
         "solve_ms_unprofiled": wall_unprofiled * 1e3,
         "solve_ms_profiled": wall * 1e3,
         "device_busy_ms": busy,
         "device_idle_share_of_profiled_solve": max(0.0, 1.0 - busy / (wall * 1e3)),
-        "kernels": {k[:70]: v for k, v in top.items()},
+        "kernels": top,
     }))
 
 

@@ -76,6 +76,16 @@ def port_op(op, device="cpu"):
     return StencilOperator(None, offsets, to_t(op.values).to(device), shape)
 
 
+def _op_spec(A):
+    """A plain (constant or varying) JAX-package operator as numpy."""
+    d = {"offsets": tuple(A.offsets), "shape": tuple(A.grid_shape)}
+    if A.is_constant:
+        d["values"] = np.asarray(A.values)
+    else:
+        d["coeffs"] = np.asarray(A.coeffs)
+    return d
+
+
 def spec_from_jax_hierarchy(h):
     """Plain-numpy ``spec`` of a JAX-package hierarchy, in the layout of
     ``openmg_tpu_torch.utils.convert.hierarchy_from_numpy``."""
@@ -84,19 +94,25 @@ def spec_from_jax_hierarchy(h):
     levels = []
     for L in h.levels:
         A = L.A
-        lv = {
-            "kind": "cornered" if isinstance(A, JC) else "const",
-            "offsets": tuple(A.offsets),
-            "shape": tuple(A.grid_shape),
-            "values": np.asarray(A.values),
-        }
         if isinstance(A, JC):
-            lv["deltas"] = np.asarray(A.deltas)
-            lv["subsets"] = tuple(A.subsets)
+            lv = {
+                "kind": "cornered",
+                "offsets": tuple(A.offsets),
+                "shape": tuple(A.grid_shape),
+                "values": np.asarray(A.values),
+                "deltas": np.asarray(A.deltas),
+                "subsets": tuple(A.subsets),
+            }
+        else:
+            lv = {"kind": "const" if A.is_constant else "varying", **_op_spec(A)}
         levels.append(lv)
-    return {
+    spec = {
         "transfer": h.transfer.name,
         "levels": levels,
         "coarse_inv": np.asarray(h.coarse_inv),
         "stats": tuple(h.stats),
     }
+    if h.fine_hi_lo is not None:
+        spec["fine_hi"] = _op_spec(h.fine_hi)
+        spec["fine_hi_lo"] = _op_spec(h.fine_hi_lo)
+    return spec

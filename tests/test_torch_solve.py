@@ -201,9 +201,6 @@ STUB_CONFIGS = [
     dict(cycle_type="w"),
     dict(cycle_type="f"),
     dict(smoother="chebyshev"),
-    dict(residual_dtype="float64"),
-    dict(residual_dtype="float32"),
-    dict(residual_dtype=None),
     dict(dtype="float64"),
 ]
 
@@ -213,6 +210,41 @@ def test_unported_configurations_raise(kw):
     cfg = tmg.SolverConfig(**{**dict(gridlevels=2, max_dense_coarse=64), **kw})
     with pytest.raises(NotImplementedError):
         tmg.setup((4, 4, 8), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("rdtype", ["float64", "float32", None])
+def test_plain_residual_configurations_set_up(rdtype):
+    """The plain residual modes keep one fine operator in that type (None:
+    the cycle's float32) and no lo part."""
+    cfg = tmg.SolverConfig(gridlevels=2, max_dense_coarse=64, residual_dtype=rdtype)
+    solver = tmg.setup((4, 4, 8), cfg, device="cpu")
+    want = torch.float64 if rdtype == "float64" else torch.float32
+    assert solver.residual_mode == want
+    assert solver.hierarchy.fine_hi.dtype == want and solver.hierarchy.fine_hi_lo is None
+    with pytest.raises(ValueError, match="residual_dtype"):
+        tmg.setup((4, 4, 8), tmg.SolverConfig(residual_dtype="bfloat16"), device="cpu")
+
+
+def test_float32_residual_solve_follows_the_reference_history(reference):
+    """The (32,32,64) solve with a float32 outer residual, to a threshold
+    that residual can reach: above its rounding floor the history does not
+    depend on the residual's precision, so it follows the reference's
+    double-float history cycle for cycle and stops at the first entry below
+    the threshold."""
+    threshold = 1e-5
+    ref = reference[2]["residual_norms"]
+    want_cycles = next(k for k, r in enumerate(ref) if r < threshold)
+    cfg = tmg.SolverConfig(**{**CFG_KW, "residual_dtype": "float32",
+                              "threshold": threshold})
+    x, info = tmg.setup(SHAPE, cfg, device="cpu").solve(_rhs())
+    assert info["converged"] and info["residual_mode"] == "float32"
+    assert info["cycles"] == want_cycles == 4
+    for a, r in zip(info["residual_norms"], ref):
+        # the last entry sits near the float32 rounding floor
+        bound = 1.1 if r >= threshold else 1.5
+        assert r / bound <= a <= r * bound
+    res = _rhs().ravel() - tmg.poisson(SHAPE) @ x.ravel()
+    assert np.linalg.norm(res) < 1.5 * threshold
 
 
 def test_unported_entry_points_raise(port):
@@ -238,16 +270,40 @@ def test_unported_entry_points_raise(port):
         tcycle.pcg_solve(h, r)
     with pytest.raises(NotImplementedError):
         tcycle.fmg_cycle(h, r)
+    # a matrix that has no bounded stencil form waits for the sparse engine
     with pytest.raises(NotImplementedError):
-        tmg.mg_solve(sp.identity(64, format="csr"), np.ones(64),
+        tmg.mg_solve(sp.csr_matrix(np.ones((64, 64))), np.ones(64),
                      {"problemshape": (4, 4, 4)}, device="cpu")
     with pytest.raises(NotImplementedError):
         tmg.mg_solve(None, np.ones(64), {"problemshape": (4, 4, 4), "format": "ell"},
                      device="cpu")
-    with pytest.raises(NotImplementedError):
-        tmg.setup(tmg.poisson_stencil((4, 4, 4)), device="cpu")
     with pytest.raises(ValueError):
         tmg.mg_solve(None, np.ones(64), {}, device="cpu")
+
+
+def test_stencil_pair_and_matrix_entry_points_work():
+    """What used to be refused: ``setup`` from an ``(offsets, coeffs)`` pair
+    and ``mg_solve`` with a matrix give the grid-shape solve's answer."""
+    import scipy.sparse as sp
+
+    shape = (4, 4, 8)
+    cfg = tmg.SolverConfig(gridlevels=2, max_dense_coarse=64)
+    b = tmg.rhs_random(shape, seed=5)
+    x_shape, i_shape = tmg.solve(shape, b, cfg, device="cpu")
+    x_pair, i_pair = tmg.solve(tmg.poisson_stencil(shape), b, cfg, device="cpu")
+    assert i_pair["converged"] and i_pair["cycles"] == i_shape["cycles"]
+    np.testing.assert_allclose(x_pair, x_shape, rtol=0, atol=1e-9)
+    x_mat, i_mat = tmg.mg_solve(
+        tmg.poisson(shape), b, {"problemshape": shape, "gridlevels": 2,
+                                "max_dense_coarse": 64}, device="cpu")
+    assert i_mat["converged"]
+    # the extracted stencil lists its offsets in another order
+    np.testing.assert_allclose(x_mat, x_pair.ravel(), rtol=0, atol=1e-9)
+    xi, ii = tmg.mg_solve(sp.identity(128, format="csr"), b.ravel(),
+                          {"problemshape": shape, "gridlevels": 2,
+                           "max_dense_coarse": 64}, device="cpu")
+    assert ii["converged"]
+    np.testing.assert_allclose(xi, b.ravel(), rtol=0, atol=1e-9)
 
 
 @pytest.mark.parametrize("shape", [(32, 32), (64,)])
@@ -291,20 +347,39 @@ def test_v_cycle_without_pre_or_post_sweeps(port, monkeypatch, pre, post):
 
 
 def test_card_refuses_what_the_kernel_does_not_take(port, monkeypatch):
-    """Where a fused entry point declines a visit, only CPU tensors take the
-    composed plain path: on any other device the cycle raises."""
-    from openmg_tpu_torch.ops import fused
+    """Where a fused entry point declines a visit, the visit is composed of
+    ``smooth`` and ``residual``.  Off the CPU those go to the per-pass
+    kernel's entry points, never to the plain tensor code, and refuse what
+    that kernel does not take (a float64 cycle)."""
+    from openmg_tpu_torch.ops import fused, kernels, smoothers, stencil
 
     h = port[0].hierarchy
     r = to_t(rand(SHAPE, 6))
+    want = tcycle.v_cycle(h, r, None, x_zero=True)
     for name in ("presmooth_restrict_fused", "prolong_smooth_fused"):
         with monkeypatch.context() as m:
             m.setattr(fused, name, lambda *a, **k: None)
-            want = tcycle.v_cycle(h, r, None, x_zero=True)  # CPU: composed
-            assert torch.isfinite(want).all()
-            m.setattr(tcycle, "_on_cpu", lambda t: False)
-            with pytest.raises(NotImplementedError, match="K3"):
-                tcycle.v_cycle(h, r, None, x_zero=True)
+            m.setattr(fused, "smooth_fused", lambda *a, **k: None)
+            m.setattr(fused, "residual_restrict_fused", lambda *a, **k: None)
+            composed = tcycle.v_cycle(h, r, None, x_zero=True)  # CPU: plain
+            assert_close(composed, want, factor=5e-6)
+            m.setattr(stencil, "_on_cpu", lambda t: False)
+            for plain in ("jacobi", "rbgs"):
+                m.setattr(smoothers, plain,
+                          lambda *a, **k: pytest.fail("plain smoother off the CPU"))
+            passes = []
+            real = kernels._half_sweep
+
+            def counted(*a, **k):
+                passes.append(k["mode"])
+                return real(*a, **k)
+
+            m.setattr(kernels, "_half_sweep", counted)
+            got = tcycle.v_cycle(h, r, None, x_zero=True)
+            assert passes and set(passes) <= {"rbgs", "residual"}
+            assert_close(got, want, factor=5e-6)
+            with pytest.raises(NotImplementedError, match="float32"):
+                tcycle.v_cycle(h, r.double(), None, x_zero=True)
 
 
 @pytest.mark.parametrize("kind", ["faced", "varying"])
