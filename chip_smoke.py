@@ -19,17 +19,38 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                from a float32 tensor on the card, checked in float64 on the
                host; a small solve against the same solve run on the CPU;
                a numpy-float64 solve through ``mg_solve``; a V(2,0) cycle
-               against the CPU; and two cases the kernel does not take,
-               which the card must refuse instead of running plain tensor
-               code;
-5. ``sweeps``  as ``kernels``, for the per-pass kernel with constant or
+               against the CPU; and a float64 cycle, which the card must
+               refuse instead of running plain tensor code;
+5. ``fused2d`` holds the whole-visit 2D stage fusion (K5) against its plain
+               version on the card in every mode the V-cycle uses (down-leg
+               with restriction, up-leg with prolongation, stages on x, zero
+               start with the residual; red/black and Jacobi) on the
+               constant 4096² level and the cornered 2048² and 128² levels
+               of the 4096² hierarchy, at (200,328) and (100,164), and
+               without transfers at (37,91); times it at 4096² and 2048²
+               with ``F.conv2d`` beside the residual mode as a yardstick
+               (the port never calls it); K2 on a 4096² grid (the lift to
+               (1, ny, nx)) bit for bit; K3's residual on the cornered
+               2048² level against the CPU;
+6. ``solve_2d`` the 2D Poisson 4096² solve (seven levels, V(2,2) red-black,
+               linear transfers, double-float outer loop: two K5 launches a
+               visited level and one K2 launch a cycle, nothing else),
+               checked in float64 on the host; BASELINE config 2 (256²,
+               five levels) on the card against the CPU; ``mg_solve`` with
+               the scipy matrix of a 512² Poisson problem (K5 + K2 on the
+               constant fine level, K4 lifted on the varying coarse ones);
+               a (256,512) diffusion stencil pair against the CPU; a 1024²
+               solve with a float32 outer residual; ``residual`` /
+               ``smooth`` with CUDA tensors on a cornered 2D operator; and a
+               1D ``setup``, which the card must refuse;
+7. ``sweeps``  as ``kernels``, for the per-pass kernel with constant or
                cornered taps (K3) and with per-point coefficient grids (K4,
                on the diffusion hierarchy set up just before it): Jacobi,
                both red/black colours and the residual, at 256³ with 7
                taps, at 128³ with 27 taps, at (20,36,72) and on a 2D
                operand lifted to (1, ny, nx); ``F.conv3d`` is timed beside
                K3's residual as a yardstick (the port never calls it);
-6. ``solve_vary`` the 256³ variable-coefficient diffusion solve from a
+8. ``solve_vary`` the 256³ variable-coefficient diffusion solve from a
                stencil pair (host Galerkin chain, four varying levels, every
                level visit composed of K4 passes, the general double-float
                residual), checked in float64 on the host; the (32,32,64)
@@ -51,8 +72,11 @@ divide where the plain version divides too — a few ulp.  K2
 (``df_update_residual_const_3d``): ``x_hi'``, ``x_lo'``, ``r_hi`` equal bit
 for bit; the partial sums' total within 1e-6 relative of ``sum(r_hi²)``.
 K3 and K4 (one pass of ``csrc/half_sweep.cu``) against ``half_sweep_plain``
-/ ``half_sweep_vary_plain``: 2e-6 · max|ref| for an iterate, 2e-6 · max|b|
-for a residual, for the same reason as K1.
+/ ``half_sweep_vary_plain``, and K5 (``fused_stages_2d``) against
+``fused_stages_2d_plain``: 2e-6 · max|ref| for an iterate, 2e-6 · max|b|
+for a residual, for the same reason as K1.  Two converged solves of one
+system (card and CPU) are held to ‖Δx‖₂ ≤ 2e-10/λ_min: both are within the
+threshold of one exact solution.
 
 ``bound_ms`` is the least time the card could take: the larger of the bytes
 that must move (each input read once, each output written once) over
@@ -84,6 +108,9 @@ OMEGA = 2.0 / 3.0
 # float32 outer residual: the threshold a float32 residual can reach with
 # ‖b‖₂ = 1 (its rounding floor is about eps·‖A‖·‖x‖, a few 1e-6 here)
 F32_THRESHOLD = 1e-5
+# ... and for the 1024² 2D Poisson solve, whose float32 residual stalls at
+# about 1.15e-5 (the plain version on the CPU, seed 5)
+F32_THRESHOLD_2D = 2e-5
 BIG = (256, 256, 256)  # the full-width grid of every phase
 DIFFUSION_CFG = dict(
     smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
@@ -132,6 +159,41 @@ def time_ms(fn, reps, warm=2):
 def randn(shape, seed, dev, scale=1.0):
     a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
     return torch.from_numpy(a * np.float32(scale)).to(dev)
+
+
+def check_outputs(what, outs, got, ref, b):
+    """Hold each output of a fused call against the plain version's:
+    K1_TOL · max|ref| for an iterate ``x``, K1_TOL · max|b| for a residual
+    or restricted residual ``r``.  Returns (largest error, errors by
+    output)."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    worst, errs = 0.0, {}
+    for name, g, r in zip(outs, got, ref):
+        if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+            fail(f"{what}: bad output {name}")
+        err = float((g - r).abs().max())
+        scale = float((b if name == "r" else r).abs().max())
+        errs[name] = {"max_abs_err": err, "max_ref": float(r.abs().max()),
+                      "tolerance": K1_TOL * scale}
+        worst = max(worst, err)
+        if err > K1_TOL * scale:
+            fail(f"{what} {name}: err {err:.3e} > {K1_TOL * scale:.3e}")
+    return worst, errs
+
+
+def timings(run, run_plain, nbytes, flops, copy_bw, reps, plain_reps=3):
+    """The kernel's and the plain version's median ms, and the bound: the
+    larger of the bytes over the memory rate and the operations over the
+    float32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return dict(
+        ms=time_ms(run, reps), plain_ms=time_ms(run_plain, plain_reps, warm=1),
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_ms_copy_bw=nbytes / copy_bw * 1e3, bytes=nbytes, flops=flops,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +301,12 @@ def k1_bound(mode, n, nc, K):
     return 4 * 3 * n, 4 * stage_rb + resid
 
 
+def k2_bound(n, terms, emit_norm):
+    """(bytes, flops) of K2 at n points: five arrays read, three written."""
+    nterms = sum(len(t) for t in terms)
+    return 32 * n, n * (8 + 13 * nterms + (2 if emit_norm else 0))
+
+
 def phase_kernels(dev, copy_bw):
     import openmg_tpu_torch as mg
     from openmg_tpu_torch.ops import doublefloat as df
@@ -295,41 +363,17 @@ def phase_kernels(dev, copy_bw):
             torch.cuda.synchronize()
             ref = call(fused.fused_stages_const_3d_plain, b, xin)
             torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            ref = ref if isinstance(ref, tuple) else (ref,)
-            worst = 0.0
-            errs = {}
-            for name, g, r in zip(outs, got, ref):
-                if g.shape != r.shape or not bool(torch.isfinite(g).all()):
-                    fail(f"K1 {mode} {shape}: bad output {name}")
-                err = float((g - r).abs().max())
-                scale = float((b if name == "r" else r).abs().max())
-                errs[name] = {
-                    "max_abs_err": err, "max_ref": float(r.abs().max()),
-                    "tolerance": K1_TOL * scale,
-                }
-                worst = max(worst, err)
-                if err > K1_TOL * scale:
-                    fail(f"K1 {mode} {kind} {shape} {name}: err {err:.3e} "
-                         f"> {K1_TOL * scale:.3e}")
+            worst, errs = check_outputs(f"K1 {mode} {kind} {shape}", outs, got, ref, b)
             del got, ref
             row = {"level": tag, "kind": kind, "shape": list(shape),
                    "taps": len(op.offsets), "mode": mode, "errors": errs,
                    "max_abs_err": worst}
             if tag == "main":
-                nbytes, flops = k1_bound(mode, n, nc, len(op.offsets))
-                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-                t_ops = flops / PEAK_F32_FLOPS * 1e3
-                row.update(
-                    ms=time_ms(lambda: call(fused.fused_stages_const_3d, b, xin), reps),
-                    plain_ms=time_ms(
-                        lambda: call(fused.fused_stages_const_3d_plain, b, xin),
-                        plain_reps, warm=1),
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    bound_ms_copy_bw=nbytes / copy_bw * 1e3,
-                    bytes=nbytes, flops=flops,
-                )
+                row.update(timings(
+                    lambda: call(fused.fused_stages_const_3d, b, xin),
+                    lambda: call(fused.fused_stages_const_3d_plain, b, xin),
+                    *k1_bound(mode, n, nc, len(op.offsets)), copy_bw, reps,
+                    plain_reps))
             rows.append(row)
         del b, x, ec
         torch.cuda.empty_cache()
@@ -381,23 +425,12 @@ def phase_kernels(dev, copy_bw):
                 row.update(norm_rel_err=rel, partials=int(got[3].numel()))
             del got, ref
             if tag == "main":
-                nterms = sum(len(t) for t in terms)
-                nbytes = 32 * n
-                flops = n * (8 + 13 * nterms + (2 if emit_norm else 0))
-                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-                t_ops = flops / PEAK_F32_FLOPS * 1e3
-                row.update(
-                    ms=time_ms(lambda: kernels.df_update_residual_const_3d(
-                        offs, terms, xh, xl, e, bh, bl, emit_norm=emit_norm), reps),
-                    plain_ms=time_ms(
-                        lambda: kernels.df_update_residual_const_3d_plain(
-                            offs, terms, xh, xl, e, bh, bl, emit_norm=emit_norm),
-                        plain_reps, warm=1),
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    bound_ms_copy_bw=nbytes / copy_bw * 1e3,
-                    bytes=nbytes, flops=flops,
-                )
+                row.update(timings(
+                    lambda: kernels.df_update_residual_const_3d(
+                        offs, terms, xh, xl, e, bh, bl, emit_norm=emit_norm),
+                    lambda: kernels.df_update_residual_const_3d_plain(
+                        offs, terms, xh, xl, e, bh, bl, emit_norm=emit_norm),
+                    *k2_bound(n, terms, emit_norm), copy_bw, reps, plain_reps))
             k2_rows.append(row)
         del xh, xl, bh, bl, e
         torch.cuda.empty_cache()
@@ -412,12 +445,13 @@ def phase_kernels(dev, copy_bw):
 
 
 def residual_norm_host(b64, x64):
-    """‖b − A x‖₂ of the 7-point Poisson operator in float64 (numpy shifts,
-    no matrix)."""
-    ax = 6.0 * x64
-    for axis in range(3):
-        lo = [slice(None)] * 3
-        hi = [slice(None)] * 3
+    """‖b − A x‖₂ of the (2d+1)-point Poisson operator in float64 (numpy
+    shifts, no matrix)."""
+    d = x64.ndim
+    ax = 2.0 * d * x64
+    for axis in range(d):
+        lo = [slice(None)] * d
+        hi = [slice(None)] * d
         lo[axis] = slice(0, -1)
         hi[axis] = slice(1, None)
         ax[tuple(lo)] -= x64[tuple(hi)]
@@ -446,19 +480,20 @@ def phase_solve(dev):
     b = torch.from_numpy(bnp.astype(np.float32)).to(dev)
 
     # the main path, with the launch counts read around it
-    fused.LAUNCHES = 0
-    kernels.LAUNCHES = 0
+    zero_counts()
     x, info = solver.solve(b)
     torch.cuda.synchronize()
-    k1, k2 = fused.LAUNCHES, kernels.LAUNCHES
+    main_counts = counts()
+    k1, k2 = main_counts["K1"], main_counts["K2"]
     cycles = info["cycles"]
     visits = 2 * (solver.hierarchy.num_levels - 1)
     if not info["converged"] or not info["final_norm"] < 1e-10:
         fail(f"solve did not converge: {info['residual_norms']}")
     if cycles > 9:
         fail(f"solve took {cycles} cycles (> 9)")
-    if k1 != visits * cycles or k2 != cycles or cycles == 0:
-        fail(f"launch counts K1={k1} K2={k2} for {cycles} cycles, "
+    if cycles == 0 or main_counts != {"K1": visits * cycles, "K2": cycles,
+                                      "K3": 0, "K4": 0, "K5": 0}:
+        fail(f"launch counts {main_counts} for {cycles} cycles, "
              f"{visits} level visits each")
     if not (isinstance(x, torch.Tensor) and x.dtype == torch.float32
             and x.is_cuda and tuple(x.shape) == shape):
@@ -527,11 +562,9 @@ def phase_solve(dev):
              f"(tolerance {v20_tol:.3e})")
 
     # what the kernel does not take is refused on the card, never run as
-    # plain tensor code: a 2D grid by setup, a float64 right-hand side by
-    # the cycle
+    # plain tensor code: a float64 right-hand side by the cycle
     refused = []
     for what, call in (
-        ("2D grid", lambda: mg.setup((64, 64), scfg, device=dev)),
         ("float64 cycle", lambda: v_cycle(hg, rs.double(), None, x_zero=True)),
     ):
         try:
@@ -593,18 +626,21 @@ def sweep_bound(n, offsets, vary, mode):
     return nbytes, (n // 2) * (2 * K + 1), full
 
 
-def conv3d_ms(op, x, reps):
-    """Milliseconds of ``A x`` as one library call (cuDNN in full float32)
-    for a constant operator: the yardstick beside K3's residual."""
-    w = torch.zeros((1, 1, 3, 3, 3), dtype=torch.float32, device=x.device)
-    for k, (dz, dy, dx) in enumerate(op.offsets):
-        w[0, 0, dz + 1, dy + 1, dx + 1] = op.values[k]
+def conv_ms(op, x, reps):
+    """Milliseconds of ``A x`` as one library call (cuDNN in full float32,
+    ``F.conv3d`` or ``F.conv2d`` by the grid's rank) for a constant
+    operator: the yardstick beside K3's and K5's residual; the port never
+    calls it."""
+    conv = F.conv3d if x.ndim == 3 else F.conv2d
+    w = torch.zeros((1, 1) + (3,) * x.ndim, dtype=torch.float32, device=x.device)
+    for k, off in enumerate(op.offsets):
+        w[(0, 0) + tuple(o + 1 for o in off)] = op.values[k]
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        x5 = x[None, None]
-        got = F.conv3d(x5, w, padding=1)[0, 0]
-        ms = time_ms(lambda: F.conv3d(x5, w, padding=1), reps)
+        xn = x[None, None]
+        got = conv(xn, w, padding=1)[0, 0]
+        ms = time_ms(lambda: conv(xn, w, padding=1), reps)
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     return ms, got
@@ -701,22 +737,15 @@ def phase_sweeps(dev, copy_bw, h_vary):
             del got
             if timed:
                 nbytes, flops, sectors = sweep_bound(n, op.offsets, vary, mode)
-                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-                t_ops = flops / PEAK_F32_FLOPS * 1e3
-                row.update(
-                    ms=time_ms(lambda: run(b, x), reps),
-                    plain_ms=time_ms(
-                        lambda: plain(coef, op.offsets, b, x, mode, OMEGA,
-                                      color, **kw), plain_reps, warm=1),
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    bound_ms_copy_bw=nbytes / copy_bw * 1e3,
+                row.update(timings(
+                    lambda: run(b, x),
+                    lambda: plain(coef, op.offsets, b, x, mode, OMEGA, color, **kw),
+                    nbytes, flops, copy_bw, reps, plain_reps),
                     bound_ms_sectors=sectors / PEAK_BYTES_PER_S * 1e3,
-                    bytes=nbytes, flops=flops, library_ms=None,
-                )
+                    library_ms=None)
                 if kind == "const" and mode == "residual" and K <= 27:
                     # b − conv3d(x): the one library call that computes A x
-                    lib_ms, ax = conv3d_ms(op, x, reps)
+                    lib_ms, ax = conv_ms(op, x, reps)
                     lib_err = float((ax - apply(op, x)).abs().max())
                     if lib_err > 2e-6 * float(x.abs().max()) * 12:
                         fail(f"conv3d yardstick disagrees: {lib_err:.3e}")
@@ -768,14 +797,15 @@ def counts():
     from openmg_tpu_torch.ops import fused, kernels
 
     return {"K1": fused.LAUNCHES, "K2": kernels.LAUNCHES,
-            "K3": kernels.LAUNCHES_K3, "K4": kernels.LAUNCHES_K4}
+            "K3": kernels.LAUNCHES_K3, "K4": kernels.LAUNCHES_K4,
+            "K5": kernels.LAUNCHES_K5}
 
 
 def zero_counts():
     from openmg_tpu_torch.ops import fused, kernels
 
     fused.LAUNCHES = kernels.LAUNCHES = 0
-    kernels.LAUNCHES_K3 = kernels.LAUNCHES_K4 = 0
+    kernels.LAUNCHES_K3 = kernels.LAUNCHES_K4 = kernels.LAUNCHES_K5 = 0
 
 
 def phase_solve_vary(dev, vary):
@@ -805,7 +835,7 @@ def phase_solve_vary(dev, vary):
     if not info["converged"] or not info["final_norm"] < 1e-10:
         fail(f"diffusion solve did not converge: {info['residual_norms']}")
     if (varying_levels != 4 or cycles == 0
-            or main_counts != {"K1": 0, "K2": 0, "K3": 0,
+            or main_counts != {"K1": 0, "K2": 0, "K3": 0, "K5": 0,
                                "K4": passes * varying_levels * cycles}):
         fail(f"diffusion solve: launches {main_counts} for {cycles} cycles, "
              f"{varying_levels} varying levels, {passes} passes a visit")
@@ -868,7 +898,8 @@ def phase_solve_vary(dev, vary):
     mc = im["cycles"]
     # 64³ → 32³ → 16³ (dense): one constant and one varying level
     if not (im["converged"] and rm < 1e-10 * 1.05 and mc > 0
-            and m_counts == {"K1": 2 * mc, "K2": mc, "K3": 0, "K4": passes * mc}):
+            and m_counts == {"K1": 2 * mc, "K2": mc, "K3": 0, "K4": passes * mc,
+                             "K5": 0}):
         fail(f"matrix mg_solve: converged={im['converged']} residual {rm:.3e} "
              f"launches {m_counts} for {mc} cycles")
 
@@ -883,7 +914,8 @@ def phase_solve_vary(dev, vary):
     f_counts = counts()
     fc = i32["cycles"]
     if not (i32["converged"] and fc > 0 and xf.dtype == torch.float32
-            and f_counts == {"K1": 8 * fc, "K2": 0, "K3": fc + 1, "K4": 0}):
+            and f_counts == {"K1": 8 * fc, "K2": 0, "K3": fc + 1, "K4": 0,
+                             "K5": 0}):
         fail(f"float32 residual solve: {i32['residual_norms']} launches "
              f"{f_counts} for {fc} cycles")
     t32 = time.perf_counter()
@@ -972,6 +1004,381 @@ def phase_solve_vary(dev, vary):
     return main_counts, f_counts
 
 
+# ---------------------------------------------------------------------------
+# the 2D path: K5, and K2/K3 on 2D operands
+# ---------------------------------------------------------------------------
+
+BIG2 = (4096, 4096)  # the full-width 2D grid
+
+
+def k5_modes(op, tr, ec, transfers=True):
+    """name -> (callable on (impl, b, x), start from x?, kinds of outputs)."""
+    from openmg_tpu_torch.ops import fused
+
+    V, O = op.values, op.offsets
+    corner = fused._corner_info(op)
+    rb4 = fused.stages_for("rbgs", 2, OMEGA)
+
+    def make(stages, **kw):
+        return lambda impl, bb, xx: impl(V, O, bb, xx, stages, corner=corner, **kw)
+
+    modes = {
+        "4 rb stages on x": (make(rb4), True, ("x",)),
+        "zero start, 4 rb stages, residual": (
+            make(rb4, emit_residual=True), False, ("x", "r")),
+        "6 jacobi stages on x, residual": (
+            make(fused.stages_for("jacobi", 6, OMEGA), emit_residual=True),
+            True, ("x", "r")),
+    }
+    if transfers:
+        modes = {
+            "down: zero start, 4 rb stages, restrict": (
+                make(rb4, emit_residual=True, restrict_transfer=tr), False,
+                ("x", "r")),
+            "up: x + P ec, 4 rb stages": (
+                make(rb4, ec=ec, prolong_transfer=tr), True, ("x",)),
+            "down: zero start, 4 jacobi stages, restrict": (
+                make(fused.stages_for("jacobi", 4, OMEGA), emit_residual=True,
+                     restrict_transfer=tr), False, ("x", "r")),
+            **modes,
+        }
+    return modes
+
+
+def k5_bound(mode, n, nc, K):
+    """(bytes, flops) the mode needs at n fine and nc coarse points: each
+    array read or written once (a red/black stage computes at half the
+    points)."""
+    stage_rb = n / 2 * 2 * K
+    stage_j = n * (2 * K + 3)
+    resid = n * 2 * K
+    restr = nc * 2 * 9
+    if mode.startswith("down: zero start, 4 rb"):
+        return 4 * (2 * n + nc), 4 * stage_rb + resid + restr
+    if mode.startswith("down"):
+        return 4 * (2 * n + nc), 4 * stage_j + resid + restr
+    if mode.startswith("up"):
+        return 4 * (3 * n + nc), 4 * stage_rb + n * 8
+    if mode.startswith("4 rb"):
+        return 4 * 3 * n, 4 * stage_rb
+    if mode.startswith("zero start"):
+        return 4 * 3 * n, 4 * stage_rb + resid
+    return 4 * 4 * n, 6 * stage_j + resid
+
+
+def phase_fused2d(dev, copy_bw):
+    """K5 against its plain version in every mode the V-cycle uses; the K2
+    lift bit for bit; K3's residual on a cornered 2D level against the
+    CPU."""
+    import dataclasses
+
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.ops import doublefloat as df
+    from openmg_tpu_torch.ops import kernels, stencil
+    from openmg_tpu_torch.ops.stencil import StencilOperator, apply
+
+    reps, plain_reps = 12, 3
+    cfg = mg.SolverConfig(**DIFFUSION_CFG)
+    h = mg.setup(BIG2, cfg, device=dev).hierarchy
+    h_odd = mg.setup((200, 328), mg.SolverConfig(
+        **{**DIFFUSION_CFG, "gridlevels": 4, "max_dense_coarse": 4096}),
+        device=dev).hierarchy
+    op37 = StencilOperator(
+        None, mg.models.poisson.poisson_offsets(2),
+        torch.tensor([4.0, -1, -1, -1, -1], dtype=torch.float32, device=dev),
+        (37, 91))
+    tr = h.transfer
+    # (tag, operator, timed modes: None = none, True = all, else a prefix)
+    cases = [
+        ("main 4096^2", h.levels[0].A, True),
+        ("main 2048^2", h.levels[1].A, ("down: zero start, 4 rb", "up")),
+        ("main 128^2", h.levels[5].A, None),
+        ("odd 200x328", h_odd.levels[0].A, None),
+        ("odd 100x164", h_odd.levels[1].A, None),
+        ("no transfer 37x91", op37, None),
+    ]
+    rows = []
+    for tag, op, timed in cases:
+        shape = op.grid_shape
+        n = int(np.prod(shape))
+        cshape = tuple(s // 2 for s in shape)
+        nc = int(np.prod(cshape))
+        kind = "const" if op.is_constant else "cornered"
+        b = randn(shape, 31, dev)
+        x = randn(shape, 32, dev)
+        ec = randn(cshape, 33, dev)
+        modes = k5_modes(op, tr, ec, transfers=tag != "no transfer 37x91")
+        for mode, (call, has_x, outs) in modes.items():
+            xin = x if has_x else None
+            before = kernels.LAUNCHES_K5
+            got = call(kernels.fused_stages_2d, b, xin)
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES_K5 - before != 1:
+                fail(f"K5 {tag} {mode}: {kernels.LAUNCHES_K5 - before} launches")
+            ref = call(kernels.fused_stages_2d_plain, b, xin)
+            torch.cuda.synchronize()
+            worst, errs = check_outputs(f"K5 {mode} {kind} {shape}", outs, got, ref, b)
+            del got, ref
+            row = {"level": tag, "kind": kind, "shape": list(shape),
+                   "taps": len(op.offsets), "mode": mode, "errors": errs,
+                   "max_abs_err": worst}
+            if timed is True or (timed and mode.startswith(timed)):
+                row.update(timings(
+                    lambda: call(kernels.fused_stages_2d, b, xin),
+                    lambda: call(kernels.fused_stages_2d_plain, b, xin),
+                    *k5_bound(mode, n, nc, len(op.offsets)), copy_bw, reps,
+                    plain_reps), library_ms=None)
+                if kind == "const" and mode == "zero start, 4 rb stages, residual":
+                    # A x as one library call: the residual mode's yardstick
+                    lib_ms, ax = conv_ms(op, x, reps)
+                    lib_err = float((ax - apply(op, x)).abs().max())
+                    if lib_err > 2e-6 * float(x.abs().max()) * 8:
+                        fail(f"conv2d yardstick disagrees: {lib_err:.3e}")
+                    row.update(library_ms=lib_ms, library="F.conv2d 3x3, zero "
+                               "padding, TF32 off (computes A x only)")
+                    del ax
+            rows.append(row)
+        del b, x, ec
+        torch.cuda.empty_cache()
+
+    # K2 on a 2D grid: lifted to (1, ny, nx), bit for bit
+    offs = h.fine_hi.offsets
+    terms = tuple(df.pow2_terms(float(v)) for v in h.fine_hi.values.cpu().numpy())
+    rng = np.random.default_rng(35)
+    xh, xl = df.df_split(rng.standard_normal(BIG2), dev)
+    bh, bl = df.df_split(rng.standard_normal(BIG2), dev)
+    e = randn(BIG2, 36, dev, scale=1e-3)
+    got = kernels.df_update_residual_const_3d(offs, terms, xh, xl, e, bh, bl, emit_norm=True)
+    ref = kernels.df_update_residual_const_3d_plain(offs, terms, xh, xl, e, bh, bl, emit_norm=True)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("x_hi", "x_lo", "r_hi"), got, ref):
+        if not torch.equal(g, r):
+            fail(f"K2 lift {BIG2}: {name} differs from the plain version")
+    have, want = float(torch.sum(got[3])), float(torch.sum(ref[2] * ref[2]))
+    if abs(have - want) > 1e-6 * want:
+        fail(f"K2 lift: partial sums {have!r} vs {want!r}")
+    k2_row = {
+        "shape": list(BIG2), "bit_equal": True, "max_abs_err": 0.0,
+        "norm_rel_err": abs(have - want) / want, "partials": int(got[3].numel()),
+        **timings(
+            lambda: kernels.df_update_residual_const_3d(
+                offs, terms, xh, xl, e, bh, bl, emit_norm=True),
+            lambda: kernels.df_update_residual_const_3d_plain(
+                offs, terms, xh, xl, e, bh, bl, emit_norm=True),
+            *k2_bound(int(np.prod(BIG2)), terms, True), copy_bw, reps,
+            plain_reps),
+    }
+    del got, ref, xh, xl, bh, bl, e
+
+    # K3 on the cornered 2048² level: one launch of the lifted region table,
+    # against the CPU's plain tensor code
+    A1 = h.levels[1].A
+    b1, x1 = randn(A1.grid_shape, 37, dev), randn(A1.grid_shape, 38, dev)
+    before = kernels.LAUNCHES_K3
+    r1 = stencil.residual(A1, b1, x1)
+    torch.cuda.synchronize()
+    k3_launches = kernels.LAUNCHES_K3 - before
+    A1c = dataclasses.replace(A1, values=A1.values.cpu(), deltas=A1.deltas.cpu())
+    r1c = stencil.residual(A1c, b1.cpu(), x1.cpu())
+    k3_err = float((r1.cpu() - r1c).abs().max())
+    k3_tol = SWEEP_TOL * float(b1.abs().max())
+    if k3_launches != 1 or not k3_err <= k3_tol:
+        fail(f"K3 cornered 2D residual: {k3_launches} launches, err {k3_err:.3e} "
+             f"(tolerance {k3_tol:.3e})")
+    del b1, x1, r1, r1c, h, h_odd
+    torch.cuda.empty_cache()
+
+    emit("fused2d", {
+        "K5": rows, "K2_lift": k2_row,
+        "K3_cornered_2d": {"shape": list(A1.grid_shape), "launches": k3_launches,
+                           "max_abs_err": k3_err, "tolerance": k3_tol},
+        "tolerance": "2e-6*max|ref| (x), 2e-6*max|b| (r, bc); K2 bit-equal",
+        "timed_launches": reps,
+    })
+    return rows, k2_row
+
+
+def phase_solve_2d(dev):
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.ops import smoothers, stencil
+
+    cfg = mg.SolverConfig(**DIFFUSION_CFG, cycles=60)
+    t0 = time.perf_counter()
+    solver = mg.setup(BIG2, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    h = solver.hierarchy
+    bnp = mg.rhs_random(BIG2, seed=1)
+    bnp /= np.linalg.norm(bnp.ravel())
+    b = torch.from_numpy(bnp.astype(np.float32)).to(dev)
+    for L in h.levels[1:-1]:
+        A = L.A
+        if not (hasattr(A, "table") and A.table.is_cuda and A.values.is_cuda):
+            fail("a 2D coarse level is not cornered with its table on the card")
+
+    # the main path of this slice, with the launch counts read around it
+    zero_counts()
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    main_counts = counts()
+    cycles = info["cycles"]
+    visited = h.num_levels - 1
+    if h.num_levels != 7 or not info["converged"] or cycles > 8 or cycles == 0:
+        fail(f"2D solve: {h.num_levels} levels, {info['residual_norms']}")
+    if main_counts != {"K1": 0, "K2": cycles, "K3": 0, "K4": 0,
+                       "K5": 2 * visited * cycles}:
+        fail(f"2D solve: launches {main_counts} for {cycles} cycles, "
+             f"{visited} visited levels")
+    hi, lo = info["x_df"]
+    if not (tuple(x.shape) == BIG2 and x.dtype == torch.float32 and x.is_cuda
+            and bool(torch.isfinite(hi).all() and torch.isfinite(lo).all())):
+        fail("2D solve did not deliver a finite float32 tensor on the card")
+    x64 = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+    rn64 = residual_norm_host(bnp.astype(np.float32).astype(np.float64), x64)
+    if not rn64 < 2e-10:
+        fail(f"2D solve: float64 residual of the merged pair is {rn64:.3e}")
+    torch.cuda.reset_peak_memory_stats()
+    x2, info2 = solver.solve(b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(x2, x):
+        fail("two 2D solves of the same system differ")
+    del x, x2, x64, hi, lo, solver, h
+    torch.cuda.empty_cache()
+
+    # BASELINE config 2: 2D Poisson 256², five levels, red-black GS; on the
+    # card and on the CPU (plain versions)
+    cshape = (256, 256)
+    ccfg = mg.SolverConfig(**{**DIFFUSION_CFG, "gridlevels": 5,
+                              "max_dense_coarse": 4096})
+    bc = mg.rhs_random(cshape, seed=0)
+    bc /= np.linalg.norm(bc.ravel())
+    xg, ig = mg.solve(cshape, bc, ccfg, device=dev)
+    xc, ic = mg.solve(cshape, bc, ccfg, device="cpu")
+    lam_min = sum(4.0 * np.sin(np.pi / (2 * (n + 1))) ** 2 for n in cshape)
+    dx = float(np.linalg.norm((xg - xc).ravel()))
+    dx_max = float(np.abs(xg - xc).max())
+    if not (ig["converged"] and ig["cycles"] == ic["cycles"]
+            and dx <= 2e-10 / lam_min):
+        fail(f"BASELINE config 2: card {ig['cycles']} cycles, CPU "
+             f"{ic['cycles']}, |dx| = {dx:.3e}")
+
+    # mg_solve with a scipy matrix: the fine level is detected constant (K5,
+    # K2), the Galerkin levels below it are coefficient grids (K4 lifted)
+    mshape = (512, 512)
+    A = mg.poisson(mshape)
+    bm = mg.rhs_random(mshape, seed=3)
+    bm /= np.linalg.norm(bm.ravel())
+    zero_counts()
+    xm, im = mg.mg_solve(A, bm.ravel(), {
+        "problemshape": mshape, "transfer": "linear", "max_dense_coarse": 4096,
+    })
+    m_counts = counts()
+    rm = float(np.linalg.norm(bm.ravel() - A @ xm))
+    mc = im["cycles"]
+    passes = 2 * (cfg.pre_iterations + cfg.post_iterations) + 1
+    # 512² → 256² → 128² → 64² (dense): one constant and two varying levels
+    if not (im["converged"] and rm < 1e-10 * 1.05 and mc > 0
+            and m_counts == {"K1": 0, "K2": mc, "K3": 0, "K4": 2 * passes * mc,
+                             "K5": 2 * mc}):
+        fail(f"2D matrix mg_solve: converged={im['converged']} residual "
+             f"{rm:.3e} launches {m_counts} for {mc} cycles")
+
+    # a 2D stencil pair (variable-coefficient diffusion) against the CPU
+    dshape = (256, 512)
+    dst = mg.diffusion_stencil(medium(dshape))
+    bd = mg.rhs_random(dshape, seed=4)
+    bd /= np.linalg.norm(bd.ravel())
+    xdg, idg = mg.solve(dst, bd, mg.SolverConfig(**DIFFUSION_CFG), device=dev)
+    xdc, idc = mg.solve(dst, bd, mg.SolverConfig(**DIFFUSION_CFG), device="cpu")
+    dlam = 0.5 * sum(4.0 * np.sin(np.pi / (2 * (n + 1))) ** 2 for n in dshape)
+    ddx = float(np.linalg.norm((xdg - xdc).ravel()))
+    if not (idg["converged"] and idg["cycles"] == idc["cycles"]
+            and ddx <= 2e-10 / dlam):
+        fail(f"2D diffusion: card {idg['cycles']} cycles, CPU {idc['cycles']}, "
+             f"|dx| = {ddx:.3e}")
+
+    # float32 outer residual at 1024²: one K3 launch per residual
+    fshape = (1024, 1024)
+    fsolver = mg.setup(fshape, mg.SolverConfig(
+        smoother="rbgs", transfer="linear", residual_dtype="float32",
+        max_dense_coarse=4096, threshold=F32_THRESHOLD_2D), device=dev)
+    bf = mg.rhs_random(fshape, seed=5)
+    bf /= np.linalg.norm(bf.ravel())
+    zero_counts()
+    xf, i32 = fsolver.solve(torch.from_numpy(bf.astype(np.float32)).to(dev))
+    torch.cuda.synchronize()
+    f_counts = counts()
+    fc = i32["cycles"]
+    fvis = fsolver.hierarchy.num_levels - 1
+    if not (i32["converged"] and fc > 0 and xf.dtype == torch.float32
+            and f_counts == {"K1": 0, "K2": 0, "K3": fc + 1, "K4": 0,
+                             "K5": 2 * fvis * fc}):
+        fail(f"2D float32-residual solve: {i32['residual_norms']} launches "
+             f"{f_counts} for {fc} cycles")
+    del xf, fsolver
+
+    # residual and smooth with CUDA tensors on a cornered 2D operator
+    hp = mg.setup(cshape, ccfg, device=dev).hierarchy
+    hpc = mg.setup(cshape, ccfg, device="cpu").hierarchy
+    L, Lc = hp.levels[1], hpc.levels[1]
+    bb, xx = randn(L.grid_shape, 41, dev), randn(L.grid_shape, 42, dev)
+    direct = []
+    for fn_name, call, want in (
+        ("residual", lambda l, b_, x_: stencil.residual(l.A, b_, x_), {"K3": 1}),
+        ("smooth", lambda l, b_, x_: smoothers.smooth(
+            "rbgs", l.A, l.inv_diag, b_, x_, 2, OMEGA), {"K5": 1}),
+    ):
+        zero_counts()
+        got = call(L, bb, xx)
+        torch.cuda.synchronize()
+        moved = {k: v for k, v in counts().items() if v}
+        ref = call(Lc, bb.cpu(), xx.cpu())
+        err = float((got.cpu() - ref).abs().max())
+        tol = 5e-6 * float((bb if fn_name == "residual" else ref).abs().max())
+        if moved != want or not err <= tol:
+            fail(f"{fn_name} on a cornered 2D operator: launches {moved} "
+                 f"(expected {want}), err {err:.3e} (tolerance {tol:.3e})")
+        direct.append({"operator": "cornered 2D", "function": fn_name,
+                       "launches": moved, "max_abs_err": err, "tolerance": tol})
+
+    # a 1D grid is refused on the card, never run as plain tensor code
+    try:
+        mg.setup((4096,), ccfg, device=dev)
+    except NotImplementedError:
+        refused = ["1D grid"]
+    else:
+        fail("a 1D setup ran on the card")
+
+    k = max(info2["cycles"], 1)
+    emit("solve_2d", {
+        "shape": list(BIG2), "levels": [list(s[0]) for s in info["level_stats"]],
+        "cycles": cycles, "final_norm": info["final_norm"],
+        "residual_norms": info["residual_norms"],
+        "residual_float64_host": rn64, "launches": main_counts,
+        "setup_s": t_setup,
+        "first_solve_ms": info["solve_time_s"] * 1e3,
+        "solve_ms": info2["solve_time_s"] * 1e3,
+        "ms_per_cycle": info2["solve_time_s"] * 1e3 / k,
+        "peak_memory_MB": peak / 2 ** 20,
+        "baseline_config_2": {
+            "shape": list(cshape), "gridlevels": 5, "cycles_card": ig["cycles"],
+            "cycles_cpu": ic["cycles"], "final_norm_card": ig["final_norm"],
+            "dx_norm": dx, "dx_max": dx_max, "dx_bound": 2e-10 / lam_min},
+        "mg_solve_matrix": {"shape": list(mshape), "cycles": mc,
+                            "residual_float64": rm, "launches": m_counts},
+        "diffusion": {"shape": list(dshape), "cycles_card": idg["cycles"],
+                      "cycles_cpu": idc["cycles"], "dx_norm": ddx,
+                      "dx_bound": 2e-10 / dlam},
+        "float32_residual_solve": {
+            "shape": list(fshape), "threshold": F32_THRESHOLD_2D, "cycles": fc,
+            "residual_norms": i32["residual_norms"], "launches": f_counts},
+        "direct_calls": direct,
+        "refused_on_card": refused,
+    })
+    return main_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -986,6 +1393,8 @@ def main():
     phase_build()
     rows, k2_rows, _ = phase_kernels(dev, copy_bw)
     k1_launches, k2_launches = phase_solve(dev)
+    k5_rows, _ = phase_fused2d(dev, copy_bw)
+    k5_counts = phase_solve_2d(dev)
     # the diffusion hierarchy is built after the Poisson solve, whose peak
     # memory would otherwise count it
     vary = setup_vary(dev)
@@ -1014,6 +1423,8 @@ def main():
                    and r["mode"] == "residual")
     k4_main = next(r for r in sweeps["K4"] if r["level"] == "main 256^3"
                    and r["mode"] == "rb colour 0")
+    k5_main = next(r for r in k5_rows if r["level"] == "main 4096^2"
+                   and r["mode"].startswith("down: zero start, 4 rb"))
     print(json.dumps({"kernels": [
         entry("fused_stages_const_3d",
               "openmg_tpu_torch/csrc/fused_stages.cu",
@@ -1029,6 +1440,10 @@ def main():
               "openmg_tpu_torch/csrc/half_sweep.cu",
               "openmg_tpu/ops/kernels.py:612", vary_counts["K4"], k4_main,
               sweeps["K4"]),
+        entry("fused_stages_2d",
+              "openmg_tpu_torch/csrc/fused_stages_2d.cu",
+              "openmg_tpu/ops/kernels.py:1134", k5_counts["K5"], k5_main,
+              k5_rows),
     ]}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

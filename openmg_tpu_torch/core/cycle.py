@@ -1,15 +1,18 @@
 """Cycle engine (twin of ``openmg_tpu/core/cycle.py``): the V-cycle.
 
 The recursion runs over the static level list as plain Python.  On a
-constant or cornered level a visit is one call of the fused kernel on the
-way down (pre-smoothing from a zero start + residual + restriction) and one
-on the way up (prolongation + add + post-smoothing).  On a level the fused
-kernel does not take (varying coefficients) the visit is composed from
-``smooth``, ``residual``, ``restrict`` and ``prolong``: the first two are
-the per-pass kernel on the card, the transfers are tensor code on any
-device, as they are array code outside any kernel in the JAX package.  The
-coarsest level is one matrix–vector product with the precomputed dense
-inverse.
+constant or cornered level a visit is one call of the fused kernel (K1 in
+3D, K5 in 2D) on the way down (pre-smoothing from a zero start + residual +
+restriction) and one on the way up (prolongation + add + post-smoothing).
+A 2D visit with no post-smoothing takes the tensor ``prolong`` and add, and
+one with no pre-smoothing the per-pass residual and the tensor
+``restrict``, as in the JAX package, whose 2D kernel needs stages.  On a
+level the fused kernel does not take (varying coefficients) the visit is
+composed from ``smooth``, ``residual``, ``restrict`` and ``prolong``: the
+first two are the per-pass kernel on the card, the transfers are tensor
+code on any device, as they are array code outside any kernel in the JAX
+package.  The coarsest level is one matrix–vector product with the
+precomputed dense inverse.
 
 Ported: ``coarse_solve``, ``v_cycle`` with ``x_zero`` and ``gamma=1``,
 ``run_cycle("v")``.  W-cycles, FMG and ``pcg_solve`` wait for a later slice
@@ -68,11 +71,11 @@ def v_cycle(
     then reads only ``b``, and ``x`` may be None.
 
     A visit goes to the fused kernel first.  Where its entry point
-    declines a case (it returns None: a varying operator, a non-3D or
-    non-float32 grid, a smoother that is not a stage list, an odd dimension
-    with a transfer) the visit is composed from ``smooth`` and ``residual``,
-    which on the card launch the per-pass kernel or raise (a float64 cycle
-    does), and the tensor transfers.
+    declines a case (it returns None: a varying operator, a non-float32
+    grid, a smoother that is not a stage list, an odd dimension with a
+    transfer, a 2D leg with no stages) the visit is composed from ``smooth``
+    and ``residual``, which on the card launch the per-pass kernel or raise
+    (a float64 cycle does), and the tensor transfers.
     """
     if gamma != 1:
         raise NotImplementedError(f"gamma={gamma} (W-cycle) {_LATER}")

@@ -20,10 +20,11 @@ device.
 
 The outer loop is a Python loop with one scalar read of ‖r‖ per cycle.
 For a constant fine operator with dyadic taps a cycle is one V-cycle and
-one launch of the double-float update/residual kernel.  Any other fine
-operator (varying coefficients, non-dyadic taps) takes the general
-double-float residual with Dekker products, in tensor code as it is array
-code in the JAX package.  ``residual_dtype="float32"`` / ``"float64"``
+one launch of the double-float update/residual kernel (a 2D grid lifted to
+``(1, ny, nx)``).  Any other fine operator (varying coefficients,
+non-dyadic taps) takes the general double-float residual with Dekker
+products, in tensor code as it is array code in the JAX package.
+``residual_dtype="float32"`` / ``"float64"``
 evaluate the residual in that plain type instead (float32 through the
 per-pass stencil kernel, float64 as ``b − apply(A, x)``).
 
@@ -33,7 +34,7 @@ CUDA device.  The CPU is used only when the caller passes ``device="cpu"``.
 
 Waiting for later slices (each raises ``NotImplementedError``):
 ``Solver.solve_many``, checkpoint/resume, ``krylov="pcg"``, W/FMG cycles,
-the chebyshev smoother, 2D/1D grids, matrices that are not
+the chebyshev smoother, 1D grids, matrices that are not
 stencil-representable and the general sparse formats.
 """
 
@@ -168,11 +169,11 @@ class Solver:
         self.residual_mode = (
             _resolve_residual_mode(config.residual_dtype) or torch.float32
         )
-        if len(hierarchy.grid_shape) != 3:
+        if len(hierarchy.grid_shape) not in (2, 3):
             raise NotImplementedError(
-                f"a {len(hierarchy.grid_shape)}D grid: the fused level visit and "
-                "the double-float update are ported for 3D grids only (ROADMAP "
-                "queue 1, item 17)"
+                f"a {len(hierarchy.grid_shape)}D grid: the cycle is ported for "
+                "2D and 3D grids; 1D grids are not ported yet (ROADMAP queue 1, "
+                "item 17)"
             )
         if self.residual_mode == "doublefloat" and hierarchy.fine_hi_lo is None:
             raise ValueError(

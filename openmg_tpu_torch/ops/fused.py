@@ -2,7 +2,7 @@
 
 One call does everything a level visit of the V-cycle needs from the
 smoother: S stages (weighted-Jacobi steps or red/black half-sweeps) of a
-constant or cornered radius-1 3D stencil, optionally from a zero start
+constant or cornered radius-1 3D (or 2D) stencil, optionally from a zero start
 (only ``b`` is read), optionally from ``x + P·ec`` (the prolongation is
 never stored), optionally followed by the residual ``b − A x`` or by its
 restriction ``bc = R (b − A x)`` (the fine residual is never stored).
@@ -22,11 +22,16 @@ reaches the kernel launches at least once.
 
 The entry points (:func:`smooth_fused`, :func:`presmooth_residual_fused`,
 :func:`presmooth_restrict_fused`, :func:`residual_restrict_fused`,
-:func:`prolong_smooth_fused`) keep the JAX package's signatures and return
-None only for what the kernel truly does not take: not 3D, not float32, a
-stencil of radius > 1, a smoother that is not a list of stages, or an odd
-dimension with a transfer.  The JAX package's fit models and lane rules
-describe its own hardware's memory and are not copied.
+:func:`prolong_smooth_fused`) keep the JAX package's signatures.  A 2D
+operand goes to :func:`_fused2d`, the JAX package's 2D branch: all stages of
+the visit in one call of :func:`openmg_tpu_torch.ops.kernels.fused_stages_2d`
+(K5, ``csrc/fused_stages_2d.cu``).  They return None only for what the
+kernels truly do not take: not 2D or 3D, not float32, a stencil of radius
+> 1, a smoother that is not a list of stages, an odd dimension with a
+transfer, and in 2D a visit with no stages or a stage-free residual with
+restriction (as in the JAX package).  The JAX package's fit models, lane
+rules and 2D plane-size gate describe its own hardware's memory and are not
+copied.
 """
 
 from __future__ import annotations
@@ -235,6 +240,27 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _transfer_weights(shape, device, restrict_transfer, ec, prolong_transfer):
+    """The kernels' ``(rw, pw)``: weights of taps −1, 0, +1 of the
+    restriction and of the prolongation (zeros for one not asked for),
+    after checking what the in-kernel transfers take."""
+    rw = pw = (0.0, 0.0, 0.0)
+    if restrict_transfer is not None:
+        rw = _axis_weights(restrict_transfer.r_taps)
+    if ec is not None:
+        if prolong_transfer is None:
+            raise ValueError("ec needs prolong_transfer")
+        pw = _axis_weights(prolong_transfer.p_taps)
+        _check("ec", ec, tuple(s // 2 for s in shape), device)
+    if rw is None or pw is None:
+        raise ValueError("the kernel takes transfer taps of radius 1 only")
+    if (restrict_transfer is not None or ec is not None) and any(
+        s % 2 for s in shape
+    ):
+        raise ValueError(f"in-kernel transfers need even dims, got {tuple(shape)}")
+    return rw, pw
+
+
 def _fused_stages_cuda(
     values, offsets, b, x, stages, emit_residual, corner, restrict_transfer,
     ec, prolong_transfer, emit_x,
@@ -256,21 +282,8 @@ def _fused_stages_cuda(
     if corner:
         table = corner[1]
         _check("region table", table, (len(corner[0]), K), dev)
+    rw, pw = _transfer_weights(shape, dev, restrict_transfer, ec, prolong_transfer)
     cshape = tuple(s // 2 for s in shape)
-    rw = pw = (0.0, 0.0, 0.0)
-    if restrict_transfer is not None:
-        rw = _axis_weights(restrict_transfer.r_taps)
-    if ec is not None:
-        if prolong_transfer is None:
-            raise ValueError("ec needs prolong_transfer")
-        pw = _axis_weights(prolong_transfer.p_taps)
-        _check("ec", ec, cshape, dev)
-    if rw is None or pw is None:
-        raise ValueError("the kernel takes transfer taps of radius 1 only")
-    if (restrict_transfer is not None or ec is not None) and any(
-        s % 2 for s in shape
-    ):
-        raise ValueError(f"in-kernel transfers need even dims, got {shape}")
 
     n = len(stages)
     writes_x = n > 0 or ec is not None
@@ -396,9 +409,41 @@ def _transfer_ok(shape, transfer) -> bool:
     )
 
 
+def _fused2d(name, op, b, x, iterations: int, omega: float,
+             emit_residual: bool, restrict_transfer=None, ec=None,
+             prolong_transfer=None):
+    """A 2D level visit in one call of
+    :func:`~openmg_tpu_torch.ops.kernels.fused_stages_2d` (K5): all stages,
+    the optional residual, restriction and prolongation.  Returns None when
+    there are no stages or the kernel does not take the case: not float32,
+    not a constant or cornered radius-1 2D operator, an odd dimension with a
+    transfer.  Planes of any size are taken (the kernel tiles them)."""
+    from openmg_tpu_torch.ops import kernels
+
+    stages = stages_for(name, iterations, omega)
+    if stages is None or not stages:
+        return None
+    if b.ndim != 2 or op.ndim != 2 or b.dtype != torch.float32:
+        return None
+    if not (op.is_constant or isinstance(op, CorneredOperator)):
+        return None
+    if any(abs(o) > 1 for off in op.offsets for o in off):
+        return None
+    for tr in (restrict_transfer, prolong_transfer):
+        if tr is not None and not _transfer_ok(b.shape, tr):
+            return None
+    return kernels.fused_stages_2d(
+        op.values, op.offsets, b, x, stages, corner=_corner_info(op),
+        emit_residual=emit_residual, restrict_transfer=restrict_transfer,
+        ec=ec, prolong_transfer=prolong_transfer,
+    )
+
+
 def smooth_fused(name, op, b, x, iterations: int, omega: float):
     """All stages of ``iterations`` sweeps on an existing iterate.  Returns
     the smoothed ``x`` or None when the kernel does not take the case."""
+    if b.ndim == 2:
+        return _fused2d(name, op, b, x, iterations, omega, False)
     stages = stages_for(name, iterations, omega)
     if stages is None or not stages or not _stencil_ok(op, b):
         return None
@@ -410,6 +455,8 @@ def smooth_fused(name, op, b, x, iterations: int, omega: float):
 def presmooth_residual_fused(name, op, b, iterations: int, omega: float):
     """Zero-initial-guess pre-smoothing with the level residual: returns
     ``(x, r)`` reading only ``b``, or None when unsupported."""
+    if b.ndim == 2:
+        return _fused2d(name, op, b, None, iterations, omega, True)
     stages = stages_for(name, iterations, omega)
     if stages is None or not stages or not _stencil_ok(op, b):
         return None
@@ -425,6 +472,9 @@ def presmooth_restrict_fused(name, op, b, x, iterations: int, omega: float,
     ``(x, bc)`` where ``bc = R (b − A x)`` is the next level's rhs, or None
     when unsupported.  ``x=None`` is the zero-start path (reads only
     ``b``).  The fine residual is never stored."""
+    if b.ndim == 2:
+        return _fused2d(name, op, b, x, iterations, omega, True,
+                        restrict_transfer=transfer)
     stages = stages_for(name, iterations, omega)
     if (
         stages is None
@@ -442,7 +492,8 @@ def presmooth_restrict_fused(name, op, b, x, iterations: int, omega: float,
 def residual_restrict_fused(op, b, x, transfer):
     """The level residual with its restriction, no smoothing stages:
     ``bc = R (b − A x)`` without storing the fine residual or rewriting
-    ``x``.  Returns ``bc`` or None when unsupported."""
+    ``x``.  Returns ``bc`` or None when unsupported (every 2D grid, as in
+    the JAX package)."""
     if not _stencil_ok(op, b) or not _transfer_ok(b.shape, transfer):
         return None
     return fused_stages_const_3d(
@@ -455,7 +506,11 @@ def prolong_smooth_fused(name, op, b, x, ec, iterations: int, omega: float,
                          transfer):
     """Coarse-correction prolongation + add with post-smoothing: returns
     ``smooth(b, x + P ec)`` without storing ``P ec``, or None when
-    unsupported.  ``iterations=0`` is the prolongation and add alone."""
+    unsupported.  ``iterations=0`` is the prolongation and add alone (3D
+    only: a 2D visit with no stages returns None, as in the JAX package)."""
+    if b.ndim == 2:
+        return _fused2d(name, op, b, x, iterations, omega, False,
+                        ec=ec, prolong_transfer=transfer)
     stages = stages_for(name, iterations, omega)
     if (
         stages is None

@@ -13,10 +13,15 @@ cornered one), or for per-point coefficient grids ``(K, nz, ny, nx)``.  The
 entry points keep the JAX package's names and argument order
 (``residual_const_3d``, ``jacobi_const_3d``, ``rbgs_const_3d``,
 ``rbgs_half_sweep_const_3d`` and their ``_vary_3d`` twins) and lift a 2D
-operand to ``(1, ny, nx)``.
+operand, cornered ones included, to ``(1, ny, nx)``.
+
+**The whole-visit 2D stage fusion** (K5, the JAX module's
+``fused_stages_2d``): every stage of a level visit on a 2D plane, with the
+optional zero start, prolongation on load, residual and restriction, in one
+launch of ``csrc/fused_stages_2d.cu``.
 
 **The double-float outer step** (K2), one pass per outer cycle of the
-defect-correction loop:
+defect-correction loop (a 2D grid lifted to ``(1, ny, nx)``):
 
     (x_hi', x_lo') = df_add_f32((x_hi, x_lo), e)
     r_hi           = hi(b − A x')      in double-float
@@ -29,17 +34,17 @@ layout belong to the implementation (the caller sums them).
 
 Every entry point dispatches on the device of its grid tensor alone: a CUDA
 tensor launches the hand-written kernel (``csrc/half_sweep.cu``,
-``csrc/df_update.cu``) or raises; a CPU tensor runs the plain version
-(:func:`half_sweep_plain`, :func:`half_sweep_vary_plain`,
-:func:`df_update_residual_const_3d_plain`), which applies the same float32
-operations in the same order.  K2's three arrays agree with the kernel bit
-for bit; K3/K4 within a few ulp (the compiler contracts multiply-adds).
-``LAUNCHES`` (K2), ``LAUNCHES_K3`` and ``LAUNCHES_K4`` count launched
-kernels: one per pass for K3/K4.
+``csrc/df_update.cu``, ``csrc/fused_stages_2d.cu``) or raises; a CPU tensor
+runs the plain version (:func:`half_sweep_plain`,
+:func:`half_sweep_vary_plain`, :func:`df_update_residual_const_3d_plain`,
+:func:`fused_stages_2d_plain`), which applies the same float32 operations in
+the same order.  K2's three arrays agree with the kernel bit for bit;
+K3/K4/K5 within a few ulp (the compiler contracts multiply-adds).
+``LAUNCHES`` (K2), ``LAUNCHES_K3``, ``LAUNCHES_K4`` and ``LAUNCHES_K5``
+count launched kernels: one per pass for K3/K4, one per visit for K5.
 
 Waiting for later slices: the ``halos=`` variants of these kernels (the
-row-partitioned tier), the folded-2D tier, the 2D whole-plane kernel and
-K2's 2D lift.
+row-partitioned tier) and the folded-2D tier.
 """
 
 from __future__ import annotations
@@ -55,6 +60,8 @@ __all__ = [
     "LAUNCHES",
     "LAUNCHES_K3",
     "LAUNCHES_K4",
+    "LAUNCHES_K5",
+    "MAX_DEPTH_2D",
     "df_update_residual_const_3d",
     "df_update_residual_const_3d_plain",
     "half_sweep_plain",
@@ -67,6 +74,8 @@ __all__ = [
     "jacobi_vary_3d",
     "rbgs_vary_3d",
     "rbgs_half_sweep_vary_3d",
+    "fused_stages_2d",
+    "fused_stages_2d_plain",
 ]
 
 # calls of df_update_residual_const_3d that launched the CUDA kernel
@@ -75,6 +84,8 @@ LAUNCHES = 0
 LAUNCHES_K3 = 0
 # ... and per-point coefficient grids (K4)
 LAUNCHES_K4 = 0
+# launches of the whole-visit 2D stage fusion (K5)
+LAUNCHES_K5 = 0
 
 
 def df_update_residual_const_3d_plain(
@@ -84,7 +95,8 @@ def df_update_residual_const_3d_plain(
     kernel's order of operations: update every point, then for each offset
     and each of its power-of-two terms ``p`` one compensated
     ``acc ← acc − p·x'[i + off]`` (neighbours outside the domain are zero).
-    With ``emit_norm`` the partials are one sum of ``r_hi²`` per z-plane."""
+    With ``emit_norm`` the partials are one sum of ``r_hi²`` per slice of
+    the first axis (a z-plane, or a row of a 2D grid)."""
     offsets = tuple(tuple(o) for o in offsets)
     nxh, nxl = df_add_f32((x_hi, x_lo), e)
     acch, accl = b_hi, b_lo
@@ -98,7 +110,8 @@ def df_update_residual_const_3d_plain(
             acch = s + err
             accl = err - (acch - s)
     if emit_norm:
-        return nxh, nxl, acch, torch.sum(acch * acch, dim=(1, 2))
+        planes = tuple(range(1, acch.ndim))
+        return nxh, nxl, acch, torch.sum(acch * acch, dim=planes)
     return nxh, nxl, acch
 
 
@@ -126,10 +139,7 @@ def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_nor
     global LAUNCHES
     dev = x_hi.device
     if x_hi.ndim != 3:
-        raise ValueError(
-            f"the kernel takes 3D grids, got shape {tuple(x_hi.shape)} "
-            "(the 2D lift is not ported)"
-        )
+        raise ValueError(f"the kernel takes 3D grids, got shape {tuple(x_hi.shape)}")
     shape = tuple(x_hi.shape)
     for name, t in (("x_hi", x_hi), ("x_lo", x_lo), ("e", e),
                     ("b_hi", b_hi), ("b_lo", b_lo)):
@@ -188,7 +198,8 @@ def df_update_residual_const_3d(
 ):
     """Outer-loop step for dyadic constant 3D stencils; returns
     ``(x_hi', x_lo', r_hi)`` and, with ``emit_norm``, a 1-D tensor of
-    partial sums whose total is ‖r_hi‖².
+    partial sums whose total is ‖r_hi‖².  A 2D grid runs lifted to
+    ``(1, ny, nx)`` with offsets ``(0, oy, ox)``, on either device.
 
     ``offsets`` / ``terms`` are static host tuples.  Inputs are never
     modified.  On a CUDA tensor the kernel is enqueued on the current
@@ -196,6 +207,12 @@ def df_update_residual_const_3d(
     """
     offsets = tuple(tuple(int(o) for o in off) for off in offsets)
     terms = tuple(tuple(t) for t in terms)
+    if x_hi.ndim == 2:
+        out = df_update_residual_const_3d(
+            _lift2d(offsets), terms, x_hi[None], x_lo[None], e[None],
+            b_hi[None], b_lo[None], emit_norm=emit_norm,
+        )
+        return tuple(a[0] for a in out[:3]) + tuple(out[3:])
     if x_hi.device.type == "cpu":
         return df_update_residual_const_3d_plain(
             offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm
@@ -386,13 +403,20 @@ def _half_sweep_vary(coeffs, b, x, *, offsets, mode, omega, color):
     return _half_sweep_cuda(coeffs, offsets, b, x, mode, omega, color, True, None)
 
 
+def _lift_corner(corner):
+    """The region table of a cornered 2D operator for its ``(1, ny, nx)``
+    lift: the face axes 0, 1 become the lifted axes 1, 2 (the lifted axis 0
+    is 0 everywhere and selects no row)."""
+    if not corner:
+        return None
+    regions, table = corner
+    return tuple(tuple(a + 1 for a in R) for R in regions), table
+
+
 def _lifted(fn, first, offsets, b, x, *rest, vary=False, **kw):
     """Run a 3D entry point on 2D operands lifted to ``(1, ny, nx)``."""
     if kw.get("corner"):
-        raise NotImplementedError(
-            "a cornered 2D operator: the lift to (1, ny, nx) is ported for "
-            "constant and varying operators only (ROADMAP queue 1, item 17)"
-        )
+        kw["corner"] = _lift_corner(kw["corner"])
     first = first[:, None] if vary else first
     return fn(first, _lift2d(offsets), b[None], x[None], *rest, **kw)[0]
 
@@ -505,3 +529,182 @@ def residual_vary_3d(coeffs, offsets, b, x):
         coeffs, b, x, offsets=_norm_offsets(offsets), mode="residual",
         omega=0.0, color=0,
     )
+
+
+# ---------------------------------------------------------------------------
+# whole-visit 2D stage fusion (K5)
+# ---------------------------------------------------------------------------
+
+# the deepest visit one launch of csrc/fused_stages_2d.cu takes (stages, +1
+# with a residual, +1 more with a restriction); its MAX_DEPTH
+MAX_DEPTH_2D = 16
+
+
+def fused_stages_2d_plain(
+    values, offsets, b, x, stages, *, corner=None, emit_residual=False,
+    restrict_transfer=None, ec=None, prolong_transfer=None,
+):
+    """Plain PyTorch version of :func:`fused_stages_2d`: whole-plane tensor
+    code, stage by stage, in the kernel's order (the 3D plain version of
+    :mod:`openmg_tpu_torch.ops.fused` on the ``(1, ny, nx)`` lift, whose
+    transfers leave the size-1 axis alone)."""
+    from openmg_tpu_torch.ops.fused import fused_stages_const_3d_plain
+
+    out = fused_stages_const_3d_plain(
+        values, _lift2d(offsets), b[None], None if x is None else x[None],
+        stages, emit_residual, _lift_corner(corner), restrict_transfer,
+        None if ec is None else ec[None], prolong_transfer,
+    )
+    if emit_residual:
+        return out[0][0], out[1][0]
+    return out[0]
+
+
+_fused2d_fn = None
+
+
+def _fused2d_kernel():
+    global _fused2d_fn
+    if _fused2d_fn is None:
+        from openmg_tpu_torch import _build
+
+        lib = _build.load()
+        fn = lib.omg_fused_stages_2d
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [
+            p, p, p, i, p,        # values, table, offs, K, rowmap
+            p, p, p, p, p,        # b, x, ec, x_out, r_out
+            i, i, i, p, p, i,     # ny, nx, n_stages, kinds, pars, emit
+            p, p, p,              # rw, pw, stream
+        ]
+        fn.restype = i
+        depth = lib.omg_fused2d_max_depth
+        depth.restype = i
+        if depth() != MAX_DEPTH_2D:
+            raise RuntimeError(
+                f"csrc/fused_stages_2d.cu takes visits of depth {depth()}, "
+                f"the wrapper splits at {MAX_DEPTH_2D}"
+            )
+        _fused2d_fn = fn
+    return _fused2d_fn
+
+
+def _fused2d_cuda(values, offsets, b, x, stages, *, corner, emit_residual,
+                  restrict_transfer, ec, prolong_transfer):
+    """One launch of ``csrc/fused_stages_2d.cu``."""
+    global LAUNCHES_K5
+    from openmg_tpu_torch.ops.fused import (
+        _KIND_CODE, _check, _row_map, _transfer_weights,
+    )
+
+    dev = b.device
+    shape = tuple(b.shape)
+    ny, nx = shape
+    K = len(offsets)
+    if K > 9 or any(len(off) != 2 or abs(o) > 1 for off in offsets for o in off):
+        raise ValueError("the kernel takes 2D radius-1 stencils of at most 9 taps")
+    _check("b", b, shape, dev)
+    _check("values", values, (K,), dev)
+    if x is not None:
+        _check("x", x, shape, dev)
+    table = None
+    if corner:
+        table = corner[1]
+        _check("region table", table, (len(corner[0]), K), dev)
+    rw, pw = _transfer_weights(shape, dev, restrict_transfer, ec, prolong_transfer)
+    cshape = (ny // 2, nx // 2)
+
+    x_out = torch.empty_like(b)
+    emit, r_out = 0, None
+    if emit_residual:
+        if restrict_transfer is not None:
+            emit, r_out = 2, torch.empty(cshape, dtype=b.dtype, device=dev)
+        else:
+            emit, r_out = 1, torch.empty_like(b)
+    n = len(stages)
+    offs_c = (ctypes.c_int * (2 * K))(*[o for off in offsets for o in off])
+    rowmap_c = (ctypes.c_int * 4)(*_row_map(corner)[:4])
+    kinds_c = (ctypes.c_int * max(n, 1))(*[_KIND_CODE[k] for k, _ in stages])
+    pars_c = (ctypes.c_float * max(n, 1))(*[float(p) for _, p in stages])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _fused2d_kernel()(
+            ptr(values), ptr(table), offs_c, K, rowmap_c,
+            ptr(b), ptr(x), ptr(ec), ptr(x_out), ptr(r_out),
+            ny, nx, n, kinds_c, pars_c, emit,
+            (ctypes.c_float * 3)(*rw), (ctypes.c_float * 3)(*pw), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"omg_fused_stages_2d failed with code {rc}")
+    LAUNCHES_K5 += 1
+    return (x_out, r_out) if emit_residual else x_out
+
+
+def _depth_chunks(stages, extra):
+    """Split a visit whose depth (stages + ``extra``) is more than one
+    launch takes into consecutive launches of at most ``MAX_DEPTH_2D``;
+    only the last one carries the ``extra`` residual levels."""
+    chunks, rest = [], tuple(stages)
+    while len(rest) + extra > MAX_DEPTH_2D:
+        chunks.append(rest[:MAX_DEPTH_2D])
+        rest = rest[MAX_DEPTH_2D:]
+    return chunks + [rest]
+
+
+def fused_stages_2d(
+    values, offsets, b, x, stages, *, corner=None, emit_residual=False,
+    restrict_transfer=None, ec=None, prolong_transfer=None,
+):
+    """All ``stages`` of a level visit (and optionally the residual) for a
+    constant or cornered radius-1 2D stencil, in one launch on the card.
+    ``x=None`` is the zero start (reads only ``b``).  Returns ``x'`` or,
+    with ``emit_residual``, ``(x', r)``; with ``restrict_transfer`` too,
+    ``(x', bc)`` where ``bc = R (b − A x')`` (the fine residual is never
+    stored).  ``ec`` + ``prolong_transfer`` start from ``x + P ec`` (never
+    stored).  Both transfers need even dims.
+
+    The JAX package's ``deltas=``/``subsets=`` are replaced by
+    ``corner=(regions, (n_regions, K) table)`` of a
+    :class:`~openmg_tpu_torch.ops.stencil.CorneredOperator`, as in
+    :func:`~openmg_tpu_torch.ops.fused.fused_stages_const_3d`.
+
+    Dispatches on the device of ``b``: a CPU tensor runs
+    :func:`fused_stages_2d_plain`; a CUDA tensor launches
+    ``csrc/fused_stages_2d.cu`` or raises.  A visit deeper than
+    ``MAX_DEPTH_2D`` (stages, +1 with a residual, +1 with a restriction) is
+    split into consecutive launches on either device; every visit of a
+    V-cycle up to V(7,7) is one launch.  Inputs are never modified; on a
+    CUDA tensor the call does not wait for the kernel.
+    """
+    from openmg_tpu_torch.ops.fused import _norm_stages
+
+    offsets = _norm_offsets(offsets)
+    stages = _norm_stages(stages)
+    if b.ndim != 2:
+        raise ValueError(f"b must be 2D, got shape {tuple(b.shape)}")
+    if restrict_transfer is not None and not emit_residual:
+        raise ValueError("restrict_transfer needs emit_residual")
+    if not stages and not emit_residual and ec is None:
+        raise ValueError("nothing to do: no stages, no ec, no residual")
+    if b.device.type == "cpu":
+        one = fused_stages_2d_plain
+    elif b.device.type == "cuda":
+        one = _fused2d_cuda
+    else:
+        raise ValueError(f"unsupported device {b.device}")
+    extra = int(emit_residual) + int(restrict_transfer is not None)
+    chunks = _depth_chunks(stages, extra)
+    for i, chunk in enumerate(chunks):
+        last = i == len(chunks) - 1
+        out = one(
+            values, offsets, b, x, chunk, corner=corner,
+            emit_residual=emit_residual and last,
+            restrict_transfer=restrict_transfer if last else None,
+            ec=ec if i == 0 else None, prolong_transfer=prolong_transfer,
+        )
+        x = out
+    return out

@@ -18,8 +18,9 @@ which the tests hold against them.
 
 :func:`smooth` dispatches on the device of ``b``: CPU tensors take
 ``jacobi`` / ``rbgs``; on the card a constant or cornered operator goes to
-the fused kernel first and to the per-pass kernel where that declines, a
-varying operator to the per-pass kernel, and what neither takes raises.
+the fused kernel first (K1 in 3D, K5 in 2D) and to the per-pass kernel (K3,
+a 2D operand lifted to ``(1, ny, nx)``) where that declines, a varying
+operator to the per-pass kernel (K4), and what neither takes raises.
 Chebyshev smoothing and faced operators wait for a later slice.
 """
 

@@ -13,8 +13,9 @@ array code outside any kernel in the JAX package.  ``residual`` dispatches
 on the device of ``b``: CPU tensors take the plain tensor code below; CUDA
 float32 operands of a radius-1 3D (or lifted 2D) operator go to the
 per-pass kernel of :mod:`openmg_tpu_torch.ops.kernels` (constant and
-cornered taps, or per-point coefficient grids); any other case on the card
-raises.  ``FacedStencilOperator`` waits for a later slice.
+cornered taps, or per-point coefficient grids; a cornered 2D operator lifts
+its region table too); any other case on the card raises.
+``FacedStencilOperator`` waits for a later slice.
 """
 
 from __future__ import annotations
@@ -344,8 +345,6 @@ def kernel_operands_ok(op, x: torch.Tensor):
         return f"{x.dtype} operands with a {op.dtype} operator (float32 only)"
     if x.ndim not in (2, 3) or op.ndim != x.ndim:
         return f"a {x.ndim}D grid with a {op.ndim}D operator (2D and 3D only)"
-    if isinstance(op, CorneredOperator) and x.ndim != 3:
-        return "a cornered 2D operator"
     return kernel_taps_ok(op.offsets)
 
 

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Where a solve of the PyTorch/CUDA port spends its time, by kernel.
 
-    python3 scripts/profile_torch_solve.py [--problem poisson|diffusion]
-                                           [--n 256] [--out DIR]
+    python3 scripts/profile_torch_solve.py
+        [--problem poisson|diffusion|poisson2d] [--n N] [--out DIR]
 
-Sets up an n³ solve of ``chip_smoke.py`` (V(2,2) red-black, linear
-transfers, double-float outer loop, dense coarsest level of at most 4096
-points): ``poisson`` from the grid shape (fused level visits, the
-double-float update kernel), or ``diffusion`` from the stencil pair of a
-random medium (per-pass kernel on varying levels, the general double-float
-residual in tensor code).  Runs it once to warm up, then once under
+Sets up a solve of ``chip_smoke.py`` (V(2,2) red-black, linear transfers,
+double-float outer loop, dense coarsest level of at most 4096 points):
+``poisson`` on n³ from the grid shape (fused level visits, the double-float
+update kernel), ``diffusion`` on n³ from the stencil pair of a random medium
+(per-pass kernel on varying levels, the general double-float residual in
+tensor code), or ``poisson2d`` on n² from the grid shape (the whole-visit 2D
+kernel, the lifted double-float update kernel).  n defaults to 256 in 3D and
+4096 in 2D.  Runs it once to warm up, then once under
 ``torch.profiler`` and prints one JSON line: the card's name and power
 limit, the solve's wall time, the device time summed by kernel name, and
 the device's busy and idle share of the solve.  With ``--out`` the Chrome
@@ -33,8 +35,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--problem", choices=("poisson", "diffusion"), default="poisson")
-    ap.add_argument("--n", type=int, default=256)
+    ap.add_argument("--problem", choices=("poisson", "diffusion", "poisson2d"),
+                    default="poisson")
+    ap.add_argument("--n", type=int, default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -43,7 +46,10 @@ def main():
     import openmg_tpu_torch as mg
     from torch.profiler import ProfilerActivity, profile
 
-    shape = (args.n,) * 3
+    if args.problem == "poisson2d":
+        shape = (args.n or 4096,) * 2
+    else:
+        shape = (args.n or 256,) * 3
     cfg = mg.SolverConfig(
         smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
         max_dense_coarse=4096, cycles=60,
@@ -88,7 +94,7 @@ def main():
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(
-            os.path.join(args.out, f"solve_{args.problem}_{args.n}.json"))
+            os.path.join(args.out, f"solve_{args.problem}_{shape[0]}.json"))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         stdout=subprocess.PIPE, text=True, check=True,

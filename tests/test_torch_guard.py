@@ -41,6 +41,7 @@ def test_port_has_all_its_modules():
     assert (ROOT / "openmg_tpu_torch/csrc/fused_stages.cu").exists()
     assert (ROOT / "openmg_tpu_torch/csrc/df_update.cu").exists()
     assert (ROOT / "openmg_tpu_torch/csrc/half_sweep.cu").exists()
+    assert (ROOT / "openmg_tpu_torch/csrc/fused_stages_2d.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
