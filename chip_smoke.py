@@ -58,7 +58,32 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                Poisson matrix; the 256³ Poisson solve with a float32 outer
                residual (one K3 launch per residual); and ``residual`` /
                ``smooth`` called with CUDA tensors on a constant, a cornered
-               and a varying operator.
+               and a varying operator;
+9. ``spmv``    holds the slot-offset ELL SpMV (K6) and the blocked-band BSR
+               SpMV (K7; both ``csrc/spmv_banded.cu``, K6 at block size 1)
+               against their plain versions on the card: K6 on every visited
+               level of the 1024² Poisson ELL hierarchy (k 5, then three
+               k-9 levels), on the 256³ Poisson ELL of ``poisson_ell_device``,
+               on (37, 91) (n not a multiple of 32), with two pad slots and in
+               float64; K7 on every visited level of the 64³
+               coupled-diffusion B=4 hierarchy (kb 7, then two kb-27
+               levels), on 2D elasticity 256² (B=2), 3D elasticity 24³
+               (B=3), Poisson 16³ at B=8 and in float64; times each beside
+               ``torch.mv`` on a ``torch.sparse`` CSR of the true nonzeros
+               (a yardstick the port never calls);
+10. ``solve_sparse`` the 64³ coupled-diffusion B=4 solve through
+               ``setup_sparse`` (BSR, Jacobi, linear transfers: five K7
+               launches a visited level a cycle) and the 1024² Poisson solve
+               through ``mg_solve`` with ``format="ell"`` (red/black by
+               colour classes: 1 + 4·colours K6 launches a visited level a
+               cycle), each from a float32 tensor and checked in float64 on
+               the host with the scipy matrix; ELL 128², BSR coupled
+               diffusion 16³ (B=4) and 2D elasticity 128² (B=2, both
+               formats, the settings of ``scripts/probe_bsr_chip.py``, whose
+               run took 22 cycles) on the card against the CPU; the ELL
+               engine against the stencil engine at 1024² (Jacobi, aggregate
+               transfers, first ten residual norms); and ``krylov="pcg"`` and
+               ``cycle_type="f"``, which the sparse engine must refuse.
 
 Each phase prints one line ``<phase> <json>``.  Then come the line
 ``{"kernels": [...]}``, the card's name and power limit as ``nvidia-smi``
@@ -74,22 +99,37 @@ for bit; the partial sums' total within 1e-6 relative of ``sum(r_hi²)``.
 K3 and K4 (one pass of ``csrc/half_sweep.cu``) against ``half_sweep_plain``
 / ``half_sweep_vary_plain``, and K5 (``fused_stages_2d``) against
 ``fused_stages_2d_plain``: 2e-6 · max|ref| for an iterate, 2e-6 · max|b|
-for a residual, for the same reason as K1.  Two converged solves of one
+for a residual, for the same reason as K1.  K6 and K7 against
+``spmv_banded_plain``: bit for bit (both sum in the same order with
+round-to-nearest products and sums), failing only beyond 2e-6 ·
+max_i Σ |terms| (the size of the terms of a row's sum).  Two converged solves of one
 system (card and CPU) are held to ‖Δx‖₂ ≤ 2e-10/λ_min: both are within the
 threshold of one exact solution.
 
 ``bound_ms`` is the least time the card could take: the larger of the bytes
 that must move (each input read once, each output written once) over
-3.35 TB/s and the float32 operations needed over 67 TFLOP/s (the H100 SXM
-data sheet's rates).  ``bound_ms_copy_bw`` divides the same bytes by the
-copy bandwidth measured in this run instead.  A red/black pass of K3/K4 is
+3.35 TB/s and the float32 operations needed over 67 TFLOP/s (float64: 34
+TFLOP/s; the H100 SXM data sheet's rates).  K6 and K7 are charged their
+stored (padded) matrix, ``x`` and ``y`` once, and two operations a stored
+entry.  K6 and K7's ``ms``, ``plain_ms`` and ``library_ms`` are device time
+per call, the calls back to back with the card kept ahead of the host and
+each call on another copy of the operands (``device_ms``): the small SpMVs
+of the sparse solves take less time on the card than their wrappers take on
+the host, which ``time_ms`` would count (``ms_host_paced``), and a level of
+up to 50 MB called again on the same operands is read from L2, not from the
+device memory its bound counts (``ms_l2_warm``).
+``bound_ms_copy_bw`` divides the same bytes by the copy bandwidth measured
+in this run instead.  A red/black pass of K3/K4 is
 charged what one colour needs (see ``sweep_bound``); ``bound_ms_sectors``
 beside it counts whole 32-byte sectors, which is every array in full.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -137,6 +177,48 @@ def run_text(cmd):
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         timeout=60, check=True,
     ).stdout.strip()
+
+
+def device_ms(fns, reps=20):
+    """Device milliseconds per call, the calls back to back and rotating
+    over ``fns``.  The card is held busy (``torch.cuda._sleep``, twice the
+    time the host took to enqueue the calls) while the timed calls are
+    enqueued, so the events do not count the host's cost of a call, which
+    ``time_ms`` does for a call shorter than its enqueue.  Where each of
+    ``fns`` works on its own copy of the operands (``operand_copies``),
+    every call finds its operands evicted from L2 by the copies read since
+    its last use, and reads them from device memory, as its bound by bytes
+    assumes; one function called again finds in L2 what fits there."""
+    fns = list(fns)
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fns[i % len(fns)]()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * host_s, 5.0) * 2e9))  # at most ~2 GHz
+    a.record()
+    for i in range(reps):
+        fns[i % len(fns)]()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+# bytes read between two uses of one operand copy: four times the H100's
+# 50 MB L2
+ROTATE_BYTES = 200e6
+
+
+def operand_copies(nbytes, reps=20):
+    """How many copies of a call's operands (``nbytes`` in all) keep
+    ``ROTATE_BYTES`` between two uses of one copy, at most ``reps``: a case
+    of under 10 MB stays in L2 even so (it is launch-bound)."""
+    return max(1, min(reps, math.ceil(ROTATE_BYTES / nbytes)))
 
 
 def time_ms(fn, reps, warm=2):
@@ -802,10 +884,11 @@ def counts():
 
 
 def zero_counts():
-    from openmg_tpu_torch.ops import fused, kernels
+    from openmg_tpu_torch.ops import bsr, ell, fused, kernels
 
     fused.LAUNCHES = kernels.LAUNCHES = 0
     kernels.LAUNCHES_K3 = kernels.LAUNCHES_K4 = kernels.LAUNCHES_K5 = 0
+    ell.LAUNCHES_K6 = bsr.LAUNCHES_K7 = 0
 
 
 def phase_solve_vary(dev, vary):
@@ -1379,6 +1462,466 @@ def phase_solve_2d(dev):
     return main_counts
 
 
+# ---------------------------------------------------------------------------
+# the general sparse engine: K6 (slot-offset ELL SpMV), K7 (blocked-band BSR)
+# ---------------------------------------------------------------------------
+
+# the H100 SXM data sheet's float64 rate outside the tensor cores
+PEAK_F64_FLOPS = 34e12
+SPARSE_TOL = 2e-6
+ELL_SHAPE = (1024, 1024)
+ELL_PARAMS = {"problemshape": ELL_SHAPE, "format": "ell", "transfer": "linear",
+              "smoother": "rbgs", "max_dense_coarse": 4096, "threshold": 1e-10}
+BSR_SHAPE = (64, 64, 64)
+BSR_CFG = dict(format="bsr", blocksize=4, smoother="jacobi", transfer="linear",
+               max_dense_coarse=4096, cycles=200, threshold=1e-10)
+
+
+def sparse_counts():
+    from openmg_tpu_torch.ops import bsr, ell
+
+    return {"K6": ell.LAUNCHES_K6, "K7": bsr.LAUNCHES_K7}
+
+
+def setup_sparse_solvers(dev):
+    """The two full-width sparse solvers, set up once: the 1024² Poisson
+    ELL hierarchy with the settings ``mg_solve`` reads from ``ELL_PARAMS``,
+    and the 64³ coupled-diffusion BSR hierarchy (B = 4).  Host seconds."""
+    import openmg_tpu_torch as mg
+
+    t0 = time.perf_counter()
+    ell_solver = mg.setup_sparse(
+        mg.poisson(ELL_SHAPE), ELL_SHAPE,
+        mg.SolverConfig.from_parameters(ELL_PARAMS), device=dev,
+    )
+    t_ell = time.perf_counter() - t0
+    A_bsr = mg.coupled_diffusion(BSR_SHAPE, 4)
+    t0 = time.perf_counter()
+    bsr_solver = mg.setup_sparse(
+        A_bsr, BSR_SHAPE, mg.SolverConfig(**BSR_CFG), dofs=4, device=dev
+    )
+    torch.cuda.synchronize()
+    t_bsr = time.perf_counter() - t0
+    return {"ell": ell_solver, "ell_setup_s": t_ell, "bsr": bsr_solver,
+            "bsr_matrix": A_bsr, "bsr_setup_s": t_bsr}
+
+
+def library_csr(M):
+    """The true nonzeros of a banded ELL or BSR container as a
+    ``torch.sparse`` CSR matrix on its device (the yardstick's operand)."""
+    from openmg_tpu_torch.ops import sparse
+
+    n = M.shape[0]
+    dev = M.data.device
+    r = torch.arange(n, device=dev)
+    rows, cols, vals = [], [], []
+    # (column, values) of each slot's plane, and where the column exists
+    if isinstance(M, sparse.ELLMatrix):
+        planes = [(r + int(d), M.data[j]) for j, d in enumerate(M.slot_offsets)]
+    else:
+        B = M.blocksize[0]
+        planes = [((r // B + int(d)) * B + j, M.data[s, j])
+                  for s, d in enumerate(M.slot_offsets) for j in range(B)]
+    for c, v in planes:
+        live = (v != 0) & (c >= 0) & (c < n)
+        rows.append(r[live])
+        cols.append(c[live])
+        vals.append(v[live])
+    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    A = torch.sparse_coo_tensor(idx, torch.cat(vals), (n, n)).coalesce()
+    return A.to_sparse_csr()
+
+
+def spmv_check(kernel, case, M, seed, copy_bw, reps=20):
+    """One K6 or K7 case: the kernel against its plain version on the same
+    card tensors (bit for bit, or within SPARSE_TOL · max_i Σ |terms|), the
+    kernel's, the plain version's and ``torch.mv`` on the true nonzeros'
+    device times, each call on another copy of the operands (``device_ms``;
+    ``ms_l2_warm`` is the kernel called again on one copy, which finds in
+    L2 what fits there, and ``ms_host_paced`` the kernel by ``time_ms``,
+    which counts the wrapper's host cost where that is longer than the
+    kernel), and the bound."""
+    from openmg_tpu_torch.ops import bsr, ell
+
+    n = M.shape[0]
+    x = randn((n,), seed, M.data.device).to(M.dtype)
+    if M.slot_offsets is None:
+        fail(f"{kernel} {case}: the container is not banded")
+    if kernel == "K6":
+        spmv = ell.spmv_ell
+
+        def plain_of(Mc, xc):
+            return ell.spmv_banded_plain(Mc.data, Mc.slot_offsets, xc)
+
+        width = {"k": M.k}
+    else:
+        spmv, plain_of = bsr.spmv_bsr, bsr.spmv_banded_plain
+        width = {"kb": M.kb, "B": M.blocksize[0]}
+    run = functools.partial(spmv, M, x)
+    terms = plain_of(dataclasses.replace(M, data=M.data.abs()), x.abs())
+    got, ref = run(), plain_of(M, x)
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{kernel} {case}: bad output")
+    scale = float(terms.max())
+    err = float((got - ref).abs().max())
+    if not err <= SPARSE_TOL * scale:
+        fail(f"{kernel} {case}: err {err:.3e} > {SPARSE_TOL * scale:.3e}")
+    A = library_csr(M)
+    lib = torch.mv(A, x)
+    lib_err = float((lib - ref).abs().max())
+    if not lib_err <= 1e-5 * scale:
+        fail(f"{kernel} {case}: torch.mv differs by {lib_err:.3e}")
+    es = M.data.element_size()
+    nbytes = (M.data.numel() + 2 * n) * es
+    flops = 2 * M.data.numel()
+    peak = PEAK_F64_FLOPS if M.dtype == torch.float64 else PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak * 1e3
+    # a copy of the operands for each call in a row, so that each call
+    # reads them from device memory
+    ops = [(M, x, A)] + [
+        (Mc, x.clone(), library_csr(Mc)) for Mc in (
+            dataclasses.replace(M, data=M.data.clone())
+            for _ in range(operand_copies(nbytes) - 1))
+    ]
+    t = dict(
+        ms=device_ms([functools.partial(spmv, Mc, xc) for Mc, xc, _ in ops]),
+        plain_ms=device_ms(
+            [functools.partial(plain_of, Mc, xc) for Mc, xc, _ in ops], 5),
+        library_ms=device_ms([functools.partial(torch.mv, Ac, xc)
+                              for _, xc, Ac in ops]),
+        ms_l2_warm=device_ms([run]), ms_host_paced=time_ms(run, 20),
+        operand_copies=len(ops),
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_ms_copy_bw=nbytes / copy_bw * 1e3, bytes=nbytes, flops=flops,
+    )
+    del A, ops
+    return {"case": case, "shape": [n], "mode": case, **width,
+            "dtype": str(M.dtype).replace("torch.", ""),
+            "bit_equal": bool(torch.equal(got, ref)), "max_abs_err": err,
+            "tolerance": SPARSE_TOL * scale, "library_max_abs_err": lib_err,
+            **t}
+
+
+def phase_spmv(dev, copy_bw, solvers):
+    """K6 and K7 against their plain versions on the card at every shape
+    of the sparse solves' main paths and at the edge cases."""
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.ops import sparse
+
+    he, hb = solvers["ell"].hierarchy, solvers["bsr"].hierarchy
+    ell_shape = "x".join(map(str, ELL_SHAPE))
+    bsr_shape = "x".join(map(str, BSR_SHAPE))
+    p256 = mg.poisson_ell_device(BIG, device=dev)
+    pads = sparse.ell_from_scipy(mg.poisson((64, 64)), k=7, device=dev)
+    if pads.k != 7 or int((pads.data != 0).any(dim=1).sum()) != 5:
+        fail("the padded ELL does not carry two empty slots")
+    # every level of the two full-width hierarchies whose operator goes to
+    # K6 or K7 (the coarsest is solved by its dense inverse), fine first
+    main6 = [(f"{ell_shape} Poisson level {i} (k {L.A.k}), main path", L.A)
+             for i, L in enumerate(he.levels[:-1])]
+    main7 = [(f"{bsr_shape} coupled diffusion B=4 level {i} (kb {L.A.kb}), "
+              "main path", L.A) for i, L in enumerate(hb.levels[:-1])]
+    for what, main, want in (("ELL", main6, sparse.ELLMatrix),
+                             ("BSR", main7, sparse.BSRMatrix)):
+        if not all(isinstance(M, want) and M.slot_offsets is not None
+                   for _, M in main):
+            fail(f"a visited level of the {what} hierarchy is not banded")
+    k6 = main6[:1] + [
+        ("x".join(map(str, BIG)) + " Poisson, poisson_ell_device", p256),
+    ] + main6[1:] + [
+        ("(37, 91) Poisson, n % 32 != 0", sparse.ell_from_scipy(
+            mg.poisson((37, 91)), device=dev)),
+        ("64^2 Poisson with two pad slots", pads),
+        ("64^3 Poisson, float64", sparse.ell_from_scipy(
+            mg.poisson((64, 64, 64)), dtype=np.float64, device=dev)),
+    ]
+    k7 = main7 + [
+        ("2D elasticity 256^2 B=2", sparse.bsr_from_scipy(
+            mg.elasticity((256, 256)), blocksize=(2, 2), device=dev)),
+        ("3D elasticity 24^3 B=3", sparse.bsr_from_scipy(
+            mg.elasticity((24, 24, 24)), blocksize=(3, 3), device=dev)),
+        ("Poisson 16^3 B=8", sparse.bsr_from_scipy(
+            mg.poisson((16, 16, 16)), blocksize=(8, 8), device=dev)),
+        ("coupled diffusion 16^3 B=4, float64", sparse.bsr_from_scipy(
+            mg.coupled_diffusion((16, 16, 16), 4), blocksize=(4, 4),
+            dtype=np.float64, device=dev)),
+    ]
+    rows = {"K6": [], "K7": []}
+    for kernel, cases in (("K6", k6), ("K7", k7)):
+        for i, (case, M) in enumerate(cases):
+            rows[kernel].append(spmv_check(kernel, case, M, 40 + i, copy_bw))
+    del p256
+    emit("spmv", {
+        "K6": rows["K6"], "K7": rows["K7"],
+        "tolerance": f"bit-equal, or {SPARSE_TOL}*max_i sum|terms|",
+        "library": "torch.mv on a torch.sparse CSR of the true nonzeros "
+                   "(a yardstick; the port never calls it)",
+    })
+    return rows
+
+
+def sparse_phases(solver, b, info):
+    """A sparse solve's parts, each timed alone (``time_ms``, five calls,
+    each between events after a synchronize): the
+    double-float outer residual, one cycle, and on the fine level one
+    smoothing sweep, the level residual, the restriction and the
+    prolongation."""
+    from openmg_tpu_torch.core import algebraic as alg
+    from openmg_tpu_torch.ops.sparse import spmv
+
+    h, cfg = solver.hierarchy, solver.config
+    b_df = (b, torch.zeros_like(b))
+    x_df = info["x_df"]
+    r = alg._sparse_residual_df(h.fine_hi, h.fine_lo, b_df, x_df)[0][0]
+    L0 = h.levels[0]
+    x0 = torch.zeros_like(b)
+    rc = alg._restrict_level(h, 0, r)
+    return {
+        "outer_residual": time_ms(
+            lambda: alg._sparse_residual_df(h.fine_hi, h.fine_lo, b_df, x_df),
+            5, warm=1),
+        "cycle": time_ms(lambda: solver._cycle(r), 5, warm=1),
+        "fine_smoothing_sweep": time_ms(
+            lambda: alg._smooth_sparse(L0, b, x0, 1, cfg.smoother, cfg.omega),
+            5, warm=1),
+        "fine_level_residual": time_ms(lambda: b - spmv(L0.A, x0), 5, warm=1),
+        "fine_restriction": time_ms(
+            lambda: alg._restrict_level(h, 0, r), 5, warm=1),
+        "fine_prolongation": time_ms(
+            lambda: alg._prolong_level(h, 0, rc), 5, warm=1),
+        "outer_residual_operator": "banded ELL" if h.fine_hi.slot_offsets
+        is not None else "irregular ELL (gathered)",
+        "transfers": "grid ops" if h.geom_transfer(0) else "ELL SpMV (gathered)",
+    }
+
+
+def profile_solve(solver, b, top=10):
+    """Device time by kernel over one solve under ``torch.profiler`` (names
+    cut to 70 characters and summed), the device's busy time and the
+    number of device operations.  Run last: the profiler slows launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver.solve(b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or getattr(
+            ev, "self_cuda_time_total", 0)
+        if dev_us > 0 and str(ev.device_type).endswith("CUDA"):
+            row = by_kernel.setdefault(ev.key[:70], {"ms": 0.0, "count": 0})
+            row["ms"] += dev_us / 1e3
+            row["count"] += ev.count
+    return {
+        "solve_ms_profiled": wall * 1e3,
+        "device_busy_ms": sum(v["ms"] for v in by_kernel.values()),
+        "device_operations": sum(v["count"] for v in by_kernel.values()),
+        "kernels": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]["ms"])[:top]),
+    }
+
+
+def lambda_min(A):
+    import scipy.sparse.linalg as spla
+
+    return float(spla.eigsh(A.tocsc(), k=1, sigma=0, which="LM",
+                            return_eigenvectors=False)[0])
+
+
+def phase_solve_sparse(dev, solvers):
+    import openmg_tpu_torch as mg
+
+    def rhs(n, seed):
+        bnp = np.random.default_rng(seed).standard_normal(n)
+        bnp /= np.linalg.norm(bnp)
+        return torch.from_numpy(bnp.astype(np.float32)).to(dev)
+
+    def merged(info):
+        hi, lo = info["x_df"]
+        if not bool(torch.isfinite(hi).all() and torch.isfinite(lo).all()):
+            fail("sparse solve: solution is not finite")
+        return hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+
+    def timed_solve(solver, b):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        x, info = solver.solve(b)
+        torch.cuda.synchronize()
+        return info, resident, torch.cuda.max_memory_allocated()
+
+    # 1. BSR at full width: the main path of K7
+    solver, A = solvers["bsr"], solvers["bsr_matrix"]
+    h = solver.hierarchy
+    b = b_bsr = rhs(h.n, 1)
+    zero_counts()
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    stencil_counts, sp_counts = counts(), sparse_counts()
+    cycles = info["cycles"]
+    visited = h.num_levels - 1
+    if not info["converged"] or cycles == 0:
+        fail(f"BSR solve: {info['residual_norms']}")
+    if any(stencil_counts.values()) or sp_counts != {
+            "K6": 0, "K7": 5 * visited * cycles}:
+        fail(f"BSR solve: launches {sp_counts} {stencil_counts} for {cycles} "
+             f"cycles, {visited} visited levels")
+    if not (x.device == dev and x.dtype == torch.float32
+            and tuple(x.shape) == (h.n,)):
+        fail("BSR solve did not deliver a float32 tensor on the card")
+    x64 = merged(info)
+    b64 = b.cpu().numpy().astype(np.float64)
+    rn_bsr = float(np.linalg.norm(b64 - A @ x64))
+    if not rn_bsr < 2e-10:
+        fail(f"BSR solve: float64 residual {rn_bsr:.3e}")
+    info2, resident, peak = timed_solve(solver, b)
+    info_bsr = info2
+    bsr = {
+        "matrix": f"coupled_diffusion({BSR_SHAPE}, 4)", "rows": h.n,
+        "levels": [list(s) for s in h.stats], "cycles": cycles,
+        "final_norm": info["final_norm"],
+        "residual_norms": info["residual_norms"],
+        "residual_float64_host": rn_bsr, "launches": sp_counts,
+        "launches_per_cycle": sp_counts["K7"] / cycles,
+        "setup_s": solvers["bsr_setup_s"],
+        "first_solve_ms": info["solve_time_s"] * 1e3,
+        "solve_ms": info2["solve_time_s"] * 1e3,
+        "ms_per_cycle": info2["solve_time_s"] * 1e3 / max(info2["cycles"], 1),
+        "resident_before_MB": resident / 2 ** 20, "peak_memory_MB": peak / 2 ** 20,
+    }
+
+    # 2. ELL at full width through mg_solve: the main path of K6
+    n = int(np.prod(ELL_SHAPE))
+    b = b_ell = rhs(n, 2)
+    A = mg.poisson(ELL_SHAPE)
+    zero_counts()
+    t0 = time.perf_counter()
+    x, info = mg.mg_solve(A, b, dict(ELL_PARAMS), device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stencil_counts, sp_counts = counts(), sparse_counts()
+    cycles = info["cycles"]
+    colors = info["num_colors"]
+    per_cycle = sum(1 + 4 * c for c in colors[:-1])
+    if not info["converged"] or cycles == 0 or info["format"] != "ell":
+        fail(f"ELL mg_solve: {info['residual_norms']}")
+    if any(stencil_counts.values()) or sp_counts != {
+            "K6": per_cycle * cycles, "K7": 0}:
+        fail(f"ELL mg_solve: launches {sp_counts} {stencil_counts} for "
+             f"{cycles} cycles")
+    b64 = b.cpu().numpy().astype(np.float64)
+    x64 = merged(info)
+    if not np.array_equal(x, info["x_df"][0].cpu().numpy()):
+        fail("ELL mg_solve: x is not the hi part of the pair")
+    rn_ell = residual_norm_host(b64.reshape(ELL_SHAPE), x64.reshape(ELL_SHAPE))
+    if not rn_ell < 2e-10:
+        fail(f"ELL mg_solve: float64 residual {rn_ell:.3e}")
+    info_a, _, _ = timed_solve(solvers["ell"], b)
+    info_b, resident, peak = timed_solve(solvers["ell"], b)
+    if info_b["cycles"] != cycles:
+        fail("ELL: mg_solve and the set-up solver took different cycle counts")
+    ell = {
+        "matrix": f"poisson({ELL_SHAPE})", "rows": n,
+        "levels": [list(s) for s in info["level_stats"]], "num_colors": colors,
+        "cycles": cycles, "final_norm": info["final_norm"],
+        "residual_norms": info["residual_norms"],
+        "residual_float64_host": rn_ell, "launches": sp_counts,
+        "launches_per_cycle": sp_counts["K6"] / cycles,
+        "setup_s": solvers["ell_setup_s"], "mg_solve_wall_s": wall,
+        "first_solve_ms": info["solve_time_s"] * 1e3,
+        "solve_ms": info_b["solve_time_s"] * 1e3,
+        "solve_ms_again": info_a["solve_time_s"] * 1e3,
+        "ms_per_cycle": info_b["solve_time_s"] * 1e3 / max(cycles, 1),
+        "resident_before_MB": resident / 2 ** 20, "peak_memory_MB": peak / 2 ** 20,
+    }
+
+    # 3. the card against the CPU (plain versions)
+    el = dict(smoother="jacobi", transfer="linear", gridlevels=4,
+              max_dense_coarse=4096, cycles=100, threshold=1e-8)
+    cases = [
+        ("ELL 128^2 rbgs", mg.poisson((128, 128)), (128, 128), 1,
+         dict(format="ell", smoother="rbgs", transfer="linear",
+              max_dense_coarse=256, threshold=1e-10), None),
+        ("BSR coupled diffusion 16^3 B=4 rbgs",
+         mg.coupled_diffusion((16, 16, 16), 4), (16, 16, 16), 4,
+         dict(format="bsr", blocksize=4, smoother="rbgs", transfer="linear",
+              max_dense_coarse=4096, threshold=1e-10), None),
+        ("elasticity 128^2 B=2, BSR", mg.elasticity((128, 128)), (128, 128), 2,
+         dict(format="bsr", blocksize=2, **el), 22),
+        ("elasticity 128^2 B=2, ELL", mg.elasticity((128, 128)), (128, 128), 2,
+         dict(format="ell", blocksize=1, **el), 22),
+    ]
+    versus = []
+    for name, A, shape, dofs, kw, want in cases:
+        cfg = mg.SolverConfig(**kw)
+        bnp = np.random.default_rng(0).standard_normal(A.shape[0])
+        bnp /= np.linalg.norm(bnp)
+        zero_counts()
+        xg, ig = mg.setup_sparse(A, shape, cfg, dofs=dofs, device=dev).solve(bnp)
+        torch.cuda.synchronize()
+        launched = sparse_counts()
+        xc, ic = mg.setup_sparse(A, shape, cfg, dofs=dofs, device="cpu").solve(bnp)
+        lam = (sum(4.0 * np.sin(np.pi / (2 * (m + 1))) ** 2 for m in shape)
+               if dofs == 1 else lambda_min(A))
+        dx = float(np.linalg.norm(xg - xc))
+        row = {"case": name, "cycles_card": ig["cycles"],
+               "cycles_cpu": ic["cycles"], "dx_norm": dx,
+               "dx_bound": 2e-10 / lam, "lambda_min": lam,
+               "launches": launched, "final_norm_card": ig["final_norm"]}
+        versus.append(row)
+        if not (ig["converged"] and ic["converged"]
+                and ig["cycles"] == ic["cycles"] and dx <= 2e-10 / lam):
+            fail(f"card against CPU, {name}: {row}")
+        if want is not None and ig["cycles"] != want:
+            fail(f"{name}: {ig['cycles']} cycles, the reference took {want}")
+
+    # 4. the ELL engine against the stencil engine on the card
+    cfg = mg.SolverConfig(smoother="jacobi", transfer="aggregate",
+                          threshold=1e-10, cycles=12)
+    bs = mg.rhs_random(ELL_SHAPE, seed=8)
+    _, i_sten = mg.setup(ELL_SHAPE, cfg, device=dev).solve(bs)
+    _, i_gen = mg.setup_sparse(mg.poisson(ELL_SHAPE), ELL_SHAPE, cfg,
+                               device=dev).solve(bs.ravel())
+    a = np.asarray(i_sten["residual_norms"][:10])
+    g = np.asarray(i_gen["residual_norms"][:10])
+    if len(a) != 10 or len(g) != 10 or not np.allclose(g, a, rtol=1e-4, atol=0):
+        fail(f"ELL against stencil engine: {g} vs {a}")
+
+    # 5. where the two full-width solves spend their time: each part alone,
+    # then the profiler, which slows every launch after it attaches
+    for row, sv, bb, ii in ((bsr, solvers["bsr"], b_bsr, info_bsr),
+                            (ell, solvers["ell"], b_ell, info_b)):
+        row["phases_ms"] = sparse_phases(sv, bb, ii)
+    for row, sv, bb in ((bsr, solvers["bsr"], b_bsr), (ell, solvers["ell"], b_ell)):
+        row["profile"] = profile_solve(sv, bb)
+        row["device_idle_share"] = max(
+            0.0, 1.0 - row["profile"]["device_busy_ms"] / row["solve_ms"])
+
+    # 6. what waits for later slices is refused on the card
+    refused = []
+    for what, kw in (("krylov=pcg", dict(krylov="pcg")),
+                     ("cycle_type=f", dict(cycle_type="f"))):
+        try:
+            mg.setup_sparse(mg.poisson((16, 16)), (16, 16),
+                            mg.SolverConfig(format="ell", **kw), device=dev)
+        except NotImplementedError:
+            refused.append(what)
+        else:
+            fail(f"{what}: the sparse engine took it on the card")
+
+    emit("solve_sparse", {
+        "bsr": bsr, "ell": ell, "card_vs_cpu": versus,
+        "ell_vs_stencil": {"shape": list(ELL_SHAPE), "sparse": g.tolist(),
+                           "stencil": a.tolist(),
+                           "max_rel": float(np.max(np.abs(g - a) / a))},
+        "refused_on_card": refused,
+    })
+    return bsr["launches"]["K7"], ell["launches"]["K6"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -1400,6 +1943,12 @@ def main():
     vary = setup_vary(dev)
     sweeps = phase_sweeps(dev, copy_bw, vary[0].hierarchy)
     vary_counts, f32_counts = phase_solve_vary(dev, vary)
+    del vary
+    torch.cuda.empty_cache()
+    solvers = setup_sparse_solvers(dev)
+    spmv_rows = phase_spmv(dev, copy_bw, solvers)
+    k7_launches, k6_launches = phase_solve_sparse(dev, solvers)
+    del solvers
 
     def entry(name, source, replaces, launches, main_row, all_rows):
         return {
@@ -1444,6 +1993,14 @@ def main():
               "openmg_tpu_torch/csrc/fused_stages_2d.cu",
               "openmg_tpu/ops/kernels.py:1134", k5_counts["K5"], k5_main,
               k5_rows),
+        entry("spmv_ell (slot-offset ELL SpMV, spmv_banded at B=1)",
+              "openmg_tpu_torch/csrc/spmv_banded.cu",
+              "openmg_tpu/ops/ell.py:169", k6_launches, spmv_rows["K6"][0],
+              spmv_rows["K6"]),
+        entry("spmv_bsr (blocked-band BSR SpMV, spmv_banded)",
+              "openmg_tpu_torch/csrc/spmv_banded.cu",
+              "openmg_tpu/ops/bsr.py:114", k7_launches, spmv_rows["K7"][0],
+              spmv_rows["K7"]),
     ]}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

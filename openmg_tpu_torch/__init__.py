@@ -6,34 +6,51 @@ GPU (Hopper, ``sm_90a``).  The package mirrors the JAX package's layout
 function here has a named twin there; it imports ``torch``, ``numpy`` and
 ``scipy`` and nothing of the JAX package.
 
-What is ported so far is the 3D defect-correction solve of the stencil
-engine: Poisson from a grid shape (structured setup, constant and cornered
-levels), and any radius-1 stencil pair such as variable-coefficient
-diffusion or a matrix's extracted stencil (host Galerkin chain, varying
-levels); V(pre, post) cycles with Jacobi or red-black smoothing and
-aggregate or linear transfers; the double-float outer loop and the plain
-float32 / float64 ones.  Its kernels are hand-written CUDA under ``csrc/``,
-built with ``nvcc`` at first use (:mod:`openmg_tpu_torch._build`):
+What is ported so far:
 
-* ``ops/fused.py::fused_stages_const_3d`` — a level visit on a constant or
-  cornered level;
+* the stencil engine's defect-correction solve on 2D and 3D grids: Poisson
+  from a grid shape (structured setup, constant and cornered levels), and
+  any radius-1 stencil pair such as variable-coefficient diffusion or a
+  matrix's extracted stencil (host Galerkin chain, varying levels);
+  V(pre, post) cycles with Jacobi or red-black smoothing and aggregate or
+  linear transfers; the double-float outer loop and the plain float32 /
+  float64 ones;
+* the general sparse engine (:func:`setup_sparse`, and ``mg_solve`` with
+  ``format`` ``ell|csr|bsr|dense`` or a matrix that is not
+  stencil-representable): host Galerkin chain of explicit transfer
+  matrices, levels in ELL / CSR / BSR / dense containers, Jacobi,
+  multicolour Gauss–Seidel or Chebyshev smoothing, V and W cycles, vector
+  problems with ``dofs`` unknowns a node (:func:`elasticity`,
+  :func:`coupled_diffusion`).
+
+Its kernels are hand-written CUDA under ``csrc/``, built with ``nvcc`` at
+first use (:mod:`openmg_tpu_torch._build`):
+
+* ``ops/fused.py::fused_stages_const_3d`` — a 3D level visit on a constant
+  or cornered level;
+* ``ops/kernels.py::fused_stages_2d`` — a 2D level visit;
 * ``ops/kernels.py::df_update_residual_const_3d`` — the outer step of a
   dyadic constant fine operator;
 * ``ops/kernels.py`` ``residual_* / jacobi_* / rbgs_*`` ``_const_3d`` and
   ``_vary_3d`` — one smoother or residual pass, for the levels and residuals
-  the other two do not take.
+  the others do not take;
+* ``ops/ell.py::spmv_ell`` and ``ops/bsr.py::spmv_bsr`` — the SpMV of a
+  banded ELL and of a blocked-band BSR level of the sparse engine.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; on
 CPU tensors each kernel wrapper runs its plain PyTorch version.
 """
 
+from openmg_tpu_torch.core.algebraic import AlgebraicSolver, setup_sparse
 from openmg_tpu_torch.core.config import ProblemConfig, SolverConfig
 from openmg_tpu_torch.core.hierarchy import Hierarchy, Level
 from openmg_tpu_torch.core.solver import Solver, mg_solve, setup, solve
+from openmg_tpu_torch.models.elasticity import coupled_diffusion, elasticity
 from openmg_tpu_torch.models.poisson import (
     diffusion,
     diffusion_stencil,
     poisson,
+    poisson_ell_device,
     poisson_stencil,
     rhs_ones,
     rhs_random,
@@ -48,7 +65,9 @@ __all__ = [
     "mg_solve",
     "solve",
     "setup",
+    "setup_sparse",
     "Solver",
+    "AlgebraicSolver",
     "SolverConfig",
     "ProblemConfig",
     "Hierarchy",
@@ -59,6 +78,9 @@ __all__ = [
     "stencil_from_csr",
     "diffusion",
     "diffusion_stencil",
+    "poisson_ell_device",
+    "elasticity",
+    "coupled_diffusion",
     "rhs_random",
     "rhs_ones",
     "StencilOperator",

@@ -1,0 +1,643 @@
+"""General sparse-matrix multigrid (twin of ``openmg_tpu/core/algebraic.py``).
+
+The stencil engine (:mod:`openmg_tpu_torch.core.hierarchy`) covers
+grid-structured operators; this module covers the rest of the input domain
+of ``mg_solve(A, b, parameters)``: an arbitrary sparse SPD matrix over the
+grid named by ``problemshape``, with geometric transfers.
+
+* explicit restriction/prolongation matrices per level (tap tensor
+  products, :mod:`openmg_tpu_torch.utils.oracle`), ``⊗ I_dofs`` for a
+  vector problem with ``dofs`` unknowns a node;
+* Galerkin coarsening ``A[l+1] = R A P`` by scipy at setup (host, once);
+* levels stored in the padded containers of
+  :mod:`openmg_tpu_torch.ops.sparse` (ELL / CSR / BSR / dense);
+* smoothing by weighted Jacobi, multicolour Gauss–Seidel (parity colours
+  where the level is bipartite on its grid, else a greedy host colouring)
+  or 4th-kind Chebyshev;
+* a µ-cycle over the level list (V and W), a dense direct coarse solve;
+* the defect-correction outer loop of the stencil engine: a double-float
+  residual with an f32 cycle reaches 1e-10 absolute residuals.
+
+Multicolour GS uses ``x_i ← x_i + (b − A x)_i / a_ii`` one colour class at
+a time: same-colour points never couple, so each update is the classical
+GS update.  Every level SpMV goes through :func:`~openmg_tpu_torch.ops.
+sparse.spmv`: on the card a banded ELL level launches K6 and a banded BSR
+level K7, one launch a product.
+
+The outer loop is a Python loop: one cycle, one residual and one scalar
+read of ‖r‖ a cycle.  Waiting for later slices, each raising
+``NotImplementedError``: ``cycle_type="f"`` and ``krylov="pcg"`` (ROADMAP
+queue 1, item 14) and ``solve_many`` (item 13).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from openmg_tpu_torch.core.config import SolverConfig
+from openmg_tpu_torch.ops.doublefloat import df_add_f32, df_merge, df_split, df_sub
+from openmg_tpu_torch.ops.sparse import (
+    ELLMatrix,
+    ell_from_scipy,
+    from_scipy,
+    matvec_full,
+    spmv,
+    spmv_df,
+)
+from openmg_tpu_torch.ops.transfer import TRANSFERS, prolong, restrict
+from openmg_tpu_torch.utils.oracle import (
+    max_gridlevels,
+    weighted_prolongation,
+    weighted_restriction,
+)
+
+__all__ = [
+    "SparseLevel",
+    "SparseHierarchy",
+    "build_sparse_hierarchy",
+    "sparse_v_cycle",
+    "AlgebraicSolver",
+    "setup_sparse",
+    "parity_colors",
+    "greedy_colors",
+]
+
+_LATER = "is not ported yet (ROADMAP queue 1, item 14: FMG, PCG)"
+
+
+# ---------------------------------------------------------------------------
+# colouring (setup time, host)
+# ---------------------------------------------------------------------------
+
+
+def parity_colors(A, shape) -> np.ndarray | None:
+    """Red-black colouring by grid-coordinate parity, or None if the matrix
+    couples same-parity points (then red/black half-sweeps would not be
+    true GS)."""
+    import scipy.sparse as sp
+
+    shape = tuple(int(s) for s in shape)
+    n = int(np.prod(shape))
+    if A.shape[0] != n:
+        return None
+    coo = sp.coo_matrix(A)
+    par = np.zeros(n, dtype=np.int32)
+    for idx in np.unravel_index(np.arange(n), shape):
+        par ^= (idx & 1).astype(np.int32)
+    off = coo.row != coo.col
+    if np.any(par[coo.row[off]] == par[coo.col[off]]):
+        return None
+    return par
+
+
+def greedy_colors(A) -> np.ndarray:
+    """Greedy colouring of the (symmetrised) sparsity graph.
+
+    A host Python loop over rows, O(nnz); used only at setup and only for
+    levels where the parity colouring fails."""
+    import scipy.sparse as sp
+
+    S = sp.csr_matrix(A)
+    S = (S + S.T).tocsr()
+    n = S.shape[0]
+    colors = np.full(n, -1, dtype=np.int32)
+    indptr, indices = S.indptr, S.indices
+    for i in range(n):
+        neigh = indices[indptr[i]: indptr[i + 1]]
+        used = set(int(c) for c in colors[neigh] if c >= 0)
+        c = 0
+        while c in used:
+            c += 1
+        colors[i] = c
+    return colors
+
+
+# ---------------------------------------------------------------------------
+# hierarchy
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseLevel:
+    """One level of the sparse hierarchy.
+
+    ``R``/``P`` map this level to and from the next coarser one (None at the
+    coarsest); ``colors`` is the GS colouring (None when smoothing with
+    Jacobi); ``lam_max`` is the setup-time Gershgorin bound on λmax(D⁻¹A)
+    that the Chebyshev smoother uses.
+    """
+
+    A: object  # ELLMatrix | CSRMatrix | BSRMatrix | DenseMatrix
+    inv_diag: torch.Tensor  # (n,)
+    R: object | None
+    P: object | None
+    colors: torch.Tensor | None  # (n,) int32
+    num_colors: int
+    lam_max: torch.Tensor | None = None  # 0-d
+
+    @property
+    def n(self) -> int:
+        return self.A.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseHierarchy:
+    levels: tuple  # tuple[SparseLevel, ...], finest first
+    coarse_inv: torch.Tensor  # (nc, nc)
+    fine_hi: ELLMatrix  # outer-residual operator, hi part
+    fine_lo: ELLMatrix | None  # lo part (doublefloat) or None
+    stats: tuple  # per-level (n, k_or_kb, true_nnz)
+    fmt: str
+    # per-level grid shapes and the transfer the explicit R/P were built
+    # from: a factor-2 scalar level pair applies its transfers as the
+    # strided grid ops of ops/transfer.py instead of an SpMV.  None keeps
+    # the SpMV path.
+    shapes: tuple | None = None
+    transfer_name: str | None = None
+    # dofs a node (vector PDEs): transfers are node transfers ⊗ I_dofs,
+    # which the grid ops do not cover, so dofs > 1 keeps the SpMV path
+    dofs: int = 1
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.levels)
+
+    @property
+    def n(self) -> int:
+        return self.levels[0].n
+
+    @property
+    def device(self):
+        return self.coarse_inv.device
+
+    def geom_transfer(self, level: int):
+        """The ``(fine_shape, coarse_shape, Transfer)`` triple when level →
+        level+1 can run the separable grid transfers (every axis either
+        halves exactly or is a kept size-1 axis), else None."""
+        if self.shapes is None or self.transfer_name is None or self.dofs != 1:
+            return None
+        if level >= len(self.shapes) - 1:
+            return None
+        fs, cs = self.shapes[level], self.shapes[level + 1]
+        if not all(f == 2 * c or (f == c == 1) for f, c in zip(fs, cs)):
+            return None
+        return fs, cs, TRANSFERS[self.transfer_name]
+
+
+def _resolve_blocksize(n: int, want: int) -> int:
+    """Largest divisor of n that is <= want (BSR needs exact tiling)."""
+    b = min(max(int(want), 1), n)
+    while n % b:
+        b -= 1
+    return b
+
+
+def build_sparse_hierarchy(
+    A,
+    shape,
+    gridlevels=None,
+    fmt: str = "ell",
+    transfer_name: str = "aggregate",
+    dtype=np.float32,
+    residual_dtype: str = "doublefloat",
+    max_dense_coarse: int = 512,
+    blocksize: int = 4,
+    smoother: str = "jacobi",
+    dofs: int = 1,
+    device=None,
+) -> SparseHierarchy:
+    """Host-side setup: explicit R/P chain, scipy Galerkin products,
+    conversion to the padded containers on ``device`` (CUDA when None; the
+    package's device rule).
+
+    ``dofs`` > 1 treats ``shape`` as the NODE grid of a vector PDE with that
+    many unknowns a node (node-major, dof-minor): transfers become
+    ``R_node ⊗ I_dofs``, which keeps the Galerkin operators block-structured
+    with the same block size (the natural pairing with ``fmt='bsr'``)."""
+    import scipy.sparse as sp
+
+    from openmg_tpu_torch.core.hierarchy import _UNCOARSENABLE_DENSE_CAP
+    from openmg_tpu_torch.core.solver import _resolve_device
+
+    device = _resolve_device(device)
+    shape = tuple(int(s) for s in shape)
+    dofs = int(dofs)
+    if dofs < 1:
+        raise ValueError(f"dofs must be >= 1, got {dofs}")
+    n = dofs * int(np.prod(shape))
+    A = sp.csr_matrix(A).astype(np.float64)
+    if A.shape != (n, n):
+        raise ValueError(
+            f"matrix shape {A.shape} != grid {shape} × {dofs} dofs ({n} rows)"
+        )
+    transfer = TRANSFERS[transfer_name]
+    dtype = np.dtype(dtype)
+
+    if gridlevels is None:
+        gridlevels = 1
+        s, cnt = list(shape), n
+        while cnt > max_dense_coarse and gridlevels < max_gridlevels(shape):
+            s = [max(1, v // 2) for v in s]
+            cnt = dofs * int(np.prod(s))
+            gridlevels += 1
+    gridlevels = min(int(gridlevels), max_gridlevels(shape))
+
+    # explicit transfer matrices and the Galerkin chain (host scipy)
+    shapes = [shape]
+    As, Rs, Ps = [A], [], []
+    for _ in range(gridlevels - 1):
+        s = shapes[-1]
+        R = weighted_restriction(s, transfer.r_taps)
+        P = weighted_prolongation(s, transfer.p_taps)
+        if dofs > 1:
+            eye = sp.eye(dofs, format="csr")
+            R = sp.kron(R, eye, format="csr")
+            P = sp.kron(P, eye, format="csr")
+        Rs.append(R)
+        Ps.append(P)
+        As.append((R @ As[-1] @ P).tocsr())
+        shapes.append(tuple(max(1, v // 2) for v in s))
+
+    nc = As[-1].shape[0]
+    if nc > max_dense_coarse:
+        # an uncoarsenable grid degrades to the plain dense solve (up to a
+        # hard cap) instead of erroring, as the stencil hierarchy does
+        if gridlevels == 1 and nc <= _UNCOARSENABLE_DENSE_CAP:
+            import warnings
+
+            warnings.warn(
+                f"grid cannot be coarsened; solving its {nc} unknowns "
+                f"directly (above max_dense_coarse={max_dense_coarse})",
+                stacklevel=2,
+            )
+        else:
+            raise ValueError(
+                f"coarsest level has {nc} unknowns > max_dense_coarse="
+                f"{max_dense_coarse}; increase gridlevels"
+            )
+    coarse_inv = np.linalg.inv(As[-1].toarray())
+
+    def put(a, dt=dtype):
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=dt))).to(device)
+
+    levels, stats = [], []
+    for lvl in range(gridlevels):
+        Al = As[lvl]
+        diag = Al.diagonal()
+        if np.any(diag == 0):
+            raise ValueError(f"level {lvl} operator has zero diagonal entries")
+        if fmt == "bsr":
+            bs = _resolve_blocksize(Al.shape[0], blocksize)
+            Adev = from_scipy(Al, "bsr", dtype=dtype, device=device,
+                              blocksize=(bs, bs))
+        elif fmt == "dense":
+            if Al.shape[0] > 16384:
+                raise ValueError(
+                    f"format='dense' is a debug mode; level 0 has "
+                    f"{Al.shape[0]} rows (> 16384) — use a sparse format"
+                )
+            Adev = from_scipy(Al, "dense", dtype=dtype, device=device)
+        else:
+            Adev = from_scipy(Al, fmt, dtype=dtype, device=device)
+        colors_np = None
+        if smoother == "rbgs":
+            colors_np = parity_colors(Al, shapes[lvl]) if dofs == 1 else None
+            if colors_np is None:
+                colors_np = greedy_colors(Al)
+        # R/P are stored in ELL whatever the cycle's format (rectangular,
+        # few taps a row)
+        last = lvl == gridlevels - 1
+        R = None if last else ell_from_scipy(Rs[lvl], dtype=dtype, device=device)
+        P = None if last else ell_from_scipy(Ps[lvl], dtype=dtype, device=device)
+        abs_off = np.asarray(np.abs(Al).sum(axis=1)).ravel() - np.abs(diag)
+        lam_max = 1.0 + float(np.max(abs_off / np.abs(diag)))
+        levels.append(
+            SparseLevel(
+                A=Adev,
+                inv_diag=put(1.0 / diag),
+                R=R,
+                P=P,
+                colors=None if colors_np is None else put(colors_np, np.int32),
+                num_colors=0 if colors_np is None else int(colors_np.max()) + 1,
+                lam_max=put(lam_max),
+            )
+        )
+        k_stat = Adev.kb if fmt == "bsr" else Adev.k if fmt == "ell" else 0
+        stats.append((int(Al.shape[0]), int(k_stat), int(Al.nnz)))
+
+    # outer-residual operator: exact two-f32 split of the float64 fine matrix
+    fine_ell64 = ell_from_scipy(A, dtype=np.float64, device="cpu")
+    d64 = fine_ell64.data.numpy()
+    hi = d64.astype(np.float32)
+    cols = fine_ell64.cols.to(device)
+    fine64 = dataclasses.replace(fine_ell64, cols=cols)
+    if residual_dtype == "doublefloat":
+        lo = (d64 - hi.astype(np.float64)).astype(np.float32)
+        fine_hi = dataclasses.replace(fine64, data=put(hi, np.float32))
+        fine_lo = dataclasses.replace(fine64, data=put(lo, np.float32))
+    else:
+        rd = np.dtype(residual_dtype)
+        fine_hi = dataclasses.replace(fine64, data=put(d64, rd))
+        fine_lo = None
+    return SparseHierarchy(
+        levels=tuple(levels),
+        coarse_inv=put(coarse_inv),
+        fine_hi=fine_hi,
+        fine_lo=fine_lo,
+        stats=tuple(stats),
+        fmt=fmt,
+        shapes=tuple(tuple(int(v) for v in s) for s in shapes),
+        transfer_name=transfer_name,
+        dofs=dofs,
+    )
+
+
+# ---------------------------------------------------------------------------
+# cycle
+# ---------------------------------------------------------------------------
+
+
+def _smooth_sparse(level: SparseLevel, b, x, iterations: int, smoother, omega):
+    if iterations <= 0:
+        return x
+    if smoother == "chebyshev":
+        # 4th-kind Chebyshev with the setup-time Gershgorin bound λmax
+        lam = level.lam_max
+        r = b - spmv(level.A, x)
+        d = (4.0 / 3.0) / lam * level.inv_diag * r
+        for k in range(1, iterations + 1):
+            x = x + d
+            if k == iterations:
+                break
+            r = r - spmv(level.A, d)
+            d = ((2 * k - 1) / (2 * k + 3)) * d + (
+                (8 * k + 4) / (2 * k + 3)
+            ) / lam * level.inv_diag * r
+        return x
+    if smoother == "jacobi" or level.colors is None:
+        # a Python omega is rounded to the tensors' type, as the reference's
+        # omega array is
+        for _ in range(iterations):
+            x = x + omega * level.inv_diag * (b - spmv(level.A, x))
+        return x
+    if smoother == "rbgs":
+        for _ in range(iterations):
+            for c in range(level.num_colors):
+                upd = x + level.inv_diag * (b - spmv(level.A, x))
+                x = torch.where(level.colors == c, upd, x)
+        return x
+    raise ValueError(f"unknown smoother {smoother!r}")
+
+
+def _restrict_level(hierarchy: SparseHierarchy, level: int, r):
+    """``R r`` at ``level``: the separable grid ops on a factor-2 scalar level
+    pair, the SpMV with the explicit ELL matrix otherwise (the same values:
+    the matrices are built from the same taps)."""
+    geom = hierarchy.geom_transfer(level)
+    if geom is not None:
+        fs, cs, transfer = geom
+        return restrict(r.reshape(fs), transfer).reshape(-1)
+    return spmv(hierarchy.levels[level].R, r)
+
+
+def _prolong_level(hierarchy: SparseHierarchy, level: int, ec):
+    """``P e`` at ``level`` (coarse level+1 → fine level); see
+    :func:`_restrict_level`."""
+    geom = hierarchy.geom_transfer(level)
+    if geom is not None:
+        fs, cs, transfer = geom
+        return prolong(ec.reshape(cs), fs, transfer).reshape(-1)
+    return spmv(hierarchy.levels[level].P, ec)
+
+
+def sparse_v_cycle(
+    hierarchy: SparseHierarchy,
+    b,
+    x,
+    level: int = 0,
+    pre: int = 2,
+    post: int = 2,
+    smoother: str = "jacobi",
+    omega: float = 2.0 / 3.0,
+    gamma: int = 1,
+):
+    """One µ-cycle on flat vectors (``gamma=1``: V, 2: W)."""
+    L = hierarchy.levels[level]
+    if level == hierarchy.num_levels - 1:
+        return matvec_full(hierarchy.coarse_inv, b)
+    x = _smooth_sparse(L, b, x, pre, smoother, omega)
+    r = b - spmv(L.A, x)
+    bc = _restrict_level(hierarchy, level, r)
+    ec = torch.zeros_like(bc)
+    visits = 1 if level == hierarchy.num_levels - 2 else gamma
+    for _ in range(visits):
+        ec = sparse_v_cycle(
+            hierarchy, bc, ec, level + 1, pre, post, smoother, omega, gamma
+        )
+    x = x + _prolong_level(hierarchy, level, ec)
+    return _smooth_sparse(L, b, x, post, smoother, omega)
+
+
+def _sparse_cycle(hierarchy, r, *, pre, post, smoother, cycle_type, omega):
+    r32 = r.to(hierarchy.levels[0].inv_diag.dtype)
+    gamma = {"v": 1, "w": 2}.get(cycle_type)
+    if gamma is None:
+        raise ValueError(f"unknown cycle_type {cycle_type!r}; choose v|w|f")
+    return sparse_v_cycle(
+        hierarchy, r32, torch.zeros_like(r32), 0, pre, post, smoother, omega,
+        gamma,
+    )
+
+
+def _sparse_residual_df(fine_hi, fine_lo, b_df, x_df):
+    ax = spmv_df(fine_hi, fine_lo, x_df[0], x_df[1])
+    r = df_sub(b_df, ax)
+    return r, torch.sqrt(torch.sum(r[0] * r[0]))
+
+
+def _sparse_residual(fine_hi, b, x):
+    r = b - spmv(fine_hi, x)
+    return r, torch.sqrt(torch.sum(r * r))
+
+
+# ---------------------------------------------------------------------------
+# the solver
+# ---------------------------------------------------------------------------
+
+
+def _check_config(config: SolverConfig):
+    """Refuse what the sparse engine does not run (yet)."""
+    if config.krylov not in (None, "none", "pcg"):
+        raise ValueError(f"unknown krylov {config.krylov!r}; choose none|pcg")
+    if config.krylov == "pcg":
+        raise NotImplementedError(f"krylov='pcg' {_LATER}")
+    if config.cycle_type == "f":
+        raise NotImplementedError(f"cycle_type='f' {_LATER}")
+
+
+class AlgebraicSolver:
+    """General sparse solver: the contract of
+    :class:`openmg_tpu_torch.core.solver.Solver` (defect-correction outer
+    loop, per-cycle residual history) on flat vectors."""
+
+    def __init__(self, hierarchy: SparseHierarchy, config: SolverConfig):
+        _check_config(config)
+        self.hierarchy = hierarchy
+        self.config = config
+        self.device = hierarchy.device
+        self.df = hierarchy.fine_lo is not None
+
+    @property
+    def n(self) -> int:
+        return self.hierarchy.n
+
+    def _cycle(self, r):
+        cfg = self.config
+        return _sparse_cycle(
+            self.hierarchy, r, pre=cfg.pre_iterations,
+            post=cfg.post_iterations, smoother=cfg.smoother,
+            cycle_type=cfg.cycle_type, omega=cfg.omega,
+        )
+
+    def solve(self, b, x0=None):
+        """Solve ``A x = b`` to the configured threshold.
+
+        A numpy (or any non-float32-tensor) ``b`` returns the float64 merge
+        of the double-float pair as a flat numpy vector.  A float32 tensor
+        ``b`` on the solver's device stays there: the float32 hi part is
+        returned as a tensor and the full pair is in ``info['x_df']``.
+        """
+        cfg = self.config
+        h = self.hierarchy
+        dev = self.device
+        device_native = (
+            self.df and isinstance(b, torch.Tensor) and b.dtype == torch.float32
+        )
+        if device_native:
+            if b.device != dev:
+                raise ValueError(
+                    f"b is on {b.device} but the solver was set up on {dev}"
+                )
+            b1 = b.reshape(-1).contiguous()
+            b_dev = (b1, torch.zeros_like(b1))
+            if x0 is None:
+                x = (torch.zeros_like(b1), torch.zeros_like(b1))
+            elif isinstance(x0, torch.Tensor) and x0.dtype == torch.float32:
+                x = (x0.reshape(-1).to(dev).contiguous(), torch.zeros_like(b1))
+            else:
+                x = df_split(_host(x0).reshape(-1), dev)
+        else:
+            b_np = _host(b).reshape(-1)
+            x0_np = np.zeros(self.n) if x0 is None else _host(x0).reshape(-1)
+            if self.df:
+                b_dev = df_split(b_np, dev)
+                x = df_split(x0_np, dev)
+            else:
+                rd = h.fine_hi.dtype
+                b_dev = torch.from_numpy(b_np).to(device=dev, dtype=rd)
+                x = torch.from_numpy(x0_np).to(device=dev, dtype=rd)
+
+        limit = cfg.cycles if cfg.cycles > 0 else 10_000
+        history, cycle_times = [], []
+        converged = False
+        t_start = time.perf_counter()
+        for k in range(limit + 1):
+            if self.df:
+                r_pair, rn = _sparse_residual_df(h.fine_hi, h.fine_lo, b_dev, x)
+                r = r_pair[0]
+            else:
+                r, rn = _sparse_residual(h.fine_hi, b_dev, x)
+            rnorm = float(rn)  # one scalar read
+            history.append(rnorm)
+            if cfg.verbose:
+                print(f"[openmg_tpu_torch/sparse] cycle {k}: ‖r‖ = {rnorm:.3e}")
+            if rnorm < cfg.threshold:
+                converged = True
+                break
+            if k == limit:
+                break
+            t0 = time.perf_counter()
+            e = self._cycle(r)
+            x = df_add_f32(x, e) if self.df else x + e.to(x.dtype)
+            cycle_times.append(time.perf_counter() - t0)
+
+        if device_native:
+            x_out = x[0]
+        elif self.df:
+            x_out = df_merge(x)
+        else:
+            x_out = x.detach().cpu().numpy().astype(np.float64)
+        info = {
+            "residual_norms": history,
+            "cycles": len(history) - 1,
+            "converged": converged,
+            "final_norm": history[-1],
+            "gridlevels": h.num_levels,
+            "level_stats": h.stats,
+            "format": h.fmt,
+            "residual_mode": (
+                "doublefloat" if self.df
+                else str(h.fine_hi.dtype).replace("torch.", "")
+            ),
+            "num_colors": tuple(lv.num_colors for lv in h.levels),
+            # enqueue times of the cycles (the loop synchronises only at
+            # the scalar read of the next residual)
+            "cycle_times_s": cycle_times,
+            "mean_cycle_time_s": (
+                float(np.mean(cycle_times[1:] or cycle_times))
+                if cycle_times else float("nan")
+            ),
+            "outer_loop": "host",
+            "solve_time_s": time.perf_counter() - t_start,
+        }
+        if device_native:
+            info["x_df"] = x
+        return x_out, info
+
+    def solve_many(self, bs, x0s=None):
+        raise NotImplementedError(
+            "solve_many is not ported yet (ROADMAP queue 1, item 13)"
+        )
+
+
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, dtype=np.float64)
+
+
+def setup_sparse(
+    A, shape, config: SolverConfig | None = None, *, dofs: int = 1, device=None
+) -> AlgebraicSolver:
+    """Build an :class:`AlgebraicSolver` on ``device`` (CUDA when None) for
+    an arbitrary sparse SPD ``A`` over the grid ``shape`` (the general
+    engine behind ``mg_solve``).  ``dofs`` > 1 marks a vector PDE with that
+    many unknowns a node (block transfers; pair with ``format='bsr'`` and
+    ``blocksize=dofs``, see :mod:`openmg_tpu_torch.models.elasticity`)."""
+    config = config or SolverConfig()
+    _check_config(config)  # before the host setup, not after it
+    fmt = config.format if config.format not in (None, "auto", "stencil") else "ell"
+    rmode = (
+        config.residual_dtype
+        if config.residual_dtype not in (None, "auto")
+        else "doublefloat"
+    )
+    hierarchy = build_sparse_hierarchy(
+        A,
+        shape,
+        gridlevels=config.gridlevels,
+        fmt=fmt,
+        transfer_name=config.transfer,
+        dtype=np.dtype(config.dtype),
+        residual_dtype=rmode,
+        max_dense_coarse=config.max_dense_coarse,
+        blocksize=config.blocksize,
+        smoother=config.smoother,
+        dofs=dofs,
+        device=device,
+    )
+    return AlgebraicSolver(hierarchy, config)

@@ -27,6 +27,7 @@ from openmg_tpu_torch.core.hierarchy import Hierarchy
 from openmg_tpu_torch.ops import fused
 from openmg_tpu_torch.ops.smoothers import smooth
 from openmg_tpu_torch.ops.stencil import residual
+from openmg_tpu_torch.ops.sparse import matvec_full
 from openmg_tpu_torch.ops.transfer import prolong, restrict
 
 __all__ = ["v_cycle", "coarse_solve", "run_cycle", "fmg_cycle", "pcg_solve"]
@@ -37,18 +38,8 @@ _LATER = "is not ported yet (ROADMAP queue 1, item 14: FMG, W-cycle, PCG)"
 def coarse_solve(hierarchy: Hierarchy, b: torch.Tensor) -> torch.Tensor:
     """Direct solve at the coarsest level via the precomputed dense inverse:
     one matrix–vector product, left to the library as the JAX package
-    leaves it to its compiler."""
-    # The product must run in full float32: TF32 keeps about three decimal
-    # digits, which would cap the cycle's contraction.  False is PyTorch's
-    # default; it is set here so that a caller's global setting cannot
-    # change what this solve computes.
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        x = torch.matmul(hierarchy.coarse_inv, b.reshape(-1))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-    return x.reshape(b.shape)
+    leaves it to its compiler, in full float32 (never TF32)."""
+    return matvec_full(hierarchy.coarse_inv, b.reshape(-1)).reshape(b.shape)
 
 
 def v_cycle(

@@ -4,7 +4,8 @@ Two entry points:
 
 * :func:`mg_solve` — ``mg_solve(A, b, parameters)`` with the original
   parameters-dict vocabulary: ``A=None`` assembles Poisson from
-  ``problemshape``; a scipy/dense matrix is taken in its exact stencil form.
+  ``problemshape``; a scipy/dense matrix is taken in its exact stencil form,
+  or goes through the general sparse engine.
 * :func:`setup` / :func:`solve` — build a :class:`Solver` once (hierarchy)
   from a grid shape (Poisson) or an ``(offsets, coeffs)`` stencil pair, then
   solve many right-hand sides.
@@ -32,10 +33,13 @@ per-pass stencil kernel, float64 as ``b − apply(A, x)``).
 ``torch.device("cuda")`` when ``device`` is None and raise when there is no
 CUDA device.  The CPU is used only when the caller passes ``device="cpu"``.
 
+A matrix that is not stencil-representable, and an explicit
+``format`` of ``ell``/``csr``/``bsr``/``dense``, go through the general
+sparse engine (:mod:`openmg_tpu_torch.core.algebraic`).
+
 Waiting for later slices (each raises ``NotImplementedError``):
 ``Solver.solve_many``, checkpoint/resume, ``krylov="pcg"``, W/FMG cycles,
-the chebyshev smoother, 1D grids, matrices that are not
-stencil-representable and the general sparse formats.
+the chebyshev smoother and 1D grids on the stencil engine.
 """
 
 from __future__ import annotations
@@ -458,38 +462,43 @@ def mg_solve(A, b, parameters: dict, *, device=None):
     assemble the Poisson operator; ``b`` is flat or grid-shaped.  Returns
     ``(x, info)`` with ``x`` a flat numpy vector.
 
-    A matrix is taken in its exact stencil form
+    Engine choice (``parameters["format"]``), as in the JAX package: with
+    ``"auto"`` or ``"stencil"`` a matrix is taken in its exact stencil form
     (:func:`~openmg_tpu_torch.models.poisson.stencil_from_csr`) and goes
-    through the stencil engine.  ``A=None`` uses
-    ``build_hierarchy_structured``, which yields exactly the operators of
-    the direct Galerkin chain.  A matrix that is not stencil-representable,
-    and the general sparse formats, wait for a later slice.
+    through the stencil engine (``A=None`` uses
+    ``build_hierarchy_structured``, which yields exactly the operators of the
+    direct Galerkin chain); ``"ell"``, ``"csr"``, ``"bsr"`` or ``"dense"``,
+    and under ``"auto"`` a matrix that is not stencil-representable, go
+    through the general sparse engine
+    (:func:`~openmg_tpu_torch.core.algebraic.setup_sparse`).
     """
     if "problemshape" not in parameters:
         raise ValueError("parameters must include 'problemshape'")
     shape = tuple(int(s) for s in parameters["problemshape"])
     config = SolverConfig.from_parameters(parameters)
-    if config.format not in ("auto", "stencil"):
-        raise NotImplementedError(
-            f"format={config.format!r} is not ported yet (ROADMAP queue 1, "
-            "slice C: the sparse engine)"
-        )
-    if A is None:
+    fmt = config.format
+    if A is None and fmt in ("auto", "stencil"):
         solver = setup(shape, config, device=device)
+    elif fmt in ("ell", "csr", "bsr", "dense"):
+        from openmg_tpu_torch.core.algebraic import setup_sparse
+        from openmg_tpu_torch.models.poisson import poisson
+
+        A_in = poisson(shape) if A is None else A
+        solver = setup_sparse(A_in, shape, config, device=device)
     else:
         import scipy.sparse as sp
 
+        A_sp = sp.csr_matrix(A)
         try:
-            stencil = stencil_from_csr(sp.csr_matrix(A), shape)
-        except ValueError as err:
-            if config.format == "stencil":
+            stencil = stencil_from_csr(A_sp, shape)
+        except ValueError:
+            if fmt == "stencil":
                 raise
-            raise NotImplementedError(
-                f"the matrix is not stencil-representable ({err}); the "
-                "general sparse engine is not ported yet (ROADMAP queue 1, "
-                "slice C)"
-            ) from err
-        solver = setup(stencil, config, device=device)
+            from openmg_tpu_torch.core.algebraic import setup_sparse
+
+            solver = setup_sparse(A_sp, shape, config, device=device)
+        else:
+            solver = setup(stencil, config, device=device)
     x, info = solver.solve(b)
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()

@@ -1,0 +1,182 @@
+"""Slot-offset ELL SpMV, kernel K6 (twin of ``openmg_tpu/ops/ell.py``).
+
+A square ELL matrix whose every slot has one constant column offset
+(``cols[j, i] == i + d_j`` wherever ``data[j, i] != 0``; the Poisson family,
+banded matrices, any matrix packed one slot per diagonal) multiplies as
+
+    y[i] = Σ_j data[j, i] · x[i + d_j]          (x outside [0, n) is 0)
+
+with no column indices read at all.  :func:`spmv_ell` dispatches on the
+device of ``x``: a CUDA tensor launches the hand-written kernel
+``csrc/spmv_banded.cu`` (float32 or float64) or raises; a CPU tensor runs
+the plain version :func:`spmv_banded_plain`, which sums the slots in the
+same order, so the two agree bit for bit.  ``LAUNCHES_K6`` counts the
+launches.  The kernel is the blocked-band BSR kernel (K7,
+:mod:`openmg_tpu_torch.ops.bsr`) at block size 1, and
+:func:`spmv_banded_cuda` is the one launch of both.
+
+The JAX package's tile-height and VMEM rules (``pick_tile_rows``), its size
+gate (``prefer_kernel``) and its lane shifts (``_shift_rows``) are that
+hardware's and are not copied: :func:`supports` asks only for a square,
+floating matrix with ``slot_offsets``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+__all__ = [
+    "LAUNCHES_K6",
+    "detect_slot_offsets",
+    "supports",
+    "spmv_banded_plain",
+    "spmv_ell",
+    "offsets_tensor",
+    "check_operands",
+    "spmv_banded_cuda",
+]
+
+# launches of the slot-offset ELL kernel (K6)
+LAUNCHES_K6 = 0
+
+
+def detect_slot_offsets(data, cols):
+    """Per-slot constant column delta, or None if any slot is irregular.
+
+    Host-side (numpy), setup time.  ``data``/``cols`` are the slot-major
+    ``(k, n)`` arrays; entries with ``data == 0`` (pads and boundary
+    truncations) are ignored.
+    """
+    data = np.asarray(data)
+    cols = np.asarray(cols)
+    k, n = data.shape
+    rows = np.arange(n, dtype=np.int64)
+    offsets = []
+    for j in range(k):
+        mask = data[j] != 0
+        if not mask.any():
+            offsets.append(0)
+            continue
+        deltas = cols[j][mask].astype(np.int64) - rows[mask]
+        d0 = int(deltas[0])
+        if not (deltas == d0).all():
+            return None
+        offsets.append(d0)
+    return tuple(offsets)
+
+
+def supports(M) -> bool:
+    """Whether :func:`spmv_ell` takes ``M``: square, floating, and every
+    slot offset-regular."""
+    n, m = M.shape
+    return n == m and M.data.is_floating_point() and M.slot_offsets is not None
+
+
+def spmv_banded_plain(data, slot_offsets, x):
+    """Plain PyTorch version of K6: ``y = Σ_j data[j] ⊙ x[· + d_j]`` with
+    zeros outside the vector, summed in slot order."""
+    n = x.shape[0]
+    H = max((abs(int(d)) for d in slot_offsets), default=0)
+    xe = torch.nn.functional.pad(x, (H, H)) if H else x
+    acc = None
+    for j, d in enumerate(slot_offsets):
+        t = data[j] * xe[H + int(d): H + int(d) + n]
+        acc = t if acc is None else acc + t
+    return acc
+
+
+_fn = None
+_offsets_on = {}  # (slot offsets, device) -> int32 tensor of the offsets
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from openmg_tpu_torch import _build
+
+        fn = _build.load().omg_spmv_banded
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # data, offs, k, B, x, y, n, dbl, stream
+        fn.argtypes = [p, p, i, i, p, p, ll, i, p]
+        fn.restype = i
+        _fn = fn
+    return _fn
+
+
+def offsets_tensor(offsets, device) -> torch.Tensor:
+    """The slot offsets as an int32 tensor on ``device``, made once per
+    offset tuple and device (a level's offsets never change)."""
+    key = (tuple(int(d) for d in offsets), str(device))
+    t = _offsets_on.get(key)
+    if t is None:
+        t = torch.tensor(key[0], dtype=torch.int32, device=device)
+        _offsets_on[key] = t
+    return t
+
+
+def check_operands(what, data, x, kernel_rows):
+    """Raise unless ``data`` and ``x`` are what the kernels take: one CUDA
+    device, float32 or float64 alike, contiguous, and ``x`` of length
+    ``kernel_rows``."""
+    if data.dtype not in (torch.float32, torch.float64) or x.dtype != data.dtype:
+        raise ValueError(
+            f"{what} takes float32 or float64 operands of one type, got "
+            f"{data.dtype} and {x.dtype}"
+        )
+    if data.device != x.device:
+        raise ValueError(f"{what}: operands on {data.device} and {x.device}")
+    if not (data.is_contiguous() and x.is_contiguous()):
+        raise ValueError(f"{what} takes contiguous operands")
+    if x.ndim != 1 or x.shape[0] != kernel_rows:
+        raise ValueError(
+            f"{what}: x has shape {tuple(x.shape)}, expected ({kernel_rows},)"
+        )
+
+
+def spmv_banded_cuda(what, data, slot_offsets, B, x):
+    """One launch of ``csrc/spmv_banded.cu`` on CUDA tensors:
+    ``y[I·B + i] = Σ_j Σ_s data[s, j, I·B + i] · x[(I + d_s)·B + j]`` for
+    ``data`` of shape ``(k, B, n)``, or ``(k, n)`` when ``B`` is 1 (ELL).
+    Raises on operands the kernel does not take or a failed launch."""
+    n = x.shape[0] if x.ndim == 1 else -1
+    k = len(slot_offsets)
+    check_operands(what, data, x, n)
+    want = (k, n) if B == 1 and data.ndim == 2 else (k, B, n)
+    if B < 1 or n % B or tuple(data.shape) != want:
+        raise ValueError(
+            f"{what}: data {tuple(data.shape)} and {k} slot offsets for {n} "
+            f"rows in blocks of {B}"
+        )
+    dev = x.device
+    offs = offsets_tensor(slot_offsets, dev)
+    y = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _kernel()(
+            data.data_ptr(), offs.data_ptr(), k, B, x.data_ptr(), y.data_ptr(),
+            n, int(x.dtype == torch.float64), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"omg_spmv_banded failed with code {rc}")
+    return y
+
+
+def spmv_ell(M, x):
+    """``y = M x`` for a slot-offset ELL matrix (see :func:`supports`), by
+    the device of ``x``: the CUDA kernel on the card, the plain version on
+    the CPU."""
+    global LAUNCHES_K6
+    if not supports(M):
+        raise ValueError(
+            "spmv_ell takes a square floating ELL matrix with slot_offsets"
+        )
+    if x.device.type == "cpu":
+        return spmv_banded_plain(M.data, M.slot_offsets, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    y = spmv_banded_cuda("spmv_ell", M.data, M.slot_offsets, 1, x)
+    LAUNCHES_K6 += 1
+    return y

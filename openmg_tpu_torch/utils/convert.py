@@ -1,11 +1,13 @@
 """Carry a hierarchy across as plain numpy.
 
 :func:`hierarchy_from_numpy` builds the port's
-:class:`~openmg_tpu_torch.core.hierarchy.Hierarchy` from a dictionary of
-numpy arrays and Python tuples, however they were produced.  The tests fill
-it from another implementation's hierarchy, so that the cycle and the solve
-can be compared with the setup held equal; this module itself knows only
-numpy and the port.
+:class:`~openmg_tpu_torch.core.hierarchy.Hierarchy`, and
+:func:`sparse_hierarchy_from_numpy` its
+:class:`~openmg_tpu_torch.core.algebraic.SparseHierarchy`, from a dictionary
+of numpy arrays and Python tuples, however they were produced.  The tests
+fill them from another implementation's hierarchy, so that the cycle and the
+solve can be compared with the setup held equal; this module itself knows
+only numpy and the port.
 
 ``spec`` layout::
 
@@ -30,6 +32,21 @@ numpy and the port.
 
 Without ``fine_hi`` the double-float fine operator is the first level's
 ``values`` (hi) with a zero lo part, which needs a constant first level.
+
+``sparse_hierarchy_from_numpy``'s ``spec``: the fields of a sparse
+hierarchy, each container as a dictionary of its fields plus ``"format"``
+(``"ell"``, ``"csr"``, ``"bsr"`` or ``"dense"``)::
+
+    {
+      "fmt": "ell", "shapes": ((ny, nx), ...) | None,
+      "transfer_name": "linear" | None, "dofs": 1, "stats": (...),
+      "levels": [{"A": {...}, "inv_diag": (n,), "R": {...} | None,
+                  "P": {...} | None, "colors": (n,) | None,
+                  "num_colors": int, "lam_max": float}, ...],
+      "coarse_inv": (nc, nc), "fine_hi": {...}, "fine_lo": {...} | None,
+    }
+
+Arrays keep their numpy dtype (float32 or float64 values, int32 indices).
 """
 
 from __future__ import annotations
@@ -45,7 +62,7 @@ from openmg_tpu_torch.ops.stencil import (
 )
 from openmg_tpu_torch.ops.transfer import TRANSFERS
 
-__all__ = ["hierarchy_from_numpy"]
+__all__ = ["hierarchy_from_numpy", "sparse_hierarchy_from_numpy"]
 
 
 def hierarchy_from_numpy(spec: dict, device) -> Hierarchy:
@@ -104,4 +121,72 @@ def hierarchy_from_numpy(spec: dict, device) -> Hierarchy:
         fine_hi_lo=fine_lo,
         stats=tuple(spec.get("stats") or stats),
         transfer=TRANSFERS[spec["transfer"]],
+    )
+
+
+def _copy(a, device):
+    """A numpy array as a tensor on ``device`` (a writable copy, its dtype
+    kept); None passes through."""
+    return None if a is None else torch.from_numpy(np.array(a)).to(device)
+
+
+def _container_from_numpy(d, device):
+    from openmg_tpu_torch.ops import sparse
+
+    if d is None:
+        return None
+    shape = tuple(int(s) for s in d.get("shape", ()))
+    offs = d.get("slot_offsets")
+    offs = None if offs is None else tuple(int(o) for o in offs)
+    fmt = d["format"]
+    if fmt == "ell":
+        return sparse.ELLMatrix(
+            data=_copy(d["data"], device), cols=_copy(d["cols"], device),
+            shape=shape, nnz=int(d["nnz"]), bandwidth=int(d.get("bandwidth", 0)),
+            slot_offsets=offs,
+        )
+    if fmt == "csr":
+        return sparse.CSRMatrix(
+            data=_copy(d["data"], device), indices=_copy(d["indices"], device),
+            row_ids=_copy(d["row_ids"], device), shape=shape, nnz=int(d["nnz"]),
+        )
+    if fmt == "bsr":
+        return sparse.BSRMatrix(
+            data=_copy(d["data"], device), bcols=_copy(d["bcols"], device),
+            shape=shape, blocksize=tuple(int(b) for b in d["blocksize"]),
+            nnz=int(d["nnz"]), slot_offsets=offs,
+        )
+    if fmt == "dense":
+        return sparse.DenseMatrix(data=_copy(d["data"], device), nnz=int(d["nnz"]))
+    raise ValueError(f"unknown container format {fmt!r}")
+
+
+def sparse_hierarchy_from_numpy(spec: dict, device):
+    from openmg_tpu_torch.core.algebraic import SparseHierarchy, SparseLevel
+
+    device = torch.device(device)
+    levels = []
+    for lv in spec["levels"]:
+        inv_diag = _copy(lv["inv_diag"], device)
+        levels.append(SparseLevel(
+            A=_container_from_numpy(lv["A"], device),
+            inv_diag=inv_diag,
+            R=_container_from_numpy(lv.get("R"), device),
+            P=_container_from_numpy(lv.get("P"), device),
+            colors=_copy(lv.get("colors"), device),
+            num_colors=int(lv["num_colors"]),
+            lam_max=torch.tensor(float(lv["lam_max"]), dtype=inv_diag.dtype,
+                                 device=device),
+        ))
+    shapes = spec.get("shapes")
+    return SparseHierarchy(
+        levels=tuple(levels),
+        coarse_inv=_copy(spec["coarse_inv"], device),
+        fine_hi=_container_from_numpy(spec["fine_hi"], device),
+        fine_lo=_container_from_numpy(spec.get("fine_lo"), device),
+        stats=tuple(spec.get("stats") or ()),
+        fmt=spec["fmt"],
+        shapes=None if shapes is None else tuple(tuple(int(v) for v in s) for s in shapes),
+        transfer_name=spec.get("transfer_name"),
+        dofs=int(spec.get("dofs", 1)),
     )

@@ -116,3 +116,66 @@ def spec_from_jax_hierarchy(h):
         spec["fine_hi"] = _op_spec(h.fine_hi)
         spec["fine_hi_lo"] = _op_spec(h.fine_hi_lo)
     return spec
+
+
+def container_spec(M):
+    """A JAX-package sparse container as numpy, in the layout of
+    ``openmg_tpu_torch.utils.convert.sparse_hierarchy_from_numpy``."""
+    from openmg_tpu.ops import sparse as js
+
+    if M is None:
+        return None
+    if isinstance(M, js.ELLMatrix):
+        return {"format": "ell", "data": np.asarray(M.data),
+                "cols": np.asarray(M.cols), "shape": M.shape, "nnz": M.nnz,
+                "bandwidth": M.bandwidth, "slot_offsets": M.slot_offsets}
+    if isinstance(M, js.CSRMatrix):
+        return {"format": "csr", "data": np.asarray(M.data),
+                "indices": np.asarray(M.indices),
+                "row_ids": np.asarray(M.row_ids), "shape": M.shape,
+                "nnz": M.nnz}
+    if isinstance(M, js.BSRMatrix):
+        return {"format": "bsr", "data": np.asarray(M.data),
+                "bcols": np.asarray(M.bcols), "shape": M.shape,
+                "blocksize": M.blocksize, "nnz": M.nnz,
+                "slot_offsets": M.slot_offsets}
+    assert isinstance(M, js.DenseMatrix), type(M)
+    return {"format": "dense", "data": np.asarray(M.data), "nnz": M.nnz}
+
+
+def sparse_spec_from_jax_hierarchy(h):
+    """Plain-numpy ``spec`` of a JAX-package ``SparseHierarchy``."""
+    levels = [
+        {"A": container_spec(L.A), "inv_diag": np.asarray(L.inv_diag),
+         "R": container_spec(L.R), "P": container_spec(L.P),
+         "colors": None if L.colors is None else np.asarray(L.colors),
+         "num_colors": L.num_colors, "lam_max": float(L.lam_max)}
+        for L in h.levels
+    ]
+    return {
+        "fmt": h.fmt, "shapes": h.shapes, "transfer_name": h.transfer_name,
+        "dofs": h.dofs, "stats": h.stats, "levels": levels,
+        "coarse_inv": np.asarray(h.coarse_inv),
+        "fine_hi": container_spec(h.fine_hi),
+        "fine_lo": container_spec(h.fine_lo),
+    }
+
+
+def non_stencil_spd(shape, seed=0):
+    """Poisson plus weak random long-range symmetric couplings (the matrix
+    of ``tests/test_algebraic.py``): SPD, not stencil-representable."""
+    import scipy.sparse as sp
+
+    from openmg_tpu_torch.models.poisson import poisson
+
+    A = sp.lil_matrix(poisson(shape).astype(np.float64))
+    n = A.shape[0]
+    rng = np.random.default_rng(seed)
+    for i, j in zip(rng.integers(0, n, size=4 * n), rng.integers(0, n, size=4 * n)):
+        if i == j:
+            continue
+        A[i, j] += -0.01
+        A[j, i] += -0.01
+        A[i, i] += 0.01
+        A[j, j] += 0.01
+    return sp.csr_matrix(A)

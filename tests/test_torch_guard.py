@@ -35,6 +35,10 @@ def test_port_has_all_its_modules():
         "openmg_tpu_torch/ops/galerkin.py", "openmg_tpu_torch/ops/kernels.py",
         "openmg_tpu_torch/ops/smoothers.py", "openmg_tpu_torch/ops/stencil.py",
         "openmg_tpu_torch/ops/transfer.py", "openmg_tpu_torch/utils/convert.py",
+        "openmg_tpu_torch/core/algebraic.py", "openmg_tpu_torch/ops/sparse.py",
+        "openmg_tpu_torch/ops/ell.py", "openmg_tpu_torch/ops/bsr.py",
+        "openmg_tpu_torch/models/elasticity.py",
+        "openmg_tpu_torch/utils/oracle.py",
         "chip_smoke.py",
     ):
         assert want in names, want
@@ -42,6 +46,7 @@ def test_port_has_all_its_modules():
     assert (ROOT / "openmg_tpu_torch/csrc/df_update.cu").exists()
     assert (ROOT / "openmg_tpu_torch/csrc/half_sweep.cu").exists()
     assert (ROOT / "openmg_tpu_torch/csrc/fused_stages_2d.cu").exists()
+    assert (ROOT / "openmg_tpu_torch/csrc/spmv_banded.cu").exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -55,6 +60,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys, openmg_tpu_torch, openmg_tpu_torch.utils.convert, "
         "openmg_tpu_torch.ops.fused, openmg_tpu_torch.ops.kernels, "
+        "openmg_tpu_torch.ops.ell, openmg_tpu_torch.ops.bsr, "
+        "openmg_tpu_torch.core.algebraic, openmg_tpu_torch.utils.oracle, "
         "openmg_tpu_torch._build; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'openmg_tpu')]; "
         "assert not bad, bad"
@@ -65,6 +72,6 @@ def test_import_leaves_jax_out():
 def test_kernel_sources_call_no_library():
     for src in (ROOT / "openmg_tpu_torch/csrc").glob("*.cu"):
         text = src.read_text()
-        for lib in ("cublas", "cudnn", "cutlass", "cub/", "thrust"):
+        for lib in ("cublas", "cusparse", "cudnn", "cutlass", "cub/", "thrust"):
             assert lib not in text.lower(), (src.name, lib)
         assert "#include <cuda_runtime.h>" in text

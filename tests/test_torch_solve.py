@@ -270,13 +270,16 @@ def test_unported_entry_points_raise(port):
         tcycle.pcg_solve(h, r)
     with pytest.raises(NotImplementedError):
         tcycle.fmg_cycle(h, r)
-    # a matrix that has no bounded stencil form waits for the sparse engine
-    with pytest.raises(NotImplementedError):
-        tmg.mg_solve(sp.csr_matrix(np.ones((64, 64))), np.ones(64),
-                     {"problemshape": (4, 4, 4)}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tmg.mg_solve(None, np.ones(64), {"problemshape": (4, 4, 4), "format": "ell"},
-                     device="cpu")
+    # the sparse engine takes a sparse format, and refuses PCG and FMG,
+    # which wait for ROADMAP item 14 there too
+    _, info = tmg.mg_solve(None, np.ones(64), {"problemshape": (4, 4, 4),
+                                               "format": "ell"}, device="cpu")
+    assert info["format"] == "ell" and info["converged"]
+    for kw in ({"krylov": "pcg"}, {"cycle_type": "f"}):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            tmg.mg_solve(sp.identity(64, format="csr"), np.ones(64),
+                         {"problemshape": (4, 4, 4), "format": "ell", **kw},
+                         device="cpu")
     with pytest.raises(ValueError):
         tmg.mg_solve(None, np.ones(64), {}, device="cpu")
 

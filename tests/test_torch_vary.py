@@ -420,17 +420,29 @@ def test_mg_solve_with_a_matrix(what):
 
 
 def test_mg_solve_refuses_what_waits_for_the_sparse_engine():
+    """A matrix with no stencil form and the sparse formats go through the
+    sparse engine now; what still waits there (PCG, FMG, ``solve_many``)
+    is refused."""
     rng = np.random.default_rng(0)
-    dense = rng.standard_normal((64, 64))
+    g = rng.standard_normal((64, 64))
+    dense = g @ g.T + 64.0 * np.eye(64)  # SPD, every entry nonzero
     p = {"problemshape": (4, 4, 4)}
-    with pytest.raises(NotImplementedError, match="stencil-representable"):
-        tmg.mg_solve(dense, np.ones(64), p, device="cpu")
+    x, info = tmg.mg_solve(dense, np.ones(64), p, device="cpu")
+    assert info["format"] == "ell" and info["converged"]
+    np.testing.assert_allclose(dense @ x, np.ones(64), atol=1e-9)
     with pytest.raises(ValueError, match="distinct grid offsets"):
         tmg.mg_solve(dense, np.ones(64), {**p, "format": "stencil"}, device="cpu")
     for fmt in ("csr", "ell", "bsr", "dense"):
-        with pytest.raises(NotImplementedError, match="slice C"):
-            tmg.mg_solve(sp.identity(64, format="csr"), np.ones(64),
-                         {**p, "format": fmt}, device="cpu")
+        x, info = tmg.mg_solve(sp.identity(64, format="csr"), np.ones(64),
+                               {**p, "format": fmt}, device="cpu")
+        assert info["format"] == fmt
+        np.testing.assert_allclose(x, np.ones(64), atol=1e-12)
+    for kw in ({"krylov": "pcg"}, {"cycle_type": "f"}):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            tmg.mg_solve(dense, np.ones(64), {**p, **kw}, device="cpu")
+    solver = tmg.setup_sparse(dense, (4, 4, 4), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        solver.solve_many([np.ones(64)])
 
 
 # ---------------------------------------------------------------------------
