@@ -11,13 +11,21 @@ card, and fails (non-zero exit, no result line) if any phase fails:
 2. ``build``   builds the CUDA kernels from ``openmg_tpu_torch/csrc``;
 3. ``kernels`` holds the fused level-visit kernel (K1) and the double-float
                outer step (K2) against their plain PyTorch versions on the
-               card, in every mode the V-cycle uses, at shapes whose dims
-               are not multiples of 32 and on a 19-point stencil (the
-               kernel's generic tap count), and times both;
+               card, in every mode the V-cycle uses, on every visited level
+               of the 256³ hierarchy (the constant 256³ level, the cornered
+               27-point 128³, 64³ and 32³ levels), at shapes whose dims are
+               not multiples of 32 and on a 19-point stencil (the kernel's
+               generic tap count), and times both; a visit of 14 Jacobi
+               stages, deeper than one launch takes, must be
+               ⌈14 / MAX_DEPTH⌉ launches;
 4. ``solve``   the 3D Poisson 256³ defect-correction solve (five levels,
                V(2,2) red-black, linear transfers, double-float outer loop)
                from a float32 tensor on the card, checked in float64 on the
-               host; a small solve against the same solve run on the CPU;
+               host; the same solve under ``torch.profiler``, whose count
+               of K1 launches on the device must be one a level visit (56
+               in 7 cycles) and equal ``fused.LAUNCHES``, with its
+               breakdown by kernel on a line of its own (``solve_profile``);
+               a small solve against the same solve run on the CPU;
                a numpy-float64 solve through ``mg_solve``; a V(2,0) cycle
                against the CPU; and a float64 cycle, which the card must
                refuse instead of running plain tensor code;
@@ -410,6 +418,8 @@ def phase_kernels(dev, copy_bw):
         device=dev,
     ).hierarchy
     tr = h_big.transfer
+    # every visited level of the 256³ hierarchy: the constant 256³ level and
+    # the cornered 27-point 128³, 64³ and 32³ levels
     levels = [("main", L) for L in h_big.levels[:-1]]
     levels += [("odd", L) for L in h_odd.levels[:-1]]
     # a stencil whose tap count is neither 7 nor 27 takes the kernel's
@@ -459,6 +469,34 @@ def phase_kernels(dev, copy_bw):
             rows.append(row)
         del b, x, ec
         torch.cuda.empty_cache()
+
+    # a visit deeper than one launch takes: 14 Jacobi stages at 256³ are
+    # ⌈14 / MAX_DEPTH⌉ launches of the same kernel
+    L0 = h_big.levels[0]
+    b = randn(big, 1, dev)
+    x = randn(big, 2, dev)
+    jac14 = fused.stages_for("jacobi", 14, OMEGA)
+    before = fused.LAUNCHES
+    got = fused.fused_stages_const_3d(L0.A.values, L0.A.offsets, b, x, jac14)
+    torch.cuda.synchronize()
+    deep_launches = fused.LAUNCHES - before
+    want = -(-len(jac14) // fused.MAX_DEPTH)
+    if deep_launches != want:
+        fail(f"K1: 14 Jacobi stages took {deep_launches} launches, not {want}")
+    ref = fused.fused_stages_const_3d_plain(L0.A.values, L0.A.offsets, b, x, jac14)
+    worst, errs = check_outputs("K1 14 jacobi stages", ("x",), got, ref, b)
+    del got, ref
+    n = int(np.prod(big))
+    deep = {"level": "main", "kind": "const", "shape": list(big),
+            "taps": len(L0.A.offsets), "mode": "14 jacobi stages (split)",
+            "launches": deep_launches, "errors": errs, "max_abs_err": worst}
+    deep.update(timings(
+        lambda: fused.fused_stages_const_3d(L0.A.values, L0.A.offsets, b, x, jac14),
+        lambda: fused.fused_stages_const_3d_plain(L0.A.values, L0.A.offsets, b, x, jac14),
+        4 * 3 * n, 14 * n * (2 * len(L0.A.offsets) + 3), copy_bw, reps, 1))
+    rows.append(deep)
+    del b, x
+    torch.cuda.empty_cache()
 
     # coarse solve, for the breakdown of a cycle (a library product, as in
     # the JAX package; not a kernel of the port)
@@ -519,6 +557,7 @@ def phase_kernels(dev, copy_bw):
 
     emit("kernels", {
         "K1": rows, "K2": k2_rows, "coarse_solve_ms": coarse_ms,
+        "k1_max_depth": fused.MAX_DEPTH,
         "k1_tolerance": "2e-6*max|ref| (x), 2e-6*max|b| (r, bc)",
         "k2_tolerance": "bit-equal x_hi, x_lo, r_hi; partial sum 1e-6 relative",
         "timed_launches": reps,
@@ -595,6 +634,19 @@ def phase_solve(dev):
     peak = torch.cuda.max_memory_allocated()
     if not torch.equal(x2, x):
         fail("two solves of the same system differ")
+
+    # the same solve under the profiler: the device's launches of K1 (one a
+    # level visit, 8 a cycle) and the breakdown by kernel
+    before = fused.LAUNCHES
+    prof = profile_solve(solver, b, top=16)
+    prof_counted = fused.LAUNCHES - before
+    k1_device = sum(v["count"] for k, v in prof["kernels"].items()
+                    if "visit_kernel" in k)
+    if k1_device != prof_counted or k1_device != visits * cycles:
+        fail(f"profiler: {k1_device} K1 launches on the device, "
+             f"{prof_counted} counted, {visits * cycles} level visits")
+    emit("solve_profile", {"shape": list(shape), "cycles": cycles,
+                           "k1_device_launches": k1_device, **prof})
 
     # a small solve on the card against the same solve on the CPU (plain
     # versions): same cycle count, solutions within the threshold's reach

@@ -5,43 +5,89 @@
 // red/black half-sweep) of a 3D stencil with K <= 27 taps, optionally
 // started from zero (reads only b) or from x + P*ec (prolongation formed on
 // load), optionally followed by the residual b - A x or by its restriction
-// bc = R (b - A x).
+// bc = R (b - A x).  The whole visit is ONE launch when its depth
+// D = S (+1 with a residual, +1 more with a restriction) is at most
+// MAX_DEPTH; the caller splits a deeper visit into consecutive launches.
 //
-// What bounds it on an H100: bytes.  A stage does at most 2*27 flops per
-// point against 12 bytes of device-memory traffic (b and x read, x written),
-// far below the card's flop:byte ratio, so the least time is the traffic
-// divided by the memory rate.
+// What bounds it on an H100: bytes.  A visit reads b and x (and ec) once and
+// writes x (and r or bc) once, 8.5 bytes a point on the down-leg (b read, x
+// written, bc an eighth) and 12.5 on the up-leg, against at most 2*27 flops a
+// point and stage: far below the card's flop:byte ratio, so the least time is
+// the traffic over the memory rate.  What the kernel pays beyond that is
+// instructions and shared-memory traffic for the halo it recomputes.
 //
-// What the design does about it (this is the simple, right version):
-//   * A block owns a tile of 8 x 8 x 64 points; it stages the tile of x with
-//     a one-point halo in shared memory, so each x value is fetched from
-//     device memory (or L2) about 1.6 times per stage, not K times, and the
-//     K-tap sum reads shared memory only.  A thread owns a pair of
-//     x-neighbours: rows are loaded and stored 8 bytes a lane, and a
-//     red/black stage sums taps only for the point of the pair that has the
-//     stage's colour.  The tap count is a compile-time constant for the two
-//     stencils of the Poisson hierarchy (7 and 27 taps), and interior points
-//     keep their taps in registers.
-//   * Blocks run in no order, so every stage is its own launch on the
-//     caller's stream and stages ping-pong between two buffers: a stage
-//     reads only the pre-stage iterate.  That matters on the 27-point
-//     levels, where a red point has red neighbours (offsets with an even
-//     coordinate sum such as (1,1,0)) and an in-place colour update would
-//     race.  Fusing the S stages into one launch with an S-deep halo is a
-//     later step.
-//   * Cornered levels need no fix-up passes: by the operator's definition
-//     the tap of point i for offset k is one row of an at most 8-row table,
-//     chosen by which of i's coordinates are 0.  The table (<= 8x27 floats)
-//     is copied to shared memory and a thread picks its row from three
-//     comparisons.  The taps are read from device memory by the kernel, so
-//     the host never waits for them.
-//   * The restriction never writes the fine residual: the last kernel
-//     computes b - A x for the fine points under its coarse tile (plus the
-//     one-point halo the linear taps need) in shared memory and writes only
-//     the (n/2)^3 coarse array.  The prolongation never writes P*ec: the
-//     first stage adds it while it loads its tile.
-//   * Dirichlet truncation: a neighbour outside the domain contributes
-//     zero on all three axes (the halo is zero-filled there).
+// What the design does about it:
+//   * Tile y and x, march along z.  A block owns TYO rows by TXO = 64 - 2H
+//     columns of a chunk of ZC planes, and holds its tile with a halo of D
+//     rows on y and of H >= D columns on x (H is D rounded up to an even
+//     number, so a pair of cells is 8-byte aligned in device memory; a row
+//     of the tile is 16-byte aligned in shared memory): PY = TYO + 2D rows
+//     of PX = 64 columns.  It walks the chunk's planes and D more on either
+//     side.  TYO is 32, 24 or 16, per launch the one of least cost whose
+//     rings fit (a taller tile recomputes less halo, a shorter one gives a
+//     small grid more blocks); ZC gives the fewest waves over the SMs.
+//   * A pipeline of planes.  At step s plane s + 1 is loading and plane s
+//     has arrived; level L (stage L, then the residual at L = S + 1)
+//     computes plane s - 2L + d0 from the three planes around it of level
+//     L - 1, which that level wrote at steps s - 3 .. s - 1 (level 1 reads
+//     the x ring: d0 = 1 reads up to the plane that has just arrived, d0 = 0
+//     up to the one before, while level 0 adds P ec to the new one).  Nothing a level reads is written
+//     in the same step, so a step is one barrier, not one a level (a lag of
+//     one plane and a barrier a level measured slower).  Level L is
+//     exact on the planes and rows at least L from the loaded edge, and
+//     every stage of the visit reads device memory once.
+//   * Each level writes its own ring of four planes in shared memory and
+//     never updates in place: a stage reads only pre-stage values, which is
+//     what a red/black stage needs on the 27-point levels, where a red point
+//     has red neighbours.
+//   * A thread owns four consecutive cells of one row of the tile (one
+//     16-byte word), the same at every level and step: a row of the stencil
+//     is one 16-byte shared load, its x-neighbours come from the next lanes
+//     by shuffles, and the four cells are four independent sums.  A
+//     red/black stage computes all four and keeps the new value on the
+//     cells of its colour.  (One-cell lanes cost about 40 instructions a
+//     cell and ran the visit slower than one launch a stage; two words a
+//     thread, or two cells, halved the threads and measured slower.)
+//   * The 7-point operator and the cornered 27-point levels have their
+//     offsets fixed at compile time (recursion on template arguments: a
+//     constexpr helper called in a loop was evaluated at run time and made
+//     the 27-point levels several times slower); another operator runs the same
+//     pipeline with a per-cell body that reads its offsets at run time.
+//   * Loads run one plane ahead: plane s + 1 of x (and the coarse plane of
+//     ec it needs) is copied with cp.async (8 bytes where the rows allow
+//     it) while the levels work on plane s.  Out-of-domain cells are
+//     zero-filled by the copy and set to zero by every level: Dirichlet zero
+//     at every stage, not only at load.  b is read by each level from
+//     device memory (L1 or L2 after the first level; staging it a step
+//     ahead in shared memory measured slower).
+//   * The prolongation is added as a plane arrives (level 0), from a ring
+//     of three coarse ec planes in shared memory.  The restriction consumes
+//     the residual ring: once fine residual plane 2c + 1 is done, coarse
+//     plane c is formed from planes 2c - 1 .. 2c + 1.  Fine tile origins are
+//     even (TYO, TXO and ZC are), so the coarse points a block writes are
+//     exactly those over its fine points.
+//   * Shared memory (dynamic, opted in above 48 KB) per plane of the tile:
+//     PY * 64 * 4 B.  The x ring has five slots with ec (three read by level
+//     1, one being formed, one being loaded), four without, one zero slot
+//     for a zero start; every level whose output another level reads has
+//     four, and so has the residual before a restriction.  V(2,2)'s
+//     down-leg (D = 6, zero start) takes 1 + 4*4 + 4 = 21 planes, 189 KB at
+//     TYO = 24; six Jacobi stages 4 + 4*5 = 24 planes, 216 KB at TYO = 24;
+//     the up-leg (D = 4) 17 planes, 170 KB at TYO = 32, and 9 KB of ec.  One block of 16 (TYO + 12)
+//     threads an SM.
+//   * Cornered levels: the tap of point i for offset k is one row of an at
+//     most 8-row table, chosen by which of i's coordinates are 0.  Interior
+//     cells use the interior taps; the few cells on a low face whose row
+//     differs are computed again, each with its row.
+//   * Why an overlapped halo is safe: a halo point is recomputed by every
+//     block that holds it, from the same inputs with the same arithmetic in
+//     the same order, so it has the same value in each.
+//
+// What holds it back: work, not bytes.  Each level recomputes the tile's
+// halo (at 256^3 and D = 6 about 1.7 times the owned cells, from the tile's
+// shape), and a level is bound by issued instructions and their latency at
+// one block an SM: a taller tile and more warps a block made it faster, the
+// barrier, the loads and the reads of b did not (PERF.md).
 //
 // Rounding: region rows divide by the region's diagonal, interior rows
 // multiply by the reciprocal of the interior diagonal, as the TPU kernel
@@ -56,363 +102,806 @@
 namespace {
 
 constexpr int MAXK = 27;
+constexpr int MAX_DEPTH = 6;            // the caller splits deeper visits
+constexpr int PX = 64;                  // tile columns, halo included
+constexpr int C4 = PX / 4;              // 16-byte words a row
+constexpr int CPX = PX / 2 + 2;         // coarse tile columns
+constexpr int SMEM_LIMIT = 232448;      // bytes a block may opt in to on sm_90
+constexpr int X0 = 5;    // slots of the x ring with ec (4 without, 1 for a zero start)
+constexpr int NR = 4;    // slots of a level's ring (a power of two)
 
-// stage tile: 8 x 8 x 64 points; a thread owns a pair of x-neighbours in
-// one row and walks the 8 planes
-constexpr int TX = 64, TY = 8, TZ = 8;
-constexpr int SX = TX + 2, SY = TY + 2, SZ = TZ + 2;
-constexpr int STAGE_THREADS = 32 * TY;
+enum Mode { MODE_JACOBI = 0, MODE_RB = 1, MODE_RESIDUAL = 2 };
 
-constexpr int CX = 16, CY = 4, CZ = 4;           // coarse tile of the restriction
-constexpr int XE = 2 * CX + 3, YE = 2 * CY + 3, ZE = 2 * CZ + 3;   // x region
-constexpr int XR = 2 * CX + 1, YR = 2 * CY + 1, ZR = 2 * CZ + 1;   // r region
-constexpr int RESTRICT_THREADS = CX * CY * CZ;
-
-enum Mode { MODE_JACOBI = 0, MODE_RB = 1, MODE_RESIDUAL = 2, MODE_ADD = 3 };
-
-struct Stencil {
+struct Plan {
     int K;
-    int di;             // index of the (0,0,0) offset
-    int ds[MAXK];       // offset k as an index step in the stage tile
-    int dr[MAXK];       // ... and in the restriction's x region
-    int rowmap[8];      // mask of zero coordinates -> region-table row, -1 = interior
+    int di;                 // index of the (0,0,0) offset
+    int oz[MAXK], oy[MAXK], ox[MAXK];
+    int rowmap[8];          // mask of zero coordinates -> table row, -1 = interior
+    int n_stages;
+    int kind[MAX_DEPTH];
+    float par[MAX_DEPTH];   // omega of a Jacobi stage, colour of a red/black one
+    int emit;               // 0 none, 1 residual, 2 restricted residual
+    int D;                  // halo depth on z and y
+    int H;                  // halo columns on x: D rounded up to a multiple of 4
+    int TYO;                // tile rows owned, halo excluded
+    int PY;                 // tile rows, TYO + 2D
+    int TXO;                // tile columns owned, PX - 2H
+    int CPY;                // coarse tile rows
+    int ZC;                 // planes a block owns
+    int nring;              // four-slot rings of the levels 1 .. nring
+    int has_x, has_ec;
+    int x0;                 // slots of the x ring
+    int d0;                 // 1: level 1 reads the plane that arrived this step
+                            // (no ec to add to it), 0: the one before
+    int vec;                // 8-byte global access: nx even, aligned pointers
+    float rw[3], pw[3];     // transfer weights of taps -1, 0, +1
 };
 
-// taps[m * MAXK + k]: tap of offset k for a point whose zero-coordinate mask
-// is m (bit 0: z == 0, bit 1: y == 0, bit 2: x == 0).
-__device__ __forceinline__ void load_taps(
-    float* taps, const Stencil& st, const float* __restrict__ values,
-    const float* __restrict__ table, int tid, int nthreads)
+// Floats of dynamic shared memory a launch takes: the rings and the coarse
+// ec planes.
+__host__ __device__ inline size_t smem_floats(const Plan& pl)
 {
-    for (int i = tid; i < 8 * st.K; i += nthreads) {
-        int m = i / st.K, k = i - m * st.K;
-        int row = st.rowmap[m];
-        taps[m * MAXK + k] = row < 0 ? values[k] : table[row * st.K + k];
-    }
+    const size_t planes = pl.x0 + NR * (size_t)pl.nring + (pl.emit == 2 ? NR : 0);
+    return planes * pl.PY * PX + (pl.has_ec ? 3 * (size_t)pl.CPY * CPX : 0);
 }
 
-// (P ec)(fz, fy, fx) for separable radius-1 taps: weight pw[t + 1] couples
-// fine index f = 2c + t with coarse index c.  Nested z inside y inside x,
-// the order of the plain version (axis 0 first).
-__device__ __forceinline__ float prolong_at(
-    const float* __restrict__ ec, int fz, int fy, int fx,
-    int ncz, int ncy, int ncx, float wm, float w0, float wp)
+// Compile-time offsets of the Poisson hierarchy's operators, in the order
+// the port builds them: SH 7 is poisson_offsets(3) (centre, then -/+ per
+// axis); SH 27 the cornered Galerkin levels (centre, then the others in
+// lexicographic order of (z, y, x)).  a = 0 z, 1 y, 2 x.
+__host__ __device__ constexpr int star_off(int k, int a)
 {
-    int cz[2], cy[2], cx[2];
-    float wz[2], wy[2], wx[2];
-    int nzt, nyt, nxt;
-#define OMG_AXIS_TAPS(f, c, w, n)                                       \
-    if ((f & 1) == 0) { c[0] = f >> 1; w[0] = w0; n = 1; }              \
-    else {                                                              \
-        c[0] = (f + 1) >> 1; w[0] = wm; c[1] = (f - 1) >> 1; w[1] = wp; \
-        n = 2;                                                          \
-    }
-    OMG_AXIS_TAPS(fz, cz, wz, nzt)
-    OMG_AXIS_TAPS(fy, cy, wy, nyt)
-    OMG_AXIS_TAPS(fx, cx, wx, nxt)
-#undef OMG_AXIS_TAPS
-    float sx = 0.0f;
-    for (int a = 0; a < nxt; ++a) {
-        if (cx[a] >= ncx || wx[a] == 0.0f) continue;
-        float sy = 0.0f;
-        for (int b = 0; b < nyt; ++b) {
-            if (cy[b] >= ncy || wy[b] == 0.0f) continue;
-            float sz = 0.0f;
-            for (int c = 0; c < nzt; ++c) {
-                if (cz[c] >= ncz || wz[c] == 0.0f) continue;
-                sz += wz[c] * ec[((size_t)cz[c] * ncy + cy[b]) * ncx + cx[a]];
+    return k == 0 ? 0 : ((k - 1) / 2 == a ? ((k - 1) % 2 == 0 ? -1 : 1) : 0);
+}
+
+__host__ __device__ constexpr int box_lex(int k)
+{
+    return k == 0 ? 13 : (k <= 13 ? k - 1 : k);
+}
+
+__host__ __device__ constexpr int box_off(int k, int a)
+{
+    return (a == 0 ? box_lex(k) / 9 : a == 1 ? (box_lex(k) / 3) % 3 : box_lex(k) % 3) - 1;
+}
+
+template <int SH>
+__host__ __device__ constexpr int off(int k, int a)
+{
+    return SH == 7 ? star_off(k, a) : box_off(k, a);
+}
+
+// Does a tap of the operator read row (oz, oy) of the stencil?  One with
+// ox != 0?
+template <int SH>
+__host__ __device__ constexpr bool row_used(int oz, int oy, bool shifted)
+{
+    bool used = false;
+    for (int k = 0; k < SH; ++k)
+        used = used || (off<SH>(k, 0) == oz && off<SH>(k, 1) == oy &&
+                        (!shifted || off<SH>(k, 2) != 0));
+    return used;
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, bool ok)
+{
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    const int n = ok ? 8 : 0;    // 0: fill with zeros, read nothing
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(d), "l"(src), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok)
+{
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    const int n = ok ? 4 : 0;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all()
+{
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Rows (oz, oy) = (A / 3 - 1, A % 3 - 1) of the stencil for the word at
+// cell i, from A up: a 16-byte load of each row a tap reads, and the cells
+// left and right of the word (from the lanes beside) where a tap needs them.
+// Recursion on template arguments keeps every index a constant.
+template <int SH, int A>
+__device__ __forceinline__ void load_rows(
+    float (&R)[3][3][6], const float* pm, const float* p0, const float* pp, int i)
+{
+    if constexpr (A < 9) {
+        constexpr int a = A / 3, e = A % 3;
+        if constexpr (row_used<SH>(a - 1, e - 1, false)) {
+            const float* P = a == 0 ? pm : (a == 2 ? pp : p0);
+            const float4 w4 = *reinterpret_cast<const float4*>(P + i + (e - 1) * PX);
+            R[a][e][1] = w4.x;
+            R[a][e][2] = w4.y;
+            R[a][e][3] = w4.z;
+            R[a][e][4] = w4.w;
+            if constexpr (row_used<SH>(a - 1, e - 1, true)) {
+                R[a][e][0] = __shfl_up_sync(0xffffffffu, w4.w, 1);
+                R[a][e][5] = __shfl_down_sync(0xffffffffu, w4.x, 1);
             }
-            sy += wy[b] * sz;
         }
-        sx += wx[a] * sy;
+        load_rows<SH, A + 1>(R, pm, p0, pp, i);
     }
-    return sx;
 }
 
-// New value of the point at tile index c whose zero-coordinate mask is m.
-// KT > 0 fixes the number of taps at compile time (7 and 27 are the
-// Poisson hierarchy's); KT == 0 loops to st.K.  Interior points (m == 0)
-// take their taps from registers, boundary points from the shared table.
-template <int MODE, int KT>
-__device__ __forceinline__ float update_point(
-    const Stencil& st, const float* sx, const float* taps, const float* treg,
-    int c, int m, float bval, float inv_d, float omega)
+// acc[j] += tap k * (neighbour of cell j) for the taps from K on, in the
+// order of the offsets; a red/black stage skips the diagonal (k = 0).
+template <int SH, bool SKIP_DIAG, int K>
+__device__ __forceinline__ void sum_taps(
+    float (&acc)[4], const float (&R)[3][3][6], const float* treg)
 {
-    constexpr int KN = KT > 0 ? KT : MAXK;
-    // no stage: the loaded iterate (x + P*ec) is the result
-    if (MODE == MODE_ADD) return sx[c];
+    if constexpr (K < SH) {
+        if constexpr (!(SKIP_DIAG && K == 0)) {
+            constexpr int a = off<SH>(K, 0) + 1, e = off<SH>(K, 1) + 1;
+            constexpr int ox = off<SH>(K, 2);
+            const float tk = treg[K];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[j] += tk * R[a][e][j + 1 + ox];
+        }
+        sum_taps<SH, SKIP_DIAG, K + 1>(acc, R, treg);
+    }
+}
+
+// acc += tp[k] * (neighbour of cell J) for the taps from K on: one cell's
+// sum with its own row of the table (a cell on a low face).
+template <int SH, bool SKIP_DIAG, int J, int K>
+__device__ __forceinline__ void sum_taps_cell(
+    float& acc, const float (&R)[3][3][6], const float* tp)
+{
+    if constexpr (K < SH) {
+        if constexpr (!(SKIP_DIAG && K == 0)) {
+            constexpr int a = off<SH>(K, 0) + 1, e = off<SH>(K, 1) + 1;
+            acc += tp[K] * R[a][e][J + 1 + off<SH>(K, 2)];
+        }
+        sum_taps_cell<SH, SKIP_DIAG, J, K + 1>(acc, R, tp);
+    }
+}
+
+// Cell J of the word again, with the tap row of its zero-coordinate mask
+// and its own diagonal, where bit J of fix is set.
+template <int MODE, int SH, int J>
+__device__ __forceinline__ void fix_cell(
+    float (&v)[4], const float (&R)[3][3][6], const float* taps, unsigned fix,
+    int mzy, int gx, const float* bv, const float* xc, float omega)
+{
+    if (!((fix >> J) & 1u)) return;
+    const float* tp = taps + (mzy | (gx + J == 0 ? 4 : 0)) * MAXK;
     float acc = 0.0f;
-    if (m == 0) {
-        // for a red/black stage treg holds 0 at the diagonal: adding
-        // 0 * x leaves the sum as it is
-#pragma unroll
-        for (int k = 0; k < KN; ++k) {
-            if (KT == 0 && k >= st.K) break;
-            acc += treg[k] * sx[c + st.ds[k]];
-        }
-    } else {
-        const float* tp = taps + m * MAXK;
-#pragma unroll
-        for (int k = 0; k < KN; ++k) {
-            if (KT == 0 && k >= st.K) break;
-            if (MODE == MODE_RB && k == st.di) continue;
-            acc += tp[k] * sx[c + st.ds[k]];
-        }
+    sum_taps_cell<SH, MODE == MODE_RB, J, 0>(acc, R, tp);
+    const float res = bv[J] - acc;
+    v[J] = MODE == MODE_RESIDUAL ? res
+         : MODE == MODE_JACOBI ? xc[J] + (omega * res) / tp[0]
+                               : res / tp[0];
+}
+
+struct Tile {
+    int gz;         // plane of the level's output
+    int gy0, gx0;   // global index of tile cell (0, 0)
+    int z0, z1;     // planes the block owns
+    int nz, ny, nx;
+};
+
+// A thread's word of the tile (the same at every level and step): four
+// cells of tile row r from column c.
+struct Word {
+    int r, c;
+    int i;              // index in a plane; rows clamped into the tile
+    int gy, gx;
+    bool iny;           // its row lies in the domain
+    unsigned xin;       // bit j: cell j's column lies in the domain
+    unsigned fix1, fix0;  // bit j: cell j is in the domain and its tap row is
+                          // not the interior one, off / on the plane z == 0
+    unsigned own2;      // bit h: cells 2h, 2h + 1 are in the domain and owned
+                        // by the block (written to the global output)
+    size_t g;           // gy * nx + gx
+};
+
+// The level's value at one cell i (natural layout r * PX + c) with zero-
+// coordinate mask m, offsets read from the plan at run time: the generic
+// operator's body.
+template <int MODE>
+__device__ __forceinline__ float cell_value(
+    const Plan& pl, const float* pm, const float* p0, const float* pp,
+    const float* taps, unsigned imask, int i, int m, float bval, float inv_d,
+    float omega)
+{
+    const float* tp = taps + m * MAXK;
+    float acc = 0.0f;
+    for (int k = 0; k < pl.K; ++k) {
+        if (MODE == MODE_RB && k == pl.di) continue;
+        const float* P = pl.oz[k] < 0 ? pm : (pl.oz[k] > 0 ? pp : p0);
+        acc += tp[k] * P[i + pl.oy[k] * PX + pl.ox[k]];
     }
     const float res = bval - acc;
     if (MODE == MODE_RESIDUAL) return res;
-    const bool interior = st.rowmap[m] < 0;
-    const float xc = sx[c];
-    if (MODE == MODE_JACOBI)
-        return interior ? xc + omega * (inv_d * res)
-                        : xc + (omega * res) / taps[m * MAXK + st.di];
-    return interior ? inv_d * res : res / taps[m * MAXK + st.di];
+    if ((imask >> m) & 1u)
+        return MODE == MODE_JACOBI ? p0[i] + omega * (inv_d * res) : inv_d * res;
+    const float dg = tp[pl.di];
+    return MODE == MODE_JACOBI ? p0[i] + (omega * res) / dg : res / dg;
 }
 
-// One stage (or the plain residual, or the stage-free x + P*ec) on one
-// tile.  xin == nullptr is the zero iterate; ec != nullptr adds P*ec to the
-// loaded iterate.
-template <int MODE, int KT>
-__global__ void __launch_bounds__(STAGE_THREADS) stage_kernel(
-    Stencil st, const float* __restrict__ values, const float* __restrict__ table,
-    const float* __restrict__ b, const float* __restrict__ xin,
-    const float* __restrict__ ec, float* __restrict__ out,
-    int nz, int ny, int nx, float omega, int color,
-    float pwm, float pw0, float pwp)
+// One level on one plane: the rows [lo, PY - lo) of plane t.gz, from the
+// input planes pm / p0 / pp into dst (a ring slot, or null) and, for the
+// owned cells, into gout (a global array, or null).  Cells outside the
+// domain get zero, and so does a plane outside it.  Every thread of the
+// block calls it (the shuffles need whole warps).
+template <int MODE, int SH>
+__device__ __forceinline__ void level_pass(
+    const Plan& pl, const Tile& t, const Word& w, const float* pm,
+    const float* p0, const float* pp, const float4 bw, float* dst,
+    float* __restrict__ gout, const float* taps, const float* treg,
+    unsigned imask, int lo, float inv_d, float par)
 {
-    __shared__ float sx[SZ * SY * SX];
-    __shared__ float taps[8 * MAXK];
+    const bool act = w.r >= lo && w.r < pl.PY - lo;
+    const int i = w.i, gz = t.gz;
+    if (gz < 0 || gz >= t.nz) {   // the same for the whole block
+        if (act && dst != nullptr)
+            *reinterpret_cast<float4*>(dst + i) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        return;
+    }
+    // b at the four cells, loaded a step ahead (zero outside the domain)
+    const float bv[4] = {bw.x, bw.y, bw.z, bw.w};
+    const float4 c4 = *reinterpret_cast<const float4*>(p0 + i);
+    const float xc[4] = {c4.x, c4.y, c4.z, c4.w};
+    float v[4];
+    if constexpr (SH > 0) {
+        // the rows of the stencil: one 16-byte load each; the x-neighbours
+        // of a word's first and last cell from the lanes beside (garbage at
+        // the row's two ends, which no level reads as exact)
+        float R[3][3][6];
+        load_rows<SH, 0>(R, pm, p0, pp, i);
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        sum_taps<SH, MODE == MODE_RB, 0>(acc, R, treg);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float res = bv[j] - acc[j];
+            v[j] = MODE == MODE_RESIDUAL ? res
+                 : MODE == MODE_JACOBI ? xc[j] + par * (inv_d * res)
+                                       : inv_d * res;
+        }
+        // the cells on a low face whose tap row is not the interior one
+        const unsigned fix = act ? (gz == 0 ? w.fix0 : w.fix1) : 0u;
+        if (fix != 0u) {
+            const int mzy = (gz == 0 ? 1 : 0) | (w.gy == 0 ? 2 : 0);
+            fix_cell<MODE, SH, 0>(v, R, taps, fix, mzy, w.gx, bv, xc, par);
+            fix_cell<MODE, SH, 1>(v, R, taps, fix, mzy, w.gx, bv, xc, par);
+            fix_cell<MODE, SH, 2>(v, R, taps, fix, mzy, w.gx, bv, xc, par);
+            fix_cell<MODE, SH, 3>(v, R, taps, fix, mzy, w.gx, bv, xc, par);
+        }
+    } else {
+        const int mzy = (gz == 0 ? 1 : 0) | (w.gy == 0 ? 2 : 0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            v[j] = act && w.iny && ((w.xin >> j) & 1u)
+                ? cell_value<MODE>(pl, pm, p0, pp, taps, imask, i + j,
+                                   mzy | (w.gx + j == 0 ? 4 : 0), bv[j], inv_d, par)
+                : 0.0f;
+    }
+    if (MODE == MODE_RB) {
+        // cell j takes the new value where (gz + gy + gx + j) has the colour
+        const int t1 = ((int)par + gz + w.gy + w.gx) & 1;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            if ((j & 1) != t1) v[j] = xc[j];
+    }
+    if (!(w.iny && w.xin == 15u)) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            if (!(w.iny && ((w.xin >> j) & 1u))) v[j] = 0.0f;
+    }
+    if (act && dst != nullptr)
+        *reinterpret_cast<float4*>(dst + i) = make_float4(v[0], v[1], v[2], v[3]);
+    if (gout != nullptr && w.own2 != 0u && gz >= t.z0 && gz < t.z1) {
+        const size_t g = (size_t)gz * t.ny * t.nx + w.g;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            if (!((w.own2 >> h) & 1u)) continue;
+            if (pl.vec) {
+                *reinterpret_cast<float2*>(gout + g + 2 * h) =
+                    make_float2(v[2 * h], v[2 * h + 1]);
+            } else {
+                if ((w.xin >> (2 * h)) & 1u) gout[g + 2 * h] = v[2 * h];
+                if ((w.xin >> (2 * h + 1)) & 1u) gout[g + 2 * h + 1] = v[2 * h + 1];
+            }
+        }
+    }
+}
 
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY, z0 = blockIdx.z * TZ;
+// x + (P ec) on the thread's word (fine cells gx .. gx + 3 of row gy of
+// plane gz, gx even), from the coarse ring: weight pw[tap + 1] couples fine
+// f = 2c + tap with coarse c.  Each of the three coarse columns the word
+// needs is summed over z, then y, once, and the four cells combine them
+// over x: the order of the plain version (axis 0 first), and the same
+// operations as summing each cell alone.  Coarse cells outside the domain
+// hold zero.  out (or null) gets the owned pairs of cells (bit h of own2).
+__device__ __forceinline__ void prolong_word(
+    const Plan& pl, float* px, const float* cring, int czlo, int cy0, int cx0,
+    int gz, int gy, int gx, unsigned xin, float* __restrict__ out, unsigned own2)
+{
+    int cz[2], cy[2];
+    float wz[2], wy[2];
+    int nzt, nyt;
+#define OMG_AXIS_TAPS(f, c, wt, n)                                      \
+    if ((f & 1) == 0) { c[0] = f >> 1; wt[0] = pl.pw[1]; n = 1; }         \
+    else {                                                              \
+        c[0] = (f + 1) >> 1; wt[0] = pl.pw[0];                          \
+        c[1] = (f - 1) >> 1; wt[1] = pl.pw[2]; n = 2;                    \
+    }
+    OMG_AXIS_TAPS(gz, cz, wz, nzt)
+    OMG_AXIS_TAPS(gy, cy, wy, nyt)
+#undef OMG_AXIS_TAPS
+    const int cpl = pl.CPY * CPX;
+    const int cxb = (gx >> 1) - cx0;   // coarse columns cxb, cxb + 1, cxb + 2
+    float col[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        float sy = 0.0f;
+        for (int b = 0; b < nyt; ++b) {
+            float sz = 0.0f;
+            for (int c = 0; c < nzt; ++c) {
+                const float* P = cring + ((cz[c] - czlo) % 3) * cpl;
+                sz += wz[c] * P[(cy[b] - cy0) * CPX + cxb + k];
+            }
+            sy += wy[b] * sz;
+        }
+        col[k] = sy;
+    }
+    // even cell 2k: one x tap (coarse column k); odd cell 2k + 1: the taps
+    // -1 (column k + 1) and +1 (column k), in that order
+    float p[4];
+    p[0] = 0.0f + pl.pw[1] * col[0];
+    p[1] = (0.0f + pl.pw[0] * col[1]) + pl.pw[2] * col[0];
+    p[2] = 0.0f + pl.pw[1] * col[1];
+    p[3] = (0.0f + pl.pw[0] * col[2]) + pl.pw[2] * col[1];
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+        v[j] = (pl.has_x ? px[j] : 0.0f) + p[j];
+        if ((xin >> j) & 1u) px[j] = v[j];
+    }
+    if (out != nullptr)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            if (((own2 >> (j >> 1)) & 1u) && ((xin >> j) & 1u)) out[j] = v[j];
+}
+
+template <int SH, int TY>
+__global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
+    Plan pl, const float* __restrict__ values, const float* __restrict__ table,
+    const float* __restrict__ b, const float* __restrict__ xin,
+    const float* __restrict__ ec, float* __restrict__ x_out,
+    float* __restrict__ r_out, int nz, int ny, int nx)
+{
+    extern __shared__ __align__(16) float smem[];
+    __shared__ float taps[8 * MAXK];
+    __shared__ int kinds[MAX_DEPTH];
+    __shared__ float pars[MAX_DEPTH];
+
+    constexpr int THREADS = C4 * (TY + 2 * MAX_DEPTH);   // a thread a word
+    constexpr int TYO = TY;
+    const int tid = threadIdx.x;
+    const int S = pl.n_stages, D = pl.D, H = pl.H, PY = pl.PY;
+    const int e1 = pl.emit >= 1, e2 = pl.emit == 2;
+    const int PL = PY * PX;
+
+    const int X = pl.x0;
+    float* ring0 = smem;                        // X slots: x (+ P ec)
+    float* rings = ring0 + X * PL;              // levels 1 .. nring, NR slots each
+    float* rring = rings + NR * pl.nring * PL;  // the residual, NR slots (emit 2)
+    float* cring = rring + (e2 ? NR * PL : 0);  // ec, 3 coarse planes
+
+    Tile tl;
+    tl.nz = nz; tl.ny = ny; tl.nx = nx;
+    const int fy0 = blockIdx.y * TYO, fx0 = blockIdx.x * pl.TXO;
+    tl.gy0 = fy0 - D;
+    tl.gx0 = fx0 - H;
+    tl.z0 = blockIdx.z * pl.ZC;
+    tl.z1 = min(tl.z0 + pl.ZC, nz);
+    const int zlo = tl.z0 - D;
+    const int T0 = (tl.z1 - tl.z0) + 2 * D;    // planes loaded
+    const int top = S + e1;                    // the deepest level
+    const int d0 = pl.d0;
+    const int T = T0 + top + e2 - d0;          // steps: the pipeline drains
+    const int czlo = zlo >> 1, cy0 = tl.gy0 >> 1, cx0 = tl.gx0 >> 1;
     const int ncz = nz >> 1, ncy = ny >> 1, ncx = nx >> 1;
 
-    load_taps(taps, st, values, table, tid, STAGE_THREADS);
+    // every slot starts at zero
+    const int total = (int)smem_floats(pl);
+    for (int i = tid; i < total; i += THREADS) smem[i] = 0.0f;
+    for (int i = tid; i < 8 * pl.K; i += THREADS) {
+        const int m = i / pl.K, k = i - m * pl.K;
+        const int row = pl.rowmap[m];
+        taps[m * MAXK + k] = row < 0 ? values[k] : table[row * pl.K + k];
+    }
+    if (tid < S) {
+        kinds[tid] = pl.kind[tid];
+        pars[tid] = pl.par[tid];
+    }
+    unsigned imask = 0;
+    for (int m = 0; m < 8; ++m) imask |= (pl.rowmap[m] < 0 ? 1u : 0u) << m;
+    Word wd;
+    wd.r = tid / C4;
+    wd.c = 4 * (tid % C4);
+    wd.i = min(max(wd.r, 1), PY - 2) * PX + wd.c;   // an idle row reads in range
+    wd.gy = tl.gy0 + wd.r;
+    wd.gx = tl.gx0 + wd.c;
+    wd.iny = wd.r < PY && wd.gy >= 0 && wd.gy < ny;
+    wd.xin = wd.fix0 = wd.fix1 = 0;
+    for (int j = 0; j < 4; ++j) {
+        const int x = wd.gx + j;
+        if (x < 0 || x >= nx) continue;
+        wd.xin |= 1u << j;
+        const int m = (wd.gy == 0 ? 2 : 0) | (x == 0 ? 4 : 0);
+        if (wd.iny && m != 0 && !((imask >> m) & 1u)) wd.fix1 |= 1u << j;
+        if (wd.iny && !((imask >> (m | 1)) & 1u)) wd.fix0 |= 1u << j;
+    }
+    wd.own2 = 0;
+    for (int h = 0; h < 2; ++h)
+        if (wd.iny && wd.r >= D && wd.r < D + TYO && wd.c + 2 * h >= H &&
+            wd.c + 2 * h < H + pl.TXO && ((wd.xin >> (2 * h)) & 3u))
+            wd.own2 |= 1u << h;
+    wd.g = (size_t)(wd.iny ? wd.gy : 0) * nx + wd.gx;
+    __syncthreads();
 
-    // The tile's own 64 columns: a warp takes a row, a lane its pair, as
-    // one 8-byte load where the row is aligned for it.
-    const bool vec_in = (nx & 1) == 0 && (((uintptr_t)xin) & 7) == 0;
-#pragma unroll 4
-    for (int r = warp; r < SZ * SY; r += TY) {
-        const int lz = r / SY, ly = r - lz * SY;
-        const int gz = z0 + lz - 1, gy = y0 + ly - 1;
-        const int gx = x0 + 2 * lane;
-        float v0 = 0.0f, v1 = 0.0f;
-        if (gz >= 0 && gz < nz && gy >= 0 && gy < ny && gx < nx) {
-            const size_t g = ((size_t)gz * ny + gy) * nx + gx;
-            if (xin != nullptr) {
-                if (vec_in) {
-                    const float2 t = *reinterpret_cast<const float2*>(xin + g);
-                    v0 = t.x;
-                    v1 = t.y;
+    // plane s of the pipeline (global z = zlo + s) into its slot, and the
+    // coarse ec plane it is the first to need
+    auto load_plane = [&](int s) {
+        const int gz = zlo + s;
+        const bool inz = gz >= 0 && gz < nz;
+        float* dx = ring0 + (s % X) * PL;   // once a step: not in a level
+        if (pl.has_x || (pl.has_ec && !inz)) {
+            for (int w4 = tid; w4 < PY * C4; w4 += THREADS) {
+                const int r = w4 / C4, c = 4 * (w4 % C4);
+                const int gy = tl.gy0 + r, gx = tl.gx0 + c;
+                const bool iny = pl.has_x && inz && gy >= 0 && gy < ny;
+                const size_t g = iny ? ((size_t)gz * ny + gy) * nx : 0;
+                float* d = dx + r * PX + c;
+                if (pl.has_x && pl.vec) {
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        const bool ok = iny && gx + 2 * h >= 0 && gx + 2 * h < nx;
+                        cp_async8(d + 2 * h, ok ? xin + g + gx + 2 * h : xin, ok);
+                    }
+                } else if (pl.has_x) {
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const bool ok = iny && gx + j >= 0 && gx + j < nx;
+                        cp_async4(d + j, ok ? xin + g + gx + j : xin, ok);
+                    }
                 } else {
-                    v0 = xin[g];
-                    if (gx + 1 < nx) v1 = xin[g + 1];
+                    *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
                 }
             }
-            if (ec != nullptr) {
-                v0 += prolong_at(ec, gz, gy, gx, ncz, ncy, ncx, pwm, pw0, pwp);
-                if (gx + 1 < nx)
-                    v1 += prolong_at(ec, gz, gy, gx + 1, ncz, ncy, ncx, pwm, pw0, pwp);
+        }
+        if (pl.has_ec) {
+            // fine plane gz needs coarse planes gz >> 1 and (gz + 1) >> 1
+            const int c_first = s == 0 ? gz >> 1 : (gz + 1) >> 1;
+            const bool fresh = s == 0 || (gz & 1);
+            for (int c = c_first; fresh && c <= (gz + 1) >> 1; ++c) {
+                float* dc = cring + ((c - czlo) % 3) * (pl.CPY * CPX);
+                const bool incz = c >= 0 && c < ncz;
+                for (int i = tid; i < pl.CPY * CPX; i += THREADS) {
+                    const int ry = i / CPX, rx = i - ry * CPX;
+                    const int cy = cy0 + ry, cx = cx0 + rx;
+                    const bool ok = incz && cy >= 0 && cy < ncy && cx >= 0 && cx < ncx;
+                    const size_t g = ok ? ((size_t)c * ncy + cy) * ncx + cx : 0;
+                    cp_async4(dc + i, ec + g, ok);
+                }
             }
         }
-        sx[r * SX + 1 + 2 * lane] = v0;
-        sx[r * SX + 2 + 2 * lane] = v1;
-    }
-    // the two halo columns, x0 - 1 and x0 + 64
-    for (int i = tid; i < 2 * SZ * SY; i += STAGE_THREADS) {
-        const int r = i >> 1, side = i & 1;
-        const int lz = r / SY, ly = r - lz * SY;
-        const int gz = z0 + lz - 1, gy = y0 + ly - 1;
-        const int gx = side ? x0 + TX : x0 - 1;
-        float v = 0.0f;
-        if (gz >= 0 && gz < nz && gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
-            if (xin != nullptr) v = xin[((size_t)gz * ny + gy) * nx + gx];
-            if (ec != nullptr)
-                v += prolong_at(ec, gz, gy, gx, ncz, ncy, ncx, pwm, pw0, pwp);
-        }
-        sx[r * SX + (side ? SX - 1 : 0)] = v;
-    }
-    __syncthreads();
+        cp_async_commit();
+    };
 
-    const int ly = warp;
-    const int gy = y0 + ly, gx = x0 + 2 * lane;
-    if (gy >= ny || gx >= nx) return;
-    const bool second = gx + 1 < nx;
-    const bool vec_io = (nx & 1) == 0 && (((uintptr_t)b) & 7) == 0 &&
-                        (((uintptr_t)out) & 7) == 0;
+    load_plane(0);
 
-    constexpr int KN = KT > 0 ? KT : MAXK;
+    const float inv_d = 1.0f / taps[SH > 0 ? 0 : pl.di];
+    constexpr int KN = SH > 0 ? SH : 1;
     float treg[KN];
 #pragma unroll
-    for (int k = 0; k < KN; ++k)
-        treg[k] = (k < st.K && !(MODE == MODE_RB && k == st.di)) ? taps[k] : 0.0f;
-    const float inv_d = 1.0f / taps[st.di];
-    const int my = gy == 0 ? 2 : 0;
+    for (int k = 0; k < KN; ++k) treg[k] = taps[k];
 
-    for (int lz = 0; lz < TZ; ++lz) {
-        const int gz = z0 + lz;
-        if (gz >= nz) break;
-        const int mzy = my | (gz == 0 ? 1 : 0);
-        const int m0 = mzy | (gx == 0 ? 4 : 0);
-        const int c = ((lz + 1) * SY + (ly + 1)) * SX + 1 + 2 * lane;
-        const size_t g = ((size_t)gz * ny + gy) * nx + gx;
-        float b0 = 0.0f, b1 = 0.0f;
-        if (MODE == MODE_ADD) {
-            // x + P*ec does not depend on b
-        } else if (vec_io) {
-            const float2 t = *reinterpret_cast<const float2*>(b + g);
-            b0 = t.x;
-            b1 = t.y;
-        } else {
-            b0 = b[g];
-            if (second) b1 = b[g + 1];
-        }
-        float o0, o1;
-        if (MODE == MODE_RB) {
-            // the point of the pair whose coordinate sum has this stage's
-            // colour is updated, the other keeps its value
-            const int sel = (gz + gy + gx + color) & 1;
-            o0 = sx[c];
-            o1 = sx[c + 1];
-            if (sel == 0)
-                o0 = update_point<MODE, KT>(st, sx, taps, treg, c, m0, b0, inv_d, omega);
-            else if (second)
-                o1 = update_point<MODE, KT>(st, sx, taps, treg, c + 1, mzy, b1, inv_d, omega);
-        } else {
-            o0 = update_point<MODE, KT>(st, sx, taps, treg, c, m0, b0, inv_d, omega);
-            o1 = second
-                ? update_point<MODE, KT>(st, sx, taps, treg, c + 1, mzy, b1, inv_d, omega)
-                : 0.0f;
-        }
-        if (vec_io) {
-            *reinterpret_cast<float2*>(out + g) = make_float2(o0, o1);
-        } else {
-            out[g] = o0;
-            if (second) out[g + 1] = o1;
-        }
-    }
-}
-
-// bc = R (b - A x): the fine residual lives only in shared memory.
-__global__ void __launch_bounds__(RESTRICT_THREADS) residual_restrict_kernel(
-    Stencil st, const float* __restrict__ values, const float* __restrict__ table,
-    const float* __restrict__ b, const float* __restrict__ xin,
-    float* __restrict__ bc, int nz, int ny, int nx,
-    float rwm, float rw0, float rwp)
-{
-    __shared__ float sx[ZE * YE * XE];
-    __shared__ float sr[ZR * YR * XR];
-    __shared__ float taps[8 * MAXK];
-
-    const int tid = threadIdx.x;
-    const int cx0 = blockIdx.x * CX, cy0 = blockIdx.y * CY, cz0 = blockIdx.z * CZ;
-    // fine origin of the r region (2c - 1) and of the x region (one more)
-    const int rx0 = 2 * cx0 - 1, ry0 = 2 * cy0 - 1, rz0 = 2 * cz0 - 1;
-
-    load_taps(taps, st, values, table, tid, RESTRICT_THREADS);
-
-    for (int i = tid; i < ZE * YE * XE; i += RESTRICT_THREADS) {
-        int lz = i / (YE * XE);
-        int rem = i - lz * (YE * XE);
-        int ly = rem / XE, lx = rem - ly * XE;
-        int gz = rz0 - 1 + lz, gy = ry0 - 1 + ly, gx = rx0 - 1 + lx;
-        float v = 0.0f;
-        if (xin != nullptr && gz >= 0 && gz < nz && gy >= 0 && gy < ny &&
-            gx >= 0 && gx < nx)
-            v = xin[((size_t)gz * ny + gy) * nx + gx];
-        sx[i] = v;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < ZR * YR * XR; i += RESTRICT_THREADS) {
-        int lz = i / (YR * XR);
-        int rem = i - lz * (YR * XR);
-        int ly = rem / XR, lx = rem - ly * XR;
-        int gz = rz0 + lz, gy = ry0 + ly, gx = rx0 + lx;
-        float r = 0.0f;
-        if (gz >= 0 && gz < nz && gy >= 0 && gy < ny && gx >= 0 && gx < nx) {
-            const int m = (gz == 0 ? 1 : 0) | (gy == 0 ? 2 : 0) | (gx == 0 ? 4 : 0);
-            const float* tp = taps + m * MAXK;
-            const int c = ((lz + 1) * YE + (ly + 1)) * XE + (lx + 1);
-            float acc = 0.0f;
-#pragma unroll
-            for (int k = 0; k < MAXK; ++k) {
-                if (k >= st.K) break;
-                acc += tp[k] * sx[c + st.dr[k]];
+    // The word of b level L reads at step s: the thread's cells of plane
+    // s - 2L (zero outside the domain; rows the level does not compute read
+    // in range, unused).
+    auto load_b = [&](int s, int L) {
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        const int pr = s - 2 * L + d0, gz = zlo + pr;
+        if (pr < L || pr > T0 - 1 - L || gz < 0 || gz >= nz || !wd.iny) return v;
+        const float* p = b + (size_t)gz * ny * nx + wd.g;
+        if (pl.vec) {
+            if (wd.xin & 1u) {
+                const float2 lo = __ldg(reinterpret_cast<const float2*>(p));
+                v.x = lo.x;
+                v.y = lo.y;
             }
-            r = b[((size_t)gz * ny + gy) * nx + gx] - acc;
+            if (wd.xin & 4u) {
+                const float2 hi = __ldg(reinterpret_cast<const float2*>(p + 2));
+                v.z = hi.x;
+                v.w = hi.y;
+            }
+            return v;
         }
-        sr[i] = r;
-    }
-    __syncthreads();
+        if (wd.xin & 1u) v.x = __ldg(p);
+        if (wd.xin & 2u) v.y = __ldg(p + 1);
+        if (wd.xin & 4u) v.z = __ldg(p + 2);
+        if (wd.xin & 8u) v.w = __ldg(p + 3);
+        return v;
+    };
 
-    const int lcx = tid % CX, lcy = (tid / CX) % CY, lcz = tid / (CX * CY);
-    const int gcx = cx0 + lcx, gcy = cy0 + lcy, gcz = cz0 + lcz;
-    const int ncz = nz >> 1, ncy = ny >> 1, ncx = nx >> 1;
-    if (gcx >= ncx || gcy >= ncy || gcz >= ncz) return;
+    // One barrier a step: level L computes plane s - 2L from planes that
+    // level L - 1 wrote at steps s - 3 .. s - 1.
+    int xs = 0;   // slot of plane s in the x ring: s % X
+    for (int s = 0; s < T; ++s, xs = xs + 1 == X ? 0 : xs + 1) {
+        cp_async_wait_all();
+        __syncthreads();
+        if (s + 1 < T0) load_plane(s + 1);
 
-    // fine index 2c + t sits at r-region index 2*lc + t + 1
-    const float w[3] = {rwm, rw0, rwp};
-    float ax = 0.0f;
-#pragma unroll
-    for (int tx = 0; tx < 3; ++tx) {
-        float ay = 0.0f;
-#pragma unroll
-        for (int ty = 0; ty < 3; ++ty) {
-            float az = 0.0f;
-#pragma unroll
-            for (int tz = 0; tz < 3; ++tz)
-                az += w[tz] * sr[((2 * lcz + tz) * YR + (2 * lcy + ty)) * XR +
-                                 (2 * lcx + tx)];
-            ay += w[ty] * az;
+        // level 0: x + P ec on the plane that has just arrived
+        if (pl.has_ec && s < T0) {
+            const int gz = zlo + s;
+            float* px = ring0 + xs * PL;
+            const bool write = S == 0 && gz >= tl.z0 && gz < tl.z1;
+            if (gz >= 0 && gz < nz && wd.iny && wd.xin != 0u)
+                prolong_word(pl, px + wd.r * PX + wd.c, cring, czlo, cy0, cx0, gz,
+                             wd.gy, wd.gx, wd.xin,
+                             write && wd.own2 ? x_out + (size_t)gz * ny * nx + wd.g
+                                              : nullptr,
+                             wd.own2);
         }
-        ax += w[tx] * ay;
+
+        for (int L = 1; L <= top; ++L) {
+            // exact on pipeline planes [L, T0 - 1 - L]
+            const int pr = s - 2 * L + d0;
+            if (pr < L) break;
+            if (pr > T0 - 1 - L) continue;
+            const float *pm, *p0, *pp;
+            if (L == 1) {
+                // planes s - 3 + d0 .. s - 1 + d0, in the slots of the same
+                // offsets from xs modulo X
+                int a = xs - 3 + d0;
+                while (a < 0) a += X;
+                const int a1 = a + 1 == X ? 0 : a + 1;
+                const int a2 = a1 + 1 == X ? 0 : a1 + 1;
+                pm = ring0 + a * PL;
+                p0 = ring0 + a1 * PL;
+                pp = ring0 + a2 * PL;
+            } else {
+                const float* base = rings + NR * (L - 2) * PL;
+                pm = base + ((s - 3) & (NR - 1)) * PL;
+                p0 = base + ((s - 2) & (NR - 1)) * PL;
+                pp = base + ((s - 1) & (NR - 1)) * PL;
+            }
+            tl.gz = zlo + pr;
+            if (L <= S) {
+                float* dst = L <= pl.nring ? rings + (NR * (L - 1) + (s & (NR - 1))) * PL : nullptr;
+                float* gout = L == S ? x_out : nullptr;
+                const float4 bw = load_b(s, L);
+                if (kinds[L - 1] == MODE_RB)
+                    level_pass<MODE_RB, SH>(pl, tl, wd, pm, p0, pp, bw, dst, gout, taps,
+                                            treg, imask, L, inv_d, pars[L - 1]);
+                else
+                    level_pass<MODE_JACOBI, SH>(pl, tl, wd, pm, p0, pp, bw, dst, gout,
+                                                taps, treg, imask, L, inv_d,
+                                                pars[L - 1]);
+            } else {
+                // the residual: into the ring for the restriction, or into
+                // r_out on the owned cells
+                level_pass<MODE_RESIDUAL, SH>(
+                    pl, tl, wd, pm, p0, pp,
+                    load_b(s, L),
+                    e2 ? rring + (s & (NR - 1)) * PL : nullptr,
+                    e2 ? nullptr : r_out, taps, treg, imask, L, inv_d, 0.0f);
+            }
+        }
+
+        // the restriction: coarse plane c once fine residual plane 2c + 1
+        // was written (step s - 1), from the residual ring's planes 2c - 1,
+        // 2c, 2c + 1 (steps s - 3 .. s - 1)
+        if (e2) {
+            const int sw = s - 1;   // the step that wrote the newest plane
+            const int pr = sw - 2 * (S + 1) + d0;
+            const int gz = zlo + pr;
+            const int cz = (gz - 1) >> 1;
+            if (pr >= S + 1 && (gz & 1) && gz >= tl.z0 && gz < tl.z1 && cz < ncz) {
+                const float* P[3] = {rring + ((sw - 2) & (NR - 1)) * PL,
+                                     rring + ((sw - 1) & (NR - 1)) * PL,
+                                     rring + (sw & (NR - 1)) * PL};
+                const int CW = pl.TXO / 2;
+                for (int i = tid; i < (TYO / 2) * CW; i += THREADS) {
+                    const int ly = i / CW, lx = i - ly * CW;
+                    const int cy = (fy0 >> 1) + ly, cx = (fx0 >> 1) + lx;
+                    if (cy >= ncy || cx >= ncx) continue;
+                    const int r0 = 2 * ly + D, c0 = 2 * lx + H;
+                    float ax = 0.0f;
+#pragma unroll
+                    for (int tx = 0; tx < 3; ++tx) {
+                        float ay = 0.0f;
+#pragma unroll
+                        for (int ty = 0; ty < 3; ++ty) {
+                            const int cell = (r0 + ty - 1) * PX + c0 + tx - 1;
+                            float az = 0.0f;
+#pragma unroll
+                            for (int tz = 0; tz < 3; ++tz)
+                                az += pl.rw[tz] * P[tz][cell];
+                            ay += pl.rw[ty] * az;
+                        }
+                        ax += pl.rw[tx] * ay;
+                    }
+                    r_out[((size_t)cz * ncy + cy) * ncx + cx] = ax;
+                }
+            }
+        }
     }
-    bc[((size_t)gcz * ncy + gcy) * ncx + gcx] = ax;
 }
 
-int fill_stencil(Stencil& st, const int* offs, int K, const int* rowmap)
+// The planes a block owns (ZC) and the cost of the launch for a tile of TY
+// rows: the fewest waves of blocks over the SMs times the steps a block
+// walks (its chunk, 2D of halo, the pipeline's drain) times the rows it
+// computes a step.
+template <int SH, int TY>
+long plan_ty(Plan& pl, int nz, int ny, int nx)
 {
-    if (K < 1 || K > MAXK) return 1;
-    st.K = K;
-    st.di = -1;
-    for (int k = 0; k < MAXK; ++k) st.ds[k] = st.dr[k] = 0;
-    for (int k = 0; k < K; ++k) {
-        const int oz = offs[3 * k], oy = offs[3 * k + 1], ox = offs[3 * k + 2];
-        if (oz < -1 || oz > 1 || oy < -1 || oy > 1 || ox < -1 || ox > 1)
-            return 1;
-        if (oz == 0 && oy == 0 && ox == 0) st.di = k;
-        st.ds[k] = (oz * SY + oy) * SX + ox;
-        st.dr[k] = (oz * YE + oy) * XE + ox;
+    constexpr int THREADS = C4 * (TY + 2 * MAX_DEPTH);
+    const size_t smem = smem_floats(pl) * sizeof(float);
+    if (cudaFuncSetAttribute(visit_kernel<SH, TY>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_LIMIT - 2048) != cudaSuccess)
+        return -1;
+    int dev = 0, nsm = 1, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, visit_kernel<SH, TY>,
+                                                  THREADS, smem);
+    if (per_sm < 1) return -1;
+    const long tiles = (long)((nx + pl.TXO - 1) / pl.TXO) * ((ny + TY - 1) / TY);
+    const long slots = (long)nsm * per_sm;
+    long best = -1;
+    for (int zc = 2; zc < nz + 2; zc += 2) {
+        const long blocks = tiles * ((nz + zc - 1) / zc);
+        const long cost = ((blocks + slots - 1) / slots) *
+                          (zc + 4 * pl.D) * pl.PY;
+        if (best < 0 || cost < best) {
+            best = cost;
+            pl.ZC = zc;
+        }
     }
-    if (st.di < 0) return 1;
-    for (int m = 0; m < 8; ++m) st.rowmap[m] = rowmap[m];
+    return best;
+}
+
+template <int SH, int TY>
+int launch_ty(const Plan& pl, cudaStream_t stream, const float* values,
+              const float* table, const float* b, const float* x,
+              const float* ec, float* x_out, float* r_out, int nz, int ny,
+              int nx, size_t smem)
+{
+    constexpr int THREADS = C4 * (TY + 2 * MAX_DEPTH);
+    // the opt-in above 48 KB, once a device (plan_ty set it on a first
+    // visit of this shape; a shape met again may be on another device)
+    static bool opted[64] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev < 0 || dev >= 64 || !opted[dev]) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            visit_kernel<SH, TY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            SMEM_LIMIT - 2048);
+        if (e != cudaSuccess) return (int)e;
+        if (dev >= 0 && dev < 64) opted[dev] = true;
+    }
+    dim3 grid((nx + pl.TXO - 1) / pl.TXO, (ny + TY - 1) / TY,
+              (nz + pl.ZC - 1) / pl.ZC);
+    visit_kernel<SH, TY><<<grid, THREADS, smem, stream>>>(
+        pl, values, table, b, x, ec, x_out, r_out, nz, ny, nx);
+    return (int)cudaGetLastError();
+}
+
+// The tile height (32, 24 or 16 rows owned) of least cost among those whose
+// rings fit in shared memory: a taller tile recomputes less halo a point,
+// a shorter one gives a small grid more blocks.
+template <int SH>
+int choose_tile(Plan& pl, int nz, int ny, int nx)
+{
+    const int tys[3] = {32, 24, 16};
+    long best = -1;
+    Plan pick = pl;
+    for (int ty : tys) {
+        Plan t = pl;
+        t.TYO = ty;
+        t.PY = ty + 2 * pl.D;
+        t.CPY = t.PY / 2 + 2;
+        if (smem_floats(t) * sizeof(float) + 2048 > (size_t)SMEM_LIMIT) continue;
+        const long cost = ty == 32 ? plan_ty<SH, 32>(t, nz, ny, nx)
+                        : ty == 24 ? plan_ty<SH, 24>(t, nz, ny, nx)
+                                   : plan_ty<SH, 16>(t, nz, ny, nx);
+        if (cost >= 0 && (best < 0 || cost < best)) {
+            best = cost;
+            pick = t;
+        }
+    }
+    if (best < 0) return -1;
+    pl = pick;
     return 0;
 }
 
-template <int MODE>
-void launch_stage(
-    dim3 grid, cudaStream_t stream, const Stencil& st, const float* values,
-    const float* table, const float* b, const float* xin, const float* ec,
-    float* out, int nz, int ny, int nx, float omega, int color, const float* pw)
+// The choice is remembered by shape and visit, so a solve's launches after
+// the first do not query the CUDA runtime for it again.
+struct PlanKey {
+    int dev, nz, ny, nx, D, nring, emit, x0, has_ec;
+    bool operator==(const PlanKey& o) const
+    {
+        return dev == o.dev && nz == o.nz && ny == o.ny && nx == o.nx && D == o.D &&
+               nring == o.nring && emit == o.emit && x0 == o.x0 && has_ec == o.has_ec;
+    }
+};
+
+template <int SH>
+int launch(Plan& pl, cudaStream_t stream, const float* values,
+           const float* table, const float* b, const float* x, const float* ec,
+           float* x_out, float* r_out, int nz, int ny, int nx)
 {
-#define OMG_LAUNCH(KT)                                                       \
-    stage_kernel<MODE, KT><<<grid, STAGE_THREADS, 0, stream>>>(              \
-        st, values, table, b, xin, ec, out, nz, ny, nx, omega, color, pw[0], \
-        pw[1], pw[2])
-    if (st.K == 7) OMG_LAUNCH(7);
-    else if (st.K == 27) OMG_LAUNCH(27);
-    else OMG_LAUNCH(0);
-#undef OMG_LAUNCH
+    constexpr int CACHE = 64;
+    static PlanKey keys[CACHE];
+    static int tyos[CACHE], zcs[CACHE];
+    static int n_cached = 0;
+    PlanKey key{0, nz, ny, nx, pl.D, pl.nring, pl.emit, pl.x0, pl.has_ec};
+    cudaGetDevice(&key.dev);
+    int hit = -1;
+    for (int c = 0; c < n_cached && hit < 0; ++c)
+        if (keys[c] == key) hit = c;
+    if (hit >= 0) {
+        pl.TYO = tyos[hit];
+        pl.PY = pl.TYO + 2 * pl.D;
+        pl.CPY = pl.PY / 2 + 2;
+        pl.ZC = zcs[hit];
+    } else {
+        const int rc = choose_tile<SH>(pl, nz, ny, nx);
+        if (rc != 0) return rc;
+        const int c = n_cached < CACHE ? n_cached++ : CACHE - 1;
+        keys[c] = key;
+        tyos[c] = pl.TYO;
+        zcs[c] = pl.ZC;
+    }
+    const size_t smem = smem_floats(pl) * sizeof(float);
+    if (pl.TYO == 32)
+        return launch_ty<SH, 32>(pl, stream, values, table, b, x, ec, x_out, r_out, nz, ny, nx, smem);
+    if (pl.TYO == 24)
+        return launch_ty<SH, 24>(pl, stream, values, table, b, x, ec, x_out, r_out, nz, ny, nx, smem);
+    return launch_ty<SH, 16>(pl, stream, values, table, b, x, ec, x_out, r_out, nz, ny, nx, smem);
+}
+
+// Which compile-time offset table the operator's offsets are, or 0.
+int shape_of(const int* offs, int K)
+{
+    const int shapes[2] = {7, 27};
+    for (int sh : shapes) {
+        if (K != sh) continue;
+        bool same = true;
+        for (int k = 0; k < K && same; ++k)
+            for (int a = 0; a < 3; ++a)
+                same &= offs[3 * k + a] ==
+                        (sh == 7 ? star_off(k, a) : box_off(k, a));
+        if (same) return sh;
+    }
+    return 0;
 }
 
 }  // namespace
 
-// Runs the whole level visit on `stream`: n_stages stage launches that
-// ping-pong between x_out and tmp (the last one lands in x_out), then the
-// optional residual.  Returns 0, or a CUDA error code, or -1 for arguments
-// the kernels do not take.
+// The deepest visit one launch takes: stages, +1 with a residual, +1 more
+// with a restriction.  The wrapper splits deeper visits.
+extern "C" int omg_fused_max_depth() { return MAX_DEPTH; }
+
+// Runs the whole level visit on `stream` in one launch.  Returns 0, a CUDA
+// error code, or -1 for arguments the kernel does not take.
 //
 //   values (K,) and table (n_regions, K): device pointers (table may be
 //     null when every rowmap entry is -1).
@@ -421,55 +910,80 @@ void launch_stage(
 //   x: start iterate or null (zero).  ec: coarse correction or null.
 //   emit_residual: 0 none; 1 r_out = b - A x (fine size);
 //     2 r_out = R (b - A x) (coarse size; all dims must be even).
-//   With n_stages == 0 and no ec the residual is taken of x itself and
-//     x_out, tmp are not touched; with ec, x_out = x + P*ec is written by
-//     one launch and the residual is taken of that.
+//   x_out is written when there are stages or an ec; with neither, the
+//     residual is taken of x itself.  Outputs must not alias inputs.
+//   n_stages + (emit >= 1) + (emit == 2) <= omg_fused_max_depth().
 extern "C" int omg_fused_stages(
     const float* values, const float* table, const int* offs, int K,
     const int* rowmap, const float* b, const float* x, const float* ec,
-    float* x_out, float* tmp, float* r_out, int nz, int ny, int nx,
-    int n_stages, const int* kinds, const float* pars, int emit_residual,
-    const float* rw, const float* pw, void* stream_ptr)
+    float* x_out, float* r_out, int nz, int ny, int nx, int n_stages,
+    const int* kinds, const float* pars, int emit_residual, const float* rw,
+    const float* pw, void* stream_ptr)
 {
-    Stencil st;
-    if (fill_stencil(st, offs, K, rowmap)) return -1;
-    if (nz < 1 || ny < 1 || nx < 1) return -1;
+    if (K < 1 || K > MAXK || nz < 1 || ny < 1 || nx < 1) return -1;
+    if (emit_residual < 0 || emit_residual > 2) return -1;
+    if (emit_residual != 0 && r_out == nullptr) return -1;
     if ((ec != nullptr || emit_residual == 2) && ((nz | ny | nx) & 1)) return -1;
     if ((ec != nullptr || n_stages > 0) && x_out == nullptr) return -1;
-    if (n_stages > 1 && tmp == nullptr) return -1;
-    cudaStream_t stream = (cudaStream_t)stream_ptr;
+    if (n_stages == 0 && ec == nullptr && emit_residual == 0) return -1;
+    const int e1 = emit_residual >= 1, e2 = emit_residual == 2;
+    const int D = n_stages + e1 + e2;
+    if (n_stages < 0 || D > MAX_DEPTH) return -1;
 
-    dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + TZ - 1) / TZ);
-    const float* cur = x;
-    const float* cur_ec = ec;
-    if (ec != nullptr && n_stages == 0) {
-        stage_kernel<MODE_ADD, 0><<<grid, STAGE_THREADS, 0, stream>>>(
-            st, values, table, b, x, ec, x_out, nz, ny, nx, 0.0f, 0, pw[0],
-            pw[1], pw[2]);
-        cur = x_out;
-    }
-    for (int s = 0; s < n_stages; ++s) {
-        float* dst = ((n_stages - 1 - s) % 2 == 0) ? x_out : tmp;
-        if (kinds[s] == MODE_JACOBI)
-            launch_stage<MODE_JACOBI>(grid, stream, st, values, table, b, cur,
-                                      cur_ec, dst, nz, ny, nx, pars[s], 0, pw);
-        else if (kinds[s] == MODE_RB)
-            launch_stage<MODE_RB>(grid, stream, st, values, table, b, cur,
-                                  cur_ec, dst, nz, ny, nx, 0.0f, (int)pars[s], pw);
-        else
+    Plan pl;
+    pl.K = K;
+    pl.di = -1;
+    for (int k = 0; k < MAXK; ++k) pl.oz[k] = pl.oy[k] = pl.ox[k] = 0;
+    for (int k = 0; k < K; ++k) {
+        const int oz = offs[3 * k], oy = offs[3 * k + 1], ox = offs[3 * k + 2];
+        if (oz < -1 || oz > 1 || oy < -1 || oy > 1 || ox < -1 || ox > 1)
             return -1;
-        cur = dst;
-        cur_ec = nullptr;
+        if (oz == 0 && oy == 0 && ox == 0) pl.di = k;
+        pl.oz[k] = oz;
+        pl.oy[k] = oy;
+        pl.ox[k] = ox;
     }
-    if (emit_residual == 1) {
-        const float none[3] = {0.0f, 0.0f, 0.0f};
-        launch_stage<MODE_RESIDUAL>(grid, stream, st, values, table, b, cur,
-                                    nullptr, r_out, nz, ny, nx, 0.0f, 0, none);
-    } else if (emit_residual == 2) {
-        int ncz = nz / 2, ncy = ny / 2, ncx = nx / 2;
-        dim3 cgrid((ncx + CX - 1) / CX, (ncy + CY - 1) / CY, (ncz + CZ - 1) / CZ);
-        residual_restrict_kernel<<<cgrid, RESTRICT_THREADS, 0, stream>>>(
-            st, values, table, b, cur, r_out, nz, ny, nx, rw[0], rw[1], rw[2]);
+    if (pl.di < 0) return -1;
+    for (int m = 0; m < 8; ++m) {
+        pl.rowmap[m] = rowmap[m];
+        if (rowmap[m] >= 0 && table == nullptr) return -1;
     }
-    return (int)cudaGetLastError();
+    pl.n_stages = n_stages;
+    for (int s = 0; s < MAX_DEPTH; ++s) {
+        pl.kind[s] = s < n_stages ? kinds[s] : 0;
+        pl.par[s] = s < n_stages ? pars[s] : 0.0f;
+        if (s < n_stages && kinds[s] != MODE_JACOBI && kinds[s] != MODE_RB)
+            return -1;
+    }
+    pl.emit = emit_residual;
+    pl.D = D;
+    pl.H = (D + 1) / 2 * 2;
+    pl.TXO = PX - 2 * pl.H;
+    pl.ZC = 2;
+    // the levels whose output the next level reads: stages 1 .. S - 1, and
+    // stage S when a residual follows
+    pl.nring = n_stages > 0 ? n_stages - 1 + e1 : 0;
+    pl.has_x = x != nullptr;
+    pl.has_ec = ec != nullptr;
+    // the x ring: with ec, level 0 forms plane s while level 1 reads s - 3 ..
+    // s - 1 and s + 1 loads; without, level 1 reads s - 2 .. s as it arrived;
+    // a zero start reads one zero plane
+    pl.x0 = pl.has_ec ? X0 : pl.has_x ? X0 - 1 : 1;
+    pl.d0 = pl.has_ec ? 0 : 1;
+    uintptr_t ptrs = (uintptr_t)b | (uintptr_t)x | (uintptr_t)x_out;
+    if (emit_residual == 1) ptrs |= (uintptr_t)r_out;
+    pl.vec = (nx % 2 == 0) && (ptrs % 8 == 0);
+    for (int t = 0; t < 3; ++t) {
+        pl.rw[t] = rw[t];
+        pl.pw[t] = pw[t];
+    }
+    cudaStream_t stream = (cudaStream_t)stream_ptr;
+    switch (shape_of(offs, K)) {
+    case 7:
+        return launch<7>(pl, stream, values, table, b, x, ec, x_out, r_out, nz, ny, nx);
+    case 27:
+        return launch<27>(pl, stream, values, table, b, x, ec, x_out, r_out, nz, ny, nx);
+    default:
+        return launch<0>(pl, stream, values, table, b, x, ec, x_out, r_out, nz, ny, nx);
+    }
 }

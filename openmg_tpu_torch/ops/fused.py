@@ -17,8 +17,12 @@ restriction ``bc = R (b − A x)`` (the fine residual is never stored).
   ``chip_smoke.py`` use it; nothing on the main path does when the tensors
   are on the card.
 
-``LAUNCHES`` counts the calls that launched the kernel; every call that
-reaches the kernel launches at least once.
+``LAUNCHES`` counts the kernel's launches.  A call whose depth (stages, +1
+with a residual, +1 more with a restriction) is at most ``MAX_DEPTH`` is
+one launch: the whole visit runs in one pass over the grid.  A deeper call
+is split by :func:`depth_chunks` into ``⌈depth / MAX_DEPTH⌉`` consecutive
+launches of the same kernel (on the CPU, into as many calls of the plain
+version, which give the same values as one whole call).
 
 The entry points (:func:`smooth_fused`, :func:`presmooth_residual_fused`,
 :func:`presmooth_restrict_fused`, :func:`residual_restrict_fused`,
@@ -36,7 +40,9 @@ copied.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -45,6 +51,8 @@ from openmg_tpu_torch.ops.transfer import prolong, restrict
 
 __all__ = [
     "LAUNCHES",
+    "MAX_DEPTH",
+    "depth_chunks",
     "stages_for",
     "fused_stages_const_3d",
     "fused_stages_const_3d_plain",
@@ -55,8 +63,11 @@ __all__ = [
     "residual_restrict_fused",
 ]
 
-# calls of fused_stages_const_3d that launched the CUDA kernel
+# launches of the CUDA kernel (one a call up to MAX_DEPTH)
 LAUNCHES = 0
+# the deepest visit one launch of csrc/fused_stages.cu takes (stages, +1
+# with a residual, +1 more with a restriction); its MAX_DEPTH
+MAX_DEPTH = 6
 
 _KIND_CODE = {"jacobi": 0, "rb": 1}
 
@@ -68,6 +79,18 @@ def stages_for(name: str, iterations: int, omega: float):
     if name == "rbgs":
         return (("rb", 0), ("rb", 1)) * iterations
     return None
+
+
+def depth_chunks(stages, extra, max_depth):
+    """Split a visit whose depth (stages + ``extra`` residual levels) is more
+    than ``max_depth`` into consecutive chunks of at most ``max_depth``
+    stages; only the last one carries the ``extra`` levels, so a visit of
+    depth d takes ``⌈d / max_depth⌉`` chunks."""
+    chunks, rest = [], tuple(stages)
+    while len(rest) + extra > max_depth:
+        chunks.append(rest[:max_depth])
+        rest = rest[max_depth:]
+    return chunks + [rest]
 
 
 def _norm_stages(stages):
@@ -212,17 +235,25 @@ def _kernel():
     if _fn is None:
         from openmg_tpu_torch import _build
 
-        fn = _build.load().omg_fused_stages
+        lib = _build.load()
+        fn = lib.omg_fused_stages
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [
             p, p, p, i, p,        # values, table, offs, K, rowmap
             p, p, p,              # b, x, ec
-            p, p, p,              # x_out, tmp, r_out
+            p, p,                 # x_out, r_out
             i, i, i,              # nz, ny, nx
             i, p, p, i,           # n_stages, kinds, pars, emit_residual
             p, p, p,              # rw, pw, stream
         ]
         fn.restype = i
+        depth = lib.omg_fused_max_depth
+        depth.restype = i
+        if depth() != MAX_DEPTH:
+            raise RuntimeError(
+                f"csrc/fused_stages.cu takes visits of depth {depth()}, "
+                f"the wrapper splits at {MAX_DEPTH}"
+            )
         _fn = fn
     return _fn
 
@@ -261,10 +292,34 @@ def _transfer_weights(shape, device, restrict_transfer, ec, prolong_transfer):
     return rw, pw
 
 
+@functools.lru_cache(maxsize=256)
+def _host_args(offsets, regions, stages, rw, pw):
+    """The kernel's host-side arrays for a visit, built once per operator
+    and visit: a V-cycle calls the same few visits every cycle."""
+    n = len(stages)
+    return (
+        (ctypes.c_int * (3 * len(offsets)))(*[o for off in offsets for o in off]),
+        (ctypes.c_int * 8)(*_row_map((regions, None) if regions else None)),
+        (ctypes.c_int * max(n, 1))(*[_KIND_CODE[k] for k, _ in stages]),
+        (ctypes.c_float * max(n, 1))(*[float(p) for _, p in stages]),
+        (ctypes.c_float * 3)(*rw),
+        (ctypes.c_float * 3)(*pw),
+    )
+
+
+def _on(dev):
+    """A context that makes ``dev`` current, or none when it already is."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 def _fused_stages_cuda(
     values, offsets, b, x, stages, emit_residual, corner, restrict_transfer,
     ec, prolong_transfer, emit_x,
 ):
+    """One launch of ``csrc/fused_stages.cu``: a visit of depth at most
+    ``MAX_DEPTH``."""
     global LAUNCHES
     dev = b.device
     if b.ndim != 3:
@@ -283,9 +338,11 @@ def _fused_stages_cuda(
         table = corner[1]
         _check("region table", table, (len(corner[0]), K), dev)
     rw, pw = _transfer_weights(shape, dev, restrict_transfer, ec, prolong_transfer)
-    cshape = tuple(s // 2 for s in shape)
-
     n = len(stages)
+    depth = n + int(bool(emit_residual)) + int(restrict_transfer is not None)
+    if depth > MAX_DEPTH:
+        raise ValueError(f"one launch takes a visit of depth <= {MAX_DEPTH}, got {depth}")
+
     writes_x = n > 0 or ec is not None
     if writes_x:
         # the stages, or the stage-free x + P·ec, write the iterate
@@ -295,31 +352,27 @@ def _fused_stages_cuda(
         x_out = torch.zeros_like(b) if x is None else x.clone()
     else:
         x_out = None
-    tmp = torch.empty_like(b) if n > 1 else None
-    mode = 0
-    r_out = None
+    mode, r_out = 0, None
     if emit_residual:
         if restrict_transfer is not None:
+            cshape = tuple(s // 2 for s in shape)
             mode, r_out = 2, torch.empty(cshape, dtype=b.dtype, device=dev)
         else:
             mode, r_out = 1, torch.empty_like(b)
 
-    offs_c = (ctypes.c_int * (3 * K))(*[o for off in offsets for o in off])
-    rowmap_c = (ctypes.c_int * 8)(*_row_map(corner))
-    kinds_c = (ctypes.c_int * max(n, 1))(*[_KIND_CODE[k] for k, _ in stages])
-    pars_c = (ctypes.c_float * max(n, 1))(*[float(p) for _, p in stages])
-    rw_c = (ctypes.c_float * 3)(*rw)
-    pw_c = (ctypes.c_float * 3)(*pw)
+    regions = tuple(tuple(R) for R in corner[0]) if corner else None
+    offs_c, rowmap_c, kinds_c, pars_c, rw_c, pw_c = _host_args(
+        offsets, regions, stages, rw, pw)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(dev):
+    with _on(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _kernel()(
             ptr(values), ptr(table), offs_c, K, rowmap_c,
             ptr(b), ptr(x), ptr(ec),
-            ptr(x_out) if writes_x else None, ptr(tmp), ptr(r_out),
+            ptr(x_out) if writes_x else None, ptr(r_out),
             nz, ny, nx, n, kinds_c, pars_c, mode, rw_c, pw_c, stream,
         )
     if rc != 0:
@@ -351,8 +404,10 @@ def fused_stages_const_3d(
     residual.  ``ec`` + ``prolong_transfer``: start from ``x + P ec``.  Both
     need even grid dims.
 
-    Inputs are never modified.  On a CUDA tensor the kernel is enqueued on
-    the current stream and the call does not wait for it.
+    A visit deeper than ``MAX_DEPTH`` is split into consecutive calls
+    (:func:`depth_chunks`) on either device; every visit of a V(2,2) cycle
+    is one launch.  Inputs are never modified.  On a CUDA tensor the kernel
+    is enqueued on the current stream and the call does not wait for it.
     """
     offsets = tuple(tuple(int(o) for o in off) for off in offsets)
     stages = _norm_stages(stages)
@@ -365,16 +420,22 @@ def fused_stages_const_3d(
     if not stages and not emit_residual and ec is None:
         raise ValueError("nothing to do: no stages, no ec, no residual")
     if b.device.type == "cpu":
-        return fused_stages_const_3d_plain(
-            values, offsets, b, x, stages, emit_residual, corner,
-            restrict_transfer, ec, prolong_transfer, emit_x,
-        )
-    if b.device.type != "cuda":
+        one = fused_stages_const_3d_plain
+    elif b.device.type == "cuda":
+        one = _fused_stages_cuda
+    else:
         raise ValueError(f"unsupported device {b.device}")
-    return _fused_stages_cuda(
-        values, offsets, b, x, stages, emit_residual, corner,
-        restrict_transfer, ec, prolong_transfer, emit_x,
-    )
+    extra = int(bool(emit_residual)) + int(restrict_transfer is not None)
+    chunks = depth_chunks(stages, extra, MAX_DEPTH)
+    for i, chunk in enumerate(chunks):
+        last = i == len(chunks) - 1
+        out = one(
+            values, offsets, b, x, chunk, emit_residual and last, corner,
+            restrict_transfer if last else None, ec if i == 0 else None,
+            prolong_transfer, emit_x,
+        )
+        x = out
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -62,6 +62,7 @@ __all__ = [
     "LAUNCHES_K4",
     "LAUNCHES_K5",
     "MAX_DEPTH_2D",
+    "df_num_partials",
     "df_update_residual_const_3d",
     "df_update_residual_const_3d_plain",
     "half_sweep_plain",
@@ -115,6 +116,23 @@ def df_update_residual_const_3d_plain(
     return nxh, nxl, acch
 
 
+# K2's tiling (csrc/df_update.cu): a block owns DF_TILE = (16, 32) points of
+# (y, x) and a chunk of z; the launch aims at DF_TARGET_BLOCKS blocks
+DF_TILE = (16, 32)
+DF_TARGET_BLOCKS = 1024
+
+
+def df_num_partials(nz: int, ny: int, nx: int) -> int:
+    """Partial sums of ``r_hi²`` K2 writes for a grid of this shape: one a
+    block, the blocks of its tiling (the kernel's
+    ``omg_df_num_partials``, which the wrapper holds this against)."""
+    ty, tx = DF_TILE
+    tiles = -(-nx // tx) * -(-ny // ty)
+    chunks = min(nz, max(1, -(-DF_TARGET_BLOCKS // tiles)))
+    zc = -(-nz // chunks)
+    return tiles * -(-nz // zc)
+
+
 _fns = None
 
 
@@ -164,18 +182,24 @@ def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_nor
     oxh = torch.empty_like(x_hi)
     oxl = torch.empty_like(x_hi)
     orh = torch.empty_like(x_hi)
-    partials = (
-        torch.empty(npart(nz, ny, nx), dtype=torch.float32, device=dev)
-        if emit_norm
-        else None
-    )
+    partials = None
+    if emit_norm:
+        n_part = npart(nz, ny, nx)
+        if n_part != df_num_partials(nz, ny, nx):
+            raise RuntimeError(
+                f"csrc/df_update.cu writes {n_part} partials for {shape}, "
+                f"the wrapper expects {df_num_partials(nz, ny, nx)}"
+            )
+        partials = torch.empty(n_part, dtype=torch.float32, device=dev)
     offs_c = (ctypes.c_int * (3 * K))(*[o for off in offsets for o in off])
     nterms_c = (ctypes.c_int * K)(*[len(t) for t in terms])
     flat = []
     for t in terms:
         flat += [float(p) for p in t] + [0.0] * (3 - len(t))
     terms_c = (ctypes.c_float * (3 * K))(*flat)
-    with torch.cuda.device(dev):
+    from openmg_tpu_torch.ops.fused import _on
+
+    with _on(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             offs_c, nterms_c, terms_c, K,
@@ -648,11 +672,9 @@ def _depth_chunks(stages, extra):
     """Split a visit whose depth (stages + ``extra``) is more than one
     launch takes into consecutive launches of at most ``MAX_DEPTH_2D``;
     only the last one carries the ``extra`` residual levels."""
-    chunks, rest = [], tuple(stages)
-    while len(rest) + extra > MAX_DEPTH_2D:
-        chunks.append(rest[:MAX_DEPTH_2D])
-        rest = rest[MAX_DEPTH_2D:]
-    return chunks + [rest]
+    from openmg_tpu_torch.ops.fused import depth_chunks
+
+    return depth_chunks(stages, extra, MAX_DEPTH_2D)
 
 
 def fused_stages_2d(

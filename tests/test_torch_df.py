@@ -123,3 +123,36 @@ def test_cpu_calls_do_not_count_as_launches(data):
         OFFSETS, TERMS, xh, xl, torch.from_numpy(e), bh, bl
     )
     assert tkernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((256, 256, 256), 8 * 16 * 8),     # 128 tiles of 16 x 32, 8 chunks of 32 planes
+    ((1, 4096, 4096), 128 * 256),      # the 2D lift: one plane, a block a tile
+    ((20, 36, 72), 3 * 3 * 20),        # few tiles: a block a plane
+    ((4, 8, 128), 4 * 1 * 4),
+    ((7, 17, 33), 2 * 2 * 7),
+])
+def test_partial_count_follows_the_tiling(shape, want):
+    assert tkernels.df_num_partials(*shape) == want
+
+
+def test_kernel_wrapper_refuses_before_launching(data):
+    """The K2 wrapper's checks run before the kernel is built or launched."""
+    b64, x64, e = data
+    bh, bl = tdf.df_split(b64)
+    xh, xl = tdf.df_split(x64)
+    et = torch.from_numpy(e)
+    call = tkernels._df_update_residual_cuda
+    with pytest.raises(ValueError, match="3D"):
+        call(OFFSETS, TERMS, xh[0], xl[0], et[0], bh[0], bl[0], False)
+    with pytest.raises(ValueError, match="float32"):
+        call(OFFSETS, TERMS, xh.double(), xl, et, bh, bl, False)
+    with pytest.raises(ValueError, match="shape"):
+        call(OFFSETS, TERMS, xh, xl, et[:, :, :-1].contiguous(), bh, bl, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(OFFSETS, TERMS, xh, xl.transpose(1, 2).contiguous().transpose(1, 2),
+             et, bh, bl, False)
+    with pytest.raises(ValueError, match="radius-1"):
+        call(OFFSETS[:-1] + ((0, 0, 2),), TERMS, xh, xl, et, bh, bl, False)
+    with pytest.raises(ValueError, match="terms"):
+        call(OFFSETS, TERMS[:-1] + ((1.0, 0.5, 0.25, 0.125),), xh, xl, et, bh, bl, False)

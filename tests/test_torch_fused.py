@@ -273,3 +273,85 @@ def test_cpu_calls_do_not_count_as_launches(odd_lane_levels):
     before = tfused.LAUNCHES
     tfused.smooth_fused("rbgs", L.A, b, b, 1, OMEGA)
     assert tfused.LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's host-side logic: depth split and argument checks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_stages,extra", [(4, 2), (5, 1), (5, 2), (6, 0), (7, 0), (10, 2), (14, 0), (50, 0)])
+def test_depth_chunks(n_stages, extra):
+    """A visit of depth d = stages + extra is cut into ⌈d / MAX_DEPTH⌉ chunks
+    of at most MAX_DEPTH; the stages keep their order and only the last chunk
+    carries the residual levels."""
+    stages = tuple(("jacobi", 0.5 + 0.01 * k) for k in range(n_stages))
+    chunks = tfused.depth_chunks(stages, extra, tfused.MAX_DEPTH)
+    depth = n_stages + extra
+    assert len(chunks) == -(-depth // tfused.MAX_DEPTH)
+    assert sum(chunks, ()) == stages
+    assert all(len(c) <= tfused.MAX_DEPTH for c in chunks[:-1])
+    assert len(chunks[-1]) + extra <= tfused.MAX_DEPTH
+
+
+def test_max_depth_covers_the_main_path():
+    # V(2,2) red/black with residual and restriction, and a 6-Jacobi chunk
+    assert tfused.MAX_DEPTH >= len(tfused.stages_for("rbgs", 2, OMEGA)) + 2
+    assert tfused.MAX_DEPTH >= 6
+
+
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("name,iters", [("jacobi", 7), ("rbgs", 4)])
+def test_split_visit_equals_whole(odd_lane_levels, level, name, iters):
+    """On the CPU the dispatcher runs a deep visit chunk by chunk, as the
+    card does; the plain version run whole gives the same bits."""
+    h = odd_lane_levels
+    L, tr = h.levels[level], h.transfer
+    shape = L.grid_shape
+    b, x = to_t(rand(shape, 21)), to_t(rand(shape, 22))
+    ec = to_t(rand(tuple(s // 2 for s in shape), 23))
+    stages = tfused.stages_for(name, iters, OMEGA)
+    assert len(stages) + 2 > tfused.MAX_DEPTH
+    corner = tfused._corner_info(L.A)
+    kw = dict(corner=corner, restrict_transfer=tr, ec=ec, prolong_transfer=tr)
+    got = tfused.fused_stages_const_3d(L.A.values, L.A.offsets, b, x, stages,
+                                       emit_residual=True, **kw)
+    want = tfused.fused_stages_const_3d_plain(L.A.values, L.A.offsets, b, x, stages,
+                                              emit_residual=True, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = tfused.fused_stages_const_3d(L.A.values, L.A.offsets, b, None, stages,
+                                       corner=corner)
+    want = tfused.fused_stages_const_3d_plain(L.A.values, L.A.offsets, b, None,
+                                              stages, corner=corner)
+    assert torch.equal(got, want)
+
+
+def test_kernel_wrapper_refuses_before_launching(odd_lane_levels):
+    """What one launch does not take is refused by the wrapper's checks, which
+    run before the kernel is built or launched (so here, on CPU tensors)."""
+    L, tr = odd_lane_levels.levels[0], odd_lane_levels.transfer
+    V, O = L.A.values, L.A.offsets
+    shape = L.grid_shape
+    b = to_t(rand(shape, 24))
+    ec = to_t(rand(tuple(s // 2 for s in shape), 25))
+    call = tfused._fused_stages_cuda
+    deep = tfused.stages_for("jacobi", tfused.MAX_DEPTH + 1, OMEGA)
+    with pytest.raises(ValueError, match="depth"):
+        call(V, O, b, None, deep, False, None, None, None, None, True)
+    with pytest.raises(ValueError, match="depth"):
+        call(V, O, b, None, deep[:tfused.MAX_DEPTH - 1], True, None, tr, None, None, True)
+    with pytest.raises(ValueError, match="3D"):
+        call(V, O, b[0], None, deep[:1], False, None, None, None, None, True)
+    with pytest.raises(ValueError, match="float32"):
+        call(V.double(), O, b.double(), None, deep[:1], False, None, None, None, None, True)
+    with pytest.raises(ValueError, match="shape"):
+        call(V, O, b, b[:, :, :-2].contiguous(), deep[:1], False, None, None, None, None, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(V, O, b.transpose(1, 2), None, deep[:1], False, None, None, None, None, True)
+    with pytest.raises(ValueError, match="ec needs prolong_transfer"):
+        call(V, O, b, b, deep[:1], False, None, None, ec, None, True)
+    with pytest.raises(ValueError, match="radius-1"):
+        call(V, O[:-1] + ((0, 0, 2),), b, None, deep[:1], False, None, None, None, None, True)
+    odd = to_t(rand((5, 20, 40), 26))
+    with pytest.raises(ValueError, match="even dims"):
+        call(V, O, odd, None, deep[:1], True, None, tr, None, None, True)
