@@ -9,33 +9,60 @@
 // D = S (+1 with a residual, +1 more with a restriction) is at most
 // MAX_DEPTH; the caller splits a deeper visit into consecutive launches.
 //
-// What bounds it on an H100: bytes.  A visit reads b and x (and ec) once and
-// writes x (and r or bc) once, 8.5 bytes a point on the down-leg (b read, x
-// written, bc an eighth) and 12.5 on the up-leg, against at most 2*27 flops a
-// point and stage: far below the card's flop:byte ratio, so the least time is
-// the traffic over the memory rate.  What the kernel pays beyond that is
-// instructions and shared-memory traffic for the halo it recomputes.
+// What bounds it on an H100.  On a level in device memory (256^3: 64 MB an
+// array), bytes: a visit reads b and x (and ec) once and writes x (and r or
+// bc) once, 8.5 bytes a point on the down-leg (b read, x written, bc an
+// eighth) and 12.5 on the up-leg, against at most 2*27 flops a point and
+// stage.  On a level that lives in L2 (the cornered 128^3, 64^3 and 32^3
+// levels of the 256^3 hierarchy) fusing saves no device-memory bytes; what
+// counts there is the launches and the work of each stage.
 //
-// What the design does about it:
+// So a launch takes one of two shapes, chosen per launch by the host code
+// below:
+//
+// THE RESIDENT VISIT, where the level's tiles all fit on the card at once
+// (at most 8 planes x 16 rows x 64 columns a block, two blocks an SM): one
+// cooperative launch, each block holding one tile for the whole visit.  The
+// stages run one after the other across the grid.  A stage copies its tile
+// with a one-cell halo from the iterate (cp.async, past L1: other blocks
+// write it during the launch) and b into shared memory, computes its cells
+// (a thread a 16-byte word of one row, the same body as the marching visit
+// below) into a second buffer, waits at a grid-wide barrier until every
+// block has read the iterate, writes its cells in place, and waits again
+// until every block has written: two barriers a stage, no scratch array.
+// The first stage of an up-leg adds P ec from the coarse region it needs,
+// staged in shared memory.  The residual follows the last stage the same
+// way.  The restriction forms the block's own coarse points: their taps
+// reach one fine cell below the tile on each axis, so the block loads its
+// tile with two cells below it, computes the fine residual there into
+// shared memory (words as above, the column below cell by cell) and
+// restricts from it; the fine residual is never stored.  A tile is as few
+// planes (1, 2, 4 or 8; at least 2 with a restriction) as let the grid
+// fit, so a small level gets the most blocks.  Against one launch a stage, it saves the launches and the
+// separate restriction; against the marching visit, the halo that a D-deep
+// tile recomputes, which at 128^3 and below is most of the work.
+//
+// THE MARCHING VISIT, elsewhere (the 256^3 level): no halo exchange between
+// blocks at all, each block recomputing a D-deep halo.
 //   * Tile y and x, march along z.  A block owns TYO rows by TXO = 64 - 2H
 //     columns of a chunk of ZC planes, and holds its tile with a halo of D
 //     rows on y and of H >= D columns on x (H is D rounded up to an even
 //     number, so a pair of cells is 8-byte aligned in device memory; a row
 //     of the tile is 16-byte aligned in shared memory): PY = TYO + 2D rows
 //     of PX = 64 columns.  It walks the chunk's planes and D more on either
-//     side.  TYO is 32, 24 or 16, per launch the one of least cost whose
-//     rings fit (a taller tile recomputes less halo, a shorter one gives a
-//     small grid more blocks); ZC gives the fewest waves over the SMs.
+//     side.  TYO is the tallest of 32, 24 and 16 whose rings fit (a taller
+//     tile recomputes less halo); ZC gives the fewest waves over the SMs.
 //   * A pipeline of planes.  At step s plane s + 1 is loading and plane s
 //     has arrived; level L (stage L, then the residual at L = S + 1)
 //     computes plane s - 2L + d0 from the three planes around it of level
 //     L - 1, which that level wrote at steps s - 3 .. s - 1 (level 1 reads
 //     the x ring: d0 = 1 reads up to the plane that has just arrived, d0 = 0
-//     up to the one before, while level 0 adds P ec to the new one).  Nothing a level reads is written
-//     in the same step, so a step is one barrier, not one a level (a lag of
-//     one plane and a barrier a level measured slower).  Level L is
-//     exact on the planes and rows at least L from the loaded edge, and
-//     every stage of the visit reads device memory once.
+//     up to the one before, while level 0 adds P ec to the new one).
+//     Nothing a level reads is written in the same step, so a step is one
+//     barrier, not one a level (a lag of one plane and a barrier a level
+//     measured slower).  Level L is exact on the planes and rows at least L
+//     from the loaded edge (a warp with neither of its two rows there skips
+//     the level), and every stage of the visit reads device memory once.
 //   * Each level writes its own ring of four planes in shared memory and
 //     never updates in place: a stage reads only pre-stage values, which is
 //     what a red/black stage needs on the 27-point levels, where a red point
@@ -51,15 +78,16 @@
 //   * The 7-point operator and the cornered 27-point levels have their
 //     offsets fixed at compile time (recursion on template arguments: a
 //     constexpr helper called in a loop was evaluated at run time and made
-//     the 27-point levels several times slower); another operator runs the same
-//     pipeline with a per-cell body that reads its offsets at run time.
+//     the 27-point levels several times slower); another operator runs the
+//     same code with a per-cell body that reads its offsets at run time.
 //   * Loads run one plane ahead: plane s + 1 of x (and the coarse plane of
 //     ec it needs) is copied with cp.async (8 bytes where the rows allow
 //     it) while the levels work on plane s.  Out-of-domain cells are
 //     zero-filled by the copy and set to zero by every level: Dirichlet zero
 //     at every stage, not only at load.  b is read by each level from
 //     device memory (L1 or L2 after the first level; staging it a step
-//     ahead in shared memory measured slower).
+//     ahead in shared memory, loading it a level ahead and prefetching it
+//     into L2 a few steps ahead all measured slower).
 //   * The prolongation is added as a plane arrives (level 0), from a ring
 //     of three coarse ec planes in shared memory.  The restriction consumes
 //     the residual ring: once fine residual plane 2c + 1 is done, coarse
@@ -73,21 +101,22 @@
 //     four, and so has the residual before a restriction.  V(2,2)'s
 //     down-leg (D = 6, zero start) takes 1 + 4*4 + 4 = 21 planes, 189 KB at
 //     TYO = 24; six Jacobi stages 4 + 4*5 = 24 planes, 216 KB at TYO = 24;
-//     the up-leg (D = 4) 17 planes, 170 KB at TYO = 32, and 9 KB of ec.  One block of 16 (TYO + 12)
-//     threads an SM.
-//   * Cornered levels: the tap of point i for offset k is one row of an at
-//     most 8-row table, chosen by which of i's coordinates are 0.  Interior
-//     cells use the interior taps; the few cells on a low face whose row
-//     differs are computed again, each with its row.
+//     the up-leg (D = 4) 17 planes, 170 KB at TYO = 32, and 9 KB of ec.
+//     One block of 16 (TYO + 12) threads an SM.
 //   * Why an overlapped halo is safe: a halo point is recomputed by every
 //     block that holds it, from the same inputs with the same arithmetic in
 //     the same order, so it has the same value in each.
+//   * What holds it back: not bytes (13x the bound on the down-leg).  A step
+//     takes about 4 us at 256^3 and shrinks little with the work in it
+//     (skipping the halo rows a level does not need saved 3-6 % on the
+//     up-leg and the Jacobi visits, nothing on the down-leg), and more
+//     memory requests made it slower: the latency of each level's loads, in
+//     a chain of levels behind one barrier a step, with one block an SM.
 //
-// What holds it back: work, not bytes.  Each level recomputes the tile's
-// halo (at 256^3 and D = 6 about 1.7 times the owned cells, from the tile's
-// shape), and a level is bound by issued instructions and their latency at
-// one block an SM: a taller tile and more warps a block made it faster, the
-// barrier, the loads and the reads of b did not (PERF.md).
+// Cornered levels (both shapes): the tap of point i for offset k is one row
+// of an at most 8-row table, chosen by which of i's coordinates are 0.
+// Interior cells use the interior taps; the few cells on a low face whose
+// row differs are computed again, each with its row.
 //
 // Rounding: region rows divide by the region's diagonal, interior rows
 // multiply by the reciprocal of the interior diagonal, as the TPU kernel
@@ -96,8 +125,11 @@
 // not, so the two agree to a few ulp (the stated tolerance is
 // 2e-6 * max|ref|), not bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -123,17 +155,17 @@ struct Plan {
     int emit;               // 0 none, 1 residual, 2 restricted residual
     int D;                  // halo depth on z and y
     int H;                  // halo columns on x: D rounded up to a multiple of 4
-    int TYO;                // tile rows owned, halo excluded
-    int PY;                 // tile rows, TYO + 2D
+    int PY;                 // tile rows, TYO + 2D (TYO: the kernel's TY)
     int TXO;                // tile columns owned, PX - 2H
     int CPY;                // coarse tile rows
-    int ZC;                 // planes a block owns
+    int ZC;                 // planes a block owns (either shape)
     int nring;              // four-slot rings of the levels 1 .. nring
     int has_x, has_ec;
     int x0;                 // slots of the x ring
     int d0;                 // 1: level 1 reads the plane that arrived this step
                             // (no ec to add to it), 0: the one before
     int vec;                // 8-byte global access: nx even, aligned pointers
+    int vec4;               // 16-byte global access: nx % 4 == 0, aligned pointers
     float rw[3], pw[3];     // transfer weights of taps -1, 0, +1
 };
 
@@ -195,6 +227,15 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok)
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
     const int n = ok ? 4 : 0;
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(n) : "memory");
+}
+
+// 16 bytes past L1 (.cg), zero-filled where ok is false
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok)
+{
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    const int n = ok ? 16 : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(d), "l"(src), "r"(n) : "memory");
 }
 
@@ -306,10 +347,10 @@ struct Word {
     size_t g;           // gy * nx + gx
 };
 
-// The level's value at one cell i (natural layout r * PX + c) with zero-
+// The level's value at one cell i (natural layout r * SX + c) with zero-
 // coordinate mask m, offsets read from the plan at run time: the generic
 // operator's body.
-template <int MODE>
+template <int MODE, int SX>
 __device__ __forceinline__ float cell_value(
     const Plan& pl, const float* pm, const float* p0, const float* pp,
     const float* taps, unsigned imask, int i, int m, float bval, float inv_d,
@@ -320,7 +361,7 @@ __device__ __forceinline__ float cell_value(
     for (int k = 0; k < pl.K; ++k) {
         if (MODE == MODE_RB && k == pl.di) continue;
         const float* P = pl.oz[k] < 0 ? pm : (pl.oz[k] > 0 ? pp : p0);
-        acc += tp[k] * P[i + pl.oy[k] * PX + pl.ox[k]];
+        acc += tp[k] * P[i + pl.oy[k] * SX + pl.ox[k]];
     }
     const float res = bval - acc;
     if (MODE == MODE_RESIDUAL) return res;
@@ -349,7 +390,7 @@ __device__ __forceinline__ void level_pass(
             *reinterpret_cast<float4*>(dst + i) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         return;
     }
-    // b at the four cells, loaded a step ahead (zero outside the domain)
+    // b at the four cells (zero outside the domain)
     const float bv[4] = {bw.x, bw.y, bw.z, bw.w};
     const float4 c4 = *reinterpret_cast<const float4*>(p0 + i);
     const float xc[4] = {c4.x, c4.y, c4.z, c4.w};
@@ -383,8 +424,8 @@ __device__ __forceinline__ void level_pass(
 #pragma unroll
         for (int j = 0; j < 4; ++j)
             v[j] = act && w.iny && ((w.xin >> j) & 1u)
-                ? cell_value<MODE>(pl, pm, p0, pp, taps, imask, i + j,
-                                   mzy | (w.gx + j == 0 ? 4 : 0), bv[j], inv_d, par)
+                ? cell_value<MODE, PX>(pl, pm, p0, pp, taps, imask, i + j,
+                                       mzy | (w.gx + j == 0 ? 4 : 0), bv[j], inv_d, par)
                 : 0.0f;
     }
     if (MODE == MODE_RB) {
@@ -551,6 +592,7 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
             wd.c + 2 * h < H + pl.TXO && ((wd.xin >> (2 * h)) & 3u))
             wd.own2 |= 1u << h;
     wd.g = (size_t)(wd.iny ? wd.gy : 0) * nx + wd.gx;
+    const int wr0 = wd.r & ~1;   // the first of the warp's two rows
     __syncthreads();
 
     // plane s of the pipeline (global z = zlo + s) into its slot, and the
@@ -664,6 +706,10 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
             const int pr = s - 2 * L + d0;
             if (pr < L) break;
             if (pr > T0 - 1 - L) continue;
+            // and on rows [L, PY - L): a warp (two rows) with neither
+            // skips the level
+            if (wr0 + 1 < L || wr0 >= PY - L) continue;
+            const float4 bw = load_b(s, L);
             const float *pm, *p0, *pp;
             if (L == 1) {
                 // planes s - 3 + d0 .. s - 1 + d0, in the slots of the same
@@ -685,7 +731,6 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
             if (L <= S) {
                 float* dst = L <= pl.nring ? rings + (NR * (L - 1) + (s & (NR - 1))) * PL : nullptr;
                 float* gout = L == S ? x_out : nullptr;
-                const float4 bw = load_b(s, L);
                 if (kinds[L - 1] == MODE_RB)
                     level_pass<MODE_RB, SH>(pl, tl, wd, pm, p0, pp, bw, dst, gout, taps,
                                             treg, imask, L, inv_d, pars[L - 1]);
@@ -697,8 +742,7 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
                 // the residual: into the ring for the restriction, or into
                 // r_out on the owned cells
                 level_pass<MODE_RESIDUAL, SH>(
-                    pl, tl, wd, pm, p0, pp,
-                    load_b(s, L),
+                    pl, tl, wd, pm, p0, pp, bw,
                     e2 ? rring + (s & (NR - 1)) * PL : nullptr,
                     e2 ? nullptr : r_out, taps, treg, imask, L, inv_d, 0.0f);
             }
@@ -744,58 +788,554 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
     }
 }
 
-// The planes a block owns (ZC) and the cost of the launch for a tile of TY
-// rows: the fewest waves of blocks over the SMs times the steps a block
-// walks (its chunk, 2D of halo, the pipeline's drain) times the rows it
-// computes a step.
+// ---------------------------------------------------------------------------
+// The resident visit (see the head of the file).
+// ---------------------------------------------------------------------------
+
+constexpr int RT = 256;              // threads of a block: 16 rows of 16 words
+constexpr int RW = 16;               // words of a row: 64 columns
+constexpr int RY = RT / RW;          // rows of a tile
+constexpr int RZC = 8;               // planes of a tile, at most
+// The tile in shared memory: planes z0 - 2 .. z0 + tz, rows y0 - 2 ..
+// y0 + 16, columns x0 - 2 .. x0 + 64 (cell (gz, gy, gx) at
+// S[((gz - z0 + 2) * RSY + gy - y0 + 2) * RSX + gx - x0 + 4]).  A stage
+// reads the one-cell halo; the second cell below the tile on each axis is
+// loaded for the restriction's residual only.
+constexpr int RSX = 72;
+constexpr int RSY = RY + 3;
+constexpr int RRY = RY + 1;          // rows of the restriction's fine residual
+
+// The coarse region of ec a tile's prolongation reads: planes, rows and
+// columns (fine planes z0 - 1 .. z0 + tz need coarse (z0 - 1) >> 1 ..
+// (z0 + tz + 1) >> 1, and so on).
+constexpr int ECY = RY / 2 + 2, ECX = 64 / 2 + 2;
+__host__ __device__ inline int ec_planes(int tz) { return tz / 2 + 3; }
+
+// Floats of dynamic shared memory a resident launch of tz planes takes: the
+// tile; b and then the new cells (or, for a restriction, the fine residual
+// on the tile and one cell below it on each axis); the coarse ec region.
+__host__ __device__ inline size_t resident_floats(int tz, int emit, bool has_ec)
+{
+    const size_t cells = (size_t)tz * RY * 64;
+    const size_t resid = emit == 2 ? (size_t)(tz + 1) * RRY * RSX : 0;
+    return (size_t)(tz + 3) * RSY * RSX + (cells > resid ? cells : resid) +
+           (has_ec ? (size_t)ec_planes(tz) * ECY * ECX : 0);
+}
+
+// Bits j of cells gx + j of row gy in the domain whose tap row is not the
+// interior one: f1 off the plane z == 0, f0 on it.
+__device__ __forceinline__ void word_fix(int gy, int gx, int ny, int nx,
+                                         unsigned imask, unsigned& f0, unsigned& f1)
+{
+    f0 = f1 = 0;
+    for (int j = 0; j < 4; ++j) {
+        const int x = gx + j;
+        if (x < 0 || x >= nx || gy < 0 || gy >= ny) continue;
+        const int m = (gy == 0 ? 2 : 0) | (x == 0 ? 4 : 0);
+        if (m != 0 && !((imask >> m) & 1u)) f1 |= 1u << j;
+        if (!((imask >> (m | 1)) & 1u)) f0 |= 1u << j;
+    }
+}
+
+// (P ec) on fine cells of row fy of plane fz from the coarse region E
+// (coarse cell (cz, cy, cx) at E[((cz - c0.z) * ECY + cy - c0.y) * ECX +
+// cx - c0.x], zero outside the domain): weight pw[t + 1] couples fine
+// f = 2c + t with coarse c.  Each coarse column is summed over z, then y;
+// the cells then combine them over x: the order of the plain version (axis
+// 0 first).  n = 4: the word of cells fx .. fx + 3 (fx even); n = 1: cell
+// fx alone.
+template <int N>
+__device__ __forceinline__ void prolong_cells(
+    const Plan& pl, const float* E, int3 c0, int fz, int fy, int fx, float* p)
+{
+    int cz[2], cy[2];
+    float wz[2], wy[2];
+    int nzt, nyt;
+#define OMG_AXIS_TAPS(f, c, wt, n)                                      \
+    if ((f & 1) == 0) { c[0] = f >> 1; wt[0] = pl.pw[1]; n = 1; }         \
+    else {                                                              \
+        c[0] = (f + 1) >> 1; wt[0] = pl.pw[0];                          \
+        c[1] = (f - 1) >> 1; wt[1] = pl.pw[2]; n = 2;                    \
+    }
+    OMG_AXIS_TAPS(fz, cz, wz, nzt)
+    OMG_AXIS_TAPS(fy, cy, wy, nyt)
+#undef OMG_AXIS_TAPS
+    // coarse columns (fx >> 1) + k, k < 3 (N = 1: the one or two fx needs)
+    const int cx = (fx >> 1) - c0.x;
+    const int ncol = N == 4 ? 3 : 1 + (fx & 1);
+    float col[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        if (k >= ncol) break;
+        float sy = 0.0f;
+        for (int b = 0; b < nyt; ++b) {
+            float sz = 0.0f;
+            for (int c = 0; c < nzt; ++c)
+                sz += wz[c] * E[((cz[c] - c0.z) * ECY + cy[b] - c0.y) * ECX + cx + k];
+            sy += wy[b] * sz;
+        }
+        col[k] = sy;
+    }
+    if (N == 1) {
+        // fx even: column 0; odd: the taps -1 (column 1) and +1 (column 0)
+        p[0] = (fx & 1) == 0 ? 0.0f + pl.pw[1] * col[0]
+                             : (0.0f + pl.pw[0] * col[1]) + pl.pw[2] * col[0];
+        return;
+    }
+    p[0] = 0.0f + pl.pw[1] * col[0];
+    p[1] = (0.0f + pl.pw[0] * col[1]) + pl.pw[2] * col[0];
+    p[2] = 0.0f + pl.pw[1] * col[1];
+    p[3] = (0.0f + pl.pw[0] * col[2]) + pl.pw[2] * col[1];
+}
+
+// What a stage reads, into shared memory: the tile from src (null: zero)
+// plus P ec where ec is given, into S, from plane and row z0 - 2 + lo,
+// y0 - 2 + lo (lo = 1: the one-cell halo a stage reads; 0: the two cells
+// below the tile that the restriction's residual reads too); and b on the
+// tile's cells into T (where b is given; the thread's own words, which it
+// then overwrites with its new values).  src may be written by other blocks
+// during the launch, so it is read past L1.  The 16-byte words are copied
+// with cp.async, all in flight together.
+__device__ void stage_in(const Plan& pl, float* S, float* T, float* E,
+                         const float* src, const float* ec, const float* b,
+                         int tz, int z0, int y0, int x0, int nz, int ny, int nx,
+                         int lo)
+{
+    const int tid = threadIdx.x;
+    const int np = tz + 3 - lo, nr = RSY - lo;
+    const int ncz = nz >> 1, ncy = ny >> 1, ncx = nx >> 1;
+    const int3 c0 = make_int3((x0 - 1) >> 1, (y0 - 1) >> 1, (z0 - 1) >> 1);
+    if (ec != nullptr) {
+        // the coarse region (read-only input: any cache level)
+        const int n = ec_planes(tz) * ECY * ECX;
+        for (int i = tid; i < n; i += RT) {
+            const int pz = i / (ECY * ECX), rem = i - pz * (ECY * ECX);
+            const int ry = rem / ECX, rx = rem - ry * ECX;
+            const int cz = c0.z + pz, cy = c0.y + ry, cx = c0.x + rx;
+            const bool in = cz >= 0 && cz < ncz && cy >= 0 && cy < ncy && cx >= 0 && cx < ncx;
+            cp_async4(E + i, in ? ec + ((size_t)cz * ncy + cy) * ncx + cx : ec, in);
+        }
+    }
+    const bool async_x = pl.vec4 && src != nullptr;
+    for (int i = tid; i < np * nr * RW; i += RT) {
+        const int row = i / RW, w = i - row * RW;
+        const int pz = lo + row / nr, ry = lo + row % nr;
+        const int gz = z0 - 2 + pz, gy = y0 - 2 + ry, gx = x0 + 4 * w;
+        const bool in = gz >= 0 && gz < nz && gy >= 0 && gy < ny && gx < nx;
+        const size_t g = in ? ((size_t)gz * ny + gy) * nx + gx : 0;
+        float* d = S + (pz * RSY + ry) * RSX + 4 + 4 * w;
+        if (async_x) {
+            cp_async16(d, src + g, in);
+            continue;
+        }
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (in && src != nullptr)
+            for (int j = 0; j < 4; ++j)
+                if (gx + j < nx) v[j] = __ldcg(src + g + j);
+        *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+    if (b != nullptr) {
+        // word i of plane p is thread i's (RT = RY * RW)
+        for (int p = 0; p < tz; ++p) {
+            const int r = tid / RW, w = tid % RW;
+            const int gz = z0 + p, gy = y0 + r, gx = x0 + 4 * w;
+            const bool in = gz < nz && gy < ny && gx < nx;
+            const size_t g = in ? ((size_t)gz * ny + gy) * nx + gx : 0;
+            float* d = T + (p * RY + r) * 64 + 4 * w;
+            if (pl.vec4) {
+                cp_async16(d, b + g, in);
+            } else {
+                float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                for (int j = 0; j < 4 && in; ++j)
+                    if (gx + j < nx) v[j] = __ldg(b + g + j);
+                *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+            }
+        }
+    }
+    cp_async_commit();
+    // the columns left and right of the tile (x0 - 1, x0 + 64, and x0 - 2
+    // with lo = 0), while the copies are in flight
+    const int ncol = 3 - lo;
+    for (int i = tid; i < np * nr * ncol; i += RT) {
+        const int row = i / ncol, k = i - row * ncol;
+        const int pz = lo + row / nr, ry = lo + row % nr;
+        const int gz = z0 - 2 + pz, gy = y0 - 2 + ry;
+        const int col = k == 0 ? 3 : k == 1 ? 68 : 2;
+        const int gx = x0 - 4 + col;
+        float v = 0.0f;
+        if (src != nullptr && gz >= 0 && gz < nz && gy >= 0 && gy < ny && gx >= 0 && gx < nx)
+            v = __ldcg(src + ((size_t)gz * ny + gy) * nx + gx);
+        S[(pz * RSY + ry) * RSX + col] = v;
+    }
+    cp_async_wait_all();
+    if (ec == nullptr) return;
+    // x + P ec on the cells of the domain, from the coarse region
+    __syncthreads();
+    for (int i = tid; i < np * nr * (RW + 2); i += RT) {
+        const int row = i / (RW + 2), w = i - row * (RW + 2);
+        const int pz = lo + row / nr, ry = lo + row % nr;
+        const int gz = z0 - 2 + pz, gy = y0 - 2 + ry;
+        if (gz < 0 || gz >= nz || gy < 0 || gy >= ny) continue;
+        float* d = S + (pz * RSY + ry) * RSX;
+        if (w < RW) {
+            const int gx = x0 + 4 * w;
+            if (gx >= nx) continue;
+            float p[4];
+            prolong_cells<4>(pl, E, c0, gz, gy, gx, p);
+            for (int j = 0; j < 4; ++j)
+                if (gx + j < nx) d[4 + 4 * w + j] += p[j];
+        } else {
+            const int gx = w == RW ? x0 - 1 : x0 + 64;
+            if (gx < 0 || gx >= nx) continue;
+            float p[1];
+            prolong_cells<1>(pl, E, c0, gz, gy, gx, p);
+            d[w == RW ? 3 : 68] += p[0];
+        }
+    }
+}
+
+// Rows (oz, oy) = (A / 3 - 1, A % 3 - 1) of the stencil for the word whose
+// first cell is at c in the tile: a 16-byte load of each row a tap reads,
+// and the cells left and right of the word from the lanes beside, or from
+// the halo columns for the first and last word of a row (16 lanes a row).
+template <int SH, int A>
+__device__ __forceinline__ void tile_rows(float (&R)[3][3][6], const float* c, int w)
+{
+    if constexpr (A < 9) {
+        constexpr int a = A / 3, e = A % 3;
+        if constexpr (row_used<SH>(a - 1, e - 1, false)) {
+            const float* P = c + ((a - 1) * RSY + (e - 1)) * RSX;
+            const float4 w4 = *reinterpret_cast<const float4*>(P);
+            R[a][e][1] = w4.x;
+            R[a][e][2] = w4.y;
+            R[a][e][3] = w4.z;
+            R[a][e][4] = w4.w;
+            if constexpr (row_used<SH>(a - 1, e - 1, true)) {
+                // the halo cells are read by the two lanes that need them
+                // only (a load on every lane would be a 4-way bank conflict)
+                float lft = __shfl_up_sync(0xffffffffu, w4.w, 1);
+                float rgt = __shfl_down_sync(0xffffffffu, w4.x, 1);
+                if (w == 0) lft = P[-1];
+                if (w == RW - 1) rgt = P[4];
+                R[a][e][0] = lft;
+                R[a][e][5] = rgt;
+            }
+        }
+        tile_rows<SH, A + 1>(R, c, w);
+    }
+}
+
+// One stage kind (or the residual) on word w of row r of local plane p
+// (from -1): the four new values of cells gx .. gx + 3 of row gy of plane
+// gz.
+template <int MODE, int SH>
+__device__ __forceinline__ void tile_word(
+    const Plan& pl, const float* S, int p, int r, int w, int gz, int gy,
+    int gx, unsigned fix0, unsigned fix1, const float (&bv)[4],
+    const float* taps, const float* treg, unsigned imask, float inv_d,
+    float par, float (&v)[4])
+{
+    const float* c = S + ((p + 2) * RSY + (r + 2)) * RSX + 4 + 4 * w;
+    const float4 c4 = *reinterpret_cast<const float4*>(c);
+    const float xc[4] = {c4.x, c4.y, c4.z, c4.w};
+    if constexpr (SH > 0) {
+        float R[3][3][6];
+        tile_rows<SH, 0>(R, c, w);
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        sum_taps<SH, MODE == MODE_RB, 0>(acc, R, treg);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float res = bv[j] - acc[j];
+            v[j] = MODE == MODE_RESIDUAL ? res
+                 : MODE == MODE_JACOBI ? xc[j] + par * (inv_d * res)
+                                       : inv_d * res;
+        }
+        const unsigned fix = gz == 0 ? fix0 : fix1;
+        if (fix != 0u) {
+            const int mzy = (gz == 0 ? 1 : 0) | (gy == 0 ? 2 : 0);
+            fix_cell<MODE, SH, 0>(v, R, taps, fix, mzy, gx, bv, xc, par);
+            fix_cell<MODE, SH, 1>(v, R, taps, fix, mzy, gx, bv, xc, par);
+            fix_cell<MODE, SH, 2>(v, R, taps, fix, mzy, gx, bv, xc, par);
+            fix_cell<MODE, SH, 3>(v, R, taps, fix, mzy, gx, bv, xc, par);
+        }
+    } else {
+        const int mzy = (gz == 0 ? 1 : 0) | (gy == 0 ? 2 : 0);
+        const int i = (r + 2) * RSX + 4 + 4 * w;
+        const float* p0 = S + (p + 2) * RSY * RSX;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            v[j] = cell_value<MODE, RSX>(pl, p0 - RSY * RSX, p0, p0 + RSY * RSX,
+                                         taps, imask, i + j,
+                                         mzy | (gx + j == 0 ? 4 : 0), bv[j], inv_d, par);
+    }
+    if (MODE == MODE_RB) {
+        // cell j takes the new value where (gz + gy + gx + j) has the colour
+        const int t1 = ((int)par + gz + gy + gx) & 1;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            if ((j & 1) != t1) v[j] = xc[j];
+    }
+}
+
+
+template <int SH>
+__global__ void __launch_bounds__(RT, 2) resident_visit_kernel(
+    Plan pl, const float* __restrict__ values, const float* __restrict__ table,
+    const float* __restrict__ b, const float* __restrict__ xin,
+    const float* __restrict__ ec, float* __restrict__ x_out,
+    float* __restrict__ r_out, int nz, int ny, int nx)
+{
+    extern __shared__ __align__(16) float smem[];
+    __shared__ float taps[8 * MAXK];
+    cg::grid_group grid = cg::this_grid();
+
+    const int tid = threadIdx.x, tz = pl.ZC;
+    const int w = tid % RW, r = tid / RW;
+    const int z0 = blockIdx.z * tz, y0 = blockIdx.y * RY, x0 = blockIdx.x * 64;
+    const int gy = y0 + r, gx = x0 + 4 * w;
+    const int S_ = pl.n_stages;
+    float* S = smem;                              // the tile
+    float* T = S + (tz + 3) * RSY * RSX;          // b, then the new cells
+    float* E = T + resident_floats(tz, pl.emit, false) - (tz + 3) * RSY * RSX;
+
+    for (int i = tid; i < 8 * pl.K; i += RT) {
+        const int m = i / pl.K, k = i - m * pl.K;
+        const int row = pl.rowmap[m];
+        taps[m * MAXK + k] = row < 0 ? values[k] : table[row * pl.K + k];
+    }
+    unsigned imask = 0;
+    for (int m = 0; m < 8; ++m) imask |= (pl.rowmap[m] < 0 ? 1u : 0u) << m;
+    unsigned xin4 = 0, fix0, fix1;   // bit j: cell j lies in the domain
+    for (int j = 0; j < 4; ++j)
+        if (gx + j < nx && gy < ny) xin4 |= 1u << j;
+    word_fix(gy, gx, ny, nx, imask, fix0, fix1);
+    __syncthreads();
+    const float inv_d = 1.0f / taps[SH > 0 ? 0 : pl.di];
+    constexpr int KN = SH > 0 ? SH : 1;
+    float treg[KN];
+#pragma unroll
+    for (int k = 0; k < KN; ++k) treg[k] = taps[k];
+
+    // b at the thread's word of plane p (stage_in put it in T)
+    auto b_of = [&](int p, float (&bv)[4]) {
+        const float4 t = *reinterpret_cast<const float4*>(T + (p * RY + r) * 64 + 4 * w);
+        bv[0] = t.x; bv[1] = t.y; bv[2] = t.z; bv[3] = t.w;
+    };
+    // the thread's words of T (tz planes) into dst, cells in the domain
+    auto store_words = [&](float* dst) {
+        for (int p = 0; p < tz; ++p) {
+            const int gz = z0 + p;
+            if (gz >= nz || xin4 == 0u) break;
+            const float4 t = *reinterpret_cast<const float4*>(T + (p * RY + r) * 64 + 4 * w);
+            float* q = dst + ((size_t)gz * ny + gy) * nx + gx;
+            if (pl.vec4) {
+                *reinterpret_cast<float4*>(q) = t;
+            } else {
+                const float v[4] = {t.x, t.y, t.z, t.w};
+                for (int j = 0; j < 4; ++j)
+                    if ((xin4 >> j) & 1u) q[j] = v[j];
+            }
+        }
+    };
+
+    const float* cur = xin;   // the iterate as it stands
+    for (int s = 0; s < S_; ++s) {
+        stage_in(pl, S, T, E, cur, s == 0 ? ec : nullptr, b, tz, z0, y0, x0, nz, ny, nx, 1);
+        __syncthreads();
+        const bool rb = pl.kind[s] == MODE_RB;
+        const float par = pl.par[s];
+        for (int p = 0; p < tz; ++p) {
+            const int gz = z0 + p;
+            float bv[4], v[4];
+            b_of(p, bv);
+            if (rb)
+                tile_word<MODE_RB, SH>(pl, S, p, r, w, gz, gy, gx, fix0, fix1, bv,
+                                       taps, treg, imask, inv_d, par, v);
+            else
+                tile_word<MODE_JACOBI, SH>(pl, S, p, r, w, gz, gy, gx, fix0, fix1,
+                                           bv, taps, treg, imask, inv_d, par, v);
+            *reinterpret_cast<float4*>(T + (p * RY + r) * 64 + 4 * w) =
+                make_float4(v[0], v[1], v[2], v[3]);
+        }
+        // x_out is the iterate from the second stage on: every block must
+        // have read it before any block writes
+        if (s > 0) grid.sync();
+        store_words(x_out);
+        cur = x_out;
+        if (s + 1 < S_ || pl.emit != 0) grid.sync();
+    }
+    if (S_ == 0 && pl.has_ec) {
+        // the stage-free x + P ec
+        stage_in(pl, S, T, E, cur, ec, nullptr, tz, z0, y0, x0, nz, ny, nx, 1);
+        __syncthreads();
+        for (int p = 0; p < tz; ++p) {
+            const float4 t = *reinterpret_cast<const float4*>(
+                S + ((p + 2) * RSY + (r + 2)) * RSX + 4 + 4 * w);
+            *reinterpret_cast<float4*>(T + (p * RY + r) * 64 + 4 * w) = t;
+        }
+        store_words(x_out);
+        cur = x_out;
+        if (pl.emit != 0) grid.sync();
+    }
+    if (pl.emit == 1) {
+        stage_in(pl, S, T, E, cur, nullptr, b, tz, z0, y0, x0, nz, ny, nx, 1);
+        __syncthreads();
+        for (int p = 0; p < tz; ++p) {
+            const int gz = z0 + p;
+            float bv[4], v[4];
+            b_of(p, bv);
+            tile_word<MODE_RESIDUAL, SH>(pl, S, p, r, w, gz, gy, gx, fix0, fix1, bv,
+                                         taps, treg, imask, inv_d, 0.0f, v);
+            *reinterpret_cast<float4*>(T + (p * RY + r) * 64 + 4 * w) =
+                make_float4(v[0], v[1], v[2], v[3]);
+        }
+        store_words(r_out);
+    } else if (pl.emit == 2) {
+        // the fine residual on planes z0 - 1 .. z0 + tz - 1, rows y0 - 1 ..
+        // y0 + 15, columns x0 - 1 .. x0 + 63 (zero outside the domain) into
+        // R: (gz, gy, gx) at R[((gz - z0 + 1) * RRY + gy - y0 + 1) * RSX +
+        // gx - x0 + 4].  Words a lane, 16 lanes a row; a half-warp past the
+        // end computes a word of the other half again and keeps nothing.
+        stage_in(pl, S, T, E, cur, nullptr, nullptr, tz, z0, y0, x0, nz, ny, nx, 0);
+        __syncthreads();
+        float* R = T;
+        const int units = (tz + 1) * RRY * RW;
+        for (int u0 = tid; u0 < ((units + 31) & ~31); u0 += RT) {
+            const int u = u0 < units ? u0 : u0 - 16;
+            const int row = u / RW, uw = u - row * RW;
+            const int p = row / RRY - 1, ur = row % RRY - 1;
+            const int gz = z0 + p, uy = y0 + ur, ux = x0 + 4 * uw;
+            const bool rowin = gz >= 0 && gz < nz && uy >= 0 && uy < ny;
+            float bv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, v[4];
+            const float* q = b + ((size_t)(rowin ? gz : 0) * ny + (rowin ? uy : 0)) * nx + ux;
+            if (rowin && pl.vec4 && ux < nx) {
+                const float4 t = __ldg(reinterpret_cast<const float4*>(q));
+                bv[0] = t.x; bv[1] = t.y; bv[2] = t.z; bv[3] = t.w;
+            } else if (rowin) {
+                for (int j = 0; j < 4; ++j)
+                    if (ux + j < nx) bv[j] = __ldg(q + j);
+            }
+            unsigned f0, f1;
+            word_fix(uy, ux, ny, nx, imask, f0, f1);
+            tile_word<MODE_RESIDUAL, SH>(pl, S, p, ur, uw, gz, uy, ux, f0, f1, bv,
+                                         taps, treg, imask, inv_d, 0.0f, v);
+            if (u0 < units) {
+                float* d = R + ((p + 1) * RRY + ur + 1) * RSX + 4 + 4 * uw;
+                for (int j = 0; j < 4; ++j) d[j] = rowin && ux + j < nx ? v[j] : 0.0f;
+            }
+        }
+        // the column x0 - 1, cell by cell
+        for (int i = tid; i < (tz + 1) * RRY; i += RT) {
+            const int p = i / RRY - 1, ur = i % RRY - 1;
+            const int gz = z0 + p, uy = y0 + ur, ux = x0 - 1;
+            float v = 0.0f;
+            if (gz >= 0 && gz < nz && uy >= 0 && uy < ny && ux >= 0) {
+                const float* p0 = S + (p + 2) * RSY * RSX;
+                const int m = (gz == 0 ? 1 : 0) | (uy == 0 ? 2 : 0) | (ux == 0 ? 4 : 0);
+                v = cell_value<MODE_RESIDUAL, RSX>(
+                    pl, p0 - RSY * RSX, p0, p0 + RSY * RSX, taps, imask,
+                    (ur + 2) * RSX + 3, m, __ldg(b + ((size_t)gz * ny + uy) * nx + ux),
+                    inv_d, 0.0f);
+            }
+            R[((p + 1) * RRY + ur + 1) * RSX + 3] = v;
+        }
+        __syncthreads();
+        // the block's coarse points: fine index 2c + t sits at R index
+        // 2 lc + t + 1 on each axis
+        const int ncz = nz >> 1, ncy = ny >> 1, ncx = nx >> 1;
+        for (int i = tid; i < (tz / 2) * (RY / 2) * 32; i += RT) {
+            const int lz = i / ((RY / 2) * 32), ly = (i / 32) % (RY / 2), lx = i % 32;
+            const int cz = z0 / 2 + lz, cy = y0 / 2 + ly, cx = x0 / 2 + lx;
+            if (cz >= ncz || cy >= ncy || cx >= ncx) continue;
+            float ax = 0.0f;
+#pragma unroll
+            for (int tx = 0; tx < 3; ++tx) {
+                float ay = 0.0f;
+#pragma unroll
+                for (int ty = 0; ty < 3; ++ty) {
+                    float az = 0.0f;
+#pragma unroll
+                    for (int tq = 0; tq < 3; ++tq)
+                        az += pl.rw[tq] * R[((2 * lz + tq) * RRY + 2 * ly + ty) * RSX +
+                                            3 + 2 * lx + tx];
+                    ay += pl.rw[ty] * az;
+                }
+                ax += pl.rw[tx] * ay;
+            }
+            r_out[((size_t)cz * ncy + cy) * ncx + cx] = ax;
+        }
+    }
+}
+
+// The resident launch, where the level's tiles fit on the card at once:
+// with the fewest planes a tile (1, 2, 4 or 8) for which they do, the most
+// blocks.  Returns NO_FIT where they do not fit (no CUDA error has its
+// value), else what the launch returned.
+constexpr int NO_FIT = -2;
+
+template <int SH>
+int launch_resident(Plan pl, cudaStream_t stream, const float* values,
+                    const float* table, const float* b, const float* x,
+                    const float* ec, float* x_out, float* r_out, int nz,
+                    int ny, int nx, int nsm)
+{
+    const long tiles_yx = (long)((nx + 63) / 64) * ((ny + RY - 1) / RY);
+    // a restriction forms the coarse points over a block's own planes:
+    // an even number of them
+    for (int tz = pl.emit == 2 ? 2 : 1; tz <= RZC; tz *= 2) {
+        const long blocks = tiles_yx * ((nz + tz - 1) / tz);
+        if (blocks > 8L * nsm) continue;   // at most 2048 / RT blocks an SM
+        const size_t smem = resident_floats(tz, pl.emit, pl.has_ec) * sizeof(float);
+        cudaError_t e = cudaFuncSetAttribute(
+            resident_visit_kernel<SH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            SMEM_LIMIT - 2048);
+        int per_sm = 0;
+        if (e == cudaSuccess)
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, resident_visit_kernel<SH>, RT, smem);
+        if (e != cudaSuccess) return (int)e;
+        if (blocks > (long)per_sm * nsm) continue;
+        pl.ZC = tz;
+        dim3 grid((nx + 63) / 64, (ny + RY - 1) / RY, (nz + tz - 1) / tz);
+        void* args[] = {&pl, &values, &table, &b, &x, &ec, &x_out, &r_out, &nz, &ny, &nx};
+        return (int)cudaLaunchCooperativeKernel((const void*)resident_visit_kernel<SH>,
+                                                grid, dim3(RT), args, smem, stream);
+    }
+    return NO_FIT;
+}
+
+// The marching launch with a tile of TY rows: ZC, the planes a block owns,
+// gives the fewest waves of blocks over the SMs times the steps a block
+// walks (its chunk, 2D of halo, the pipeline's drain).
 template <int SH, int TY>
-long plan_ty(Plan& pl, int nz, int ny, int nx)
+int launch_march(Plan pl, cudaStream_t stream, const float* values,
+                 const float* table, const float* b, const float* x,
+                 const float* ec, float* x_out, float* r_out, int nz, int ny,
+                 int nx, int nsm)
 {
     constexpr int THREADS = C4 * (TY + 2 * MAX_DEPTH);
+    pl.PY = TY + 2 * pl.D;
+    pl.CPY = pl.PY / 2 + 2;
     const size_t smem = smem_floats(pl) * sizeof(float);
-    if (cudaFuncSetAttribute(visit_kernel<SH, TY>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_LIMIT - 2048) != cudaSuccess)
-        return -1;
-    int dev = 0, nsm = 1, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, visit_kernel<SH, TY>,
-                                                  THREADS, smem);
+    cudaError_t e = cudaFuncSetAttribute(
+        visit_kernel<SH, TY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SMEM_LIMIT - 2048);
+    int per_sm = 0;
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, visit_kernel<SH, TY>,
+                                                          THREADS, smem);
+    if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return -1;
     const long tiles = (long)((nx + pl.TXO - 1) / pl.TXO) * ((ny + TY - 1) / TY);
     const long slots = (long)nsm * per_sm;
     long best = -1;
     for (int zc = 2; zc < nz + 2; zc += 2) {
         const long blocks = tiles * ((nz + zc - 1) / zc);
-        const long cost = ((blocks + slots - 1) / slots) *
-                          (zc + 4 * pl.D) * pl.PY;
+        const long cost = ((blocks + slots - 1) / slots) * (zc + 4 * pl.D);
         if (best < 0 || cost < best) {
             best = cost;
             pl.ZC = zc;
         }
-    }
-    return best;
-}
-
-template <int SH, int TY>
-int launch_ty(const Plan& pl, cudaStream_t stream, const float* values,
-              const float* table, const float* b, const float* x,
-              const float* ec, float* x_out, float* r_out, int nz, int ny,
-              int nx, size_t smem)
-{
-    constexpr int THREADS = C4 * (TY + 2 * MAX_DEPTH);
-    // the opt-in above 48 KB, once a device (plan_ty set it on a first
-    // visit of this shape; a shape met again may be on another device)
-    static bool opted[64] = {};
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (dev < 0 || dev >= 64 || !opted[dev]) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            visit_kernel<SH, TY>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            SMEM_LIMIT - 2048);
-        if (e != cudaSuccess) return (int)e;
-        if (dev >= 0 && dev < 64) opted[dev] = true;
     }
     dim3 grid((nx + pl.TXO - 1) / pl.TXO, (ny + TY - 1) / TY,
               (nz + pl.ZC - 1) / pl.ZC);
@@ -804,78 +1344,34 @@ int launch_ty(const Plan& pl, cudaStream_t stream, const float* values,
     return (int)cudaGetLastError();
 }
 
-// The tile height (32, 24 or 16 rows owned) of least cost among those whose
-// rings fit in shared memory: a taller tile recomputes less halo a point,
-// a shorter one gives a small grid more blocks.
-template <int SH>
-int choose_tile(Plan& pl, int nz, int ny, int nx)
-{
-    const int tys[3] = {32, 24, 16};
-    long best = -1;
-    Plan pick = pl;
-    for (int ty : tys) {
-        Plan t = pl;
-        t.TYO = ty;
-        t.PY = ty + 2 * pl.D;
-        t.CPY = t.PY / 2 + 2;
-        if (smem_floats(t) * sizeof(float) + 2048 > (size_t)SMEM_LIMIT) continue;
-        const long cost = ty == 32 ? plan_ty<SH, 32>(t, nz, ny, nx)
-                        : ty == 24 ? plan_ty<SH, 24>(t, nz, ny, nx)
-                                   : plan_ty<SH, 16>(t, nz, ny, nx);
-        if (cost >= 0 && (best < 0 || cost < best)) {
-            best = cost;
-            pick = t;
-        }
-    }
-    if (best < 0) return -1;
-    pl = pick;
-    return 0;
-}
-
-// The choice is remembered by shape and visit, so a solve's launches after
-// the first do not query the CUDA runtime for it again.
-struct PlanKey {
-    int dev, nz, ny, nx, D, nring, emit, x0, has_ec;
-    bool operator==(const PlanKey& o) const
-    {
-        return dev == o.dev && nz == o.nz && ny == o.ny && nx == o.nx && D == o.D &&
-               nring == o.nring && emit == o.emit && x0 == o.x0 && has_ec == o.has_ec;
-    }
-};
-
+// The resident launch where it fits; else the marching one with the
+// tallest tile (32, 24 or 16 rows owned) whose rings fit in shared memory.
 template <int SH>
 int launch(Plan& pl, cudaStream_t stream, const float* values,
            const float* table, const float* b, const float* x, const float* ec,
            float* x_out, float* r_out, int nz, int ny, int nx)
 {
-    constexpr int CACHE = 64;
-    static PlanKey keys[CACHE];
-    static int tyos[CACHE], zcs[CACHE];
-    static int n_cached = 0;
-    PlanKey key{0, nz, ny, nx, pl.D, pl.nring, pl.emit, pl.x0, pl.has_ec};
-    cudaGetDevice(&key.dev);
-    int hit = -1;
-    for (int c = 0; c < n_cached && hit < 0; ++c)
-        if (keys[c] == key) hit = c;
-    if (hit >= 0) {
-        pl.TYO = tyos[hit];
-        pl.PY = pl.TYO + 2 * pl.D;
-        pl.CPY = pl.PY / 2 + 2;
-        pl.ZC = zcs[hit];
-    } else {
-        const int rc = choose_tile<SH>(pl, nz, ny, nx);
-        if (rc != 0) return rc;
-        const int c = n_cached < CACHE ? n_cached++ : CACHE - 1;
-        keys[c] = key;
-        tyos[c] = pl.TYO;
-        zcs[c] = pl.ZC;
+    int dev = 0, nsm = 1;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    const int rc = launch_resident<SH>(pl, stream, values, table, b, x, ec, x_out,
+                                       r_out, nz, ny, nx, nsm);
+    if (rc != NO_FIT) return rc;
+    const int tys[3] = {32, 24, 16};
+    for (int ty : tys) {
+        Plan t = pl;
+        t.PY = ty + 2 * pl.D;
+        t.CPY = t.PY / 2 + 2;
+        if (smem_floats(t) * sizeof(float) + 2048 > (size_t)SMEM_LIMIT) continue;
+        if (ty == 32)
+            return launch_march<SH, 32>(pl, stream, values, table, b, x, ec, x_out, r_out, nz, ny, nx, nsm);
+        if (ty == 24)
+            return launch_march<SH, 24>(pl, stream, values, table, b, x, ec, x_out, r_out, nz, ny, nx, nsm);
+        return launch_march<SH, 16>(pl, stream, values, table, b, x, ec, x_out, r_out, nz, ny, nx, nsm);
     }
-    const size_t smem = smem_floats(pl) * sizeof(float);
-    if (pl.TYO == 32)
-        return launch_ty<SH, 32>(pl, stream, values, table, b, x, ec, x_out, r_out, nz, ny, nx, smem);
-    if (pl.TYO == 24)
-        return launch_ty<SH, 24>(pl, stream, values, table, b, x, ec, x_out, r_out, nz, ny, nx, smem);
-    return launch_ty<SH, 16>(pl, stream, values, table, b, x, ec, x_out, r_out, nz, ny, nx, smem);
+    return -1;
 }
 
 // Which compile-time offset table the operator's offsets are, or 0.
@@ -973,6 +1469,7 @@ extern "C" int omg_fused_stages(
     uintptr_t ptrs = (uintptr_t)b | (uintptr_t)x | (uintptr_t)x_out;
     if (emit_residual == 1) ptrs |= (uintptr_t)r_out;
     pl.vec = (nx % 2 == 0) && (ptrs % 8 == 0);
+    pl.vec4 = (nx % 4 == 0) && (ptrs % 16 == 0);
     for (int t = 0; t < 3; ++t) {
         pl.rw[t] = rw[t];
         pl.pw[t] = pw[t];

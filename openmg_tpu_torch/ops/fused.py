@@ -40,9 +40,7 @@ copied.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import functools
 
 import torch
 
@@ -292,28 +290,6 @@ def _transfer_weights(shape, device, restrict_transfer, ec, prolong_transfer):
     return rw, pw
 
 
-@functools.lru_cache(maxsize=256)
-def _host_args(offsets, regions, stages, rw, pw):
-    """The kernel's host-side arrays for a visit, built once per operator
-    and visit: a V-cycle calls the same few visits every cycle."""
-    n = len(stages)
-    return (
-        (ctypes.c_int * (3 * len(offsets)))(*[o for off in offsets for o in off]),
-        (ctypes.c_int * 8)(*_row_map((regions, None) if regions else None)),
-        (ctypes.c_int * max(n, 1))(*[_KIND_CODE[k] for k, _ in stages]),
-        (ctypes.c_float * max(n, 1))(*[float(p) for _, p in stages]),
-        (ctypes.c_float * 3)(*rw),
-        (ctypes.c_float * 3)(*pw),
-    )
-
-
-def _on(dev):
-    """A context that makes ``dev`` current, or none when it already is."""
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
-
-
 def _fused_stages_cuda(
     values, offsets, b, x, stages, emit_residual, corner, restrict_transfer,
     ec, prolong_transfer, emit_x,
@@ -360,14 +336,17 @@ def _fused_stages_cuda(
         else:
             mode, r_out = 1, torch.empty_like(b)
 
-    regions = tuple(tuple(R) for R in corner[0]) if corner else None
-    offs_c, rowmap_c, kinds_c, pars_c, rw_c, pw_c = _host_args(
-        offsets, regions, stages, rw, pw)
+    offs_c = (ctypes.c_int * (3 * K))(*[o for off in offsets for o in off])
+    rowmap_c = (ctypes.c_int * 8)(*_row_map(corner))
+    kinds_c = (ctypes.c_int * max(n, 1))(*[_KIND_CODE[k] for k, _ in stages])
+    pars_c = (ctypes.c_float * max(n, 1))(*[float(p) for _, p in stages])
+    rw_c = (ctypes.c_float * 3)(*rw)
+    pw_c = (ctypes.c_float * 3)(*pw)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with _on(dev):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _kernel()(
             ptr(values), ptr(table), offs_c, K, rowmap_c,

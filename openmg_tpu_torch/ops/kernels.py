@@ -54,6 +54,7 @@ import ctypes
 import torch
 
 from openmg_tpu_torch.ops.doublefloat import df_add_f32, two_sum
+from openmg_tpu_torch.ops.fused import depth_chunks
 from openmg_tpu_torch.ops.stencil import diag_index, kernel_taps_ok, shift
 
 __all__ = [
@@ -197,9 +198,7 @@ def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_nor
     for t in terms:
         flat += [float(p) for p in t] + [0.0] * (3 - len(t))
     terms_c = (ctypes.c_float * (3 * K))(*flat)
-    from openmg_tpu_torch.ops.fused import _on
-
-    with _on(dev):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(
             offs_c, nterms_c, terms_c, K,
@@ -668,15 +667,6 @@ def _fused2d_cuda(values, offsets, b, x, stages, *, corner, emit_residual,
     return (x_out, r_out) if emit_residual else x_out
 
 
-def _depth_chunks(stages, extra):
-    """Split a visit whose depth (stages + ``extra``) is more than one
-    launch takes into consecutive launches of at most ``MAX_DEPTH_2D``;
-    only the last one carries the ``extra`` residual levels."""
-    from openmg_tpu_torch.ops.fused import depth_chunks
-
-    return depth_chunks(stages, extra, MAX_DEPTH_2D)
-
-
 def fused_stages_2d(
     values, offsets, b, x, stages, *, corner=None, emit_residual=False,
     restrict_transfer=None, ec=None, prolong_transfer=None,
@@ -719,7 +709,7 @@ def fused_stages_2d(
     else:
         raise ValueError(f"unsupported device {b.device}")
     extra = int(emit_residual) + int(restrict_transfer is not None)
-    chunks = _depth_chunks(stages, extra)
+    chunks = depth_chunks(stages, extra, MAX_DEPTH_2D)
     for i, chunk in enumerate(chunks):
         last = i == len(chunks) - 1
         out = one(

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_solve.py
         [--problem poisson|diffusion|poisson2d] [--n N] [--out DIR]
+        [--levels] [--root DIR]
 
 Sets up a solve of ``chip_smoke.py`` (V(2,2) red-black, linear transfers,
 double-float outer loop, dense coarsest level of at most 4096 points):
@@ -15,7 +16,15 @@ kernel, the lifted double-float update kernel).  n defaults to 256 in 3D and
 ``torch.profiler`` and prints one JSON line: the card's name and power
 limit, the solve's wall time, the device time summed by kernel name, and
 the device's busy and idle share of the solve.  With ``--out`` the Chrome
-trace is written there.  Needs a CUDA device; fails without one.
+trace is written there.  With ``--levels`` (``poisson`` only) it also
+times the fused level visits of the solve's hierarchy one by one: on every
+visited level the down-leg (zero start, the stages, the restricted
+residual) and the up-leg (``x + P·ec``, the stages), and on the finest
+level a visit of 6 and one of 50 Jacobi stages (``bench.py``'s sweep, in as
+many launches as the port takes), each as device milliseconds a visit, 20
+visits back to back.  ``--root`` profiles the package of another checkout
+(an earlier commit unpacked with ``git archive``), so two versions are
+timed by the same script.  Needs a CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -30,7 +39,65 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if "--root" in sys.argv[:-1]:
+    ROOT = os.path.abspath(sys.argv[sys.argv.index("--root") + 1])
+sys.path.insert(0, ROOT)
+
+
+def device_ms(fn, reps=20):
+    """Device milliseconds a call, ``reps`` calls back to back; the card is
+    held busy while they are enqueued, so the host's cost of a call does
+    not count."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * host_s, 5.0) * 2e9))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def level_visits(hierarchy, dev):
+    """Device ms of each fused level visit of the hierarchy (see above)."""
+    from openmg_tpu_torch.ops import fused
+
+    tr = hierarchy.transfer
+    rb4 = fused.stages_for("rbgs", 2, 2 / 3)
+    out = {}
+    for i, L in enumerate(hierarchy.levels[:-1]):
+        op, shape = L.A, L.grid_shape
+        corner = fused._corner_info(op)
+        rng = np.random.default_rng(i)
+        b, x = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+                for _ in range(2))
+        ec = torch.from_numpy(rng.standard_normal(tuple(s // 2 for s in shape))
+                              .astype(np.float32)).to(dev)
+
+        def visit(stages, xx=None, **kw):
+            return lambda: fused.fused_stages_const_3d(
+                op.values, op.offsets, b, xx, stages, corner=corner, **kw)
+
+        cases = {
+            "down": visit(rb4, emit_residual=True, restrict_transfer=tr),
+            "up": visit(rb4, x, ec=ec, prolong_transfer=tr),
+        }
+        if i == 0:
+            for n in (6, 50):
+                cases[f"jacobi{n}"] = visit(fused.stages_for("jacobi", n, 2 / 3), x)
+        for name, fn in cases.items():
+            out[f"{'x'.join(map(str, shape))} {name}"] = device_ms(fn)
+        del b, x, ec
+    return out
 
 
 def main():
@@ -39,6 +106,8 @@ def main():
                     default="poisson")
     ap.add_argument("--n", type=int, default=None)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--levels", action="store_true")
+    ap.add_argument("--root", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -109,6 +178,10 @@ def main():
         "device_busy_ms": busy,
         "device_idle_share_of_profiled_solve": max(0.0, 1.0 - busy / (wall * 1e3)),
         "kernels": top,
+        "root": ROOT,
+        "level_visits_device_ms": (
+            level_visits(solver.hierarchy, b.device)
+            if args.levels and args.problem == "poisson" else None),
     }))
 
 
