@@ -51,23 +51,37 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                solve with a float32 outer residual; ``residual`` /
                ``smooth`` with CUDA tensors on a cornered 2D operator; and a
                1D ``setup``, which the card must refuse;
-7. ``sweeps``  as ``kernels``, for the per-pass kernel with constant or
+7. ``solve_unfaced`` the 256³ Poisson solve of ``solve`` on the
+               hierarchy of ``setup(..., faced=False)``: the constant fine
+               level by K1 and K2, the three varying 27-point coarse levels
+               by K4 legs and no K1 there, the same cycle count as the
+               faced solve, a float64 residual below 1e-10, with its setup
+               time and peak memory;
+8. ``sweeps``  as ``kernels``, for the per-pass kernel with constant or
                cornered taps (K3) and with per-point coefficient grids (K4,
                on the diffusion hierarchy set up just before it): Jacobi,
                both red/black colours and the residual, at 256³ with 7
                taps, at 128³ with 27 taps, at (20,36,72) and on a 2D
                operand lifted to (1, ny, nx); ``F.conv3d`` is timed beside
-               K3's residual as a yardstick (the port never calls it);
-8. ``solve_vary`` the 256³ variable-coefficient diffusion solve from a
+               K3's residual as a yardstick (the port never calls it); and
+               K4's legs (``sweeps_vary_3d``, ``K4_legs``: a down-leg of
+               four red/black passes from zero and the residual, an up-leg
+               of four from x, and the two Jacobi legs) on every varying
+               level of the diffusion hierarchy, the odd shape, the 2D lift
+               and the unfaced 27-point levels, each in the launches of
+               ``kernels.leg_chunks`` at the level's ``kernels.leg_depth``;
+               at 256³ and 128³ timed beside the same passes one launch
+               each;
+9. ``solve_vary`` the 256³ variable-coefficient diffusion solve from a
                stencil pair (host Galerkin chain, four varying levels, every
-               level visit composed of K4 passes, the general double-float
+               level visit two K4 legs, the general double-float
                residual), checked in float64 on the host; the (32,32,64)
                diffusion solve against the CPU; ``mg_solve`` with a scipy
                Poisson matrix; the 256³ Poisson solve with a float32 outer
                residual (one K3 launch per residual); and ``residual`` /
                ``smooth`` called with CUDA tensors on a constant, a cornered
                and a varying operator;
-9. ``spmv``    holds the slot-offset ELL SpMV (K6) and the blocked-band BSR
+10. ``spmv``   holds the slot-offset ELL SpMV (K6) and the blocked-band BSR
                SpMV (K7; both ``csrc/spmv_banded.cu``, K6 at block size 1)
                against their plain versions on the card: K6 on every visited
                level of the 1024² Poisson ELL hierarchy (k 5, then three
@@ -78,8 +92,9 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                levels), on 2D elasticity 256² (B=2), 3D elasticity 24³
                (B=3), Poisson 16³ at B=8 and in float64; times each beside
                ``torch.mv`` on a ``torch.sparse`` CSR of the true nonzeros
-               (a yardstick the port never calls);
-10. ``solve_sparse`` the 64³ coupled-diffusion B=4 solve through
+               (a yardstick the port never calls) and prints the ratio
+               (``ms_over_library``);
+11. ``solve_sparse`` the 64³ coupled-diffusion B=4 solve through
                ``setup_sparse`` (BSR, Jacobi, linear transfers: five K7
                launches a visited level a cycle) and the 1024² Poisson solve
                through ``mg_solve`` with ``format="ell"`` (red/black by
@@ -105,9 +120,10 @@ divide where the plain version divides too — a few ulp.  K2
 (``df_update_residual_const_3d``): ``x_hi'``, ``x_lo'``, ``r_hi`` equal bit
 for bit; the partial sums' total within 1e-6 relative of ``sum(r_hi²)``.
 K3 and K4 (one pass of ``csrc/half_sweep.cu``) against ``half_sweep_plain``
-/ ``half_sweep_vary_plain``, and K5 (``fused_stages_2d``) against
-``fused_stages_2d_plain``: 2e-6 · max|ref| for an iterate, 2e-6 · max|b|
-for a residual, for the same reason as K1.  K6 and K7 against
+/ ``half_sweep_vary_plain``, K4's legs (``csrc/vary_leg.cu``) against
+``sweeps_vary_plain`` (the loop of those passes), and K5
+(``fused_stages_2d``) against ``fused_stages_2d_plain``: 2e-6 · max|ref| for
+an iterate, 2e-6 · max|b| for a residual, for the same reason as K1.  K6 and K7 against
 ``spmv_banded_plain``: bit for bit (both sum in the same order with
 round-to-nearest products and sums), failing only beyond 2e-6 ·
 max_i Σ |terms| (the size of the terms of a row's sum).  Two converged solves of one
@@ -729,7 +745,7 @@ def phase_solve(dev):
                 "tolerance": v20_tol},
         "refused_on_card": refused,
     })
-    return k1, k2
+    return k1, k2, cycles, rn64
 
 
 SWEEP_MODES = (
@@ -780,8 +796,109 @@ def conv_ms(op, x, reps):
     return ms, got
 
 
-def phase_sweeps(dev, copy_bw, h_vary):
-    """K3 and K4 against their plain versions, pass by pass."""
+LEG_MODES = (
+    # (name, start from x?, passes, mode, residual)
+    ("down: zero start, 4 rb + residual", False, 4, "rbgs", True),
+    ("up: 4 rb from x", True, 4, "rbgs", False),
+    ("jacobi down: zero start, 2 + residual", False, 2, "jacobi", True),
+    ("jacobi up: 2 from x", True, 2, "jacobi", False),
+)
+
+
+def leg_bound(n, K, from_x, passes, mode, residual):
+    """(bytes, flops) a leg needs: the K coefficient grids and b (and x)
+    read once, x (and r) written once; the operations of its passes (a
+    red/black pass computes at half the points) and of the residual.  The
+    grid of 1/diag that the main path passes is not counted: the
+    coefficients give it."""
+    nbytes = 4 * n * (K + 1 + int(from_x) + int(passes > 0) + int(residual))
+    per = (n // 2) * (2 * K + 1) if mode == "rbgs" else n * (2 * K + 3)
+    return nbytes, passes * per + (n * (2 * K + 3) if residual else 0)
+
+
+def leg_rows(dev, cases, copy_bw, reps=12, plain_reps=3):
+    """K4's legs (``sweeps_vary_3d``) against the plain loop of passes on
+    the same card tensors, in every mode of ``LEG_MODES``; timed cases also
+    time the same passes one launch each (``csrc/half_sweep.cu``, how the
+    cycle ran them before) and the bound."""
+    from openmg_tpu_torch.ops import kernels
+
+    rows = []
+    for tag, op, inv, timed in cases:
+        shape = op.grid_shape
+        n = int(np.prod(shape))
+        K = len(op.offsets)
+        b = randn(shape, 31, dev)
+        x0 = randn(shape, 32, dev)
+        for mode_name, from_x, passes, mode, res in LEG_MODES:
+            x = x0 if from_x else None
+
+            def run(x=x, passes=passes, mode=mode, res=res):
+                return kernels.sweeps_vary_3d(
+                    op.coeffs, op.offsets, b, x, passes, mode, OMEGA,
+                    emit_residual=res, inv_diag=inv)
+
+            def plain(x=x, passes=passes, mode=mode, res=res):
+                return kernels.sweeps_vary_plain(
+                    op.coeffs, op.offsets, b, x, passes, mode, OMEGA, res,
+                    inv_diag=inv)
+
+            before = kernels.LAUNCHES_K4
+            got = run()
+            torch.cuda.synchronize()
+            launches = kernels.LAUNCHES_K4 - before
+            want = len(kernels.leg_chunks(passes, res, kernels.leg_depth(K)))
+            if launches != want:
+                fail(f"K4 leg {tag} {mode_name}: {launches} launches, "
+                     f"expected {want}")
+            got = got if res else (got,)
+            ref = plain()
+            ref = ref if res else (ref,)
+            errs = []
+            for what, g, r in zip(("x", "r"), got, ref):
+                if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+                    fail(f"K4 leg {tag} {mode_name}: bad output {what}")
+                err = float((g - r).abs().max())
+                tol = SWEEP_TOL * float((b if what == "r" else r).abs().max())
+                if err > tol:
+                    fail(f"K4 leg {tag} {shape} {mode_name} {what}: err "
+                         f"{err:.3e} > {tol:.3e}")
+                errs.append({"output": what, "max_abs_err": err,
+                             "tolerance": tol})
+            del got, ref
+            row = {"level": tag, "shape": list(shape), "taps": K,
+                   "mode": mode_name, "launches": launches,
+                   "max_abs_err": max(e["max_abs_err"] for e in errs),
+                   "errors": errs}
+            if timed:
+                nbytes, flops = leg_bound(n, K, from_x, passes, mode, res)
+
+                def per_pass(x=x, passes=passes, mode=mode, res=res):
+                    y = torch.zeros_like(b) if x is None else x
+                    for j in range(passes):
+                        y = kernels._half_sweep_vary(
+                            op.coeffs, b, y, offsets=op.offsets, mode=mode,
+                            omega=OMEGA, color=j & 1)
+                    if res:
+                        kernels._half_sweep_vary(
+                            op.coeffs, b, y, offsets=op.offsets,
+                            mode="residual", omega=0.0, color=0)
+
+                row.update(timings(run, plain, nbytes, flops, copy_bw, reps,
+                                   plain_reps),
+                           per_pass_ms=time_ms(per_pass, reps),
+                           per_pass_launches=passes + int(res),
+                           library_ms=None)
+            rows.append(row)
+        del b, x0
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_sweeps(dev, copy_bw, h_vary, h_unfaced):
+    """K3 and K4 against their plain versions, pass by pass, and K4's legs
+    (one launch of ``csrc/vary_leg.cu`` for the passes of a leg and its
+    residual)."""
     import openmg_tpu_torch as mg
     from openmg_tpu_torch.ops import fused, kernels
     from openmg_tpu_torch.ops.stencil import StencilOperator, apply
@@ -890,10 +1007,28 @@ def phase_sweeps(dev, copy_bw, h_vary):
             rows[kern].append(row)
         del b, x
         torch.cuda.empty_cache()
+    # the legs: every varying level of the diffusion hierarchy, the odd
+    # shape, the 2D lift and the unfaced 27-point levels of the 256³ Poisson
+    # hierarchy, with the levels' own 1/diag grids as the cycle passes them
+    lv = h_vary.levels
+    lu = h_unfaced.levels
+    rows["K4_legs"] = leg_rows(dev, [
+        ("main 256^3", lv[0].A, lv[0].inv_diag, True),
+        ("main 128^3", lv[1].A, lv[1].inv_diag, True),
+        ("main 64^3", lv[2].A, lv[2].inv_diag, False),
+        ("main 32^3", lv[3].A, lv[3].inv_diag, False),
+        ("odd", hv_odd.levels[0].A, hv_odd.levels[0].inv_diag, False),
+        ("odd coarse", hv_odd.levels[1].A, hv_odd.levels[1].inv_diag, False),
+        ("2D lift", op2v, None, False),
+        ("unfaced 128^3", lu[1].A, lu[1].inv_diag, True),
+        ("unfaced 64^3", lu[2].A, lu[2].inv_diag, False),
+        ("unfaced 32^3", lu[3].A, lu[3].inv_diag, False),
+    ], copy_bw)
     emit("sweeps", {
         **rows,
         "tolerance": "2e-6*max|ref| (iterate), 2e-6*max|b| (residual)",
         "timed_launches": reps,
+        "leg_depth": kernels.LEG_DEPTH,
     })
     return rows
 
@@ -925,6 +1060,26 @@ def residual_norm_host_stencil(offsets, coeffs, b64, x64):
                     for a, o in enumerate(off))
         r[dst] -= coeffs[k][dst] * x64[src]
     return float(np.sqrt(np.sum(r * r)))
+
+
+def legs_per_visit(cfg, taps):
+    """K4 launches a visit of a varying level with ``taps`` grids takes:
+    the down-leg (the pre-smoothing passes from zero and the residual) and
+    the up-leg (the post-smoothing passes), each split into
+    ``kernels.leg_chunks`` at the operator's ``kernels.leg_depth``."""
+    from openmg_tpu_torch.ops import kernels
+
+    per = 2 if cfg.smoother == "rbgs" else 1
+    cap = kernels.leg_depth(taps)
+    return (len(kernels.leg_chunks(per * cfg.pre_iterations, True, cap))
+            + len(kernels.leg_chunks(per * cfg.post_iterations, False, cap)))
+
+
+def legs_per_cycle(cfg, hierarchy):
+    """K4 launches a V-cycle of ``hierarchy`` takes on its varying levels
+    (the coarsest, solved by its dense inverse, excluded)."""
+    return sum(legs_per_visit(cfg, len(L.A.offsets))
+               for L in hierarchy.levels[:-1] if not L.A.is_constant)
 
 
 def counts():
@@ -964,16 +1119,17 @@ def phase_solve_vary(dev, vary):
     main_counts = counts()
     cycles = info["cycles"]
     cfg = solver.config
-    # a composed visit: pre and post sweeps of two passes each, one residual
-    passes = 2 * (cfg.pre_iterations + cfg.post_iterations) + 1
+    # a varying level's visit: two legs of K4 (the pre-smoothing from zero
+    # with the residual, the post-smoothing), split by kernels.leg_depth
+    legs = legs_per_cycle(cfg, h)
     varying_levels = sum(k == "varying" for k in kinds[:-1])
     if not info["converged"] or not info["final_norm"] < 1e-10:
         fail(f"diffusion solve did not converge: {info['residual_norms']}")
     if (varying_levels != 4 or cycles == 0
             or main_counts != {"K1": 0, "K2": 0, "K3": 0, "K5": 0,
-                               "K4": passes * varying_levels * cycles}):
+                               "K4": legs * cycles}):
         fail(f"diffusion solve: launches {main_counts} for {cycles} cycles, "
-             f"{varying_levels} varying levels, {passes} passes a visit")
+             f"{varying_levels} varying levels, {legs} K4 launches a cycle")
     hi, lo = info["x_df"]
     if not bool(torch.isfinite(hi).all() and torch.isfinite(lo).all()):
         fail("diffusion solution is not finite")
@@ -1019,8 +1175,9 @@ def phase_solve_vary(dev, vary):
              f"{ic['cycles']}, |dx| = {dx:.3e}")
 
     # mg_solve with a scipy matrix: the fine level is detected constant (K1,
-    # K2), the Galerkin levels below it are stored as coefficient grids (K4)
+    # K2), the Galerkin level below it is stored as coefficient grids (K4)
     mshape = (64,) * 3
+    mlegs = legs_per_visit(cfg, 27)
     A = mg.poisson(mshape)
     bm = mg.rhs_random(mshape, seed=3)
     bm /= np.linalg.norm(bm.ravel())
@@ -1033,8 +1190,8 @@ def phase_solve_vary(dev, vary):
     mc = im["cycles"]
     # 64³ → 32³ → 16³ (dense): one constant and one varying level
     if not (im["converged"] and rm < 1e-10 * 1.05 and mc > 0
-            and m_counts == {"K1": 2 * mc, "K2": mc, "K3": 0, "K4": passes * mc,
-                             "K5": 0}):
+            and m_counts == {"K1": 2 * mc, "K2": mc, "K3": 0,
+                             "K4": mlegs * mc, "K5": 0}):
         fail(f"matrix mg_solve: converged={im['converged']} residual {rm:.3e} "
              f"launches {m_counts} for {mc} cycles")
 
@@ -1114,7 +1271,13 @@ def phase_solve_vary(dev, vary):
         "residual_norms": info["residual_norms"],
         "residual_float64_host": rn64,
         "launches": main_counts,
-        "passes_per_level_visit": passes,
+        "k4_launches_per_cycle": legs,
+        "k4_launches_per_cycle_before": varying_levels * (
+            2 * (cfg.pre_iterations + cfg.post_iterations) + 1),
+        "k4_launches_per_level_visit": {
+            "x".join(map(str, L.grid_shape)): legs_per_visit(
+                cfg, len(L.A.offsets))
+            for L in h.levels[:-1] if not L.A.is_constant},
         "stencil_s": t_stencil, "setup_s": t_setup,
         "first_solve_ms": info["solve_time_s"] * 1e3,
         "solve_ms": info2["solve_time_s"] * 1e3,
@@ -1137,6 +1300,73 @@ def phase_solve_vary(dev, vary):
         "refused_on_card": refused,
     })
     return main_counts, f_counts
+
+
+def setup_unfaced(dev):
+    """The 256³ Poisson solver with ``faced=False``: its coarse levels are
+    coefficient grids (varying), not cornered tables."""
+    import openmg_tpu_torch as mg
+
+    cfg = mg.SolverConfig(**DIFFUSION_CFG, cycles=60)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver = mg.setup(BIG, cfg, faced=False, device=dev)
+    torch.cuda.synchronize()
+    return solver, time.perf_counter() - t0
+
+
+def phase_solve_unfaced(dev, unfaced, faced_cycles, faced_rn64):
+    """The 256³ Poisson solve on the unfaced hierarchy: the constant fine
+    level by K1 and K2, every varying coarse level by K4 legs (no K1
+    there); the same cycle count as the faced solve."""
+    import openmg_tpu_torch as mg
+
+    solver, t_setup = unfaced
+    h = solver.hierarchy
+    kinds = ["const" if L.A.is_constant else "varying" for L in h.levels]
+    bnp = mg.rhs_random(BIG, seed=1)
+    bnp /= np.linalg.norm(bnp.ravel())
+    b = torch.from_numpy(bnp.astype(np.float32)).to(dev)
+    zero_counts()
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    got = counts()
+    cycles = info["cycles"]
+    legs = legs_per_cycle(solver.config, h)
+    varying = sum(k == "varying" for k in kinds[:-1])
+    if kinds[0] != "const" or varying != h.num_levels - 2:
+        fail(f"unfaced hierarchy: level kinds {kinds}")
+    if not info["converged"] or cycles != faced_cycles:
+        fail(f"unfaced solve: {cycles} cycles (faced: {faced_cycles}), "
+             f"{info['residual_norms']}")
+    want = {"K1": 2 * cycles, "K2": cycles, "K3": 0, "K4": legs * cycles,
+            "K5": 0}
+    if got != want:
+        fail(f"unfaced solve: launches {got}, expected {want}")
+    hi, lo = info["x_df"]
+    x64 = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+    rn64 = residual_norm_host(b.cpu().numpy().astype(np.float64), x64)
+    if not rn64 < 1e-10:
+        fail(f"unfaced solve: float64 residual {rn64:.3e}")
+    torch.cuda.reset_peak_memory_stats()
+    _, info2 = solver.solve(b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    emit("solve_unfaced", {
+        "shape": list(BIG), "levels": [list(st[0]) for st in h.stats],
+        "level_kinds": kinds, "cycles": cycles, "cycles_faced": faced_cycles,
+        "final_norm": info["final_norm"],
+        "residual_norms": info["residual_norms"],
+        "residual_float64_host": rn64, "residual_float64_host_faced": faced_rn64,
+        "launches": got, "k4_launches_per_cycle": legs,
+        "setup_s": t_setup, "solve_ms": info2["solve_time_s"] * 1e3,
+        "first_solve_ms": info["solve_time_s"] * 1e3,
+        "peak_memory_MB": peak / 2 ** 20,
+        "coefficient_grids_MB": sum(
+            L.A.coeffs.numel() * 4 for L in h.levels if not L.A.is_constant
+        ) / 2 ** 20,
+    })
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -1411,10 +1641,11 @@ def phase_solve_2d(dev):
     m_counts = counts()
     rm = float(np.linalg.norm(bm.ravel() - A @ xm))
     mc = im["cycles"]
-    passes = 2 * (cfg.pre_iterations + cfg.post_iterations) + 1
-    # 512² → 256² → 128² → 64² (dense): one constant and two varying levels
+    # 512² → 256² → 128² → 64² (dense): one constant and two varying
+    # (9-point) levels
+    legs = 2 * legs_per_visit(cfg, 9)
     if not (im["converged"] and rm < 1e-10 * 1.05 and mc > 0
-            and m_counts == {"K1": 0, "K2": mc, "K3": 0, "K4": 2 * passes * mc,
+            and m_counts == {"K1": 0, "K2": mc, "K3": 0, "K4": legs * mc,
                              "K5": 2 * mc}):
         fail(f"2D matrix mg_solve: converged={im['converged']} residual "
              f"{rm:.3e} launches {m_counts} for {mc} cycles")
@@ -1648,6 +1879,9 @@ def spmv_check(kernel, case, M, seed, copy_bw, reps=20):
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bound_ms_copy_bw=nbytes / copy_bw * 1e3, bytes=nbytes, flops=flops,
     )
+    t["ms_over_library"] = t["ms"] / t["library_ms"]
+    if kernel == "K7":
+        t["lanes"] = bsr.lane_group(n, M.kb, M.blocksize[0])
     del A, ops
     return {"case": case, "shape": [n], "mode": case, **width,
             "dtype": str(M.dtype).replace("torch.", ""),
@@ -1987,13 +2221,17 @@ def main():
     smi, copy_bw = phase_env(dev)
     phase_build()
     rows, k2_rows, _ = phase_kernels(dev, copy_bw)
-    k1_launches, k2_launches = phase_solve(dev)
+    k1_launches, k2_launches, faced_cycles, faced_rn64 = phase_solve(dev)
     k5_rows, _ = phase_fused2d(dev, copy_bw)
     k5_counts = phase_solve_2d(dev)
-    # the diffusion hierarchy is built after the Poisson solve, whose peak
-    # memory would otherwise count it
+    # the unfaced and the diffusion hierarchies are built after the Poisson
+    # solve, whose peak memory would otherwise count them
+    unfaced = setup_unfaced(dev)
+    phase_solve_unfaced(dev, unfaced, faced_cycles, faced_rn64)
     vary = setup_vary(dev)
-    sweeps = phase_sweeps(dev, copy_bw, vary[0].hierarchy)
+    sweeps = phase_sweeps(dev, copy_bw, vary[0].hierarchy,
+                          unfaced[0].hierarchy)
+    del unfaced
     vary_counts, f32_counts = phase_solve_vary(dev, vary)
     del vary
     torch.cuda.empty_cache()
@@ -2019,11 +2257,11 @@ def main():
                    and r["mode"].startswith("down"))
     k2_main = next(r for r in k2_rows if r["level"] == "main" and r["emit_norm"])
     # K3 on its solve's path is the 256³ constant residual; K4 on the
-    # diffusion solve's path is mostly red/black passes at 256³
+    # diffusion solve's path is the legs, the 256³ down-leg the largest
     k3_main = next(r for r in sweeps["K3"] if r["level"] == "main 256^3"
                    and r["mode"] == "residual")
-    k4_main = next(r for r in sweeps["K4"] if r["level"] == "main 256^3"
-                   and r["mode"] == "rb colour 0")
+    k4_main = next(r for r in sweeps["K4_legs"] if r["level"] == "main 256^3"
+                   and r["mode"].startswith("down"))
     k5_main = next(r for r in k5_rows if r["level"] == "main 4096^2"
                    and r["mode"].startswith("down: zero start, 4 rb"))
     print(json.dumps({"kernels": [
@@ -2037,10 +2275,10 @@ def main():
               "openmg_tpu_torch/csrc/half_sweep.cu",
               "openmg_tpu/ops/kernels.py:344", f32_counts["K3"], k3_main,
               sweeps["K3"]),
-        entry("half_sweep_vary (per-point coefficients)",
-              "openmg_tpu_torch/csrc/half_sweep.cu",
+        entry("sweeps_vary_3d (per-point coefficients, a leg a launch)",
+              "openmg_tpu_torch/csrc/vary_leg.cu",
               "openmg_tpu/ops/kernels.py:612", vary_counts["K4"], k4_main,
-              sweeps["K4"]),
+              sweeps["K4"] + sweeps["K4_legs"]),
         entry("fused_stages_2d",
               "openmg_tpu_torch/csrc/fused_stages_2d.cu",
               "openmg_tpu/ops/kernels.py:1134", k5_counts["K5"], k5_main,

@@ -43,7 +43,7 @@ CPU tensors each kernel wrapper runs its plain PyTorch version.
 
 from openmg_tpu_torch.core.algebraic import AlgebraicSolver, setup_sparse
 from openmg_tpu_torch.core.config import ProblemConfig, SolverConfig
-from openmg_tpu_torch.core.hierarchy import Hierarchy, Level
+from openmg_tpu_torch.core.hierarchy import Hierarchy, Level, build_hierarchy
 from openmg_tpu_torch.core.solver import Solver, mg_solve, setup, solve
 from openmg_tpu_torch.models.elasticity import coupled_diffusion, elasticity
 from openmg_tpu_torch.models.poisson import (
@@ -56,6 +56,13 @@ from openmg_tpu_torch.models.poisson import (
     rhs_random,
     stencil_from_csr,
     stencil_to_csr,
+)
+from openmg_tpu_torch.ops.sparse import (
+    BSRMatrix,
+    CSRMatrix,
+    ELLMatrix,
+    from_scipy,
+    to_scipy,
 )
 from openmg_tpu_torch.ops.stencil import CorneredOperator, StencilOperator
 
@@ -72,6 +79,7 @@ __all__ = [
     "ProblemConfig",
     "Hierarchy",
     "Level",
+    "build_hierarchy",
     "poisson",
     "poisson_stencil",
     "stencil_to_csr",
@@ -83,6 +91,11 @@ __all__ = [
     "coupled_diffusion",
     "rhs_random",
     "rhs_ones",
+    "CSRMatrix",
+    "ELLMatrix",
+    "BSRMatrix",
+    "from_scipy",
+    "to_scipy",
     "StencilOperator",
     "CorneredOperator",
 ]

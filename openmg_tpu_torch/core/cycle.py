@@ -14,6 +14,12 @@ code on any device, as they are array code outside any kernel in the JAX
 package.  The coarsest level is one matrix–vector product with the
 precomputed dense inverse.
 
+A varying level's legs (the pre-smoothing from zero with the residual,
+and the post-smoothing) are one call each of
+:func:`~openmg_tpu_torch.ops.kernels.sweeps_vary_3d` on every device:
+launches of K4 of up to ``leg_depth`` passes each on the card, its plain
+loop of passes on the CPU.
+
 Ported: ``coarse_solve``, ``v_cycle`` with ``x_zero`` and ``gamma=1``,
 ``run_cycle("v")``.  W-cycles, FMG and ``pcg_solve`` wait for a later slice
 and raise ``NotImplementedError``.
@@ -24,9 +30,14 @@ from __future__ import annotations
 import torch
 
 from openmg_tpu_torch.core.hierarchy import Hierarchy
-from openmg_tpu_torch.ops import fused
+from openmg_tpu_torch.ops import fused, kernels
 from openmg_tpu_torch.ops.smoothers import smooth
-from openmg_tpu_torch.ops.stencil import residual
+from openmg_tpu_torch.ops.stencil import (
+    StencilOperator,
+    _on_cpu,
+    kernel_operands_ok,
+    residual,
+)
 from openmg_tpu_torch.ops.sparse import matvec_full
 from openmg_tpu_torch.ops.transfer import prolong, restrict
 
@@ -40,6 +51,26 @@ def coarse_solve(hierarchy: Hierarchy, b: torch.Tensor) -> torch.Tensor:
     one matrix–vector product, left to the library as the JAX package
     leaves it to its compiler, in full float32 (never TF32)."""
     return matvec_full(hierarchy.coarse_inv, b.reshape(-1)).reshape(b.shape)
+
+
+def _vary_leg(op, smoother, b) -> bool:
+    """Whether a visit of ``op`` runs as legs of
+    :func:`~openmg_tpu_torch.ops.kernels.sweeps_vary_3d`: a varying
+    operator with a Jacobi or red/black smoother.  On the card what the
+    kernel does not take raises (a float64 cycle does)."""
+    if not (
+        smoother in ("jacobi", "rbgs")
+        and isinstance(op, StencilOperator) and not op.is_constant
+    ):
+        return False
+    if not _on_cpu(b):
+        why = kernel_operands_ok(op, b)
+        if why is not None:
+            raise NotImplementedError(
+                f"a varying level visit on {b.device}: {why} is not taken by "
+                "the leg kernel, and plain tensor code does not run on the card"
+            )
+    return True
 
 
 def v_cycle(
@@ -61,7 +92,8 @@ def v_cycle(
     each coarse visit starts from a zero correction).  The pre-smoothing
     then reads only ``b``, and ``x`` may be None.
 
-    A visit goes to the fused kernel first.  Where its entry point
+    A varying level's visit is two legs of ``sweeps_vary_3d``.  Any
+    other visit goes to the fused kernel first.  Where its entry point
     declines a case (it returns None: a varying operator, a non-float32
     grid, a smoother that is not a stage list, an odd dimension with a
     transfer, a 2D leg with no stages) the visit is composed from ``smooth``
@@ -76,7 +108,16 @@ def v_cycle(
     if level == hierarchy.num_levels - 1:
         return coarse_solve(hierarchy, b)
     tr = hierarchy.transfer
-    if pre > 0:
+    leg = _vary_leg(L.A, smoother, b)
+    # a red/black sweep is two passes of the leg kernel
+    per = 2 if smoother == "rbgs" else 1
+    if leg:
+        x, r = kernels.sweeps_vary_3d(
+            L.A.coeffs, L.A.offsets, b, None if x_zero else x, pre * per,
+            smoother, omega, emit_residual=True, inv_diag=L.inv_diag,
+        )
+        out = x, restrict(r, tr)
+    elif pre > 0:
         out = fused.presmooth_restrict_fused(
             smoother, L.A, b, None if x_zero else x, pre, omega, tr
         )
@@ -97,6 +138,12 @@ def v_cycle(
         x_zero=True,
     )
     # post == 0 is the kernel's stage-free mode: prolongation and add alone
+    if leg:
+        x = x + prolong(ec, L.grid_shape, tr)
+        return kernels.sweeps_vary_3d(
+            L.A.coeffs, L.A.offsets, b, x, post * per, smoother, omega,
+            inv_diag=L.inv_diag,
+        )
     y = fused.prolong_smooth_fused(smoother, L.A, b, x, ec, post, omega, tr)
     if y is None:
         x = x + prolong(ec, L.grid_shape, tr)

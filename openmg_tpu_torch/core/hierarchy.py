@@ -9,8 +9,10 @@ Two build functions:
   constant is stored as a ``(K,)`` value vector, a level that is constant
   away from its low faces/edges/corner as a
   :class:`~openmg_tpu_torch.ops.stencil.CorneredOperator` (an O(K) table).
-  Neither kind streams coefficient grids during a sweep.  A level that
-  classifies as ``faced`` or ``varying`` here raises
+  Neither kind streams coefficient grids during a sweep.  With
+  ``faced=False`` every level that is not constant is stored as per-point
+  coefficient grids (``varying``) with a grid of inverse diagonals, as in
+  the JAX package.  A level that classifies as ``faced`` raises
   ``NotImplementedError`` (``FacedStencilOperator`` is ROADMAP queue 1,
   item 15); the port never substitutes another representation silently.
 * :func:`build_hierarchy` for a general ``(offsets, coeffs)`` stencil pair
@@ -421,8 +423,7 @@ def _coarse_inverse(coarsest, max_dense_coarse, single_level: bool = False):
 def classify_level(offsets, rep):
     """``(kind, payload)`` of one boundary-collapsed level: ``const`` with
     its ``(K,)`` values, ``cornered`` with ``(values, subsets, deltas)``,
-    ``faced`` or ``varying`` (no payload; the structured setup stores
-    neither)."""
+    ``faced`` or ``varying`` (no payload)."""
     vals = detect_constant(offsets, rep)
     if vals is not None:
         return "const", vals
@@ -444,14 +445,26 @@ def build_hierarchy_structured(
     transfer: Transfer = AGGREGATE,
     max_dense_coarse: int = 512,
     min_coarse_dim: int = 1,
+    faced: bool = True,
     *,
     device,
 ) -> Hierarchy:
     """Hierarchy from a constant fine stencil via the boundary-collapsed
     chain (:mod:`openmg_tpu_torch.core.structured`): the exact Galerkin
     hierarchy computed on 24-wide dummy grids on the host.  ``device`` is
-    where the level tables and the coarse inverse are placed."""
-    from openmg_tpu_torch.core.structured import expand_rep_np, structured_chain
+    where the level tables and the coarse inverse are placed.
+
+    ``faced=True`` stores a level that is constant away from its low faces
+    as a :class:`~openmg_tpu_torch.ops.stencil.CorneredOperator`;
+    ``faced=False`` stores every level that is not constant as coefficient
+    grids, expanded on ``device`` from the level's representative, with
+    ``inv_diag = 1 / coeffs[diag]`` per point (the JAX package's
+    ``faced=False``, which its distributed builder uses)."""
+    from openmg_tpu_torch.core.structured import (
+        expand_rep,
+        expand_rep_np,
+        structured_chain,
+    )
 
     device = torch.device(device)
     np_dtype = _np_dtype(dtype)
@@ -469,8 +482,15 @@ def build_hierarchy_structured(
     levels, stats = [], []
     for i, lvl in enumerate(slevels):
         kind, payload = classify_level(lvl.offsets, lvl.rep)
+        if not faced and kind in ("cornered", "faced"):
+            kind = "varying"
         di = diag_index(lvl.offsets)
-        if kind == "const":
+        if kind == "varying":
+            coeffs = expand_rep(
+                put(lvl.rep.astype(np_dtype)), lvl.m_shape, lvl.real_shape
+            )
+            op, inv_diag = StencilOperator(coeffs, lvl.offsets), 1.0 / coeffs[di]
+        elif kind == "const":
             vals = payload
             op = StencilOperator(
                 None, lvl.offsets, put(vals.astype(np_dtype)), lvl.real_shape
@@ -487,10 +507,11 @@ def build_hierarchy_structured(
         else:
             raise NotImplementedError(
                 f"level {i} {lvl.real_shape} classifies as {kind!r}: the "
-                "structured setup stores constant and cornered levels only "
-                "(ROADMAP queue 1, item 15: FacedStencilOperator)"
+                "structured setup stores constant, cornered and varying "
+                "levels only (ROADMAP queue 1, item 15: FacedStencilOperator)"
             )
-        inv_diag = put(np.asarray(1.0 / vals[di]).astype(np_dtype))
+        if kind != "varying":
+            inv_diag = put(np.asarray(1.0 / vals[di]).astype(np_dtype))
         levels.append(Level(A=op, inv_diag=inv_diag))
         stats.append((lvl.real_shape, len(lvl.offsets), lvl.nnz()))
 

@@ -400,13 +400,18 @@ class Solver:
         return df_merge(x)
 
 
-def setup(problem, config: SolverConfig | None = None, *, device=None) -> Solver:
+def setup(
+    problem, config: SolverConfig | None = None, *, faced: bool = True,
+    device=None,
+) -> Solver:
     """Build a :class:`Solver` on ``device`` (CUDA when None; see the
     module's device rule).
 
     ``problem`` is a :class:`ProblemConfig`, a grid shape tuple (Poisson is
     assembled), or an ``(offsets, coeffs)`` stencil pair with numpy
-    coefficient grids.
+    coefficient grids.  ``faced`` is passed on to
+    :func:`build_hierarchy_structured`: with ``False`` a grid shape's
+    levels that are not constant are stored as coefficient grids.
     """
     device = _resolve_device(device)
     config = config or SolverConfig()
@@ -439,7 +444,8 @@ def setup(problem, config: SolverConfig | None = None, *, device=None) -> Solver
     if shape_like is not None:
         d = len(shape_like)
         hierarchy = build_hierarchy_structured(
-            poisson_offsets(d), [2.0 * d] + [-1.0] * (2 * d), shape_like, **common
+            poisson_offsets(d), [2.0 * d] + [-1.0] * (2 * d), shape_like,
+            faced=faced, **common
         )
     elif isinstance(problem, tuple) and len(problem) == 2:
         offsets, coeffs = problem

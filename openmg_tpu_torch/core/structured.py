@@ -18,18 +18,20 @@ of the grid size apart from the coarsest level's dense inverse.
 
 An internal uniformity assertion validates the depth budget on every run;
 the port's tests pin the resulting level tables bit for bit against the JAX
-package's.  The traced expansion of varying levels (``expand_rep``) waits
-with the varying-coefficient slice.
+package's.  :func:`expand_rep` materialises a varying level from its
+representative on the device (slices, a broadcast and a concatenation: an
+exact copy, as the JAX package's traced ``expand_rep``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from openmg_tpu_torch.ops.galerkin import galerkin_rap_stencil
 from openmg_tpu_torch.ops.transfer import Transfer, coarse_shape
 
-__all__ = ["structured_chain", "expand_rep_np", "StructuredLevel"]
+__all__ = ["structured_chain", "expand_rep", "expand_rep_np", "StructuredLevel"]
 
 M = 24  # dummy extent per collapsed axis (must be even; depth budget h=M//2-1 after halving)
 
@@ -118,6 +120,29 @@ def expand_rep_np(rep, axis, n):
     )
     hi = rep.take(range(m - h, m), axis=axis + 1)
     return np.concatenate([lo, mid, hi], axis=axis + 1)
+
+
+def expand_rep(rep: torch.Tensor, m_shape, real_shape) -> torch.Tensor:
+    """Tensor expansion of every collapsed axis of ``rep`` (``(K, *m_shape)``,
+    on any device) to ``real_shape``, as :func:`expand_rep_np` does one axis:
+    the result is contiguous and holds copies of the representative's
+    values only."""
+    out = rep
+    for a, (m, n) in enumerate(zip(m_shape, real_shape)):
+        if m == n:
+            continue
+        h = m // 2 - 1
+        if n < 2 * h + 1:
+            raise ValueError(f"cannot expand collapsed axis {a} (m={m}) to {n}")
+        axis = a + 1
+        mid = out.narrow(axis, h, 1)
+        size = list(out.shape)
+        size[axis] = n - 2 * h
+        out = torch.cat(
+            [out.narrow(axis, 0, h), mid.expand(size), out.narrow(axis, m - h, h)],
+            dim=axis,
+        )
+    return out.contiguous()
 
 
 def structured_chain(

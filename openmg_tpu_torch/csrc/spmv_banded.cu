@@ -17,115 +17,230 @@
 // which builds the block replicas z_j[r] = x[r - r%B + j] in registers with
 // lane rolls and needed B to divide 128 (block size 3 was refused there).
 //
-// What bounds it on an H100: bytes.  One multiply and one add per stored
-// element against its 4 bytes (8 in float64), plus x read and y written
-// once: far below the card's flop:byte ratio.
+// What bounds it on an H100: bytes where the grid is full (one multiply and
+// one add per stored element against its 4 bytes, 8 in float64, plus x read
+// and y written once: far below the card's flop:byte ratio).  On a small
+// level (16,384 rows: 7 MB at kb 27, B 4) it is latency: a row of kb*B
+// terms summed by one thread is a chain of dependent loads unless every
+// term's address is known before the first load returns.
 //
-// What the design does (the simple, right version):
-//   * One thread per row r = I*B + i, grid-stride, any B.  For each (j, s)
-//     the data read data[(s*B + j)*n + r] is coalesced across a warp
-//     (neighbouring rows are neighbouring addresses).  The x read
-//     x[(I + d_s)*B + j] is the same address for the B threads of a block
-//     row, so a warp touches about 32/B consecutive elements of x per term,
-//     and the slots of a narrow band hit the same lines of L1/L2.
-//   * The block size is a template parameter for the sizes the solves use
-//     (1, 2, 3, 4), so I = r / B is a constant division and the j loop is
-//     unrolled; other sizes take the same body with B read at run time.
-//   * The column indices are never read: the offsets are trusted as in the
-//     JAX package.  They come from a small device array, so any slot count
-//     works (coarse Galerkin levels of vector problems have tens of slots).
-//   * x is read only where 0 <= I + d_s < n/B; elsewhere the term is
-//     data * 0, as in the plain versions, and no address outside x is ever
-//     formed into a load.
-//   * The sum runs with the block column j outer and the slot s inner with
-//     __fmul_rn / __fadd_rn (and their double twins), which nvcc never
-//     contracts into a fused multiply-add.  That is the order of
-//     openmg_tpu_torch/ops/bsr.py::spmv_banded_plain, and for B = 1 the
-//     slot order of openmg_tpu_torch/ops/ell.py::spmv_banded_plain, so the
-//     kernel equals each bit for bit.
+// What the design does:
+//   * Every term's address is known up front.  The slot offsets come by
+//     value in the kernel's arguments (a struct of up to MAX_SLOTS; a longer
+//     list is read from the device array) and are copied once a block into
+//     shared memory; the common slot counts (5, 7, 9 for ELL; 7, 27 for BSR)
+//     and block sizes (1, 2, 3, 4, 8) are compile-time constants, so a
+//     lane's term loop is unrolled (whole up to 32 terms, else by 8, which
+//     keeps a long row from taking a register a term) and its data and x
+//     loads are issued together.  Other counts and sizes run the same body
+//     with a loop unrolled by 8.
+//   * A row's kb*B terms t = j*kb + s (block column j outer, slot s inner)
+//     are split over a group of G lanes (G = 1, 2, 4 or 8, a power of two
+//     chosen per launch by the caller, ops/bsr.py::lane_group: the smallest
+//     that gives the grid enough threads, at most kb*B; a small level gets
+//     the parallelism its rows lack, a large one keeps whole rows a lane).
+//     Lane g sums the terms t = g, g + G, g + 2G, ... in that order; the
+//     group then adds its G partial sums by xor shuffles, a fixed pairwise
+//     tree ((p0 + p1) + (p2 + p3)) + ..., the same value in every lane.
+//     G = 1 is the plain sum in term order; ELL launches always take G = 1.
+//   * For each term the data read data[(s*B + j)*n + r] is coalesced across
+//     the rows of a warp; the x read x[(I + d_s)*B + j] is the same address
+//     for the B rows of a block row and neighbouring for neighbouring block
+//     rows.  The column indices are never read: the offsets are trusted as
+//     in the JAX package.  x is read only where 0 <= I + d_s < n/B;
+//     elsewhere the term is data * 0, as in the plain versions.
+//   * The products and sums use __fmul_rn / __fadd_rn (and their double
+//     twins), which nvcc never contracts into a fused multiply-add, in the
+//     order of openmg_tpu_torch/ops/bsr.py::spmv_banded_plain (the same
+//     lane split and tree) and, for B = 1, the slot order of
+//     openmg_tpu_torch/ops/ell.py::spmv_banded_plain, so the kernel equals
+//     each bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int THREADS = 256;
+constexpr int MAX_SLOTS = 64;  // slot offsets passed by value
+
+struct Slots {
+    int d[MAX_SLOTS];
+};
+
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-// BC > 0: the block size at compile time; BC == 0: B at run time.
-template <typename T, int BC>
-__global__ void spmv_banded_kernel(
-    const T* __restrict__ data, const int* __restrict__ offs, int k,
-    int b_run, const T* __restrict__ x, T* __restrict__ y, long long n)
+// Term t = j*kb + s of row r (block row I).
+template <typename T>
+__device__ __forceinline__ T term(
+    const T* __restrict__ data, const int* offs, const T* __restrict__ x,
+    int t, int kb, int B, long long I, long long r, long long nbr,
+    long long n)
 {
+    const int j = t / kb;
+    const int s = t - j * kb;
+    const long long J = I + offs[s];
+    const T xv = (J >= 0 && J < nbr) ? __ldg(x + J * B + j) : T(0);
+    return mul_rn(__ldg(data + ((long long)s * B + j) * n + r), xv);
+}
+
+// BC, KC > 0: the block size and slot count at compile time; 0: at run
+// time.  G lanes a row.
+template <typename T, int BC, int KC, int G>
+__global__ void __launch_bounds__(THREADS) spmv_banded_kernel(
+    const T* __restrict__ data, const __grid_constant__ Slots slots,
+    const int* __restrict__ offs_dev, int k_run, int b_run,
+    const T* __restrict__ x, T* __restrict__ y, long long n)
+{
+    extern __shared__ int offs[];
     const int B = BC > 0 ? BC : b_run;
+    const int kb = KC > 0 ? KC : k_run;
+    for (int i = threadIdx.x; i < kb; i += blockDim.x)
+        offs[i] = kb <= MAX_SLOTS ? slots.d[i] : offs_dev[i];
+    __syncthreads();
+
     const long long nbr = n / B;
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         r < n; r += stride) {
-        const long long I = r / B;
+    const int nt = B * kb;
+    const int g = G > 1 ? (int)(threadIdx.x & (G - 1)) : 0;
+    const long long gt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long step = (long long)gridDim.x * blockDim.x / G;
+    // rw: the warp's first row, so that a warp runs the loop (and its
+    // shuffles) as a whole
+    for (long long r = gt / G, rw = (gt & ~31LL) / G; rw < n;
+         r += step, rw += step) {
         T acc = T(0);
+        if (r < n) {
+            const long long I = r / B;
+            // lane g's terms t = g, g + G, ...: the first exists (G <= kb*B)
+            acc = term(data, offs, x, g, kb, B, I, r, nbr, n);
+            // the terms a lane takes at most, where that is known
+            constexpr int NT = BC > 0 && KC > 0 ? (BC * KC + G - 1) / G : 0;
+            if constexpr (NT > 0 && NT <= 32) {
 #pragma unroll
-        for (int j = 0; j < B; ++j) {
-            for (int s = 0; s < k; ++s) {
-                const long long J = I + __ldg(offs + s);
-                const T xv = (J >= 0 && J < nbr) ? __ldg(x + J * B + j) : T(0);
-                const T t = mul_rn(
-                    __ldg(data + ((long long)s * B + j) * n + r), xv);
-                // the first term by its indices, not by a flag carried
-                // through the loop: with a flag nvcc does not batch the
-                // loads of the slot loop, and on an H100 K6 ran 16 % and
-                // K7 at kb 27 45 % slower
-                acc = (j == 0 && s == 0) ? t : add_rn(acc, t);
+                for (int i = 1; i < NT; ++i) {
+                    const int t = i * G + g;
+                    if (t < nt)
+                        acc = add_rn(acc, term(data, offs, x, t, kb, B, I, r,
+                                               nbr, n));
+                }
+            } else {
+                // unrolled by 8: the loads of eight terms go out together
+                // without a register for every term of a long row
+#pragma unroll 8
+                for (int t = g + G; t < nt; t += G)
+                    acc = add_rn(acc, term(data, offs, x, t, kb, B, I, r,
+                                           nbr, n));
             }
         }
-        y[r] = acc;
+#pragma unroll
+        for (int o = 1; o < G; o <<= 1)
+            acc = add_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
+        if (r < n && g == 0) y[r] = acc;
     }
 }
 
-constexpr int THREADS = 256;
-
-int blocks_for(long long n)
+int blocks_for(long long threads)
 {
-    long long b = (n + THREADS - 1) / THREADS;
+    long long b = (threads + THREADS - 1) / THREADS;
     const long long cap = 132LL * 16;  // enough blocks to fill every SM
     return (int)(b < cap ? (b < 1 ? 1 : b) : cap);
 }
 
-template <typename T>
-void launch(const T* data, const int* offs, int k, int B, const T* x, T* y,
-            long long n, cudaStream_t st)
+template <typename T, int BC, int KC, int G>
+void go(const T* data, const Slots& sl, const int* offs, int k, int B,
+        const T* x, T* y, long long n, cudaStream_t st)
 {
-    const int g = blocks_for(n);
+    spmv_banded_kernel<T, BC, KC, G>
+        <<<blocks_for(n * G), THREADS, k * sizeof(int), st>>>(
+            data, sl, offs, k, B, x, y, n);
+}
+
+template <typename T, int BC, int G>
+void by_slots(const T* data, const Slots& sl, const int* offs, int k, int B,
+              const T* x, T* y, long long n, cudaStream_t st)
+{
+    switch (k) {
+    case 7: go<T, BC, 7, G>(data, sl, offs, k, B, x, y, n, st); break;
+    case 27: go<T, BC, 27, G>(data, sl, offs, k, B, x, y, n, st); break;
+    default: go<T, BC, 0, G>(data, sl, offs, k, B, x, y, n, st); break;
+    }
+}
+
+template <int G>
+void bsr_f32(const float* data, const Slots& sl, const int* offs, int k,
+             int B, const float* x, float* y, long long n, cudaStream_t st)
+{
     switch (B) {
-    case 1: spmv_banded_kernel<T, 1><<<g, THREADS, 0, st>>>(data, offs, k, B, x, y, n); break;
-    case 2: spmv_banded_kernel<T, 2><<<g, THREADS, 0, st>>>(data, offs, k, B, x, y, n); break;
-    case 3: spmv_banded_kernel<T, 3><<<g, THREADS, 0, st>>>(data, offs, k, B, x, y, n); break;
-    case 4: spmv_banded_kernel<T, 4><<<g, THREADS, 0, st>>>(data, offs, k, B, x, y, n); break;
-    default: spmv_banded_kernel<T, 0><<<g, THREADS, 0, st>>>(data, offs, k, B, x, y, n); break;
+    case 2: by_slots<float, 2, G>(data, sl, offs, k, B, x, y, n, st); break;
+    case 3: by_slots<float, 3, G>(data, sl, offs, k, B, x, y, n, st); break;
+    case 4: by_slots<float, 4, G>(data, sl, offs, k, B, x, y, n, st); break;
+    case 8: by_slots<float, 8, G>(data, sl, offs, k, B, x, y, n, st); break;
+    default: go<float, 0, 0, G>(data, sl, offs, k, B, x, y, n, st); break;
+    }
+}
+
+void launch_f32(const float* data, const Slots& sl, const int* offs, int k,
+                int B, int G, const float* x, float* y, long long n,
+                cudaStream_t st)
+{
+    if (B == 1) {  // ELL: one lane a row
+        switch (k) {
+        case 5: go<float, 1, 5, 1>(data, sl, offs, k, B, x, y, n, st); break;
+        case 7: go<float, 1, 7, 1>(data, sl, offs, k, B, x, y, n, st); break;
+        case 9: go<float, 1, 9, 1>(data, sl, offs, k, B, x, y, n, st); break;
+        default: go<float, 1, 0, 1>(data, sl, offs, k, B, x, y, n, st); break;
+        }
+        return;
+    }
+    switch (G) {
+    case 1: bsr_f32<1>(data, sl, offs, k, B, x, y, n, st); break;
+    case 2: bsr_f32<2>(data, sl, offs, k, B, x, y, n, st); break;
+    case 4: bsr_f32<4>(data, sl, offs, k, B, x, y, n, st); break;
+    default: bsr_f32<8>(data, sl, offs, k, B, x, y, n, st); break;
+    }
+}
+
+void launch_f64(const double* data, const Slots& sl, const int* offs, int k,
+                int B, int G, const double* x, double* y, long long n,
+                cudaStream_t st)
+{
+    switch (G) {
+    case 1: go<double, 0, 0, 1>(data, sl, offs, k, B, x, y, n, st); break;
+    case 2: go<double, 0, 0, 2>(data, sl, offs, k, B, x, y, n, st); break;
+    case 4: go<double, 0, 0, 4>(data, sl, offs, k, B, x, y, n, st); break;
+    default: go<double, 0, 0, 8>(data, sl, offs, k, B, x, y, n, st); break;
     }
 }
 
 }  // namespace
 
 // data (k, B, n) and x, y (n,) of one type (is_double: float64, else
-// float32); offs (k,) int32 block offsets, on the device.  An ELL matrix is
+// float32); offs_host (k,) the int32 block offsets on the host (passed by
+// value up to MAX_SLOTS), offs_dev the same on the device (read beyond);
+// lanes: G, 1, 2, 4 or 8, at most k*B, and 1 for B = 1.  An ELL matrix is
 // B = 1.  Returns 0, or a negative code for arguments the kernel does not
 // take, or the CUDA error of the launch.
 extern "C" int omg_spmv_banded(
-    const void* data, const int* offs, int k, int B, const void* x, void* y,
-    long long n, int is_double, void* stream)
+    const void* data, const int* offs_host, const int* offs_dev, int k,
+    int B, int lanes, const void* x, void* y, long long n, int is_double,
+    void* stream)
 {
     if (k < 1 || B < 1 || n < 1 || n % B) return -1;
+    if (!(lanes == 1 || lanes == 2 || lanes == 4 || lanes == 8)
+        || lanes > k * B || (B == 1 && lanes != 1))
+        return -2;
     if (y == x) return -3;
+    Slots sl;
+    for (int i = 0; i < MAX_SLOTS; ++i) sl.d[i] = i < k ? offs_host[i] : 0;
     cudaStream_t st = (cudaStream_t)stream;
     if (is_double)
-        launch<double>((const double*)data, offs, k, B, (const double*)x,
-                       (double*)y, n, st);
+        launch_f64((const double*)data, sl, offs_dev, k, B, lanes,
+                   (const double*)x, (double*)y, n, st);
     else
-        launch<float>((const float*)data, offs, k, B, (const float*)x,
-                      (float*)y, n, st);
+        launch_f32((const float*)data, sl, offs_dev, k, B, lanes,
+                   (const float*)x, (float*)y, n, st);
     return (int)cudaGetLastError();
 }

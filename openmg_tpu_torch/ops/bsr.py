@@ -10,9 +10,11 @@ slot-major ``(kb, B, n)``, and its product is
 dispatches on the device of ``x``: a CUDA tensor launches the hand-written
 kernel ``csrc/spmv_banded.cu`` (float32 or float64, any block size; the
 slot-offset ELL kernel K6 is its block size 1) or raises;
-a CPU tensor runs the plain version :func:`spmv_banded_plain`, which sums
-with the block column ``j`` outer and the slot ``s`` inner, as the kernel
-does, so the two agree bit for bit.  ``LAUNCHES_K7`` counts the launches.
+a CPU tensor runs the plain version :func:`spmv_banded_plain`.  Both split
+a row's terms ``t = j·kb + s`` (block column ``j`` outer, slot ``s``
+inner) over :func:`lane_group` lanes, lane ``g`` summing ``t ≡ g`` in
+order, and add the lanes' partial sums by a pairwise tree, so the two
+agree bit for bit.  ``LAUNCHES_K7`` counts the launches.
 
 The JAX package's tile-height and ``128 % B`` rules (``pick_tile_rows``)
 and its in-register block replicas (``_block_replica``) are that
@@ -25,10 +27,29 @@ import torch
 
 from openmg_tpu_torch.ops.ell import spmv_banded_cuda
 
-__all__ = ["LAUNCHES_K7", "supports", "spmv_banded_plain", "spmv_bsr"]
+__all__ = ["LAUNCHES_K7", "lane_group", "supports", "spmv_banded_plain", "spmv_bsr"]
 
 # launches of the blocked-band BSR kernel (K7)
 LAUNCHES_K7 = 0
+
+# the threads a launch should have before a row's terms are shared by more
+# lanes, and the most lanes a row: on an H100 (132 SMs) these give the
+# measured best lane group of 1, 2, 4 and 8 within 15 % on the levels of the
+# 64³ B=4 BSR solve, 2D and 3D elasticity (B = 2, 3) and Poisson 16³ at
+# B = 8 (more lanes a row read shorter pieces of more slot planes)
+FILL_THREADS = 1 << 18
+MAX_LANES = 4
+
+
+def lane_group(n: int, kb: int, B: int) -> int:
+    """Lanes that share a row's ``kb·B`` terms: the smallest power of two
+    (at most ``MAX_LANES`` and at most ``kb·B``) for which ``n`` rows give
+    ``FILL_THREADS`` threads.  A function of the shape alone, so the plain
+    version sums in the kernel's order on any device."""
+    g = 1
+    while g < MAX_LANES and 2 * g <= kb * B and n * g < FILL_THREADS:
+        g *= 2
+    return g
 
 
 def supports(M) -> bool:
@@ -53,20 +74,29 @@ def _flat_shift(v, d):
 
 
 def spmv_banded_plain(M, x):
-    """Plain PyTorch version of K7 on the slot-major banded layout: for each
-    block column ``j`` the block-aligned replica ``z_j[r] = x[r − r%B + j]``,
-    shifted by whole blocks per slot."""
+    """Plain PyTorch version of K7 on the slot-major banded layout, in the
+    kernel's order: term ``t = j·kb + s`` is ``data[s, j] ⊙ shift(z_j,
+    d_s·B)`` with the block-aligned replica ``z_j[r] = x[r − r%B + j]``;
+    lane ``g`` of :func:`lane_group` sums the terms ``t ≡ g`` in order, and
+    the partial sums are added pairwise, ``((p0 + p1) + (p2 + p3)) + …``."""
     B = M.blocksize[0]
     n = M.shape[0]
     nbr = n // B
+    kb = len(M.slot_offsets)
     xv = x.reshape(nbr, B)
-    acc = None
-    for j in range(B):
-        zj = xv[:, j:j + 1].expand(nbr, B).reshape(n)
-        for s, d in enumerate(M.slot_offsets):
-            t = M.data[s, j] * _flat_shift(zj, int(d) * B)
-            acc = t if acc is None else acc + t
-    return acc
+    zs = [xv[:, j:j + 1].expand(nbr, B).reshape(n) for j in range(B)]
+    G = lane_group(n, kb, B)
+    parts = []
+    for g in range(G):
+        acc = None
+        for t in range(g, kb * B, G):
+            j, s = divmod(t, kb)
+            term = M.data[s, j] * _flat_shift(zs[j], int(M.slot_offsets[s]) * B)
+            acc = term if acc is None else acc + term
+        parts.append(acc)
+    while len(parts) > 1:
+        parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+    return parts[0]
 
 
 def spmv_bsr(M, x):
@@ -83,6 +113,10 @@ def spmv_bsr(M, x):
         return spmv_banded_plain(M, x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    y = spmv_banded_cuda("spmv_bsr", M.data, M.slot_offsets, M.blocksize[0], x)
+    B = M.blocksize[0]
+    y = spmv_banded_cuda(
+        "spmv_bsr", M.data, M.slot_offsets, B, x,
+        lanes=lane_group(M.shape[0], len(M.slot_offsets), B),
+    )
     LAUNCHES_K7 += 1
     return y

@@ -90,6 +90,7 @@ def spmv_banded_plain(data, slot_offsets, x):
 
 _fn = None
 _offsets_on = {}  # (slot offsets, device) -> int32 tensor of the offsets
+_offsets_host = {}  # slot offsets -> ctypes int array of them (by value)
 
 
 def _kernel():
@@ -99,8 +100,8 @@ def _kernel():
 
         fn = _build.load().omg_spmv_banded
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # data, offs, k, B, x, y, n, dbl, stream
-        fn.argtypes = [p, p, i, i, p, p, ll, i, p]
+        # data, offs (host), offs (device), k, B, lanes, x, y, n, dbl, stream
+        fn.argtypes = [p, p, p, i, i, i, p, p, ll, i, p]
         fn.restype = i
         _fn = fn
     return _fn
@@ -136,11 +137,13 @@ def check_operands(what, data, x, kernel_rows):
         )
 
 
-def spmv_banded_cuda(what, data, slot_offsets, B, x):
+def spmv_banded_cuda(what, data, slot_offsets, B, x, lanes=1):
     """One launch of ``csrc/spmv_banded.cu`` on CUDA tensors:
     ``y[I·B + i] = Σ_j Σ_s data[s, j, I·B + i] · x[(I + d_s)·B + j]`` for
-    ``data`` of shape ``(k, B, n)``, or ``(k, n)`` when ``B`` is 1 (ELL).
-    Raises on operands the kernel does not take or a failed launch."""
+    ``data`` of shape ``(k, B, n)``, or ``(k, n)`` when ``B`` is 1 (ELL),
+    a row's terms split over ``lanes`` lanes (see
+    :func:`openmg_tpu_torch.ops.bsr.lane_group`; 1 for ELL).  Raises on
+    operands the kernel does not take or a failed launch."""
     n = x.shape[0] if x.ndim == 1 else -1
     k = len(slot_offsets)
     check_operands(what, data, x, n)
@@ -152,12 +155,16 @@ def spmv_banded_cuda(what, data, slot_offsets, B, x):
         )
     dev = x.device
     offs = offsets_tensor(slot_offsets, dev)
+    key = tuple(int(d) for d in slot_offsets)
+    host = _offsets_host.get(key)
+    if host is None:
+        host = _offsets_host[key] = (ctypes.c_int * k)(*key)
     y = torch.empty_like(x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _kernel()(
-            data.data_ptr(), offs.data_ptr(), k, B, x.data_ptr(), y.data_ptr(),
-            n, int(x.dtype == torch.float64), stream,
+            data.data_ptr(), host, offs.data_ptr(), k, B, lanes, x.data_ptr(),
+            y.data_ptr(), n, int(x.dtype == torch.float64), stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_spmv_banded failed with code {rc}")

@@ -15,6 +15,15 @@ entry points keep the JAX package's names and argument order
 ``rbgs_half_sweep_const_3d`` and their ``_vary_3d`` twins) and lift a 2D
 operand, cornered ones included, to ``(1, ny, nx)``.
 
+**One leg of a varying-level visit** (K4 again, one launch for all the
+passes of the JAX module's ``rbgs_vary_3d`` / ``jacobi_vary_3d`` and the
+``residual_vary_3d`` after them): :func:`sweeps_vary_3d` runs ``passes``
+Jacobi or red/black passes from zero or from a given ``x``, and with
+``emit_residual`` the residual of the last iterate, in launches of
+``csrc/vary_leg.cu`` of up to :func:`leg_depth` passes each; its plain
+version :func:`sweeps_vary_plain` is the loop of
+:func:`half_sweep_vary_plain` passes.
+
 **The whole-visit 2D stage fusion** (K5, the JAX module's
 ``fused_stages_2d``): every stage of a level visit on a 2D plane, with the
 optional zero start, prolongation on load, residual and restriction, in one
@@ -41,7 +50,8 @@ runs the plain version (:func:`half_sweep_plain`,
 the same order.  K2's three arrays agree with the kernel bit for bit;
 K3/K4/K5 within a few ulp (the compiler contracts multiply-adds).
 ``LAUNCHES`` (K2), ``LAUNCHES_K3``, ``LAUNCHES_K4`` and ``LAUNCHES_K5``
-count launched kernels: one per pass for K3/K4, one per visit for K5.
+count launched kernels: one per pass for K3 and the per-pass K4, one per
+leg (or chunk of one) for :func:`sweeps_vary_3d`, one per visit for K5.
 
 Waiting for later slices: the ``halos=`` variants of these kernels (the
 row-partitioned tier) and the folded-2D tier.
@@ -68,6 +78,11 @@ __all__ = [
     "df_update_residual_const_3d_plain",
     "half_sweep_plain",
     "half_sweep_vary_plain",
+    "LEG_DEPTH",
+    "leg_depth",
+    "leg_chunks",
+    "sweeps_vary_plain",
+    "sweeps_vary_3d",
     "residual_const_3d",
     "jacobi_const_3d",
     "rbgs_const_3d",
@@ -552,6 +567,179 @@ def residual_vary_3d(coeffs, offsets, b, x):
         coeffs, b, x, offsets=_norm_offsets(offsets), mode="residual",
         omega=0.0, color=0,
     )
+
+
+# ---------------------------------------------------------------------------
+# one leg of a varying-level visit (K4, csrc/vary_leg.cu)
+# ---------------------------------------------------------------------------
+
+# the most passes (+1 with the residual) sweeps_vary_3d gives one launch of
+# a 7-point (or sparser) operator: a deeper launch recomputes a wider halo
+# of its tile at every level
+LEG_DEPTH = 3
+
+
+def leg_depth(taps: int) -> int:
+    """Passes (+1 with the residual) one launch of a leg takes for an
+    operator of ``taps`` coefficient grids: ``LEG_DEPTH`` up to 7 taps, 1
+    above.  A 27-point pass does about four times the work a cell of a
+    7-point one does for three times the bytes, and on an H100 its fused
+    launches, whose halo cells are computed again at every level, measured
+    slower than one launch a pass at 128³, 64³ and 32³ (PERF.md §6)."""
+    return LEG_DEPTH if taps <= 7 else 1
+
+
+def leg_chunks(passes: int, emit_residual: bool, depth_cap: int):
+    """The launches of a leg: ``(first pass, passes, residual)`` each, as
+    few as ``depth_cap`` passes (+1 with the residual) a launch allow and
+    as even as can be, the deeper ones and the residual last."""
+    depth = passes + int(bool(emit_residual))
+    k = -(-depth // depth_cap)
+    out, start = [], 0
+    for i in range(k):
+        # the larger chunks last: the residual's launch takes the extra level
+        size = depth // k + (1 if i >= k - depth % k else 0)
+        last = i == k - 1
+        n = size - int(bool(emit_residual) and last)
+        out.append((start, n, bool(emit_residual) and last))
+        start += n
+    return out
+
+
+def sweeps_vary_plain(coeffs, offsets, b, x, passes, mode="rbgs",
+                      omega=2.0 / 3.0, emit_residual=False, inv_diag=None):
+    """Plain PyTorch version of a leg: ``passes`` passes of
+    :func:`half_sweep_vary_plain` from ``x`` (zero when None), red/black
+    colours 0, 1, 0, …, then with ``emit_residual`` the residual of the
+    last iterate; returns ``x`` or ``(x, r)``.
+    ``inv_diag``: the grid of ``1 / coeffs[diag]`` where the caller keeps
+    one (a level's ``inv_diag``), else it is formed here.  2D operands
+    run as ``(1, ny, nx)``."""
+    if b.ndim == 2:
+        got = sweeps_vary_plain(
+            coeffs[:, None], _lift2d(offsets), b[None],
+            None if x is None else x[None], passes, mode, omega,
+            emit_residual, None if inv_diag is None else inv_diag[None],
+        )
+        return tuple(t[0] for t in got) if emit_residual else got[0]
+    offsets = _norm_offsets(offsets)
+    if inv_diag is None:
+        inv_diag = 1.0 / coeffs[diag_index(offsets)]
+    if x is None:
+        x = torch.zeros_like(b)
+    for j in range(passes):
+        color = j & 1 if mode == "rbgs" else 0
+        x = _pass_plain(coeffs, offsets, b, x, mode, omega, color, inv_diag, None)
+    if not emit_residual:
+        return x
+    return x, _pass_plain(coeffs, offsets, b, x, "residual", 0.0, 0, inv_diag, None)
+
+
+_leg_fn = None
+
+
+def _leg_kernel():
+    global _leg_fn
+    if _leg_fn is None:
+        from openmg_tpu_torch import _build
+
+        fn = _build.load().omg_vary_leg
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [
+            p, p, p, i,         # coef, inv_diag, offs, K
+            p, p, p, p,         # b, x_in, x_out, r_out
+            i, i, i,            # nz, ny, nx
+            i, i, f, i, i,      # passes, mode, omega, color0, residual
+            p,                  # stream
+        ]
+        fn.restype = i
+        _leg_fn = fn
+    return _leg_fn
+
+
+def _vary_leg_cuda(coeffs, offsets, b, x, passes, mode, omega, emit_residual,
+                   color0, inv_diag=None):
+    """One launch of ``csrc/vary_leg.cu``: ``passes`` passes (colours from
+    ``color0``) and the residual; returns ``x`` or ``(x, r)``."""
+    global LAUNCHES_K4
+    from openmg_tpu_torch.ops.fused import _check
+
+    if mode not in ("jacobi", "rbgs"):
+        raise ValueError(f"unknown mode {mode!r}; choose jacobi|rbgs")
+    dev = b.device
+    if b.ndim != 3 or any(len(off) != 3 for off in offsets):
+        raise ValueError(
+            f"the kernel takes 3D grids and taps, got shape {tuple(b.shape)}"
+        )
+    shape = tuple(b.shape)
+    K = len(offsets)
+    why = kernel_taps_ok(offsets)
+    if why is not None:
+        raise ValueError(f"the kernel does not take {why}")
+    _check("b", b, shape, dev)
+    _check("coeffs", coeffs, (K,) + shape, dev)
+    if x is not None:
+        _check("x", x, shape, dev)
+    if inv_diag is not None:
+        _check("inv_diag", inv_diag, shape, dev)
+    x_out = torch.empty_like(b) if passes else None
+    r_out = torch.empty_like(b) if emit_residual else None
+    offs_c = (ctypes.c_int * (3 * K))(*[o for off in offsets for o in off])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _leg_kernel()(
+            coeffs.data_ptr(), None if inv_diag is None else inv_diag.data_ptr(),
+            offs_c, K, b.data_ptr(),
+            None if x is None else x.data_ptr(),
+            None if x_out is None else x_out.data_ptr(),
+            None if r_out is None else r_out.data_ptr(),
+            shape[0], shape[1], shape[2], int(passes),
+            _MODE_CODE[mode], float(omega), int(color0), int(emit_residual),
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"omg_vary_leg failed with code {rc}")
+    LAUNCHES_K4 += 1
+    if x_out is None:
+        x_out = torch.zeros_like(b) if x is None else x
+    return (x_out, r_out) if emit_residual else x_out
+
+
+def sweeps_vary_3d(coeffs, offsets, b, x, passes: int, mode="rbgs",
+                   omega=2.0 / 3.0, emit_residual=False, inv_diag=None):
+    """A leg of a varying-level visit on 2D/3D operands, by the device of
+    ``b``: ``passes`` Jacobi or red/black passes (colours 0, 1, 0, … — a
+    red/black sweep is two passes) from ``x``, or from zero when ``x`` is
+    None (then never read), and with ``emit_residual`` the residual of the
+    last iterate.  Returns ``x`` or ``(x, r)``.  ``inv_diag``: the grid of
+    ``1 / coeffs[diag]`` where the caller keeps one (read instead of
+    forming it).  On the card one launch of K4 takes up to
+    :func:`leg_depth` passes and the residual; a deeper leg takes
+    ``⌈depth / leg_depth⌉`` (:func:`leg_chunks`)."""
+    if b.ndim == 2:
+        got = sweeps_vary_3d(
+            coeffs[:, None], _lift2d(offsets), b[None],
+            None if x is None else x[None], passes, mode, omega, emit_residual,
+            None if inv_diag is None else inv_diag[None],
+        )
+        return tuple(t[0] for t in got) if emit_residual else got[0]
+    offsets = _norm_offsets(offsets)
+    if b.device.type == "cpu":
+        return sweeps_vary_plain(
+            coeffs, offsets, b, x, passes, mode, omega, emit_residual,
+            inv_diag=inv_diag,
+        )
+    if b.device.type != "cuda":
+        raise ValueError(f"unsupported device {b.device}")
+    if passes == 0 and not emit_residual:
+        return torch.zeros_like(b) if x is None else x
+    cap = leg_depth(len(offsets))
+    for start, n, res in leg_chunks(passes, emit_residual, cap):
+        out = _vary_leg_cuda(
+            coeffs, offsets, b, x, n, mode, omega, res, start & 1, inv_diag,
+        )
+        x = out[0] if res else out
+    return out
 
 
 # ---------------------------------------------------------------------------

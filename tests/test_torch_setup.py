@@ -268,3 +268,102 @@ def test_classify_raises_for_unported_levels():
     const[1, :, :, :-1] = -1.0
     const[2, :, :, 1:] = -1.0
     assert thier.classify_level(offs, const)[0] == "const"
+
+
+# ---------------------------------------------------------------------------
+# setup(..., faced=False): every level that is not constant as coefficient
+# grids, as in the JAX package; one reference setup and solve at 16³
+# ---------------------------------------------------------------------------
+
+UNFACED_SHAPE = (16, 16, 16)
+UNFACED_KW = dict(
+    smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
+    gridlevels=3, max_dense_coarse=64,
+)
+
+
+def _unfaced_rhs():
+    b = tmg.rhs_random(UNFACED_SHAPE, seed=1)
+    return b / np.linalg.norm(b)
+
+
+@pytest.fixture(scope="module")
+def unfaced():
+    """The reference's and the port's ``faced=False`` setup and solve (the
+    reference's array path: no Pallas kernel takes nx = 16)."""
+    b = _unfaced_rhs()
+    sj = jmg.setup(UNFACED_SHAPE, jmg.SolverConfig(**UNFACED_KW), faced=False)
+    xj, ij = sj.solve(b)
+    st = tmg.setup(UNFACED_SHAPE, tmg.SolverConfig(**UNFACED_KW), device="cpu",
+                   faced=False)
+    xt, it = st.solve(b)
+    return sj.hierarchy, np.asarray(xj), ij, st.hierarchy, xt, it
+
+
+def test_unfaced_setup_matches_reference(unfaced):
+    """The same level kinds; the coefficient grids and the per-point
+    ``inv_diag`` equal bit for bit (both expand the float32 representative
+    by copies and divide once in float32)."""
+    hj, _, _, ht, _, _ = unfaced
+    assert ht.stats == tuple(hj.stats)
+    kinds = []
+    for i, (Lt, Lj) in enumerate(zip(ht.levels, hj.levels)):
+        assert type(Lt.A).__name__ == type(Lj.A).__name__ == "StencilOperator"
+        assert Lt.A.is_constant == Lj.A.is_constant, i
+        kinds.append("const" if Lt.A.is_constant else "varying")
+        if not Lt.A.is_constant:
+            assert Lt.A.coeffs.is_contiguous()
+            np.testing.assert_array_equal(to_n(Lt.A.coeffs), np.asarray(Lj.A.coeffs))
+        np.testing.assert_array_equal(to_n(Lt.inv_diag), np.asarray(Lj.inv_diag))
+    assert kinds == ["const", "varying", "varying"]
+    np.testing.assert_array_equal(to_n(ht.coarse_inv), np.asarray(hj.coarse_inv))
+
+
+def test_unfaced_solve_matches_reference(unfaced):
+    """The same cycle count, residual norms within 10 %, and both solutions
+    within the threshold of one exact solution (‖Δx‖₂ ≤ 2e-10/λ_min)."""
+    _, xj, ij, _, xt, it = unfaced
+    assert it["converged"] and ij["converged"]
+    assert it["cycles"] == ij["cycles"]
+    for a, r in zip(it["residual_norms"], ij["residual_norms"]):
+        assert r / 1.1 <= a <= r * 1.1
+    lam_min = sum(4.0 * np.sin(np.pi / (2 * (n + 1))) ** 2 for n in UNFACED_SHAPE)
+    assert np.linalg.norm((xt - xj).ravel()) <= 2e-10 / lam_min
+
+
+def test_faced_default_keeps_constant_and_cornered_levels(unfaced):
+    """The default ``faced=True`` builds the constant and cornered levels it
+    built before, whose operators equal the unfaced grids point by point."""
+    ht_unfaced = unfaced[3]
+    cfg = tmg.SolverConfig(**UNFACED_KW)
+    ht = tmg.setup(UNFACED_SHAPE, cfg, device="cpu").hierarchy
+    explicit = tmg.setup(UNFACED_SHAPE, cfg, device="cpu", faced=True).hierarchy
+    assert [type(L.A).__name__ for L in ht.levels] == [
+        "StencilOperator", "CorneredOperator", "CorneredOperator"]
+    for L, Le, Lu in zip(ht.levels, explicit.levels, ht_unfaced.levels):
+        assert type(L.A) is type(Le.A)
+        assert torch.equal(L.inv_diag, Le.inv_diag)
+        if isinstance(L.A, tst.CorneredOperator):
+            assert torch.equal(L.A.to_varying().coeffs, Lu.A.coeffs)
+
+
+def test_reference_names_are_exported():
+    from openmg_tpu_torch import (  # noqa: F401
+        BSRMatrix,
+        CSRMatrix,
+        ELLMatrix,
+        build_hierarchy,
+        from_scipy,
+        to_scipy,
+    )
+
+    names = {"build_hierarchy", "CSRMatrix", "ELLMatrix", "BSRMatrix",
+             "from_scipy", "to_scipy"}
+    assert names <= set(tmg.__all__) and names <= set(jmg.__all__)
+    assert build_hierarchy is thier.build_hierarchy
+    import scipy.sparse as sp
+
+    A = sp.random(12, 12, density=0.3, random_state=0, format="csr") + sp.eye(12)
+    M = from_scipy(A, "ell", dtype=np.float64, device="cpu")
+    assert isinstance(M, ELLMatrix)
+    assert abs(to_scipy(M) - A).max() == 0

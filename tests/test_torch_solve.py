@@ -396,13 +396,26 @@ def test_card_refuses_what_the_kernel_does_not_take(port, monkeypatch):
 
 @pytest.mark.parametrize("kind", ["faced", "varying"])
 def test_unported_level_kinds_raise(monkeypatch, kind):
-    """A level that classifies as faced or varying is refused by name."""
+    """A level that classifies as faced is refused by name.  A varying one
+    is stored as coefficient grids (the structured setup's ``faced=False``
+    form), no longer refused: the cornered levels reclassified as varying
+    give the operators of their ``to_varying``."""
     real = thier.classify_level
 
     def fake(offsets, rep):
         k, payload = real(offsets, rep)
         return (kind, None) if k == "cornered" else (k, payload)
 
+    cfg = tmg.SolverConfig(**CFG_KW)
+    want = tmg.setup(SHAPE, cfg, device="cpu").hierarchy
     monkeypatch.setattr(thier, "classify_level", fake)
-    with pytest.raises(NotImplementedError, match=kind):
-        tmg.setup(SHAPE, tmg.SolverConfig(**CFG_KW), device="cpu")
+    if kind == "faced":
+        with pytest.raises(NotImplementedError, match=kind):
+            tmg.setup(SHAPE, cfg, device="cpu")
+        return
+    got = tmg.setup(SHAPE, cfg, device="cpu").hierarchy
+    assert [L.A.is_constant for L in got.levels] == [True] + [False] * (
+        got.num_levels - 1)
+    for L, W in zip(got.levels[1:], want.levels[1:]):
+        assert_close(L.A.coeffs, W.A.to_varying().coeffs, factor=1e-7,
+                     what="varying level")

@@ -11,6 +11,8 @@ in (c) are the only traced kernels of this file.
 import dataclasses
 
 import jax.numpy as jnp
+import itertools
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -175,8 +177,18 @@ def test_k6_plain_matches_pallas(shape):
 
 K7_CASES = [
     ("poisson16", 2), ("poisson16", 4), ("poisson16", 8), ("coupled8", 4),
-    ("elasticity3d", 3),
+    ("elasticity3d", 3), ("stencil27", 3),
 ]
+
+
+def _stencil27(shape=(8, 8, 12)):
+    """A 27-point operator with varying taps: kb 27 at B = 3, whose 81
+    terms a row are not a multiple of the lane group (4 at this size)."""
+    offsets = [(0, 0, 0)] + [o for o in itertools.product((-1, 0, 1), repeat=3)
+                             if any(o)]
+    coeffs = -0.5 - np.random.default_rng(7).random((27,) + shape)
+    coeffs[0] = 30.0
+    return jpoisson.stencil_to_csr(offsets, coeffs)
 
 
 @pytest.mark.parametrize("case", K7_CASES, ids=lambda c: f"{c[0]}-B{c[1]}")
@@ -184,10 +196,14 @@ def test_k7_plain_matches_pallas(case):
     name, B = case
     A = {"poisson16": lambda: jpoisson.poisson((16, 16, 16)),
          "coupled8": lambda: jelas.coupled_diffusion((8, 8, 8), 4),
-         "elasticity3d": lambda: jelas.elasticity((6, 6, 6))}[name]()
+         "elasticity3d": lambda: jelas.elasticity((6, 6, 6)),
+         "stencil27": _stencil27}[name]()
     jM = jsparse.bsr_from_scipy(A, blocksize=(B, B))
     tM = tsparse.bsr_from_scipy(A, blocksize=(B, B), device="cpu")
     assert tM.slot_offsets is not None and tbsr.supports(tM)
+    if name == "stencil27":
+        G = tbsr.lane_group(A.shape[0], tM.kb, B)
+        assert tM.kb == 27 and G > 1 and (tM.kb * B) % G != 0
     x = rand(A.shape[0], 5)
     if B == 3:
         # 128 % 3 != 0: the Pallas kernel does not take it, and the JAX

@@ -9,6 +9,8 @@ trace a Pallas kernel (seven, all at (8, 8, 128) or its 2D lift) and the
 reference solves sit in module-scoped fixtures.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -186,6 +188,156 @@ def test_pass_wrappers_never_give_way_to_the_plain_version(monkeypatch, pass_dat
         with pytest.raises(ValueError, match="unsupported device"):
             call()
     assert not called
+
+
+# ---------------------------------------------------------------------------
+# (a2) one leg of a varying-level visit in one call (sweeps_vary_3d)
+# ---------------------------------------------------------------------------
+
+
+def _coeffs27():
+    """27 diagonally dominant coefficient grids at KSHAPE, in the order the
+    port builds a Galerkin level's offsets."""
+    offsets = ((0, 0, 0),) + tuple(
+        o for o in itertools.product((-1, 0, 1), repeat=3) if any(o))
+    rng = np.random.default_rng(27)
+    coeffs = -(0.01 + 0.02 * rng.random((27,) + KSHAPE))
+    coeffs[0] = 1.0 + 0.1 * rng.random(KSHAPE)
+    return offsets, coeffs.astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def leg_reference(pass_data, pass_reference):
+    """The reference's legs: a down-leg (two red/black sweeps from zero,
+    then the residual) and an up-leg (two sweeps from x) at 7 taps (the
+    up-leg is ``pass_reference``'s) and at 27 taps: five traced calls."""
+    d = pass_data
+    b, x, z = to_j(d["b"]), to_j(d["x"]), to_j(np.zeros(KSHAPE, np.float32))
+    out = {}
+    for taps, (O, c) in ((7, (d["offsets"], d["coeffs"])), (27, _coeffs27())):
+        c = to_j(c)
+        down = jkernels.rbgs_vary_3d(c, O, b, z, 2)
+        out[(taps, "down")] = (to_n(down), to_n(jkernels.residual_vary_3d(c, O, b, down)))
+        out[(taps, "up")] = (pass_reference[("vary", "rbgs")] if taps == 7
+                             else to_n(jkernels.rbgs_vary_3d(c, O, b, x, 2)))
+    return out
+
+
+@pytest.mark.parametrize("mode", ["rbgs", "jacobi"])
+@pytest.mark.parametrize("start", ["zero", "x"])
+def test_leg_plain_is_the_loop_of_passes(pass_data, mode, start):
+    """The leg's plain version, and its entry on CPU tensors, equal the loop
+    of single passes bit for bit (colours 0, 1, 0, … from zero or x)."""
+    d = pass_data
+    O, c, b = d["offsets"], to_t(d["coeffs"]), to_t(d["b"])
+    x0 = None if start == "zero" else to_t(d["x"])
+    x = torch.zeros_like(b) if x0 is None else x0
+    for j in range(3):
+        x = tkernels.half_sweep_vary_plain(c, O, b, x, mode, OMEGA, j & 1)
+    r = tkernels.half_sweep_vary_plain(c, O, b, x, "residual")
+    before = tkernels.LAUNCHES_K4
+    for fn in (tkernels.sweeps_vary_plain, tkernels.sweeps_vary_3d):
+        got_x, got_r = fn(c, O, b, x0, 3, mode, OMEGA, emit_residual=True)
+        assert torch.equal(got_x, x) and torch.equal(got_r, r)
+        assert torch.equal(fn(c, O, b, x0, 3, mode, OMEGA), x)
+    assert tkernels.LAUNCHES_K4 == before
+    # no passes: the start itself, and its residual
+    got_x, got_r = tkernels.sweeps_vary_3d(c, O, b, x0, 0, mode, emit_residual=True)
+    want = torch.zeros_like(b) if x0 is None else x0
+    assert torch.equal(got_x, want)
+    assert torch.equal(got_r, tkernels.half_sweep_vary_plain(c, O, b, want, "residual"))
+
+
+@pytest.mark.parametrize("leg", ["down", "up"])
+@pytest.mark.parametrize("taps", [7, 27])
+def test_leg_matches_reference_kernels(pass_data, leg_reference, taps, leg):
+    """A down-leg (four passes from zero and the residual) and an up-leg
+    (four passes from x) against the reference's ``rbgs_vary_3d`` and
+    ``residual_vary_3d``: 2e-6·max|ref| for the iterate, 2e-6·max|b| for
+    the residual, as for single passes."""
+    d = pass_data
+    O, c = (d["offsets"], d["coeffs"]) if taps == 7 else _coeffs27()
+    c, b = to_t(c), to_t(d["b"])
+    if leg == "down":
+        got_x, got_r = tkernels.sweeps_vary_3d(c, O, b, None, 4, emit_residual=True)
+        want_x, want_r = leg_reference[(taps, "down")]
+        assert_close(got_r, want_r, factor=2e-6, scale=d["b"], what="residual")
+    else:
+        got_x = tkernels.sweeps_vary_3d(c, O, b, to_t(d["x"]), 4)
+        want_x = leg_reference[(taps, "up")]
+    assert_close(got_x, want_x, factor=2e-6, what=f"{taps}-tap {leg}-leg")
+
+
+@pytest.mark.parametrize("passes,residual", [(4, True), (4, False), (0, True), (9, True)])
+def test_leg_launches_cover_the_passes_in_order(passes, residual):
+    """A leg's launches on the card: every pass once, in order, at most the
+    operator's depth a launch, the residual in the last; a 27-point
+    operator takes one pass a launch."""
+    for taps in (5, 7, 9, 27):
+        cap = tkernels.leg_depth(taps)
+        chunks = tkernels.leg_chunks(passes, residual, cap)
+        starts = [start for start, _, _ in chunks]
+        assert starts == sorted(starts) and chunks[0][0] == 0
+        assert sum(n for _, n, _ in chunks) == passes
+        assert all(n + r <= cap for _, n, r in chunks)
+        assert [r for _, _, r in chunks] == [False] * (len(chunks) - 1) + [residual]
+        assert len(chunks) == -(-(passes + residual) // cap)
+    assert tkernels.leg_depth(27) == 1 < tkernels.leg_depth(7)
+
+
+def test_leg_wrapper_never_gives_way_to_the_plain_version(monkeypatch, pass_data):
+    """By the tensor's device alone: ``sweeps_vary_3d`` on a tensor that is
+    not on the CPU goes for the kernel (here: is refused) and never runs the
+    plain version, in 3D and lifted from 2D."""
+    called = []
+    for name in ("half_sweep_vary_plain", "sweeps_vary_plain"):
+        monkeypatch.setattr(tkernels, name, lambda *a, **k: called.append(1))
+    O = pass_data["offsets"]
+    meta = torch.empty(KSHAPE, dtype=torch.float32, device="meta")
+    cfs = torch.empty((7,) + KSHAPE, dtype=torch.float32, device="meta")
+    meta2 = torch.empty(KSHAPE[1:], dtype=torch.float32, device="meta")
+    cfs2 = torch.empty((5,) + KSHAPE[1:], dtype=torch.float32, device="meta")
+    O2 = tuple(off[1:] for off in O if off[0] == 0)
+    for call in (
+        lambda: tkernels.sweeps_vary_3d(cfs, O, meta, None, 4, emit_residual=True),
+        lambda: tkernels.sweeps_vary_3d(cfs, O, meta, meta, 2, "jacobi"),
+        lambda: tkernels.sweeps_vary_3d(cfs2, O2, meta2, None, 1),
+    ):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    assert not called
+
+
+def test_v_cycle_visits_varying_levels_by_legs(monkeypatch, pass_data):
+    """``v_cycle`` runs a varying level's visit as two legs (the
+    pre-smoothing with the residual, the post-smoothing), on the CPU too;
+    the cycle equals one composed from the loop of single passes."""
+    from openmg_tpu_torch.core import hierarchy as th
+    from openmg_tpu_torch.ops.transfer import prolong, restrict
+
+    shape = (8, 8, 16)
+    offsets, coeffs = tpoisson.diffusion_stencil(_medium(shape))
+    h = th.build_hierarchy(offsets, coeffs, gridlevels=2, max_dense_coarse=128,
+                           residual_dtype="doublefloat",
+                           transfer=TTRANSFERS["linear"], device="cpu")
+    L = h.levels[0]
+    assert not L.A.is_constant
+    seen = []
+    real = tkernels.sweeps_vary_3d
+
+    def spy(*a, **k):
+        seen.append((a[4], k.get("emit_residual", False)))
+        return real(*a, **k)
+
+    monkeypatch.setattr(tkernels, "sweeps_vary_3d", spy)
+    r = to_t(rand(shape, 4))
+    got = tcycle.run_cycle(h, r, "v", 2, 2, "rbgs", OMEGA)
+    assert seen == [(4, True), (4, False)]
+    c, O = L.A.coeffs, L.A.offsets
+    x, res = tkernels.sweeps_vary_plain(c, O, r, None, 4, emit_residual=True)
+    ec = tcycle.coarse_solve(h, restrict(res, h.transfer))
+    x = x + prolong(ec, shape, h.transfer)
+    assert torch.equal(got, tkernels.sweeps_vary_plain(c, O, r, x, 4))
 
 
 # ---------------------------------------------------------------------------
