@@ -69,9 +69,10 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                of four from x, and the two Jacobi legs) on every varying
                level of the diffusion hierarchy, the odd shape, the 2D lift
                and the unfaced 27-point levels, each in the launches of
-               ``kernels.leg_chunks`` at the level's ``kernels.leg_depth``;
-               at 256³ and 128³ timed beside the same passes one launch
-               each;
+               ``kernels.leg_chunks`` at the level's ``kernels.leg_depth``
+               (a Jacobi launch of two levels reads its coefficients from
+               the kernel's shared-memory ring, ``kernels.leg_ring``); at
+               256³ and 128³ timed beside the same passes one launch each;
 9. ``solve_vary`` the 256³ variable-coefficient diffusion solve from a
                stencil pair (host Galerkin chain, four varying levels, every
                level visit two K4 legs, the general double-float
@@ -847,7 +848,7 @@ def leg_rows(dev, cases, copy_bw, reps=12, plain_reps=3):
             got = run()
             torch.cuda.synchronize()
             launches = kernels.LAUNCHES_K4 - before
-            want = len(kernels.leg_chunks(passes, res, kernels.leg_depth(K)))
+            want = len(kernels.leg_chunks(passes, res, kernels.leg_depth(K, n)))
             if launches != want:
                 fail(f"K4 leg {tag} {mode_name}: {launches} launches, "
                      f"expected {want}")
@@ -1062,15 +1063,16 @@ def residual_norm_host_stencil(offsets, coeffs, b64, x64):
     return float(np.sqrt(np.sum(r * r)))
 
 
-def legs_per_visit(cfg, taps):
-    """K4 launches a visit of a varying level with ``taps`` grids takes:
+def legs_per_visit(cfg, taps, points):
+    """K4 launches a visit of a varying level with ``taps`` grids of
+    ``points`` points takes:
     the down-leg (the pre-smoothing passes from zero and the residual) and
     the up-leg (the post-smoothing passes), each split into
     ``kernels.leg_chunks`` at the operator's ``kernels.leg_depth``."""
     from openmg_tpu_torch.ops import kernels
 
     per = 2 if cfg.smoother == "rbgs" else 1
-    cap = kernels.leg_depth(taps)
+    cap = kernels.leg_depth(taps, points)
     return (len(kernels.leg_chunks(per * cfg.pre_iterations, True, cap))
             + len(kernels.leg_chunks(per * cfg.post_iterations, False, cap)))
 
@@ -1078,7 +1080,7 @@ def legs_per_visit(cfg, taps):
 def legs_per_cycle(cfg, hierarchy):
     """K4 launches a V-cycle of ``hierarchy`` takes on its varying levels
     (the coarsest, solved by its dense inverse, excluded)."""
-    return sum(legs_per_visit(cfg, len(L.A.offsets))
+    return sum(legs_per_visit(cfg, len(L.A.offsets), int(np.prod(L.grid_shape)))
                for L in hierarchy.levels[:-1] if not L.A.is_constant)
 
 
@@ -1177,7 +1179,7 @@ def phase_solve_vary(dev, vary):
     # mg_solve with a scipy matrix: the fine level is detected constant (K1,
     # K2), the Galerkin level below it is stored as coefficient grids (K4)
     mshape = (64,) * 3
-    mlegs = legs_per_visit(cfg, 27)
+    mlegs = legs_per_visit(cfg, 27, 32 ** 3)
     A = mg.poisson(mshape)
     bm = mg.rhs_random(mshape, seed=3)
     bm /= np.linalg.norm(bm.ravel())
@@ -1276,7 +1278,7 @@ def phase_solve_vary(dev, vary):
             2 * (cfg.pre_iterations + cfg.post_iterations) + 1),
         "k4_launches_per_level_visit": {
             "x".join(map(str, L.grid_shape)): legs_per_visit(
-                cfg, len(L.A.offsets))
+                cfg, len(L.A.offsets), int(np.prod(L.grid_shape)))
             for L in h.levels[:-1] if not L.A.is_constant},
         "stencil_s": t_stencil, "setup_s": t_setup,
         "first_solve_ms": info["solve_time_s"] * 1e3,
@@ -1643,7 +1645,7 @@ def phase_solve_2d(dev):
     mc = im["cycles"]
     # 512² → 256² → 128² → 64² (dense): one constant and two varying
     # (9-point) levels
-    legs = 2 * legs_per_visit(cfg, 9)
+    legs = legs_per_visit(cfg, 9, 256 ** 2) + legs_per_visit(cfg, 9, 128 ** 2)
     if not (im["converged"] and rm < 1e-10 * 1.05 and mc > 0
             and m_counts == {"K1": 0, "K2": mc, "K3": 0, "K4": legs * mc,
                              "K5": 2 * mc}):

@@ -20,7 +20,8 @@ passes of the JAX module's ``rbgs_vary_3d`` / ``jacobi_vary_3d`` and the
 ``residual_vary_3d`` after them): :func:`sweeps_vary_3d` runs ``passes``
 Jacobi or red/black passes from zero or from a given ``x``, and with
 ``emit_residual`` the residual of the last iterate, in launches of
-``csrc/vary_leg.cu`` of up to :func:`leg_depth` passes each; its plain
+``csrc/vary_leg.cu`` of up to :func:`leg_depth` passes each (a launch of
+one level is a pass of ``csrc/half_sweep.cu``); its plain
 version :func:`sweeps_vary_plain` is the loop of
 :func:`half_sweep_vary_plain` passes.
 
@@ -573,20 +574,39 @@ def residual_vary_3d(coeffs, offsets, b, x):
 # one leg of a varying-level visit (K4, csrc/vary_leg.cu)
 # ---------------------------------------------------------------------------
 
-# the most passes (+1 with the residual) sweeps_vary_3d gives one launch of
-# a 7-point (or sparser) operator: a deeper launch recomputes a wider halo
-# of its tile at every level
+# the most passes (+1 with the residual) one launch of csrc/vary_leg.cu
+# takes (its MAX_LEG): a deeper launch recomputes a wider halo of its tile
+# at every level
 LEG_DEPTH = 3
+# the most taps the kernel's coefficient ring takes (its RING_MAXK)
+RING_MAX_TAPS = 9
+# an H100's L2 cache
+L2_BYTES = 50 * 2 ** 20
 
 
-def leg_depth(taps: int) -> int:
+def leg_depth(taps: int, points: int) -> int:
     """Passes (+1 with the residual) one launch of a leg takes for an
-    operator of ``taps`` coefficient grids: ``LEG_DEPTH`` up to 7 taps, 1
-    above.  A 27-point pass does about four times the work a cell of a
-    7-point one does for three times the bytes, and on an H100 its fused
-    launches, whose halo cells are computed again at every level, measured
-    slower than one launch a pass at 128³, 64³ and 32³ (PERF.md §6)."""
-    return LEG_DEPTH if taps <= 7 else 1
+    operator of ``taps`` coefficient grids of ``points`` points each:
+    ``LEG_DEPTH`` up to 7 taps, or where the grids fit in L2 (a launch's
+    later levels then read them there), else 1, a pass a launch.  A
+    27-point level of 128³ points holds 226 MB of grids: its fused
+    launches, reading them again from device memory at every level,
+    measured slower than a pass a launch; at 64³ (28 MB) they were faster,
+    and they take fewer launches, whose host cost is larger than a pass's
+    device time there (PERF.md §6)."""
+    if taps <= 7 or 4 * taps * points <= L2_BYTES:
+        return LEG_DEPTH
+    return 1
+
+
+def leg_ring(taps: int, depth: int, mode: str) -> bool:
+    """Whether a launch of ``depth`` levels reads its coefficients from the
+    kernel's shared-memory ring instead of device memory: Jacobi launches
+    of depth 2 and up to ``RING_MAX_TAPS`` taps.  Deeper or denser, the
+    ring leaves no tile of useful height; on red/black passes, which
+    compute half the cells a level, it measured a few percent slower than
+    none, on Jacobi launches about a third faster (PERF.md §6)."""
+    return mode == "jacobi" and depth == 2 and taps <= RING_MAX_TAPS
 
 
 def leg_chunks(passes: int, emit_residual: bool, depth_cap: int):
@@ -650,7 +670,7 @@ def _leg_kernel():
             p, p, p, p,         # b, x_in, x_out, r_out
             i, i, i,            # nz, ny, nx
             i, i, f, i, i,      # passes, mode, omega, color0, residual
-            p,                  # stream
+            i, p,               # ring, stream
         ]
         fn.restype = i
         _leg_fn = fn
@@ -660,7 +680,8 @@ def _leg_kernel():
 def _vary_leg_cuda(coeffs, offsets, b, x, passes, mode, omega, emit_residual,
                    color0, inv_diag=None):
     """One launch of ``csrc/vary_leg.cu``: ``passes`` passes (colours from
-    ``color0``) and the residual; returns ``x`` or ``(x, r)``."""
+    ``color0``) and the residual, 2 or 3 levels; returns ``x`` or
+    ``(x, r)``."""
     global LAUNCHES_K4
     from openmg_tpu_torch.ops.fused import _check
 
@@ -695,7 +716,7 @@ def _vary_leg_cuda(coeffs, offsets, b, x, passes, mode, omega, emit_residual,
             None if r_out is None else r_out.data_ptr(),
             shape[0], shape[1], shape[2], int(passes),
             _MODE_CODE[mode], float(omega), int(color0), int(emit_residual),
-            stream,
+            int(leg_ring(K, passes + int(emit_residual), mode)), stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_vary_leg failed with code {rc}")
@@ -715,7 +736,8 @@ def sweeps_vary_3d(coeffs, offsets, b, x, passes: int, mode="rbgs",
     ``1 / coeffs[diag]`` where the caller keeps one (read instead of
     forming it).  On the card one launch of K4 takes up to
     :func:`leg_depth` passes and the residual; a deeper leg takes
-    ``⌈depth / leg_depth⌉`` (:func:`leg_chunks`)."""
+    ``⌈depth / leg_depth⌉`` (:func:`leg_chunks`), and a launch of one
+    level is a pass of ``csrc/half_sweep.cu``."""
     if b.ndim == 2:
         got = sweeps_vary_3d(
             coeffs[:, None], _lift2d(offsets), b[None],
@@ -733,11 +755,20 @@ def sweeps_vary_3d(coeffs, offsets, b, x, passes: int, mode="rbgs",
         raise ValueError(f"unsupported device {b.device}")
     if passes == 0 and not emit_residual:
         return torch.zeros_like(b) if x is None else x
-    cap = leg_depth(len(offsets))
+    cap = leg_depth(len(offsets), b.numel())
     for start, n, res in leg_chunks(passes, emit_residual, cap):
-        out = _vary_leg_cuda(
-            coeffs, offsets, b, x, n, mode, omega, res, start & 1, inv_diag,
-        )
+        if n + res > 1:
+            out = _vary_leg_cuda(
+                coeffs, offsets, b, x, n, mode, omega, res, start & 1, inv_diag,
+            )
+        else:
+            # one level: the per-pass kernel of csrc/half_sweep.cu
+            y = torch.zeros_like(b) if x is None else x
+            m = "residual" if res else mode
+            out = _half_sweep_cuda(
+                coeffs, offsets, b, y, m, omega, start & 1, True, None
+            )
+            out = (y, out) if res else out
         x = out[0] if res else out
     return out
 

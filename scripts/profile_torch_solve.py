@@ -2,20 +2,25 @@
 """Where a solve of the PyTorch/CUDA port spends its time, by kernel.
 
     python3 scripts/profile_torch_solve.py
-        [--problem poisson|diffusion|poisson2d] [--n N] [--out DIR]
-        [--levels] [--root DIR]
+        [--problem poisson|unfaced|diffusion|poisson2d] [--n N] [--out DIR]
+        [--levels] [--root DIR] [--leg-depth-27 D] [--warm W]
 
 Sets up a solve of ``chip_smoke.py`` (V(2,2) red-black, linear transfers,
 double-float outer loop, dense coarsest level of at most 4096 points):
 ``poisson`` on n³ from the grid shape (fused level visits, the double-float
-update kernel), ``diffusion`` on n³ from the stencil pair of a random medium
-(per-pass kernel on varying levels, the general double-float residual in
+update kernel), ``unfaced`` the same with ``setup(..., faced=False)`` (its
+27-point levels as coefficient grids, visited by K4's legs), ``diffusion``
+on n³ from the stencil pair of a random medium
+(K4's legs on varying levels, the general double-float residual in
 tensor code), or ``poisson2d`` on n² from the grid shape (the whole-visit 2D
 kernel, the lifted double-float update kernel).  n defaults to 256 in 3D and
-4096 in 2D.  Runs it once to warm up, then once under
-``torch.profiler`` and prints one JSON line: the card's name and power
-limit, the solve's wall time, the device time summed by kernel name, and
-the device's busy and idle share of the solve.  With ``--out`` the Chrome
+4096 in 2D.  Runs it once to warm up, ``W`` times more (default 5) for
+the warm wall times, then once under ``torch.profiler`` and prints one
+JSON line: the card's name and power limit, the solves' wall times, the
+device time summed by kernel name, and the device's busy and idle share
+of the profiled solve.  ``--leg-depth-27 D`` makes a leg of a 27-point
+varying level take launches of up to D levels (``kernels.leg_depth``;
+1 is a pass a launch) on every level, in place of the package's rule.  With ``--out`` the Chrome
 trace is written there.  With ``--levels`` (``poisson`` only) it also
 times the fused level visits of the solve's hierarchy one by one: on every
 visited level the down-leg (zero start, the stages, the restricted
@@ -102,18 +107,27 @@ def level_visits(hierarchy, dev):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--problem", choices=("poisson", "diffusion", "poisson2d"),
+    ap.add_argument("--problem",
+                    choices=("poisson", "unfaced", "diffusion", "poisson2d"),
                     default="poisson")
     ap.add_argument("--n", type=int, default=None)
     ap.add_argument("--out", default=None)
     ap.add_argument("--levels", action="store_true")
     ap.add_argument("--root", default=None)
+    ap.add_argument("--leg-depth-27", type=int, default=None)
+    ap.add_argument("--warm", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         sys.exit(2)
     import openmg_tpu_torch as mg
+    from openmg_tpu_torch.ops import kernels
     from torch.profiler import ProfilerActivity, profile
+
+    if args.leg_depth_27 is not None:
+        own = kernels.leg_depth
+        kernels.leg_depth = lambda taps, points: (
+            args.leg_depth_27 if taps == 27 else own(taps, points))
 
     if args.problem == "poisson2d":
         shape = (args.n or 4096,) * 2
@@ -129,7 +143,10 @@ def main():
     else:
         problem = shape
     t0 = time.perf_counter()
-    solver = mg.setup(problem, cfg)
+    if args.problem == "unfaced":
+        solver = mg.setup(problem, cfg, faced=False)
+    else:
+        solver = mg.setup(problem, cfg)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     del problem
@@ -138,10 +155,12 @@ def main():
     b = torch.from_numpy(bnp.astype(np.float32)).cuda()
     solver.solve(b)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, plain_info = solver.solve(b)
-    torch.cuda.synchronize()
-    wall_unprofiled = time.perf_counter() - t0
+    walls = []
+    for _ in range(args.warm):
+        t0 = time.perf_counter()
+        solver.solve(b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -173,7 +192,9 @@ def main():
         "problem": args.problem,
         "shape": list(shape), "cycles": info["cycles"], "setup_s": setup_s,
         "launches_profiled": sum(v["count"] for v in by_kernel.values()),
-        "solve_ms_unprofiled": wall_unprofiled * 1e3,
+        "solve_ms_unprofiled": walls,
+        "leg_depth_27": args.leg_depth_27,
+        "residual": info.get("final_norm"),
         "solve_ms_profiled": wall * 1e3,
         "device_busy_ms": busy,
         "device_idle_share_of_profiled_solve": max(0.0, 1.0 - busy / (wall * 1e3)),

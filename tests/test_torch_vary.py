@@ -272,9 +272,10 @@ def test_leg_matches_reference_kernels(pass_data, leg_reference, taps, leg):
 def test_leg_launches_cover_the_passes_in_order(passes, residual):
     """A leg's launches on the card: every pass once, in order, at most the
     operator's depth a launch, the residual in the last; a 27-point
-    operator takes one pass a launch."""
-    for taps in (5, 7, 9, 27):
-        cap = tkernels.leg_depth(taps)
+    operator whose grids do not fit in L2 takes one pass a launch."""
+    for taps, points in ((5, 256 ** 2), (7, 256 ** 3), (9, 4096 ** 2),
+                         (27, 128 ** 3), (27, 64 ** 3)):
+        cap = tkernels.leg_depth(taps, points)
         chunks = tkernels.leg_chunks(passes, residual, cap)
         starts = [start for start, _, _ in chunks]
         assert starts == sorted(starts) and chunks[0][0] == 0
@@ -282,7 +283,17 @@ def test_leg_launches_cover_the_passes_in_order(passes, residual):
         assert all(n + r <= cap for _, n, r in chunks)
         assert [r for _, _, r in chunks] == [False] * (len(chunks) - 1) + [residual]
         assert len(chunks) == -(-(passes + residual) // cap)
-    assert tkernels.leg_depth(27) == 1 < tkernels.leg_depth(7)
+    assert tkernels.leg_depth(27, 128 ** 3) == 1
+    assert tkernels.leg_depth(27, 64 ** 3) == tkernels.leg_depth(7, 256 ** 3) > 1
+
+
+def test_leg_ring_only_where_a_tile_fits():
+    """The coefficient ring is asked for on Jacobi launches of depth 2 and
+    up to 9 taps only: deeper, or at 27 taps, its shared memory leaves no
+    useful tile, and red/black launches go without it."""
+    assert tkernels.leg_ring(7, 2, "jacobi") and tkernels.leg_ring(9, 2, "jacobi")
+    assert not any(tkernels.leg_ring(t, d, m) for t, d, m in (
+        (7, 3, "jacobi"), (9, 3, "jacobi"), (27, 2, "jacobi"), (7, 2, "rbgs")))
 
 
 def test_leg_wrapper_never_gives_way_to_the_plain_version(monkeypatch, pass_data):
