@@ -29,15 +29,21 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                a numpy-float64 solve through ``mg_solve``; a V(2,0) cycle
                against the CPU; and a float64 cycle, which the card must
                refuse instead of running plain tensor code;
+4a. ``solve_512`` the solve of ``solve`` at 512³ (six levels; K1 on a
+               cornered 27-point level of 256² planes): at most 9 cycles to
+               ‖r‖₂ < 1e-10, one K1 launch a leg, one K2 launch a cycle, no
+               K3 launch, checked in float64 on the host, with its setup
+               time, warm solve time and peak memory;
 5. ``fused2d`` holds the whole-visit 2D stage fusion (K5) against its plain
                version on the card in every mode the V-cycle uses (down-leg
                with restriction, up-leg with prolongation, stages on x, zero
-               start with the residual; red/black and Jacobi) on the
-               constant 4096² level and the cornered 2048² and 128² levels
-               of the 4096² hierarchy, at (200,328) and (100,164), and
-               without transfers at (37,91); times it at 4096² and 2048²
-               with ``F.conv2d`` beside the residual mode as a yardstick
-               (the port never calls it); K2 on a 4096² grid (the lift to
+               start with the residual; red/black and Jacobi) on every
+               visited level of the 4096² hierarchy (constant 4096²,
+               cornered 2048² to 128²), at (200,328) and (100,164), and
+               without transfers at (37,91); times every mode at 4096² and
+               the down-leg and up-leg on every cornered level, with
+               ``F.conv2d`` beside the residual mode as a yardstick (the
+               port never calls it); K2 on a 4096² grid (the lift to
                (1, ny, nx)) bit for bit; K3's residual on the cornered
                2048² level against the CPU;
 6. ``solve_2d`` the 2D Poisson 4096² solve (seven levels, V(2,2) red-black,
@@ -749,6 +755,74 @@ def phase_solve(dev):
     return k1, k2, cycles, rn64
 
 
+BIG512 = (512, 512, 512)  # BASELINE config 4 and the North star's size
+
+
+def phase_solve_512(dev):
+    """The main path at 512³: the Poisson solve of ``solve`` on a six-level
+    hierarchy (512³ 7-point; 256³, 128³, 64³, 32³ cornered 27-point; 16³
+    dense), so K1 takes a cornered 27-point level of 256² planes (its
+    marching shape).  One K1 launch a leg, one K2 launch a cycle, no K3."""
+    import openmg_tpu_torch as mg
+
+    cfg = mg.SolverConfig(
+        smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
+        max_dense_coarse=4096, cycles=60,
+    )
+    t0 = time.perf_counter()
+    solver = mg.setup(BIG512, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    h = solver.hierarchy
+    bnp = mg.rhs_random(BIG512, seed=1)
+    bnp /= np.linalg.norm(bnp.ravel())
+    b = torch.from_numpy(bnp.astype(np.float32)).to(dev)
+    del bnp
+
+    zero_counts()
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    main_counts = counts()
+    cycles = info["cycles"]
+    visits = 2 * (h.num_levels - 1)
+    if not info["converged"] or not info["final_norm"] < 1e-10 or cycles > 9:
+        fail(f"512^3 solve: {cycles} cycles, {info['residual_norms']}")
+    if cycles == 0 or main_counts != {"K1": visits * cycles, "K2": cycles,
+                                      "K3": 0, "K4": 0, "K5": 0}:
+        fail(f"512^3 solve: launches {main_counts} for {cycles} cycles, "
+             f"{visits} level visits each")
+    hi, lo = info["x_df"]
+    if not bool(torch.isfinite(hi).all() and torch.isfinite(lo).all()):
+        fail("512^3 solution is not finite")
+    x64 = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+    del hi, lo, x
+    rn64 = residual_norm_host(b.cpu().numpy().astype(np.float64), x64)
+    del x64
+    if not rn64 < 2e-10:
+        fail(f"512^3 solve: float64 residual of the merged pair is {rn64:.3e}")
+
+    # second solve, warm: the time and the peak memory
+    torch.cuda.reset_peak_memory_stats()
+    _, info2 = solver.solve(b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    emit("solve_512", {
+        "shape": list(BIG512), "levels": [list(st[0]) for st in h.stats],
+        "cycles": cycles, "final_norm": info["final_norm"],
+        "residual_norms": info["residual_norms"],
+        "residual_float64_host": rn64,
+        "launches": {"fused_stages_const_3d": main_counts["K1"],
+                     "df_update_residual_const_3d": main_counts["K2"],
+                     "half_sweep": main_counts["K3"]},
+        "setup_s": t_setup,
+        "first_solve_ms": info["solve_time_s"] * 1e3,
+        "solve_ms": info2["solve_time_s"] * 1e3,
+        "peak_memory_MB": peak / 2 ** 20,
+    })
+    del solver, h, b, info, info2
+    torch.cuda.empty_cache()
+
+
 SWEEP_MODES = (
     ("jacobi", "jacobi", 0), ("rb colour 0", "rbgs", 0),
     ("rb colour 1", "rbgs", 1), ("residual", "residual", 0),
@@ -1455,11 +1529,16 @@ def phase_fused2d(dev, copy_bw):
         torch.tensor([4.0, -1, -1, -1, -1], dtype=torch.float32, device=dev),
         (37, 91))
     tr = h.transfer
-    # (tag, operator, timed modes: None = none, True = all, else a prefix)
+    # the two legs a V(2,2) cycle launches on every cornered level
+    legs = ("down: zero start, 4 rb", "up")
+    # (tag, operator, timed modes: None = none, True = all, else prefixes)
     cases = [
         ("main 4096^2", h.levels[0].A, True),
-        ("main 2048^2", h.levels[1].A, ("down: zero start, 4 rb", "up")),
-        ("main 128^2", h.levels[5].A, None),
+        ("main 2048^2", h.levels[1].A, legs),
+        ("main 1024^2", h.levels[2].A, legs),
+        ("main 512^2", h.levels[3].A, legs),
+        ("main 256^2", h.levels[4].A, legs),
+        ("main 128^2", h.levels[5].A, legs),
         ("odd 200x328", h_odd.levels[0].A, None),
         ("odd 100x164", h_odd.levels[1].A, None),
         ("no transfer 37x91", op37, None),
@@ -2224,6 +2303,7 @@ def main():
     phase_build()
     rows, k2_rows, _ = phase_kernels(dev, copy_bw)
     k1_launches, k2_launches, faced_cycles, faced_rn64 = phase_solve(dev)
+    phase_solve_512(dev)
     k5_rows, _ = phase_fused2d(dev, copy_bw)
     k5_counts = phase_solve_2d(dev)
     # the unfaced and the diffusion hierarchies are built after the Poisson

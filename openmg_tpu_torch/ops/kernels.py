@@ -74,11 +74,13 @@ __all__ = [
     "LAUNCHES_K4",
     "LAUNCHES_K5",
     "MAX_DEPTH_2D",
+    "fused2d_plan",
     "df_num_partials",
     "df_update_residual_const_3d",
     "df_update_residual_const_3d_plain",
     "half_sweep_plain",
     "half_sweep_vary_plain",
+    "sweep_plan",
     "LEG_DEPTH",
     "leg_depth",
     "leg_chunks",
@@ -348,6 +350,32 @@ def half_sweep_vary_plain(coeffs, offsets, b, x, mode, omega=0.0, color=0):
     return _pass_plain(coeffs, offsets, b, x, mode, omega, color, inv_d, None)
 
 
+# rows and columns of the tile a block of csrc/half_sweep.cu's constant pass
+# owns (its CY, CX); the block marches a chunk of planes
+K3_TILE = (8, 128)
+# the fewest blocks a launch should have (per SM) before its chunks of
+# planes get longer; chunks of 1 to 64 planes
+K3_BLOCKS_PER_SM = 1
+K3_PLANES = 64
+
+
+def sweep_plan(nz: int, ny: int, nx: int, sms: int = 132):
+    """How a launch of ``csrc/half_sweep.cu``'s constant pass covers an
+    (nz, ny, nx) grid: ``(zc, tiles_y, tiles_x, chunks)``.  A block owns a
+    tile of ``K3_TILE`` (rows, columns) of every plane of a chunk of ``zc``
+    planes: tile ``(i, j)`` rows ``[8 i, 8 i + 8)`` and columns ``[128 j,
+    128 j + 128)``, chunk ``c`` planes ``[c·zc, (c+1)·zc)``.  ``zc`` is the
+    largest power of two up to ``K3_PLANES`` (and at most nz) that still
+    gives ``K3_BLOCKS_PER_SM`` blocks an SM, else 1: a chunk reads its two
+    neighbouring planes besides its own, so longer chunks read fewer."""
+    ty, tx = -(-ny // K3_TILE[0]), -(-nx // K3_TILE[1])
+    zc = K3_PLANES
+    while zc > 1 and ty * tx * -(-nz // zc) < K3_BLOCKS_PER_SM * sms:
+        zc //= 2
+    zc = min(zc, nz)
+    return zc, ty, tx, -(-nz // zc)
+
+
 _sweep_fn = None
 
 
@@ -362,9 +390,16 @@ def _sweep_kernel():
             p, p, p, i, p,      # coef, table, offs, K, rowmap
             i, i, f, i,         # vary, mode, omega, color
             p, p, p,            # b, x, out
-            i, i, i, p,         # nz, ny, nx, stream
+            i, i, i, i, p,      # nz, ny, nx, zc, stream
         ]
         fn.restype = i
+        tile = _build.load().omg_half_sweep_tile
+        tile.restype = i
+        if (tile(1), tile(0)) != K3_TILE:
+            raise RuntimeError(
+                f"csrc/half_sweep.cu tiles {tile(1)} x {tile(0)}, the wrapper "
+                f"plans {K3_TILE[0]} x {K3_TILE[1]}"
+            )
         _sweep_fn = fn
     return _sweep_fn
 
@@ -399,6 +434,7 @@ def _half_sweep_cuda(coef, offsets, b, x, mode, omega, color, vary, corner):
             table = corner[1]
             _check("region table", table, (len(corner[0]), K), dev)
     out = torch.empty_like(x)
+    zc = 0 if vary else sweep_plan(*shape, _sms(dev))[0]
     offs_c = (ctypes.c_int * (3 * K))(*[o for off in offsets for o in off])
     rowmap_c = (ctypes.c_int * 8)(*_row_map(corner))
     with torch.cuda.device(dev):
@@ -407,7 +443,7 @@ def _half_sweep_cuda(coef, offsets, b, x, mode, omega, color, vary, corner):
             coef.data_ptr(), None if table is None else table.data_ptr(),
             offs_c, K, rowmap_c, int(bool(vary)), _MODE_CODE[mode],
             float(omega), int(color), b.data_ptr(), x.data_ptr(),
-            out.data_ptr(), shape[0], shape[1], shape[2], stream,
+            out.data_ptr(), shape[0], shape[1], shape[2], zc, stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_half_sweep failed with code {rc}")
@@ -779,7 +815,46 @@ def sweeps_vary_3d(coeffs, offsets, b, x, passes: int, mode="rbgs",
 
 # the deepest visit one launch of csrc/fused_stages_2d.cu takes (stages, +1
 # with a residual, +1 more with a restriction); its MAX_DEPTH
-MAX_DEPTH_2D = 16
+MAX_DEPTH_2D = 8
+# columns of the strip a warp of csrc/fused_stages_2d.cu marches down (its
+# W, four a lane), halo included
+K5_STRIP = 128
+# the fewest warps a launch should have (per SM) before its chunks get
+# shorter; chunks of 32 down to 2 rows
+K5_WARPS_PER_SM = 8
+K5_ROWS = (32, 16, 8, 4, 2)
+
+
+def fused2d_plan(ny: int, nx: int, depth: int, sms: int = 132):
+    """How a launch of ``csrc/fused_stages_2d.cu`` covers an (ny, nx) plane
+    for a visit of ``depth`` (stages, +1 with a residual, +1 with a
+    restriction, +1 with a prolongation on load): ``(hp, ow, rows, strips,
+    chunks)``.  A warp marches ``rows`` rows (and ``depth`` rows above and
+    below them) of a strip of ``K5_STRIP`` columns; it owns the ``ow =
+    K5_STRIP − 2·hp`` columns inside a halo of ``hp`` (the depth rounded up
+    to a multiple of 4, so every lane's four columns are one aligned word).
+    Strip ``i`` owns columns ``[i·ow, (i+1)·ow)``, chunk ``j`` rows
+    ``[j·rows, (j+1)·rows)``.  ``rows`` is the longest of ``K5_ROWS`` that
+    still gives ``K5_WARPS_PER_SM`` warps an SM, the shortest otherwise:
+    longer chunks march fewer halo rows, more warps fill the card."""
+    hp = -(-depth // 4) * 4
+    ow = K5_STRIP - 2 * hp
+    if ow < 4:
+        raise ValueError(f"a visit of depth {depth} leaves no column of a strip")
+    strips = -(-nx // ow)
+    for rows in K5_ROWS:
+        if strips * -(-ny // rows) >= K5_WARPS_PER_SM * sms:
+            break
+    return hp, ow, rows, strips, -(-ny // rows)
+
+
+_sm_count = {}
+
+
+def _sms(dev) -> int:
+    if dev not in _sm_count:
+        _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sm_count[dev]
 
 
 def fused_stages_2d_plain(
@@ -817,15 +892,16 @@ def _fused2d_kernel():
             p, p, p, i, p,        # values, table, offs, K, rowmap
             p, p, p, p, p,        # b, x, ec, x_out, r_out
             i, i, i, p, p, i,     # ny, nx, n_stages, kinds, pars, emit
-            p, p, p,              # rw, pw, stream
+            p, p, p, p,           # rw, pw, plan, stream
         ]
         fn.restype = i
-        depth = lib.omg_fused2d_max_depth
-        depth.restype = i
-        if depth() != MAX_DEPTH_2D:
+        depth, strip = lib.omg_fused2d_max_depth, lib.omg_fused2d_strip
+        depth.restype = strip.restype = i
+        if depth() != MAX_DEPTH_2D or strip() != K5_STRIP:
             raise RuntimeError(
-                f"csrc/fused_stages_2d.cu takes visits of depth {depth()}, "
-                f"the wrapper splits at {MAX_DEPTH_2D}"
+                f"csrc/fused_stages_2d.cu takes visits of depth {depth()} on "
+                f"strips of {strip()} columns, the wrapper plans depth "
+                f"{MAX_DEPTH_2D}, strips of {K5_STRIP}"
             )
         _fused2d_fn = fn
     return _fused2d_fn
@@ -864,6 +940,8 @@ def _fused2d_cuda(values, offsets, b, x, stages, *, corner, emit_residual,
         else:
             emit, r_out = 1, torch.empty_like(b)
     n = len(stages)
+    depth = n + (emit > 0) + (emit == 2) + (ec is not None)
+    plan = fused2d_plan(ny, nx, depth, _sms(dev))
     offs_c = (ctypes.c_int * (2 * K))(*[o for off in offsets for o in off])
     rowmap_c = (ctypes.c_int * 4)(*_row_map(corner)[:4])
     kinds_c = (ctypes.c_int * max(n, 1))(*[_KIND_CODE[k] for k, _ in stages])
@@ -878,7 +956,8 @@ def _fused2d_cuda(values, offsets, b, x, stages, *, corner, emit_residual,
             ptr(values), ptr(table), offs_c, K, rowmap_c,
             ptr(b), ptr(x), ptr(ec), ptr(x_out), ptr(r_out),
             ny, nx, n, kinds_c, pars_c, emit,
-            (ctypes.c_float * 3)(*rw), (ctypes.c_float * 3)(*pw), stream,
+            (ctypes.c_float * 3)(*rw), (ctypes.c_float * 3)(*pw),
+            (ctypes.c_int * 5)(*plan), stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_fused_stages_2d failed with code {rc}")
@@ -908,7 +987,7 @@ def fused_stages_2d(
     ``csrc/fused_stages_2d.cu`` or raises.  A visit deeper than
     ``MAX_DEPTH_2D`` (stages, +1 with a residual, +1 with a restriction) is
     split into consecutive launches on either device; every visit of a
-    V-cycle up to V(7,7) is one launch.  Inputs are never modified; on a
+    V-cycle up to V(3,3) is one launch.  Inputs are never modified; on a
     CUDA tensor the call does not wait for the kernel.
     """
     from openmg_tpu_torch.ops.fused import _norm_stages

@@ -4,9 +4,12 @@
     python3 scripts/profile_torch_solve.py
         [--problem poisson|unfaced|diffusion|poisson2d] [--n N] [--out DIR]
         [--levels] [--root DIR] [--leg-depth-27 D] [--warm W]
+        [--residual-dtype doublefloat|float32]
 
 Sets up a solve of ``chip_smoke.py`` (V(2,2) red-black, linear transfers,
-double-float outer loop, dense coarsest level of at most 4096 points):
+double-float outer loop, or with ``--residual-dtype float32`` the float32
+outer residual of one K3 pass a cycle and a threshold of 1e-5 (2D: 2e-5),
+dense coarsest level of at most 4096 points):
 ``poisson`` on n³ from the grid shape (fused level visits, the double-float
 update kernel), ``unfaced`` the same with ``setup(..., faced=False)`` (its
 27-point levels as coefficient grids, visited by K4's legs), ``diffusion``
@@ -21,13 +24,14 @@ device time summed by kernel name, and the device's busy and idle share
 of the profiled solve.  ``--leg-depth-27 D`` makes a leg of a 27-point
 varying level take launches of up to D levels (``kernels.leg_depth``;
 1 is a pass a launch) on every level, in place of the package's rule.  With ``--out`` the Chrome
-trace is written there.  With ``--levels`` (``poisson`` only) it also
-times the fused level visits of the solve's hierarchy one by one: on every
-visited level the down-leg (zero start, the stages, the restricted
-residual) and the up-leg (``x + P·ec``, the stages), and on the finest
-level a visit of 6 and one of 50 Jacobi stages (``bench.py``'s sweep, in as
-many launches as the port takes), each as device milliseconds a visit, 20
-visits back to back.  ``--root`` profiles the package of another checkout
+trace is written there.  With ``--levels`` (``poisson`` and ``poisson2d``)
+it also times the fused level visits of the solve's hierarchy one by one:
+on every visited level the down-leg (zero start, the stages, the
+restricted residual) and the up-leg (``x + P·ec``, the stages), and in 3D
+on the finest level a visit of 6 and one of 50 Jacobi stages (``bench.py``'s
+sweep, in as many launches as the port takes), each as device milliseconds
+a visit, 20 visits back to back (2D: one call of ``fused._fused2d``, the
+V-cycle's kernel call, a visit).  ``--root`` profiles the package of another checkout
 (an earlier commit unpacked with ``git archive``), so two versions are
 timed by the same script.  Needs a CUDA device; fails without one.
 """
@@ -105,6 +109,35 @@ def level_visits(hierarchy, dev):
     return out
 
 
+def level_visits_2d(hierarchy, dev):
+    """Device ms of each 2D level visit of the hierarchy: on every visited
+    level the down-leg (zero start, four red/black stages, the restricted
+    residual) and the up-leg (``x + P·ec``, four red/black stages), each one
+    call of ``fused._fused2d`` (the V-cycle's kernel call), 20 visits back
+    to back."""
+    from openmg_tpu_torch.ops import fused
+
+    tr = hierarchy.transfer
+    out = {}
+    for i, L in enumerate(hierarchy.levels[:-1]):
+        op, shape = L.A, L.grid_shape
+        rng = np.random.default_rng(i)
+        b, x = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+                for _ in range(2))
+        ec = torch.from_numpy(rng.standard_normal(tuple(s // 2 for s in shape))
+                              .astype(np.float32)).to(dev)
+        cases = {
+            "down": lambda: fused._fused2d("rbgs", op, b, None, 2, 2 / 3, True,
+                                           restrict_transfer=tr),
+            "up": lambda: fused._fused2d("rbgs", op, b, x, 2, 2 / 3, False,
+                                         ec=ec, prolong_transfer=tr),
+        }
+        for name, fn in cases.items():
+            out[f"{'x'.join(map(str, shape))} {name}"] = device_ms(fn)
+        del b, x, ec
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--problem",
@@ -116,6 +149,8 @@ def main():
     ap.add_argument("--root", default=None)
     ap.add_argument("--leg-depth-27", type=int, default=None)
     ap.add_argument("--warm", type=int, default=5)
+    ap.add_argument("--residual-dtype", choices=("doublefloat", "float32"),
+                    default="doublefloat")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -133,9 +168,13 @@ def main():
         shape = (args.n or 4096,) * 2
     else:
         shape = (args.n or 256,) * 3
+    # a float32 outer residual stalls near 1e-5 with ‖b‖₂ = 1 (2e-5 in 2D)
+    f32 = args.residual_dtype == "float32"
     cfg = mg.SolverConfig(
-        smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
+        smoother="rbgs", transfer="linear", residual_dtype=args.residual_dtype,
         max_dense_coarse=4096, cycles=60,
+        **({"threshold": 2e-5 if args.problem == "poisson2d" else 1e-5}
+           if f32 else {}),
     )
     if args.problem == "diffusion":
         kappa = 0.5 + np.random.default_rng(12).random(shape)
@@ -189,7 +228,7 @@ def main():
     ).stdout.strip()
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "problem": args.problem,
+        "problem": args.problem, "residual_dtype": args.residual_dtype,
         "shape": list(shape), "cycles": info["cycles"], "setup_s": setup_s,
         "launches_profiled": sum(v["count"] for v in by_kernel.values()),
         "solve_ms_unprofiled": walls,
@@ -201,8 +240,11 @@ def main():
         "kernels": top,
         "root": ROOT,
         "level_visits_device_ms": (
-            level_visits(solver.hierarchy, b.device)
-            if args.levels and args.problem == "poisson" else None),
+            None if not args.levels
+            else level_visits(solver.hierarchy, b.device)
+            if args.problem == "poisson"
+            else level_visits_2d(solver.hierarchy, b.device)
+            if args.problem == "poisson2d" else None),
     }))
 
 
