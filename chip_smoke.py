@@ -112,8 +112,35 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                formats, the settings of ``scripts/probe_bsr_chip.py``, whose
                run took 22 cycles) on the card against the CPU; the ELL
                engine against the stencil engine at 1024² (Jacobi, aggregate
-               transfers, first ten residual norms); and ``krylov="pcg"`` and
-               ``cycle_type="f"``, which the sparse engine must refuse.
+               transfers, first ten residual norms); and the BSR solve with
+               ``krylov="pcg"`` (K7 also for ``A p``) and the ELL solve with
+               ``cycle_type="f"`` through ``mg_solve`` (keys ``pcg``,
+               ``fmg``);
+12. ``solve_cycles`` (after ``solve_2d``) the 256³ Poisson solve with W
+               and FMG cycles and the 4096² one with FMG (every level visit
+               two launches of K1 or K5, one K2 launch an outer step), and
+               the (32, 32, 64) solve with W, FMG and PCG(2) on the card
+               against the CPU;
+13. ``solve_many`` ``Solver.solve_many`` at 256³ and at (64, 64, 128),
+               K=8 (seeds 1-8): each member's cycles and pair bit-equal to
+               its scalar solve on the card, one host read of the batch's
+               norms a step (the loop's count and the profiler's count of
+               device-to-host copies), ms per right-hand side beside the
+               scalar solve's, and from numpy input;
+14. ``solve_pcg`` (after ``solve_vary``) the 256³ Poisson, 4096² Poisson
+               and 256³ diffusion solves with ``krylov="pcg",
+               krylov_iters=2`` (K1, K5 or K4 legs, two cycles an outer
+               step), beside the JAX package's record of 3 outer steps at
+               256³;
+15. ``solve_many_sparse`` ``AlgebraicSolver.solve_many`` on the 1024² ELL
+               hierarchy, K=4, with the checks of ``solve_many``.
+
+Every solve of 11-15 prints its cycles, final norm, the float64 residual
+of the merged pair on the host, warm and first solve ms, peak memory and
+the launches of every kernel, and fails on any other launch count.
+The kernel phases also hold the down-leg from an iterate (a W-cycle's
+second visit, every FMG level) against the plain versions: K1 and K5
+"down: from x, 4 rb stages, restrict", K4 "from x, 4 rb + residual".
 
 Each phase prints one line ``<phase> <json>``.  Then come the line
 ``{"kernels": [...]}``, the card's name and power limit as ``nvidia-smi``
@@ -382,6 +409,10 @@ def k1_modes(fused, op, tr, b, x, ec):
         "down: zero start, 4 rb stages, restrict": (
             make(stages=rb4, emit_residual=True, restrict_transfer=tr),
             False, ("x", "r")),
+        # the down-leg of a W-cycle's second visit and of every FMG level
+        "down: from x, 4 rb stages, restrict": (
+            make(stages=rb4, emit_residual=True, restrict_transfer=tr),
+            True, ("x", "r")),
         "up: x + P ec, 4 rb stages": (
             make(stages=rb4, ec=ec, prolong_transfer=tr), True, ("x",)),
         "x + P ec, no stages": (
@@ -401,6 +432,8 @@ def k1_bound(mode, n, nc, K):
     stage_j = n * (2 * K + 3)
     resid = n * 2 * K
     restr = nc * 2 * 27
+    if mode.startswith("down: from x"):
+        return 4 * (3 * n + nc), 4 * stage_rb + resid + restr
     if mode.startswith("down"):
         return 4 * (n + n + nc), 4 * stage_rb + resid + restr
     if mode.startswith("up"):
@@ -875,6 +908,8 @@ LEG_MODES = (
     # (name, start from x?, passes, mode, residual)
     ("down: zero start, 4 rb + residual", False, 4, "rbgs", True),
     ("up: 4 rb from x", True, 4, "rbgs", False),
+    # the down-leg of a W-cycle's second visit and of every FMG level
+    ("from x, 4 rb + residual", True, 4, "rbgs", True),
     ("jacobi down: zero start, 2 + residual", False, 2, "jacobi", True),
     ("jacobi up: 2 from x", True, 2, "jacobi", False),
 )
@@ -1476,6 +1511,10 @@ def k5_modes(op, tr, ec, transfers=True):
             "down: zero start, 4 rb stages, restrict": (
                 make(rb4, emit_residual=True, restrict_transfer=tr), False,
                 ("x", "r")),
+            # the down-leg of a W-cycle's second visit and of every FMG level
+            "down: from x, 4 rb stages, restrict": (
+                make(rb4, emit_residual=True, restrict_transfer=tr), True,
+                ("x", "r")),
             "up: x + P ec, 4 rb stages": (
                 make(rb4, ec=ec, prolong_transfer=tr), True, ("x",)),
             "down: zero start, 4 jacobi stages, restrict": (
@@ -1496,6 +1535,8 @@ def k5_bound(mode, n, nc, K):
     restr = nc * 2 * 9
     if mode.startswith("down: zero start, 4 rb"):
         return 4 * (2 * n + nc), 4 * stage_rb + resid + restr
+    if mode.startswith("down: from x"):
+        return 4 * (3 * n + nc), 4 * stage_rb + resid + restr
     if mode.startswith("down"):
         return 4 * (2 * n + nc), 4 * stage_j + resid + restr
     if mode.startswith("up"):
@@ -1534,7 +1575,7 @@ def phase_fused2d(dev, copy_bw):
     # (tag, operator, timed modes: None = none, True = all, else prefixes)
     cases = [
         ("main 4096^2", h.levels[0].A, True),
-        ("main 2048^2", h.levels[1].A, legs),
+        ("main 2048^2", h.levels[1].A, legs + ("down: from x",)),
         ("main 1024^2", h.levels[2].A, legs),
         ("main 512^2", h.levels[3].A, legs),
         ("main 256^2", h.levels[4].A, legs),
@@ -2098,6 +2139,47 @@ def lambda_min(A):
                             return_eigenvectors=False)[0])
 
 
+def sparse_pcg_fmg(dev, solvers, b_bsr, b_ell, bsr_cycles, ell_cycles):
+    """The 64³ B=4 BSR solve with PCG(2) (K7 for every level product and
+    for ``A p``) and the 1024² ELL solve with FMG (checks and times on the
+    set-up hierarchy, then once through ``mg_solve``)."""
+    import openmg_tpu_torch as mg
+
+    h_bsr = solvers["bsr"].hierarchy
+    A_bsr = solvers["bsr_matrix"]
+    b64 = b_bsr.cpu().numpy().astype(np.float64)
+    cfg = mg.SolverConfig(**BSR_CFG, **INNER_KW["pcg"])
+    per_step = cfg.krylov_iters * 5 * (h_bsr.num_levels - 1) + cfg.krylov_iters
+    pcg = card_solve(
+        "BSR pcg", mg.AlgebraicSolver(h_bsr, cfg), b_bsr,
+        lambda x64: float(np.linalg.norm(b64 - A_bsr @ x64)),
+        lambda c: {"K7": per_step * c}, max_cycles=200)
+    pcg.update(krylov=cfg.krylov, krylov_iters=cfg.krylov_iters,
+               plain_v_cycles=bsr_cycles)
+    h_ell = solvers["ell"].hierarchy
+    A = mg.poisson(ELL_SHAPE)
+    b64 = b_ell.cpu().numpy().astype(np.float64)
+    params = dict(ELL_PARAMS, cycle_type="f")
+    colors = tuple(lv.num_colors for lv in h_ell.levels)
+    per_step = sum((lv + 1) * (1 + 4 * c) for lv, c in enumerate(colors[:-1]))
+    fmg = card_solve(
+        "ELL fmg", mg.AlgebraicSolver(h_ell, mg.SolverConfig.from_parameters(params)),
+        b_ell, lambda x64: float(np.linalg.norm(b64 - A @ x64)),
+        lambda c: {"K6": per_step * c})
+    t0 = time.perf_counter()
+    xm, im = mg.mg_solve(A, b_ell, params, device=dev)
+    wall = time.perf_counter() - t0
+    rm = float(np.linalg.norm(b64 - A @ xm.astype(np.float64)
+                              - A @ im["x_df"][1].cpu().numpy().astype(np.float64)))
+    if not (im["converged"] and im["cycles"] == fmg["cycles"] and rm < 2e-10):
+        fail(f"ELL mg_solve with cycle_type=f: {im['cycles']} cycles, "
+             f"residual {rm:.3e}")
+    fmg.update(cycle_type="f", plain_v_cycles=ell_cycles,
+               mg_solve={"cycles": im["cycles"], "residual_float64_host": rm,
+                         "wall_s": wall})
+    return pcg, fmg
+
+
 def phase_solve_sparse(dev, solvers):
     import openmg_tpu_torch as mg
 
@@ -2267,26 +2349,384 @@ def phase_solve_sparse(dev, solvers):
         row["device_idle_share"] = max(
             0.0, 1.0 - row["profile"]["device_busy_ms"] / row["solve_ms"])
 
-    # 6. what waits for later slices is refused on the card
-    refused = []
-    for what, kw in (("krylov=pcg", dict(krylov="pcg")),
-                     ("cycle_type=f", dict(cycle_type="f"))):
-        try:
-            mg.setup_sparse(mg.poisson((16, 16)), (16, 16),
-                            mg.SolverConfig(format="ell", **kw), device=dev)
-        except NotImplementedError:
-            refused.append(what)
-        else:
-            fail(f"{what}: the sparse engine took it on the card")
+    # 6. PCG(2) on the BSR hierarchy and FMG on the ELL one
+    pcg, fmg = sparse_pcg_fmg(dev, solvers, b_bsr, b_ell, bsr["cycles"],
+                              ell["cycles"])
 
     emit("solve_sparse", {
         "bsr": bsr, "ell": ell, "card_vs_cpu": versus,
         "ell_vs_stencil": {"shape": list(ELL_SHAPE), "sparse": g.tolist(),
                            "stencil": a.tolist(),
                            "max_rel": float(np.max(np.abs(g - a) / a))},
-        "refused_on_card": refused,
+        "pcg": pcg, "fmg": fmg,
     })
     return bsr["launches"]["K7"], ell["launches"]["K6"]
+
+
+def phase_solve_many_sparse(dev, solvers):
+    """``AlgebraicSolver.solve_many`` on the 1024² ELL hierarchy, K=4 (seeds
+    1-4, each normalised), from a float32 card batch: the checks of
+    ``solve_many``."""
+    solver = solvers["ell"]
+    n = solver.n
+    K = 4
+    bnps = []
+    for seed in range(1, K + 1):
+        bnp = np.random.default_rng(seed).standard_normal(n)
+        bnps.append(bnp / np.linalg.norm(bnp))
+    bt = torch.from_numpy(np.stack(bnps).astype(np.float32)).to(dev)
+    b32 = [bnp.astype(np.float32).astype(np.float64).reshape(ELL_SHAPE)
+           for bnp in bnps]
+    scalar, scalar_ms = scalar_solves(solver, bt)
+    colors = tuple(lv.num_colors for lv in solver.hierarchy.levels)
+    per_cycle = sum(1 + 4 * c for c in colors[:-1])
+    row = many_check(
+        "sparse solve_many", solver, bt,
+        lambda k, x64: residual_norm_host(b32[k], x64.reshape(ELL_SHAPE)),
+        lambda c: {"K6": per_cycle * c}, scalar)
+    row.update(matrix=f"poisson({ELL_SHAPE})", format="ell",
+               scalar_solve_ms=scalar_ms,
+               batch_over_scalar=row["ms_per_rhs"] / scalar_ms)
+    emit("solve_many_sparse", row)
+    return row
+
+# ---------------------------------------------------------------------------
+# W and FMG cycles, MG-preconditioned CG, batched solves
+# ---------------------------------------------------------------------------
+
+MAIN_CFG = dict(DIFFUSION_CFG, cycles=60)  # the main path's settings
+INNER_KW = {"pcg": dict(krylov="pcg", krylov_iters=2),
+            "w": dict(cycle_type="w"), "f": dict(cycle_type="f")}
+# the JAX package's record of the 256³ MG-PCG(2) solve (BENCH_r05.json:
+# "solve (mg-pcg2): outer=3 final=4.23e-11"): a cycle count, not a time
+PCG_RECORD_OUTER = 3
+
+
+def level_visits(num_levels, cycle_type):
+    """Level visits of one cycle: V visits each level above the coarsest
+    once; W visits level l 2^l times (the level just above the coarsest
+    visits the coarsest once); FMG runs a V-cycle from every level."""
+    n = num_levels - 1
+    if cycle_type == "w":
+        return sum(2 ** lv for lv in range(n))
+    if cycle_type == "f":
+        return n * (n + 1) // 2
+    return n
+
+
+def inner_cycles(cfg):
+    """Cycles an outer step runs: ``krylov_iters`` with PCG, else one."""
+    return cfg.krylov_iters if cfg.krylov == "pcg" else 1
+
+
+def all_counts():
+    return {**counts(), **sparse_counts()}
+
+
+def card_solve(what, solver, b, residual_host, want_launches, max_cycles=9):
+    """One solve of ``solver`` from the card tensor ``b`` with the launch
+    counts read around it, checked: converged below 1e-10 in at most
+    ``max_cycles`` outer steps, launches equal to ``want_launches(cycles)``
+    (every kernel named, the others 0), the float64 residual of the merged
+    pair below 2e-10 (``residual_host``); then a warm solve, bit-equal, for
+    the times and the peak memory."""
+    zero_counts()
+    x, info = solver.solve(b)
+    torch.cuda.synchronize()
+    launched = all_counts()
+    cycles = info["cycles"]
+    if not info["converged"] or not info["final_norm"] < 1e-10 or cycles > max_cycles:
+        fail(f"{what}: {cycles} cycles, {info['residual_norms']}")
+    want = {k: 0 for k in launched}
+    want.update(want_launches(cycles))
+    if cycles == 0 or launched != want:
+        fail(f"{what}: launches {launched} for {cycles} cycles, expected {want}")
+    hi, lo = info["x_df"]
+    if not bool(torch.isfinite(hi).all() and torch.isfinite(lo).all()):
+        fail(f"{what}: solution is not finite")
+    x64 = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+    rn64 = residual_host(x64)
+    del hi, lo, x64
+    if not rn64 < 2e-10:
+        fail(f"{what}: float64 residual of the merged pair is {rn64:.3e}")
+    torch.cuda.reset_peak_memory_stats()
+    x2, info2 = solver.solve(b)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(x2, x):
+        fail(f"{what}: two solves of the same system differ")
+    return {
+        "cycles": cycles, "final_norm": info["final_norm"],
+        "residual_norms": info["residual_norms"],
+        "residual_float64_host": rn64,
+        "launches": {k: v for k, v in launched.items() if v},
+        "first_solve_ms": info["solve_time_s"] * 1e3,
+        "solve_ms": info2["solve_time_s"] * 1e3,
+        "peak_memory_MB": peak / 2 ** 20,
+    }
+
+
+def main_rhs(shape, dev, seed=1):
+    """``rhs_random(shape, seed)`` normalised, as a float32 card tensor."""
+    import openmg_tpu_torch as mg
+
+    bnp = mg.rhs_random(shape, seed=seed)
+    bnp /= np.linalg.norm(bnp.ravel())
+    return torch.from_numpy(bnp.astype(np.float32)).to(dev)
+
+
+def stencil_launches(cfg, h, kernel):
+    """``want_launches`` of a constant/cornered hierarchy's solve: two
+    launches of the level-visit kernel (K1 in 3D, K5 in 2D) a level visit,
+    one K2 launch an outer step."""
+    visits = level_visits(h.num_levels, cfg.cycle_type) * inner_cycles(cfg)
+    return lambda c: {kernel: 2 * visits * c, "K2": c}
+
+
+def inner_solves_stencil(dev, which, base, inners):
+    """The 256³ or 4096² Poisson solve with each of ``inners`` ("pcg",
+    "w", "f") on one hierarchy (``base``: the main path's solver)."""
+    import openmg_tpu_torch as mg
+
+    h = base.hierarchy
+    shape = h.grid_shape
+    b = main_rhs(shape, dev)
+    b64 = b.cpu().numpy().astype(np.float64)
+    kernel = "K1" if len(shape) == 3 else "K5"
+    out = {}
+    for ct in inners:
+        cfg = mg.SolverConfig(**MAIN_CFG, **INNER_KW[ct])
+        row = card_solve(
+            f"{which} {ct}", mg.Solver(h, cfg), b,
+            lambda x64: residual_norm_host(b64, x64),
+            stencil_launches(cfg, h, kernel))
+        row.update(shape=list(shape), levels=[list(s[0]) for s in h.stats],
+                   cycle_type=cfg.cycle_type, krylov=cfg.krylov,
+                   krylov_iters=cfg.krylov_iters)
+        out[ct] = row
+    return out
+
+
+def card_vs_cpu_cycles(dev):
+    """The (32, 32, 64) solve of ``solve.small_solve`` with a W cycle, FMG
+    and PCG(2), on the card against the CPU (plain versions): equal cycle
+    counts, ‖Δx‖₂ ≤ 2e-10/λ_min."""
+    import openmg_tpu_torch as mg
+
+    small = (32, 32, 64)
+    bs = mg.rhs_random(small, seed=0)
+    bs /= np.linalg.norm(bs.ravel())
+    lam_min = sum(4.0 * np.sin(np.pi / (2 * (n + 1))) ** 2 for n in small)
+    rows = []
+    for ct, kw in INNER_KW.items():
+        scfg = mg.SolverConfig(**{**DIFFUSION_CFG, "gridlevels": 3,
+                                  "max_dense_coarse": 1024, **kw})
+        xg, ig = mg.solve(small, bs, scfg, device=dev)
+        xc, ic = mg.solve(small, bs, scfg, device="cpu")
+        dx = float(np.linalg.norm((xg - xc).ravel()))
+        row = {"inner": ct, "shape": list(small), "cycles_card": ig["cycles"],
+               "cycles_cpu": ic["cycles"], "dx_norm": dx,
+               "dx_bound": 2e-10 / lam_min}
+        rows.append(row)
+        if not (ig["converged"] and ic["converged"]
+                and ig["cycles"] == ic["cycles"] and dx <= 2e-10 / lam_min):
+            fail(f"card against CPU, {ct}: {row}")
+    return rows
+
+
+def count_d2h(fn):
+    """Device-to-host copies ``fn()`` makes, by ``torch.profiler`` (events
+    named ``Memcpy DtoH``), and its result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages() if "Memcpy DtoH" in ev.key)
+    return n, out
+
+
+def many_check(what, solver, bt, residual_host, want_launches, scalar):
+    """``solver.solve_many`` of the card batch ``bt``: every member
+    converged, its cycles and its pair bit-equal to its scalar solve
+    (``scalar``: per member (x hi, x lo, cycles)), the launches
+    ``want_launches(total cycles)``, one host read before the first step
+    and one after every step (the loop's own count and the profiler's
+    count of device-to-host copies), the float64 residual of every member
+    below 2e-10; then three warm batches for the time (median) and the
+    peak memory."""
+    K = bt.shape[0]
+    zero_counts()
+    xs, info = solver.solve_many(bt)
+    torch.cuda.synchronize()
+    launched = all_counts()
+    cycles = info["cycles"]
+    if not all(info["converged"]) or max(info["final_norm"]) >= 1e-10:
+        fail(f"{what}: {info['final_norm']} after {cycles} cycles")
+    if cycles != [c for _, _, c in scalar]:
+        fail(f"{what}: cycles {cycles}, the scalar solves "
+             f"{[c for _, _, c in scalar]}")
+    hi, lo = info["x_df"]
+    if xs is not hi or tuple(hi.shape[:1]) != (K,):
+        fail(f"{what}: the batch is not delivered as the stacked hi parts")
+    for k, (x_k, lo_k, _) in enumerate(scalar):
+        if not (torch.equal(hi[k], x_k) and torch.equal(lo[k], lo_k)):
+            fail(f"{what}: member {k} is not bit-equal to its scalar solve")
+    want = {k: 0 for k in launched}
+    want.update(want_launches(sum(cycles)))
+    if launched != want:
+        fail(f"{what}: launches {launched}, expected {want}")
+    steps = max(cycles)
+    if info["host_reads"] != steps + 1:
+        fail(f"{what}: {info['host_reads']} host reads for {steps} steps")
+    rn64 = []
+    for k in range(K):
+        x64 = (hi[k].cpu().numpy().astype(np.float64)
+               + lo[k].cpu().numpy().astype(np.float64))
+        rn64.append(residual_host(k, x64))
+    if not max(rn64) < 2e-10:
+        fail(f"{what}: float64 residuals {rn64}")
+    del xs, hi, lo, info["x_df"]
+    copies, (_, info_p) = count_d2h(lambda: solver.solve_many(bt))
+    del info_p["x_df"]
+    if copies != info["host_reads"]:
+        fail(f"{what}: {copies} device-to-host copies, the loop made "
+             f"{info['host_reads']} reads")
+    torch.cuda.reset_peak_memory_stats()
+    warm = []
+    for _ in range(3):
+        _, info2 = solver.solve_many(bt)
+        del info2["x_df"]
+        warm.append(info2["solve_time_s"] * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    return {
+        "K": K, "cycles": cycles, "final_norm": info["final_norm"],
+        "residual_float64_host": rn64, "bit_equal_to_scalar": True,
+        "launches": {k: v for k, v in launched.items() if v},
+        "host_reads": info["host_reads"], "steps": steps,
+        "host_reads_per_step": info["host_reads"] / (steps + 1),
+        "d2h_copies_profiled": copies,
+        "first_solve_ms": info["solve_time_s"] * 1e3,
+        "solve_ms_warm_runs": warm,
+        "solve_ms": statistics.median(warm),
+        "ms_per_rhs": statistics.median(warm) / K,
+        "peak_memory_MB": peak / 2 ** 20,
+    }
+
+
+def scalar_solves(solver, bt):
+    """Each member of the card batch solved alone: (x hi, x lo, cycles),
+    and the median of three warm solves of member 0 (ms)."""
+    out = []
+    for k in range(bt.shape[0]):
+        x, info = solver.solve(bt[k].clone())
+        out.append((x, info["x_df"][1], info["cycles"]))
+    b0 = bt[0].clone()
+    warm = [solver.solve(b0)[1]["solve_time_s"] * 1e3 for _ in range(3)]
+    return out, statistics.median(warm)
+
+
+def phase_solve_many(dev, poisson):
+    """``Solver.solve_many`` at 256³ and at BENCH_r05's (64, 64, 128), K=8
+    (seeds 1-8, each normalised), from a float32 card batch and from numpy."""
+    import openmg_tpu_torch as mg
+
+    K = 8
+    out = {}
+    mid = mg.setup((64, 64, 128), mg.SolverConfig(**MAIN_CFG), device=dev)
+    for tag, solver in (("256^3", poisson), ("64x64x128", mid)):
+        h = solver.hierarchy
+        shape = h.grid_shape
+        bnps = []
+        for seed in range(1, K + 1):
+            bnp = mg.rhs_random(shape, seed=seed)
+            bnps.append(bnp / np.linalg.norm(bnp.ravel()))
+        bt = torch.from_numpy(np.stack(bnps).astype(np.float32)).to(dev)
+        b32 = [bnp.astype(np.float32).astype(np.float64) for bnp in bnps]
+        scalar, scalar_ms = scalar_solves(solver, bt)
+        visits = 2 * (h.num_levels - 1)
+        row = many_check(
+            f"solve_many {tag}", solver, bt,
+            lambda k, x64: residual_norm_host(b32[k], x64),
+            lambda c: {"K1": visits * c, "K2": c}, scalar)
+        del scalar
+        row.update(shape=list(shape), levels=[list(st[0]) for st in h.stats],
+                   scalar_solve_ms=scalar_ms,
+                   batch_over_scalar=row["ms_per_rhs"] / scalar_ms)
+        # numpy input: stacked float64; member 0 bit-equal to its scalar
+        # numpy solve, the first and last members' float64 residuals
+        t0 = time.perf_counter()
+        xs_np, info_np = solver.solve_many(bnps)
+        wall = time.perf_counter() - t0
+        x0_np, i0 = solver.solve(bnps[0])
+        if not (isinstance(xs_np, np.ndarray) and xs_np.dtype == np.float64
+                and xs_np.shape == (K,) + tuple(shape)
+                and all(info_np["converged"])
+                and np.array_equal(xs_np[0], x0_np)
+                and info_np["cycles"][0] == i0["cycles"]):
+            fail(f"solve_many {tag} from numpy: {info_np['cycles']}, "
+                 f"{info_np['final_norm']}")
+        rn_np = [residual_norm_host(bnps[k], xs_np[k]) for k in (0, K - 1)]
+        if not max(rn_np) < 2e-10:
+            fail(f"solve_many {tag} from numpy: float64 residuals {rn_np}")
+        row["numpy_input"] = {
+            "cycles": info_np["cycles"], "final_norm": info_np["final_norm"],
+            "residual_float64_host_first_last": rn_np,
+            "member0_bit_equal_to_scalar": True, "wall_ms": wall * 1e3,
+            "host_reads": info_np["host_reads"],
+        }
+        del xs_np, bt
+        out[tag] = row
+        torch.cuda.empty_cache()
+    del mid
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_solve_cycles_pcg(dev):
+    """The 256³ and 4096² Poisson solves with PCG(2), W and FMG on the main
+    path's hierarchies, ``solve_many``, and the card against the CPU."""
+    import openmg_tpu_torch as mg
+
+    poisson = mg.setup(BIG, mg.SolverConfig(**MAIN_CFG), device=dev)
+    p3 = inner_solves_stencil(dev, "256^3", poisson, ("pcg", "w", "f"))
+    many = phase_solve_many(dev, poisson)
+    del poisson
+    torch.cuda.empty_cache()
+    poisson2d = mg.setup(BIG2, mg.SolverConfig(**MAIN_CFG), device=dev)
+    p2 = inner_solves_stencil(dev, "4096^2", poisson2d, ("pcg", "f"))
+    del poisson2d
+    torch.cuda.empty_cache()
+    versus = card_vs_cpu_cycles(dev)
+    pcg = p3["pcg"]
+    pcg["reference_outer_steps"] = PCG_RECORD_OUTER
+    pcg["matches_reference_outer_steps"] = pcg["cycles"] == PCG_RECORD_OUTER
+    emit("solve_cycles", {"w_256^3": p3["w"], "f_256^3": p3["f"],
+                          "f_4096^2": p2["f"], "card_vs_cpu": versus})
+    emit("solve_many", many)
+    return {"poisson_256^3": pcg, "poisson_4096^2": p2["pcg"]}
+
+
+def phase_solve_pcg(dev, pcg, vary):
+    """Adds the 256³ diffusion solve with PCG(2) (K4 legs, the general
+    double-float residual) to the Poisson PCG solves and prints the
+    ``solve_pcg`` line."""
+    import openmg_tpu_torch as mg
+
+    solver, offsets, coeffs = vary[:3]
+    h = solver.hierarchy
+    b = main_rhs(h.grid_shape, dev)
+    b64 = b.cpu().numpy().astype(np.float64)
+    cfg = mg.SolverConfig(**MAIN_CFG, **INNER_KW["pcg"])
+    legs = legs_per_cycle(cfg, h) * inner_cycles(cfg)
+    row = card_solve(
+        "diffusion pcg", mg.Solver(h, cfg), b,
+        lambda x64: residual_norm_host_stencil(offsets, coeffs, b64, x64),
+        lambda c: {"K4": legs * c})
+    row.update(shape=list(h.grid_shape), krylov=cfg.krylov,
+               krylov_iters=cfg.krylov_iters)
+    emit("solve_pcg", {**pcg, "diffusion_256^3": row})
+    return row
 
 
 def main():
@@ -2306,6 +2746,7 @@ def main():
     phase_solve_512(dev)
     k5_rows, _ = phase_fused2d(dev, copy_bw)
     k5_counts = phase_solve_2d(dev)
+    pcg = phase_solve_cycles_pcg(dev)
     # the unfaced and the diffusion hierarchies are built after the Poisson
     # solve, whose peak memory would otherwise count them
     unfaced = setup_unfaced(dev)
@@ -2315,11 +2756,13 @@ def main():
                           unfaced[0].hierarchy)
     del unfaced
     vary_counts, f32_counts = phase_solve_vary(dev, vary)
+    phase_solve_pcg(dev, pcg, vary)
     del vary
     torch.cuda.empty_cache()
     solvers = setup_sparse_solvers(dev)
     spmv_rows = phase_spmv(dev, copy_bw, solvers)
     k7_launches, k6_launches = phase_solve_sparse(dev, solvers)
+    phase_solve_many_sparse(dev, solvers)
     del solvers
 
     def entry(name, source, replaces, launches, main_row, all_rows):

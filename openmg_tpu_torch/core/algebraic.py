@@ -14,7 +14,8 @@ grid named by ``problemshape``, with geometric transfers.
 * smoothing by weighted Jacobi, multicolour Gauss–Seidel (parity colours
   where the level is bipartite on its grid, else a greedy host colouring)
   or 4th-kind Chebyshev;
-* a µ-cycle over the level list (V and W), a dense direct coarse solve;
+* a µ-cycle over the level list (V and W) and FMG, a dense direct coarse
+  solve, and MG-preconditioned CG;
 * the defect-correction outer loop of the stencil engine: a double-float
   residual with an f32 cycle reaches 1e-10 absolute residuals.
 
@@ -24,10 +25,12 @@ GS update.  Every level SpMV goes through :func:`~openmg_tpu_torch.ops.
 sparse.spmv`: on the card a banded ELL level launches K6 and a banded BSR
 level K7, one launch a product.
 
-The outer loop is a Python loop: one cycle, one residual and one scalar
-read of ‖r‖ a cycle.  Waiting for later slices, each raising
-``NotImplementedError``: ``cycle_type="f"`` and ``krylov="pcg"`` (ROADMAP
-queue 1, item 14) and ``solve_many`` (item 13).
+The outer loop is the stencil engine's
+(:func:`openmg_tpu_torch.core.solver.lockstep`): one inner solve, one
+residual and one scalar read of ‖r‖ a step.  The inner solve is a V, W or
+FMG cycle, or ``krylov_iters`` MG-preconditioned CG steps whose ``A p`` is
+the fine level's SpMV.  ``solve_many`` runs a batch of right-hand sides in
+lockstep, one host read of the batch's norms a step.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from openmg_tpu_torch.core.config import SolverConfig
+from openmg_tpu_torch.core.solver import _Step, lockstep
 from openmg_tpu_torch.ops.doublefloat import df_add_f32, df_merge, df_split, df_sub
 from openmg_tpu_torch.ops.sparse import (
     ELLMatrix,
@@ -60,13 +64,12 @@ __all__ = [
     "SparseHierarchy",
     "build_sparse_hierarchy",
     "sparse_v_cycle",
+    "sparse_fmg_cycle",
     "AlgebraicSolver",
     "setup_sparse",
     "parity_colors",
     "greedy_colors",
 ]
-
-_LATER = "is not ported yet (ROADMAP queue 1, item 14: FMG, PCG)"
 
 
 # ---------------------------------------------------------------------------
@@ -442,14 +445,88 @@ def sparse_v_cycle(
     return _smooth_sparse(L, b, x, post, smoother, omega)
 
 
+def sparse_fmg_cycle(
+    hierarchy: SparseHierarchy,
+    b,
+    pre: int = 2,
+    post: int = 2,
+    smoother: str = "jacobi",
+    omega: float = 2.0 / 3.0,
+):
+    """Full-multigrid pass from a zero guess (cf.
+    :func:`openmg_tpu_torch.core.cycle.fmg_cycle`): restrict ``b`` to every
+    level, solve the coarsest exactly, then prolong upward with one V-cycle
+    per level from that iterate."""
+    bs = [b]
+    for lvl in range(hierarchy.num_levels - 1):
+        bs.append(_restrict_level(hierarchy, lvl, bs[-1]))
+    x = matvec_full(hierarchy.coarse_inv, bs[-1])
+    for lvl in range(hierarchy.num_levels - 2, -1, -1):
+        x = _prolong_level(hierarchy, lvl, x)
+        x = sparse_v_cycle(hierarchy, bs[lvl], x, lvl, pre, post, smoother, omega)
+    return x
+
+
 def _sparse_cycle(hierarchy, r, *, pre, post, smoother, cycle_type, omega):
     r32 = r.to(hierarchy.levels[0].inv_diag.dtype)
+    if cycle_type == "f":
+        return sparse_fmg_cycle(hierarchy, r32, pre, post, smoother, omega)
     gamma = {"v": 1, "w": 2}.get(cycle_type)
     if gamma is None:
         raise ValueError(f"unknown cycle_type {cycle_type!r}; choose v|w|f")
     return sparse_v_cycle(
         hierarchy, r32, torch.zeros_like(r32), 0, pre, post, smoother, omega,
         gamma,
+    )
+
+
+def _sparse_pcg(hierarchy, r0, *, iters, pre, post, smoother, cycle_type, omega):
+    """``iters`` MG-preconditioned CG steps on ``A e = r0`` from zero (the
+    general-sparse twin of :func:`openmg_tpu_torch.core.cycle.pcg_solve`):
+    one SpMV of the fine level operator (K6 or K7 where it is banded) and
+    one cycle a step; the inner products stay 0-d tensors on the device."""
+    A0 = hierarchy.levels[0].A
+    r32 = r0.to(hierarchy.levels[0].inv_diag.dtype)
+
+    def precond(rr):
+        return _sparse_cycle(
+            hierarchy, rr, pre=pre, post=post, smoother=smoother,
+            cycle_type=cycle_type, omega=omega,
+        )
+
+    e = torch.zeros_like(r32)
+    r = r32
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z)
+    for it in range(iters):
+        Ap = spmv(A0, p)
+        alpha = rz / torch.sum(p * Ap)
+        e = e + alpha * p
+        if it == iters - 1:
+            break
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / rz
+        rz = rz_new
+        p = z + beta * p
+    return e
+
+
+def _sparse_error(
+    hierarchy, r, *, pre, post, smoother, cycle_type, omega, krylov="none",
+    krylov_iters=2,
+):
+    """Inner error solve: one cycle, or MG-preconditioned CG."""
+    if krylov == "pcg":
+        return _sparse_pcg(
+            hierarchy, r, iters=krylov_iters, pre=pre, post=post,
+            smoother=smoother, cycle_type=cycle_type, omega=omega,
+        )
+    return _sparse_cycle(
+        hierarchy, r, pre=pre, post=post, smoother=smoother,
+        cycle_type=cycle_type, omega=omega,
     )
 
 
@@ -469,23 +546,12 @@ def _sparse_residual(fine_hi, b, x):
 # ---------------------------------------------------------------------------
 
 
-def _check_config(config: SolverConfig):
-    """Refuse what the sparse engine does not run (yet)."""
-    if config.krylov not in (None, "none", "pcg"):
-        raise ValueError(f"unknown krylov {config.krylov!r}; choose none|pcg")
-    if config.krylov == "pcg":
-        raise NotImplementedError(f"krylov='pcg' {_LATER}")
-    if config.cycle_type == "f":
-        raise NotImplementedError(f"cycle_type='f' {_LATER}")
-
-
 class AlgebraicSolver:
     """General sparse solver: the contract of
     :class:`openmg_tpu_torch.core.solver.Solver` (defect-correction outer
-    loop, per-cycle residual history) on flat vectors."""
+    loop, per-cycle residual history, ``solve_many``) on flat vectors."""
 
     def __init__(self, hierarchy: SparseHierarchy, config: SolverConfig):
-        _check_config(config)
         self.hierarchy = hierarchy
         self.config = config
         self.device = hierarchy.device
@@ -496,22 +562,19 @@ class AlgebraicSolver:
         return self.hierarchy.n
 
     def _cycle(self, r):
+        """The inner error solve of an outer step (one cycle, or
+        ``krylov_iters`` CG steps with ``krylov="pcg"``)."""
         cfg = self.config
-        return _sparse_cycle(
+        return _sparse_error(
             self.hierarchy, r, pre=cfg.pre_iterations,
             post=cfg.post_iterations, smoother=cfg.smoother,
             cycle_type=cfg.cycle_type, omega=cfg.omega,
+            krylov=cfg.krylov or "none", krylov_iters=cfg.krylov_iters,
         )
 
-    def solve(self, b, x0=None):
-        """Solve ``A x = b`` to the configured threshold.
-
-        A numpy (or any non-float32-tensor) ``b`` returns the float64 merge
-        of the double-float pair as a flat numpy vector.  A float32 tensor
-        ``b`` on the solver's device stays there: the float32 hi part is
-        returned as a tensor and the full pair is in ``info['x_df']``.
-        """
-        cfg = self.config
+    def _step(self, b, x0):
+        """The outer loop's state for ``A x = b`` from ``x0``, and whether
+        ``b`` is device-native (a float32 tensor; double-float mode only)."""
         h = self.hierarchy
         dev = self.device
         device_native = (
@@ -540,31 +603,54 @@ class AlgebraicSolver:
                 rd = h.fine_hi.dtype
                 b_dev = torch.from_numpy(b_np).to(device=dev, dtype=rd)
                 x = torch.from_numpy(x0_np).to(device=dev, dtype=rd)
+        if self.df:
+            def resid(xx):
+                r_pair, rn = _sparse_residual_df(h.fine_hi, h.fine_lo, b_dev, xx)
+                return r_pair[0], rn
 
+            return _Step(x, resid, df_add_f32, self._cycle), device_native
+        step = _Step(
+            x, lambda xx: _sparse_residual(h.fine_hi, b_dev, xx),
+            lambda xx, e: xx + e.to(xx.dtype), self._cycle,
+        )
+        return step, device_native
+
+    def _info(self, solve_time):
+        h = self.hierarchy
+        return {
+            "gridlevels": h.num_levels,
+            "level_stats": h.stats,
+            "format": h.fmt,
+            "residual_mode": (
+                "doublefloat" if self.df
+                else str(h.fine_hi.dtype).replace("torch.", "")
+            ),
+            "num_colors": tuple(lv.num_colors for lv in h.levels),
+            "outer_loop": "host",
+            "solve_time_s": solve_time,
+        }
+
+    def _say(self, i, k, rnorm, batch=False):
+        if self.config.verbose:
+            who = f" rhs {i}" if batch else ""
+            print(f"[openmg_tpu_torch/sparse]{who} cycle {k}: ‖r‖ = {rnorm:.3e}")
+
+    def solve(self, b, x0=None):
+        """Solve ``A x = b`` to the configured threshold.
+
+        A numpy (or any non-float32-tensor) ``b`` returns the float64 merge
+        of the double-float pair as a flat numpy vector.  A float32 tensor
+        ``b`` on the solver's device stays there: the float32 hi part is
+        returned as a tensor and the full pair is in ``info['x_df']``.
+        """
+        cfg = self.config
         limit = cfg.cycles if cfg.cycles > 0 else 10_000
-        history, cycle_times = [], []
-        converged = False
         t_start = time.perf_counter()
-        for k in range(limit + 1):
-            if self.df:
-                r_pair, rn = _sparse_residual_df(h.fine_hi, h.fine_lo, b_dev, x)
-                r = r_pair[0]
-            else:
-                r, rn = _sparse_residual(h.fine_hi, b_dev, x)
-            rnorm = float(rn)  # one scalar read
-            history.append(rnorm)
-            if cfg.verbose:
-                print(f"[openmg_tpu_torch/sparse] cycle {k}: ‖r‖ = {rnorm:.3e}")
-            if rnorm < cfg.threshold:
-                converged = True
-                break
-            if k == limit:
-                break
-            t0 = time.perf_counter()
-            e = self._cycle(r)
-            x = df_add_f32(x, e) if self.df else x + e.to(x.dtype)
-            cycle_times.append(time.perf_counter() - t0)
-
+        step, device_native = self._step(b, x0)
+        (history,), (converged,), (cycle_times,), _ = lockstep(
+            [step], limit, float(cfg.threshold), self._say
+        )
+        x = step.x
         if device_native:
             x_out = x[0]
         elif self.df:
@@ -576,14 +662,7 @@ class AlgebraicSolver:
             "cycles": len(history) - 1,
             "converged": converged,
             "final_norm": history[-1],
-            "gridlevels": h.num_levels,
-            "level_stats": h.stats,
-            "format": h.fmt,
-            "residual_mode": (
-                "doublefloat" if self.df
-                else str(h.fine_hi.dtype).replace("torch.", "")
-            ),
-            "num_colors": tuple(lv.num_colors for lv in h.levels),
+            **self._info(time.perf_counter() - t_start),
             # enqueue times of the cycles (the loop synchronises only at
             # the scalar read of the next residual)
             "cycle_times_s": cycle_times,
@@ -591,17 +670,58 @@ class AlgebraicSolver:
                 float(np.mean(cycle_times[1:] or cycle_times))
                 if cycle_times else float("nan")
             ),
-            "outer_loop": "host",
-            "solve_time_s": time.perf_counter() - t_start,
         }
         if device_native:
             info["x_df"] = x
         return x_out, info
 
     def solve_many(self, bs, x0s=None):
-        raise NotImplementedError(
-            "solve_many is not ported yet (ROADMAP queue 1, item 13)"
+        """A batch of right-hand sides in lockstep (the contract of
+        :meth:`openmg_tpu_torch.core.solver.Solver.solve_many`: one host
+        read of the batch's norms a step, a converged member frozen, each
+        member bit-equal to its scalar :meth:`solve`).  Host/numpy input
+        returns stacked float64 ``xs`` of shape ``(K, n)``; a ``(K, n)``
+        float32 tensor on the solver's device (double-float mode) returns
+        the float32 hi parts, the pairs in ``info['x_df']``."""
+        cfg = self.config
+        device_native = (
+            self.df and isinstance(bs, torch.Tensor) and bs.dtype == torch.float32
         )
+        if device_native:
+            members = list(bs.reshape(bs.shape[0], -1))
+        else:
+            members = [_host(b).reshape(-1) for b in bs]
+        K = len(members)
+        if x0s is None:
+            x0s = [None] * K
+        elif len(x0s) != K:
+            raise ValueError(f"{len(x0s)} initial guesses for {K} right-hand sides")
+        limit = cfg.cycles if cfg.cycles > 0 else 10_000
+        t_start = time.perf_counter()
+        steps = [self._step(b, x0)[0] for b, x0 in zip(members, x0s)]
+        histories, converged, _, reads = lockstep(
+            steps, limit, float(cfg.threshold),
+            lambda i, k, v: self._say(i, k, v, batch=True),
+        )
+        info = {
+            "batch": K,
+            "cycles": [len(h) - 1 for h in histories],
+            "converged": converged,
+            "final_norm": [h[-1] for h in histories],
+            "residual_norms": histories,
+            **self._info(time.perf_counter() - t_start),
+            "host_reads": reads,
+        }
+        if device_native:
+            info["x_df"] = (
+                torch.stack([s.x[0] for s in steps]),
+                torch.stack([s.x[1] for s in steps]),
+            )
+            return info["x_df"][0], info
+        if self.df:
+            return np.stack([df_merge(s.x) for s in steps]), info
+        xs = torch.stack([s.x for s in steps])
+        return xs.detach().cpu().numpy().astype(np.float64), info
 
 
 def _host(a) -> np.ndarray:
@@ -619,7 +739,6 @@ def setup_sparse(
     many unknowns a node (block transfers; pair with ``format='bsr'`` and
     ``blocksize=dofs``, see :mod:`openmg_tpu_torch.models.elasticity`)."""
     config = config or SolverConfig()
-    _check_config(config)  # before the host setup, not after it
     fmt = config.format if config.format not in (None, "auto", "stencil") else "ell"
     rmode = (
         config.residual_dtype

@@ -1,9 +1,11 @@
-"""Cycle engine (twin of ``openmg_tpu/core/cycle.py``): the V-cycle.
+"""Cycle engine (twin of ``openmg_tpu/core/cycle.py``): V, W and FMG
+cycles, and MG-preconditioned CG.
 
 The recursion runs over the static level list as plain Python.  On a
 constant or cornered level a visit is one call of the fused kernel (K1 in
-3D, K5 in 2D) on the way down (pre-smoothing from a zero start + residual +
-restriction) and one on the way up (prolongation + add + post-smoothing).
+3D, K5 in 2D) on the way down (pre-smoothing from a zero start or from an
+iterate + residual + restriction) and one on the way up (prolongation +
+add + post-smoothing).
 A 2D visit with no post-smoothing takes the tensor ``prolong`` and add, and
 one with no pre-smoothing the per-pass residual and the tensor
 ``restrict``, as in the JAX package, whose 2D kernel needs stages.  On a
@@ -14,15 +16,20 @@ code on any device, as they are array code outside any kernel in the JAX
 package.  The coarsest level is one matrix–vector product with the
 precomputed dense inverse.
 
-A varying level's legs (the pre-smoothing from zero with the residual,
-and the post-smoothing) are one call each of
+A varying level's legs (the pre-smoothing from zero or from an iterate
+with the residual, and the post-smoothing) are one call each of
 :func:`~openmg_tpu_torch.ops.kernels.sweeps_vary_3d` on every device:
 launches of K4 of up to ``leg_depth`` passes each on the card, its plain
 loop of passes on the CPU.
 
-Ported: ``coarse_solve``, ``v_cycle`` with ``x_zero`` and ``gamma=1``,
-``run_cycle("v")``.  W-cycles, FMG and ``pcg_solve`` wait for a later slice
-and raise ``NotImplementedError``.
+A W-cycle (``gamma=2``) visits the coarser level twice, the second time
+from the first visit's correction: that visit's down-leg starts from an
+iterate (K1, K5 or the leg kernel K4 with ``x`` and the residual).  FMG
+restricts ``b`` to every level with the tensor transfers, solves the
+coarsest exactly and runs one V-cycle from the prolonged iterate on each
+level upward.  ``pcg_solve`` runs CG steps preconditioned by one cycle
+each; its ``A p`` is the tensor ``apply`` on the fine level and its inner
+products stay float32 tensors on the device (no host read).
 """
 
 from __future__ import annotations
@@ -38,12 +45,11 @@ from openmg_tpu_torch.ops.stencil import (
     kernel_operands_ok,
     residual,
 )
+from openmg_tpu_torch.ops.stencil import apply as stencil_apply
 from openmg_tpu_torch.ops.sparse import matvec_full
 from openmg_tpu_torch.ops.transfer import prolong, restrict
 
 __all__ = ["v_cycle", "coarse_solve", "run_cycle", "fmg_cycle", "pcg_solve"]
-
-_LATER = "is not ported yet (ROADMAP queue 1, item 14: FMG, W-cycle, PCG)"
 
 
 def coarse_solve(hierarchy: Hierarchy, b: torch.Tensor) -> torch.Tensor:
@@ -85,7 +91,8 @@ def v_cycle(
     gamma: int = 1,
     x_zero: bool = False,
 ):
-    """One V-cycle starting at ``level``; returns the improved ``x``.
+    """One µ-cycle starting at ``level`` (``gamma=1``: V, 2: W); returns the
+    improved ``x``.
 
     ``x_zero`` declares that ``x`` is all-zero — true at every level of the
     defect-correction cycle (the fine level solves ``A e = r`` from zero;
@@ -100,8 +107,6 @@ def v_cycle(
     and ``residual``, which on the card launch the per-pass kernel or raise
     (a float64 cycle does), and the tensor transfers.
     """
-    if gamma != 1:
-        raise NotImplementedError(f"gamma={gamma} (W-cycle) {_LATER}")
     if x is None and not x_zero:
         raise ValueError("x=None needs x_zero=True")
     L = hierarchy.levels[level]
@@ -132,11 +137,17 @@ def v_cycle(
         x = smooth(smoother, L.A, L.inv_diag, b, x, pre, omega)
         out = x, restrict(residual(L.A, b, x), tr)
     x, bc = out
-    # every coarse visit starts from a zero correction: declared, not stored
-    ec = v_cycle(
-        hierarchy, bc, None, level + 1, pre, post, smoother, omega, gamma,
-        x_zero=True,
-    )
+    # µ visits; the first starts from a zero correction (declared, not
+    # stored), a second from the first's.  At the level just above the
+    # coarsest a second visit would re-run the exact solve on an unchanged
+    # residual, so W-cycles visit it once, as the JAX package does.
+    visits = 1 if level == hierarchy.num_levels - 2 else gamma
+    ec = None
+    for v in range(visits):
+        ec = v_cycle(
+            hierarchy, bc, ec, level + 1, pre, post, smoother, omega, gamma,
+            x_zero=(v == 0),
+        )
     # post == 0 is the kernel's stage-free mode: prolongation and add alone
     if leg:
         x = x + prolong(ec, L.grid_shape, tr)
@@ -151,12 +162,27 @@ def v_cycle(
     return y
 
 
-def fmg_cycle(*args, **kwargs):
-    raise NotImplementedError(f"fmg_cycle {_LATER}")
-
-
-def pcg_solve(*args, **kwargs):
-    raise NotImplementedError(f"pcg_solve {_LATER}")
+def fmg_cycle(
+    hierarchy: Hierarchy,
+    b,
+    pre: int = 2,
+    post: int = 2,
+    smoother: str = "rbgs",
+    omega: float = 2.0 / 3.0,
+    gamma: int = 1,
+):
+    """One full-multigrid pass for ``A x = b`` from a zero initial guess:
+    restrict ``b`` to every level, solve the coarsest exactly, then
+    prolong upward with one µ-cycle per level from that iterate."""
+    tr = hierarchy.transfer
+    bs = [b]
+    for _ in range(hierarchy.num_levels - 1):
+        bs.append(restrict(bs[-1], tr))
+    x = coarse_solve(hierarchy, bs[-1])
+    for lvl in range(hierarchy.num_levels - 2, -1, -1):
+        x = prolong(x, hierarchy.levels[lvl].grid_shape, tr)
+        x = v_cycle(hierarchy, bs[lvl], x, lvl, pre, post, smoother, omega, gamma)
+    return x
 
 
 def run_cycle(
@@ -169,11 +195,54 @@ def run_cycle(
     omega: float = 2.0 / 3.0,
 ):
     """Error-correction cycle ``e ≈ A⁻¹ r`` from zero, by cycle type."""
-    if cycle_type == "v":
+    if cycle_type in ("v", "w"):
         # the zero start is declared, so the iterate argument is never read
         return v_cycle(
-            hierarchy, r, None, 0, pre, post, smoother, omega, 1, x_zero=True
+            hierarchy, r, None, 0, pre, post, smoother, omega,
+            1 if cycle_type == "v" else 2, x_zero=True,
         )
-    if cycle_type in ("w", "f"):
-        raise NotImplementedError(f"cycle_type={cycle_type!r} {_LATER}")
+    if cycle_type == "f":
+        return fmg_cycle(hierarchy, r, pre, post, smoother, omega, 1)
     raise ValueError(f"unknown cycle_type {cycle_type!r}; choose v|w|f")
+
+
+def pcg_solve(
+    hierarchy: Hierarchy,
+    r0,
+    iters: int = 2,
+    cycle_type: str = "v",
+    pre: int = 2,
+    post: int = 2,
+    smoother: str = "rbgs",
+    omega: float = 2.0 / 3.0,
+):
+    """``iters`` steps of conjugate gradients on ``A e = r0`` from zero,
+    each preconditioned by one multigrid cycle of ``cycle_type``: the inner
+    error solver of the defect-correction loop with ``krylov="pcg"`` (the
+    outer loop tolerates the nonlinear inner map).  ``A p`` is the tensor
+    :func:`~openmg_tpu_torch.ops.stencil.apply` on the fine level; ``rz``,
+    ``p·Ap``, ``alpha`` and ``beta`` are float32 0-d tensors, never read to
+    the host."""
+    A = hierarchy.levels[0].A
+
+    def precond(rr):
+        return run_cycle(hierarchy, rr, cycle_type, pre, post, smoother, omega)
+
+    e = torch.zeros_like(r0)
+    r = r0
+    z = precond(r)
+    p = z
+    rz = torch.sum(r * z)
+    for it in range(iters):
+        Ap = stencil_apply(A, p)
+        alpha = rz / torch.sum(p * Ap)
+        e = e + alpha * p
+        if it == iters - 1:
+            break
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / rz
+        rz = rz_new
+        p = z + beta * p
+    return e

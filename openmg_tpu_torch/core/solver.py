@@ -19,7 +19,8 @@ f32.  This is classical iterative refinement and is how an f32 cycle
 reaches a 1e-10 absolute tolerance; in this mode no float64 touches the
 device.
 
-The outer loop is a Python loop with one scalar read of ‖r‖ per cycle.
+The outer loop is a Python loop (:func:`lockstep`) with one scalar read of
+‖r‖ per cycle.
 For a constant fine operator with dyadic taps a cycle is one V-cycle and
 one launch of the double-float update/residual kernel (a 2D grid lifted to
 ``(1, ny, nx)``).  Any other fine operator (varying coefficients,
@@ -37,9 +38,14 @@ A matrix that is not stencil-representable, and an explicit
 ``format`` of ``ell``/``csr``/``bsr``/``dense``, go through the general
 sparse engine (:mod:`openmg_tpu_torch.core.algebraic`).
 
+The inner error solve of an outer step is one cycle of ``cycle_type``
+(V, W or FMG) or, with ``krylov="pcg"``, ``krylov_iters`` MG-preconditioned
+CG steps (:func:`_inner_solve`).  :meth:`Solver.solve_many` runs a batch of
+right-hand sides in lockstep, one host read of the batch's norms a step.
+
 Waiting for later slices (each raises ``NotImplementedError``):
-``Solver.solve_many``, checkpoint/resume, ``krylov="pcg"``, W/FMG cycles,
-the chebyshev smoother and 1D grids on the stencil engine.
+checkpoint/resume, the chebyshev smoother, ``dtype="float64"`` and 1D grids
+on the stencil engine.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ import numpy as np
 import torch
 
 from openmg_tpu_torch.core.config import ProblemConfig, SolverConfig
-from openmg_tpu_torch.core.cycle import run_cycle
+from openmg_tpu_torch.core.cycle import pcg_solve, run_cycle
 from openmg_tpu_torch.core.hierarchy import (
     Hierarchy,
     build_hierarchy,
@@ -159,6 +165,101 @@ def _residual_norm(fine_hi, b, x):
     return r, torch.sqrt(torch.sum(r * r))
 
 
+def _inner_solve(
+    h, r, *, cycle_type, pre, post, smoother, omega, krylov, krylov_iters
+):
+    """Inner error solver of the defect-correction loop: one MG cycle or
+    ``krylov_iters`` MG-preconditioned CG steps."""
+    if krylov == "pcg":
+        return pcg_solve(
+            h, r, krylov_iters, cycle_type, pre, post, smoother, omega
+        )
+    if krylov not in (None, "none"):
+        raise ValueError(f"unknown krylov {krylov!r}; choose none|pcg")
+    return run_cycle(h, r, cycle_type, pre, post, smoother, omega)
+
+
+class _DFExactStep:
+    """The outer loop's state for one right-hand side when the fine operator
+    is constant with dyadic taps: a step is one inner solve and one launch
+    of the double-float update/residual kernel (K2)."""
+
+    def __init__(self, offsets, terms, b_df, x, inner):
+        self.offsets, self.terms, self.b_df, self.inner = offsets, terms, b_df, inner
+        b_hi = b_df[0]
+        if x is None:
+            # the residual of the zero iterate is b itself
+            self.x = (torch.zeros_like(b_hi), torch.zeros_like(b_hi))
+            self.r = b_hi
+            self.rn = torch.sqrt(torch.sum(b_hi * b_hi))
+        else:
+            self.x = x
+            r_pair, self.rn = _residual_norm_df_exact(offsets, terms, b_df, x)
+            self.r = r_pair[0]
+
+    def advance(self):
+        e = self.inner(self.r)
+        x_hi, x_lo, self.r, pn = kernels.df_update_residual_const_3d(
+            self.offsets, self.terms, self.x[0], self.x[1], e, self.b_df[0],
+            self.b_df[1], emit_norm=True,
+        )
+        self.x = (x_hi, x_lo)
+        self.rn = torch.sqrt(torch.sum(pn))
+
+
+class _Step:
+    """The outer loop's state for one right-hand side, in general:
+    ``resid(x) -> (r, ‖r‖)`` after every update ``update(x, inner(r))``."""
+
+    def __init__(self, x, resid, update, inner):
+        self.x, self.resid, self.update, self.inner = x, resid, update, inner
+        self.r, self.rn = resid(x)
+
+    def advance(self):
+        self.x = self.update(self.x, self.inner(self.r))
+        self.r, self.rn = self.resid(self.x)
+
+
+def lockstep(steps, limit, threshold, say=None):
+    """Run the outer loops of ``steps`` (each with a 0-d tensor ``rn``, its
+    residual norm, and ``advance()``) in lockstep.  Every round reads the
+    norms of the members not yet done to the host in ONE copy; a member
+    below ``threshold`` is done and frozen (never advanced again), as is one
+    that has taken ``limit`` steps; the others advance one step each, one
+    after another.  A single member reads its one scalar.
+
+    Returns ``(histories, converged, step_times, reads)``: per member the
+    norms before each step and after the last, whether it converged, the
+    host seconds of each of its steps (enqueue times), and the number of
+    device-to-host reads made."""
+    hist = [[] for _ in steps]
+    times = [[] for _ in steps]
+    converged = [False] * len(steps)
+    pending = list(range(len(steps)))
+    reads = 0
+    while pending:
+        if len(pending) == 1:
+            vals = [float(steps[pending[0]].rn)]
+        else:
+            vals = torch.stack([steps[i].rn for i in pending]).cpu().tolist()
+        reads += 1
+        nxt = []
+        for i, v in zip(pending, vals):
+            hist[i].append(v)
+            if say is not None:
+                say(i, len(hist[i]) - 1, v)
+            if v < threshold:
+                converged[i] = True
+            elif len(hist[i]) <= limit:
+                nxt.append(i)
+        for i in nxt:
+            t0 = time.perf_counter()
+            steps[i].advance()
+            times[i].append(time.perf_counter() - t0)
+        pending = nxt
+    return hist, converged, times, reads
+
+
 class Solver:
     """A configured multigrid solver bound to one operator hierarchy."""
 
@@ -183,16 +284,6 @@ class Solver:
             raise ValueError(
                 "hierarchy was not built with residual_dtype='doublefloat'"
             )
-        if config.krylov not in (None, "none"):
-            raise NotImplementedError(
-                f"krylov={config.krylov!r} is not ported yet (ROADMAP queue 1, "
-                "item 14)"
-            )
-        if config.cycle_type != "v":
-            raise NotImplementedError(
-                f"cycle_type={config.cycle_type!r} is not ported yet (ROADMAP "
-                "queue 1, item 14)"
-            )
         if config.smoother == "chebyshev":
             raise NotImplementedError(
                 "the chebyshev smoother is not ported yet (ROADMAP queue 1, "
@@ -208,35 +299,21 @@ class Solver:
     def grid_shape(self):
         return self.hierarchy.grid_shape
 
-    def solve(
-        self,
-        b,
-        x0=None,
-        *,
-        checkpoint_path=None,
-        checkpoint_every: int = 1,
-        resume: bool = False,
-    ):
-        """Solve ``A x = b`` to the configured threshold.
-
-        ``b`` is grid-shaped (or flat; it is reshaped).  Returns
-        ``(x, info)`` with the per-cycle residual-norm history.
-
-        Result type follows the input (see :meth:`_deliver`): numpy/f64
-        ``b`` → exact float64 numpy ``x``; a float32 tensor ``b`` on the
-        solver's device → float32 tensor ``x`` on that device, with the
-        full-precision pair in ``info['x_df']``.
-        """
-        if checkpoint_path is not None or resume:
-            raise NotImplementedError(
-                "checkpoint/resume is not ported yet (ROADMAP queue 1, item 19)"
-            )
+    def _inner(self, r):
         cfg = self.config
+        return _inner_solve(
+            self.hierarchy, r.to(torch.float32), cycle_type=cfg.cycle_type,
+            pre=cfg.pre_iterations, post=cfg.post_iterations,
+            smoother=cfg.smoother, omega=cfg.omega, krylov=cfg.krylov,
+            krylov_iters=cfg.krylov_iters,
+        )
+
+    def _step(self, b, x0):
+        """The outer loop's state for ``A x = b`` from ``x0``, and whether
+        ``b`` is device-native (a float32 tensor on the solver's device)."""
         h = self.hierarchy
         shape = self.grid_shape
         dev = self.device
-        df = self.residual_mode == "doublefloat"
-
         device_native = isinstance(b, torch.Tensor) and b.dtype == torch.float32
         if device_native:
             if b.device != dev:
@@ -254,17 +331,7 @@ class Solver:
             None if x0 is None
             else np.asarray(x0, dtype=np.float64).reshape(shape)
         )
-        limit = cfg.cycles if cfg.cycles > 0 else 10_000
-        threshold = float(cfg.threshold)
-
-        def cycle(r):
-            return run_cycle(
-                h, r, cfg.cycle_type, cfg.pre_iterations, cfg.post_iterations,
-                cfg.smoother, cfg.omega,
-            )
-
-        t_start = time.perf_counter()
-        if df:
+        if self.residual_mode == "doublefloat":
             if device_native:
                 b_hi = b.reshape(shape).contiguous()
                 b_lo = torch.zeros_like(b_hi)
@@ -272,115 +339,157 @@ class Solver:
                 b_hi, b_lo = df_split(b_np, dev)
             x = None if x0_np is None else df_split(x0_np, dev)
             if self._exact_terms is not None:
-                x, history, converged = self._loop_df_exact(
-                    (b_hi, b_lo), x, cycle, limit, threshold
+                step = _DFExactStep(
+                    h.fine_hi.offsets, self._exact_terms, (b_hi, b_lo), x,
+                    self._inner,
                 )
-            else:
-                if x is None:
-                    x = (torch.zeros_like(b_hi), torch.zeros_like(b_hi))
+                return step, device_native
+            if x is None:
+                x = (torch.zeros_like(b_hi), torch.zeros_like(b_hi))
 
-                def resid(xx):
-                    r_pair, rn = _residual_norm_df(
-                        h.fine_hi, h.fine_hi_lo, (b_hi, b_lo), xx
-                    )
-                    return r_pair[0], rn  # the cycle takes the hi part
-
-                x, history, converged = self._loop(
-                    resid, df_add_f32, x, cycle, limit, threshold
+            def resid(xx):
+                r_pair, rn = _residual_norm_df(
+                    h.fine_hi, h.fine_hi_lo, (b_hi, b_lo), xx
                 )
+                return r_pair[0], rn  # the cycle takes the hi part
+
+            return _Step(x, resid, df_add_f32, self._inner), device_native
+        rd = self.residual_mode
+        if device_native:
+            b_r = b.reshape(shape).to(rd).contiguous()
         else:
-            rd = self.residual_mode
-            if device_native:
-                b_r = b.reshape(shape).to(rd).contiguous()
-            else:
-                b_r = torch.from_numpy(b_np).to(device=dev, dtype=rd)
-            if x0_np is None:
-                x = torch.zeros_like(b_r)
-            else:
-                x = torch.from_numpy(x0_np).to(device=dev, dtype=rd)
-            x, history, converged = self._loop(
-                lambda xx: _residual_norm(h.fine_hi, b_r, xx),
-                lambda xx, e: xx + e.to(rd), x, cycle, limit, threshold,
+            b_r = torch.from_numpy(b_np).to(device=dev, dtype=rd)
+        if x0_np is None:
+            x = torch.zeros_like(b_r)
+        else:
+            x = torch.from_numpy(x0_np).to(device=dev, dtype=rd)
+        step = _Step(
+            x, lambda xx: _residual_norm(h.fine_hi, b_r, xx),
+            lambda xx, e: xx + e.to(rd), self._inner,
+        )
+        return step, device_native
+
+    def _info(self, solve_time):
+        h = self.hierarchy
+        mode = self.residual_mode
+        return {
+            "gridlevels": h.num_levels,
+            "level_stats": h.stats,
+            "transfer": h.transfer.name,
+            "residual_mode": (
+                mode if mode == "doublefloat" else str(mode).replace("torch.", "")
+            ),
+            "outer_loop": "host",
+            "solve_time_s": solve_time,
+        }
+
+    def solve(
+        self,
+        b,
+        x0=None,
+        *,
+        checkpoint_path=None,
+        checkpoint_every: int = 1,
+        resume: bool = False,
+    ):
+        """Solve ``A x = b`` to the configured threshold.
+
+        ``b`` is grid-shaped (or flat; it is reshaped).  Returns
+        ``(x, info)`` with the per-cycle residual-norm history; a cycle is
+        one outer step (one inner solve: a cycle, or ``krylov_iters`` CG
+        steps with ``krylov="pcg"``).
+
+        Result type follows the input (see :meth:`_deliver`): numpy/f64
+        ``b`` → exact float64 numpy ``x``; a float32 tensor ``b`` on the
+        solver's device → float32 tensor ``x`` on that device, with the
+        full-precision pair in ``info['x_df']``.
+        """
+        if checkpoint_path is not None or resume:
+            raise NotImplementedError(
+                "checkpoint/resume is not ported yet (ROADMAP queue 1, item 19)"
             )
+        cfg = self.config
+        limit = cfg.cycles if cfg.cycles > 0 else 10_000
+        t_start = time.perf_counter()
+        step, device_native = self._step(b, x0)
+        (history,), (converged,), _, _ = lockstep(
+            [step], limit, float(cfg.threshold), self._say
+        )
         solve_time = time.perf_counter() - t_start
         k = len(history) - 1
-
         info = {
             "residual_norms": history,
             "cycles": k,
             "converged": bool(converged),
             "final_norm": history[-1],
-            "gridlevels": h.num_levels,
-            "level_stats": h.stats,
-            "transfer": h.transfer.name,
-            "residual_mode": (
-                "doublefloat" if df else str(self.residual_mode).replace("torch.", "")
-            ),
+            **self._info(solve_time),
             "mean_cycle_time_s": solve_time / max(k, 1),
-            "outer_loop": "host",
-            "solve_time_s": solve_time,
         }
-        return self._deliver(x, df, device_native, info), info
-
-    def _say(self, k, rnorm):
-        if self.config.verbose:
-            print(f"[openmg_tpu_torch] cycle {k}: ‖r‖ = {rnorm:.3e}")
-
-    def _loop_df_exact(self, b_df, x, cycle, limit, threshold):
-        """Constant fine operator with dyadic taps: per cycle one V-cycle
-        and one launch of the double-float update/residual kernel."""
-        b_hi, b_lo = b_df
-        offs = self.hierarchy.fine_hi.offsets
-        terms = self._exact_terms
-        if x is None:
-            # the residual of the zero iterate is b itself
-            x_hi = torch.zeros_like(b_hi)
-            x_lo = torch.zeros_like(b_hi)
-            r = b_hi
-            rn = torch.sqrt(torch.sum(b_hi * b_hi))
-        else:
-            x_hi, x_lo = x
-            r_pair, rn = _residual_norm_df_exact(offs, terms, b_df, x)
-            r = r_pair[0]
-        rnorm = float(rn)  # one scalar read
-        history = [rnorm]
-        self._say(0, rnorm)
-        k = 0
-        converged = rnorm < threshold
-        while not converged and k < limit:
-            e = cycle(r)
-            x_hi, x_lo, r, pn = kernels.df_update_residual_const_3d(
-                offs, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm=True
-            )
-            rnorm = float(torch.sqrt(torch.sum(pn)))  # one scalar read
-            k += 1
-            history.append(rnorm)
-            self._say(k, rnorm)
-            converged = rnorm < threshold
-        return (x_hi, x_lo), history, converged
-
-    def _loop(self, resid, update, x, cycle, limit, threshold):
-        """The general outer loop: ``resid(x) -> (r, ‖r‖)`` before every
-        cycle, ``update(x, e)`` after it."""
-        history = []
-        converged = False
-        for k in range(limit + 1):
-            r, rn = resid(x)
-            rnorm = float(rn)  # one scalar read
-            history.append(rnorm)
-            self._say(k, rnorm)
-            if rnorm < threshold:
-                converged = True
-                break
-            if k == limit:
-                break
-            x = update(x, cycle(r.to(torch.float32)))
-        return x, history, converged
+        df = self.residual_mode == "doublefloat"
+        return self._deliver(step.x, df, device_native, info), info
 
     def solve_many(self, bs, x0s=None):
-        raise NotImplementedError(
-            "solve_many is not ported yet (ROADMAP queue 1, item 13)"
+        """Solve ``A x = b`` for a batch of right-hand sides in lockstep.
+
+        ``bs``: ``(K, *grid)`` (or a sequence of grid arrays); ``x0s``
+        likewise, or None.  Every round advances each member that has not
+        converged by one outer step and reads the K norms to the host in
+        one copy; a converged member is frozen.  The members go through the
+        kernels one after another, so each is bit-equal to its scalar
+        :meth:`solve`.
+
+        Returns ``(xs, info)``: ``xs`` stacked like :meth:`solve` returns
+        (a float32 tensor batch on the solver's device gives the float32
+        hi parts, the pairs in ``info['x_df']``; other input stacked
+        float64 numpy); ``info`` carries per-member ``cycles``,
+        ``converged``, ``final_norm`` and ``residual_norms``, ``batch``, and
+        ``host_reads`` (device-to-host reads of the loop).
+        """
+        cfg = self.config
+        shape = self.grid_shape
+        device_native = isinstance(bs, torch.Tensor) and bs.dtype == torch.float32
+        if device_native:
+            members = list(bs.reshape((bs.shape[0],) + tuple(shape)))
+        else:
+            members = list(bs)  # each converted as solve converts it
+        K = len(members)
+        if x0s is None:
+            x0s = [None] * K
+        elif len(x0s) != K:
+            raise ValueError(f"{len(x0s)} initial guesses for {K} right-hand sides")
+        limit = cfg.cycles if cfg.cycles > 0 else 10_000
+        t_start = time.perf_counter()
+        steps = [self._step(b, x0)[0] for b, x0 in zip(members, x0s)]
+        histories, converged, _, reads = lockstep(
+            steps, limit, float(cfg.threshold),
+            lambda i, k, v: self._say(i, k, v, batch=True),
         )
+        info = {
+            "batch": K,
+            "cycles": [len(h) - 1 for h in histories],
+            "converged": converged,
+            "final_norm": [h[-1] for h in histories],
+            "residual_norms": histories,
+            **self._info(time.perf_counter() - t_start),
+            "host_reads": reads,
+        }
+        if self.residual_mode != "doublefloat":
+            xs = torch.stack([s.x for s in steps])
+            if device_native:
+                return xs, info
+            return xs.detach().cpu().numpy().astype(np.float64), info
+        if device_native:
+            info["x_df"] = (
+                torch.stack([s.x[0] for s in steps]),
+                torch.stack([s.x[1] for s in steps]),
+            )
+            return info["x_df"][0], info
+        return np.stack([df_merge(s.x) for s in steps]), info
+
+    def _say(self, i, k, rnorm, batch=False):
+        if self.config.verbose:
+            who = f" rhs {i}" if batch else ""
+            print(f"[openmg_tpu_torch]{who} cycle {k}: ‖r‖ = {rnorm:.3e}")
 
     @staticmethod
     def _deliver(x, df, device_native, info):

@@ -4,12 +4,15 @@
     python3 scripts/profile_torch_solve.py
         [--problem poisson|unfaced|diffusion|poisson2d] [--n N] [--out DIR]
         [--levels] [--root DIR] [--leg-depth-27 D] [--warm W]
-        [--residual-dtype doublefloat|float32]
+        [--residual-dtype doublefloat|float32] [--krylov none|pcg]
+        [--krylov-iters K] [--cycle-type v|w|f]
 
 Sets up a solve of ``chip_smoke.py`` (V(2,2) red-black, linear transfers,
 double-float outer loop, or with ``--residual-dtype float32`` the float32
 outer residual of one K3 pass a cycle and a threshold of 1e-5 (2D: 2e-5),
-dense coarsest level of at most 4096 points):
+dense coarsest level of at most 4096 points; ``--cycle-type`` w or f runs
+W or FMG cycles, ``--krylov pcg`` runs ``--krylov-iters`` (default 2)
+MG-preconditioned CG steps an outer step):
 ``poisson`` on n³ from the grid shape (fused level visits, the double-float
 update kernel), ``unfaced`` the same with ``setup(..., faced=False)`` (its
 27-point levels as coefficient grids, visited by K4's legs), ``diffusion``
@@ -151,6 +154,9 @@ def main():
     ap.add_argument("--warm", type=int, default=5)
     ap.add_argument("--residual-dtype", choices=("doublefloat", "float32"),
                     default="doublefloat")
+    ap.add_argument("--krylov", choices=("none", "pcg"), default="none")
+    ap.add_argument("--krylov-iters", type=int, default=2)
+    ap.add_argument("--cycle-type", choices=("v", "w", "f"), default="v")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -172,7 +178,8 @@ def main():
     f32 = args.residual_dtype == "float32"
     cfg = mg.SolverConfig(
         smoother="rbgs", transfer="linear", residual_dtype=args.residual_dtype,
-        max_dense_coarse=4096, cycles=60,
+        max_dense_coarse=4096, cycles=60, krylov=args.krylov,
+        krylov_iters=args.krylov_iters, cycle_type=args.cycle_type,
         **({"threshold": 2e-5 if args.problem == "poisson2d" else 1e-5}
            if f32 else {}),
     )
@@ -229,14 +236,20 @@ def main():
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "problem": args.problem, "residual_dtype": args.residual_dtype,
+        "krylov": args.krylov, "krylov_iters": args.krylov_iters,
+        "cycle_type": args.cycle_type,
         "shape": list(shape), "cycles": info["cycles"], "setup_s": setup_s,
         "launches_profiled": sum(v["count"] for v in by_kernel.values()),
+        "launches_per_outer_step": {
+            k: v["count"] / max(info["cycles"], 1) for k, v in top.items()},
         "solve_ms_unprofiled": walls,
         "leg_depth_27": args.leg_depth_27,
         "residual": info.get("final_norm"),
         "solve_ms_profiled": wall * 1e3,
         "device_busy_ms": busy,
         "device_idle_share_of_profiled_solve": max(0.0, 1.0 - busy / (wall * 1e3)),
+        "device_idle_share_of_median_warm_solve": max(
+            0.0, 1.0 - busy / float(np.median(walls))) if walls else None,
         "kernels": top,
         "root": ROOT,
         "level_visits_device_ms": (

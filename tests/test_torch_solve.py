@@ -3,7 +3,9 @@ the CPU against one solve of the JAX package (Pallas in interpret mode),
 and one V-cycle with the setup held equal.
 
 The reference solve is traced once (module-scoped fixture); it dominates
-this file's time.
+this file's time.  It runs the JAX package's host outer loop
+(``outer_loop="host"``): the same cycle and residual programs, compiled
+about 10 s faster than its whole-solve device program.
 """
 
 import numpy as np
@@ -32,7 +34,7 @@ def _rhs():
 
 @pytest.fixture(scope="module")
 def reference():
-    solver = jmg.setup(SHAPE, jmg.SolverConfig(**CFG_KW))
+    solver = jmg.setup(SHAPE, jmg.SolverConfig(outer_loop="host", **CFG_KW))
     x, info = solver.solve(_rhs())
     return solver, np.asarray(x), info
 
@@ -197,9 +199,6 @@ def test_cuda_tensor_never_reaches_a_plain_version(monkeypatch):
 
 
 STUB_CONFIGS = [
-    dict(krylov="pcg"),
-    dict(cycle_type="w"),
-    dict(cycle_type="f"),
     dict(smoother="chebyshev"),
     dict(dtype="float64"),
 ]
@@ -210,6 +209,24 @@ def test_unported_configurations_raise(kw):
     cfg = tmg.SolverConfig(**{**dict(gridlevels=2, max_dense_coarse=64), **kw})
     with pytest.raises(NotImplementedError):
         tmg.setup((4, 4, 8), cfg, device="cpu")
+
+
+CYCLE_CONFIGS = [
+    dict(krylov="pcg"),
+    dict(cycle_type="w"),
+    dict(cycle_type="f"),
+]
+
+
+@pytest.mark.parametrize("kw", CYCLE_CONFIGS, ids=lambda kw: "-".join(map(str, kw.values())))
+def test_cycle_configurations_set_up_and_solve(kw):
+    """PCG, W and FMG, refused before they were ported, set up and solve."""
+    shape = (4, 4, 8)
+    cfg = tmg.SolverConfig(**{**dict(gridlevels=2, max_dense_coarse=64), **kw})
+    b = tmg.rhs_random(shape, seed=4)
+    x, info = tmg.setup(shape, cfg, device="cpu").solve(b)
+    assert info["converged"] and x.shape == shape
+    assert np.linalg.norm(b.ravel() - tmg.poisson(shape) @ x.ravel()) < 1e-10 * 1.05
 
 
 @pytest.mark.parametrize("rdtype", ["float64", "float32", None])
@@ -248,38 +265,52 @@ def test_float32_residual_solve_follows_the_reference_history(reference):
 
 
 def test_unported_entry_points_raise(port):
-    import scipy.sparse as sp
+    """Checkpoint and resume wait; ``solve_many``, the W and F cycles and
+    PCG, refused before they were ported, run."""
+    from openmg_tpu_torch.ops.stencil import apply
 
-    solver = port[0]
+    solver, x_port, info_port = port
     h = solver.hierarchy
-    r = torch.zeros(SHAPE)
-    with pytest.raises(NotImplementedError):
-        solver.solve_many([_rhs()])
-    with pytest.raises(NotImplementedError):
+    r = to_t(rand(SHAPE, 8))
+    xs, info = solver.solve_many([_rhs()])
+    np.testing.assert_array_equal(xs[0], x_port)
+    assert info["cycles"] == [info_port["cycles"]]
+    with pytest.raises(NotImplementedError, match="item 19"):
         solver.solve(_rhs(), checkpoint_path="ckpt.npz")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 19"):
         solver.solve(_rhs(), resume=True)
-    for ct in ("w", "f"):
-        with pytest.raises(NotImplementedError):
-            tcycle.run_cycle(h, r, ct)
+    w = tcycle.run_cycle(h, r, "w")
+    assert torch.equal(w, tcycle.v_cycle(h, r, None, gamma=2, x_zero=True))
+    assert torch.equal(tcycle.run_cycle(h, r, "f"), tcycle.fmg_cycle(h, r))
     with pytest.raises(ValueError):
         tcycle.run_cycle(h, r, "z")
-    with pytest.raises(NotImplementedError):
-        tcycle.v_cycle(h, r, r, gamma=2)
-    with pytest.raises(NotImplementedError):
-        tcycle.pcg_solve(h, r)
-    with pytest.raises(NotImplementedError):
-        tcycle.fmg_cycle(h, r)
-    # the sparse engine takes a sparse format, and refuses PCG and FMG,
-    # which wait for ROADMAP item 14 there too
+    # one CG step is the preconditioned residual scaled by the exact step
+    # length; a second step lowers the energy ½ eᵀAe − eᵀr (the A-norm
+    # error up to a constant) further
+    z = tcycle.run_cycle(h, r, "v")
+    e1 = tcycle.pcg_solve(h, r, 1)
+    alpha = torch.sum(r * z) / torch.sum(z * apply(h.levels[0].A, z))
+    assert_close(e1, alpha * z, factor=1e-6, what="one CG step")
+    A = tmg.poisson(SHAPE)
+    r64 = to_n(r).astype(np.float64).ravel()
+
+    def energy(e):
+        e = to_n(e).astype(np.float64).ravel()
+        return 0.5 * float(e @ (A @ e)) - float(e @ r64)
+
+    assert energy(tcycle.pcg_solve(h, r, 2)) < energy(e1) < 0
+    # the sparse engine takes a sparse format, PCG and FMG
     _, info = tmg.mg_solve(None, np.ones(64), {"problemshape": (4, 4, 4),
                                                "format": "ell"}, device="cpu")
     assert info["format"] == "ell" and info["converged"]
     for kw in ({"krylov": "pcg"}, {"cycle_type": "f"}):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tmg.mg_solve(sp.identity(64, format="csr"), np.ones(64),
-                         {"problemshape": (4, 4, 4), "format": "ell", **kw},
-                         device="cpu")
+        A4 = tmg.poisson((4, 4, 4))
+        xi, ii = tmg.mg_solve(A4, np.ones(64),
+                              {"problemshape": (4, 4, 4), "format": "ell",
+                               "gridlevels": 2, "max_dense_coarse": 8, **kw},
+                              device="cpu")
+        assert ii["converged"] and ii["format"] == "ell" and ii["gridlevels"] == 2
+        assert np.linalg.norm(np.ones(64) - A4 @ xi) < 1e-10 * 1.05
     with pytest.raises(ValueError):
         tmg.mg_solve(None, np.ones(64), {}, device="cpu")
 

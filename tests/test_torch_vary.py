@@ -584,8 +584,8 @@ def test_mg_solve_with_a_matrix(what):
 
 def test_mg_solve_refuses_what_waits_for_the_sparse_engine():
     """A matrix with no stencil form and the sparse formats go through the
-    sparse engine now; what still waits there (PCG, FMG, ``solve_many``)
-    is refused."""
+    sparse engine now, with PCG, FMG and ``solve_many``, which were refused
+    before they were ported."""
     rng = np.random.default_rng(0)
     g = rng.standard_normal((64, 64))
     dense = g @ g.T + 64.0 * np.eye(64)  # SPD, every entry nonzero
@@ -601,11 +601,13 @@ def test_mg_solve_refuses_what_waits_for_the_sparse_engine():
         assert info["format"] == fmt
         np.testing.assert_allclose(x, np.ones(64), atol=1e-12)
     for kw in ({"krylov": "pcg"}, {"cycle_type": "f"}):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tmg.mg_solve(dense, np.ones(64), {**p, **kw}, device="cpu")
+        x, info = tmg.mg_solve(dense, np.ones(64), {**p, **kw}, device="cpu")
+        assert info["format"] == "ell" and info["converged"]
+        np.testing.assert_allclose(dense @ x, np.ones(64), atol=1e-9)
     solver = tmg.setup_sparse(dense, (4, 4, 4), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        solver.solve_many([np.ones(64)])
+    xs, info = solver.solve_many([np.ones(64), 2 * np.ones(64)])
+    assert all(info["converged"]) and xs.shape == (2, 64)
+    np.testing.assert_allclose(dense @ xs[1], 2 * np.ones(64), atol=1e-9)
 
 
 # ---------------------------------------------------------------------------
