@@ -56,13 +56,33 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                a (256,512) diffusion stencil pair against the CPU; a 1024²
                solve with a float32 outer residual; ``residual`` /
                ``smooth`` with CUDA tensors on a cornered 2D operator; and a
-               1D ``setup``, which the card must refuse;
+               1D ``setup``, which lands on the card (its solves: 7b);
 7. ``solve_unfaced`` the 256³ Poisson solve of ``solve`` on the
                hierarchy of ``setup(..., faced=False)``: the constant fine
                level by K1 and K2, the three varying 27-point coarse levels
                by K4 legs and no K1 there, the same cycle count as the
                faced solve, a float64 residual below 1e-10, with its setup
                time and peak memory;
+7a. ``faced``  the 128³, 64³ and 32³ levels of that hierarchy as
+               ``FacedStencilOperator``s (``detect_faced`` on their grids):
+               ``apply``, ``residual`` and one Jacobi and one red/black
+               ``smooth`` on the card (K3's constant passes and tensor face
+               rows: 0, 1, 1, 2 K3 launches) against the varying operator
+               on the card (K4 passes) and against the faced operator's
+               plain version on the CPU, within 1e-5 absolute or 2e-6 ·
+               max|ref| (tests/test_faced.py's tolerance); then the 256³
+               solve on the hierarchy with those faced levels: the faced
+               solve's cycle count, 2 K1, 1 K2 and 9 K3 a faced level a
+               cycle;
+7b. ``solve_1d`` 1D grids on the ``(1, 1, n)`` lift (K3 passes, K2, the
+               tensor transfers): BASELINE config 1 (N = 64, two levels,
+               Jacobi V(2,2), ``tests/test_solver.py``'s right-hand side)
+               and N = 256 at full depth (red/black and Jacobi) on the card
+               against the CPU, equal cycle counts, exact launch counts;
+               K3 on every visited level of the lift (constant, cornered
+               3-point) against its plain version (2e-6 · max|ref|, or
+               max|b| for a residual) and K2 on the lift bit for bit; a
+               float64 cycle refused at setup;
 8. ``sweeps``  as ``kernels``, for the per-pass kernel with constant or
                cornered taps (K3) and with per-point coefficient grids (K4,
                on the diffusion hierarchy set up just before it): Jacobi,
@@ -132,10 +152,30 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                krylov_iters=2`` (K1, K5 or K4 legs, two cycles an outer
                step), beside the JAX package's record of 3 outer steps at
                256³;
+14a. ``solve_cheb`` (after ``solve_pcg``) Chebyshev smoothing (a cycle
+               limit of 60): the 256³ Poisson solve on the ``faced=True``
+               hierarchy (pre + post + 1 = 5 K3 launches a visited level a
+               cycle, 1 K2, no K1; one host read a step by the profiler's
+               device-to-host copies; a breakdown by kernel and the share of
+               the tensor code), the 256³ diffusion solve (5 K4 passes a
+               visited level), the 4096² solve (K3 on the 2D lift), and
+               (32, 32, 64) on the card against the CPU (equal counts,
+               ‖Δx‖₂ ≤ 2e-10/λ_min);
+14b. ``setup_device`` ``build_hierarchy_device`` on the card for the
+               256³ diffusion coefficients and for 256³ Poisson
+               (``fine_values``): setup seconds beside the host Galerkin
+               chain's in this run, every level's offsets equal to the
+               host chain's and its coefficients and inverse diagonal
+               within 1e-5 · max|host| (float32 chains; for diffusion also
+               within 1e-5 relative of the float64 host chain's values cast
+               to float32, the rounding of the same sums), the build's peak
+               memory, and a solve on each with the host-built hierarchy's
+               cycle count (diffusion: K4 legs; Poisson: K1 and K2 on the
+               constant fine level, K4 legs on the varying ones);
 15. ``solve_many_sparse`` ``AlgebraicSolver.solve_many`` on the 1024² ELL
                hierarchy, K=4, with the checks of ``solve_many``.
 
-Every solve of 11-15 prints its cycles, final norm, the float64 residual
+Every solve of 11-15 and 14a-14b prints its cycles, final norm, the float64 residual
 of the merged pair on the host, warm and first solve ms, peak memory and
 the launches of every kernel, and fails on any other launch count.
 The kernel phases also hold the down-leg from an iterate (a W-cycle's
@@ -1830,13 +1870,12 @@ def phase_solve_2d(dev):
         direct.append({"operator": "cornered 2D", "function": fn_name,
                        "launches": moved, "max_abs_err": err, "tolerance": tol})
 
-    # a 1D grid is refused on the card, never run as plain tensor code
-    try:
-        mg.setup((4096,), ccfg, device=dev)
-    except NotImplementedError:
-        refused = ["1D grid"]
-    else:
-        fail("a 1D setup ran on the card")
+    # a 1D grid sets up on the card (its solves are the solve_1d phase's)
+    s1 = mg.setup((4096,), ccfg, device=dev)
+    if s1.hierarchy.device != dev or s1.hierarchy.grid_shape != (4096,):
+        fail("a 1D setup did not land on the card")
+    runs_1d = {"shape": [4096], "levels": [list(st[0]) for st in s1.hierarchy.stats]}
+    del s1
 
     k = max(info2["cycles"], 1)
     emit("solve_2d", {
@@ -1862,7 +1901,7 @@ def phase_solve_2d(dev):
             "shape": list(fshape), "threshold": F32_THRESHOLD_2D, "cycles": fc,
             "residual_norms": i32["residual_norms"], "launches": f_counts},
         "direct_calls": direct,
-        "refused_on_card": refused,
+        "setup_1d_on_card": runs_1d,
     })
     return main_counts
 
@@ -2729,6 +2768,528 @@ def phase_solve_pcg(dev, pcg, vary):
     return row
 
 
+
+# ---------------------------------------------------------------------------
+# Chebyshev smoothing, the faced operator, 1D grids, setup on the device
+# ---------------------------------------------------------------------------
+
+CHEB_CFG = dict(MAIN_CFG, smoother="chebyshev")  # cycles=60
+# the cycles the JAX package's Chebyshev solve takes at 16³
+# (tests/test_cycles.py) are 14 against red/black's 7: room for the 256³ one
+CHEB_MAX_CYCLES = 60
+
+
+def cheb_launches(cfg, h, kernel):
+    """``want_launches`` of a Chebyshev solve on ``h``: a level visit is
+    ``pre + post + 1`` launches of the per-pass residual kernel (K3 on a
+    constant or cornered level, K4 on a varying one: ``pre`` Chebyshev
+    iterations, the level residual, ``post`` iterations); one K2 launch an
+    outer step where the fine operator is constant with dyadic taps."""
+    per_visit = cfg.pre_iterations + cfg.post_iterations + 1
+    visits = level_visits(h.num_levels, cfg.cycle_type)
+    k2 = h.fine_hi.is_constant
+    return lambda c: {kernel: per_visit * visits * c, **({"K2": c} if k2 else {})}
+
+
+def d2h_per_step(what, solver, b, cycles):
+    """One host read a step: the loop's own count (``info["host_reads"]``)
+    of a warm solve is ``cycles + 1`` (a read before every step and one
+    after the last), and the profiler sees no more device-to-host copies
+    than that (it has counted 12 of the 13 reads of the 256³ Chebyshev
+    solve in some calls and all 13 in others; never more)."""
+    copies, (_, info) = count_d2h(lambda: solver.solve(b))
+    reads = info["host_reads"]
+    if info["cycles"] != cycles or reads != cycles + 1 or copies > reads:
+        fail(f"{what}: {reads} host reads and {copies} device-to-host copies "
+             f"for {info['cycles']} steps")
+    return {"host_reads": reads, "d2h_copies_profiled": copies}
+
+
+def tensor_share(prof, kernel_names):
+    """The share of the device's busy time not spent in ``kernel_names``
+    (substrings of the kernels' names): the tensor code around them."""
+    busy = prof["device_busy_ms"]
+    ours = sum(v["ms"] for k, v in prof["kernels"].items()
+               if any(n in k for n in kernel_names))
+    return (busy - ours) / busy if busy else None
+
+
+def phase_solve_cheb(dev, vary):
+    """Chebyshev on the card: the 256³ Poisson solve on the ``faced=True``
+    hierarchy (K3 with its region table on the cornered levels, K2), the
+    256³ diffusion solve (K4's per-pass residual on every varying level),
+    the 4096² solve (K3 on the 2D lift), (32, 32, 64) on the card against
+    the CPU, and one host read a step."""
+    import openmg_tpu_torch as mg
+
+    cfg = mg.SolverConfig(**CHEB_CFG)
+    out = {}
+    t0 = time.perf_counter()
+    solver = mg.setup(BIG, cfg, device=dev)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    h = solver.hierarchy
+    kinds = [type(L.A).__name__ for L in h.levels]
+    b = main_rhs(BIG, dev)
+    b64 = b.cpu().numpy().astype(np.float64)
+    row = card_solve("chebyshev 256^3", solver, b,
+                     lambda x64: residual_norm_host(b64, x64),
+                     cheb_launches(cfg, h, "K3"), max_cycles=CHEB_MAX_CYCLES)
+    row["host_reads"] = d2h_per_step("chebyshev 256^3", solver, b,
+                                          row["cycles"])
+    prof = profile_solve(solver, b, top=12)
+    row.update(shape=list(BIG), level_kinds=kinds, setup_s=t_setup,
+               profile=prof,
+               tensor_code_share=tensor_share(prof, ("pass_kernel", "df_")))
+    out["poisson_256^3"] = row
+    del solver, h
+
+    vs = mg.Solver(vary[0].hierarchy, mg.SolverConfig(**CHEB_CFG))
+    offsets, coeffs = vary[1], vary[2]
+    bv = main_rhs(BIG, dev, seed=2)
+    bv64 = bv.cpu().numpy().astype(np.float64)
+    row = card_solve("chebyshev diffusion 256^3", vs, bv,
+                     lambda x64: residual_norm_host_stencil(offsets, coeffs, bv64, x64),
+                     cheb_launches(vs.config, vs.hierarchy, "K4"),
+                     max_cycles=CHEB_MAX_CYCLES)
+    prof = profile_solve(vs, bv, top=12)
+    row.update(shape=list(BIG), profile=prof,
+               tensor_code_share=tensor_share(prof, ("pass_kernel",)))
+    out["diffusion_256^3"] = row
+    del vs
+
+    s2 = mg.setup(BIG2, cfg, device=dev)
+    b2 = main_rhs(BIG2, dev)
+    b264 = b2.cpu().numpy().astype(np.float64)
+    row = card_solve("chebyshev 4096^2", s2, b2,
+                     lambda x64: residual_norm_host(b264, x64),
+                     cheb_launches(cfg, s2.hierarchy, "K3"),
+                     max_cycles=CHEB_MAX_CYCLES)
+    row.update(shape=list(BIG2), levels=[list(st[0]) for st in s2.hierarchy.stats])
+    out["poisson_4096^2"] = row
+    del s2
+
+    small = (32, 32, 64)
+    bs = mg.rhs_random(small, seed=0)
+    bs /= np.linalg.norm(bs.ravel())
+    lam_min = sum(4.0 * np.sin(np.pi / (2 * (n + 1))) ** 2 for n in small)
+    scfg = mg.SolverConfig(**{**CHEB_CFG, "gridlevels": 3, "max_dense_coarse": 1024})
+    xg, ig = mg.solve(small, bs, scfg, device=dev)
+    xc, ic = mg.solve(small, bs, scfg, device="cpu")
+    dx = float(np.linalg.norm((xg - xc).ravel()))
+    out["card_vs_cpu"] = {"shape": list(small), "cycles_card": ig["cycles"],
+                          "cycles_cpu": ic["cycles"], "dx_norm": dx,
+                          "dx_bound": 2e-10 / lam_min}
+    if not (ig["converged"] and ic["converged"] and ig["cycles"] == ic["cycles"]
+            and dx <= 2e-10 / lam_min):
+        fail(f"chebyshev card against CPU: {out['card_vs_cpu']}")
+    emit("solve_cheb", out)
+    return {k: v["launches"] for k, v in out.items() if "launches" in v}
+
+
+FACED_TOL_ABS = 1e-5  # tests/test_faced.py's tolerance
+FACED_TOL_REL = 2e-6
+
+
+def faced_ops(h):
+    """The ``FacedStencilOperator`` of each varying level of ``h`` (its
+    grids read to the host, ``detect_faced`` as tests/test_faced.py builds
+    it), by level index."""
+    from openmg_tpu_torch.core.hierarchy import detect_faced
+    from openmg_tpu_torch.ops.stencil import FacedStencilOperator
+
+    out = {}
+    for i, L in enumerate(h.levels[:-1]):
+        if L.A.is_constant:
+            continue
+        C = L.A.coeffs.cpu().numpy()
+        fd = detect_faced(L.A.offsets, C)
+        if fd is None:
+            fail(f"level {i} {L.grid_shape} is not faced")
+        vals, axes, planes = fd
+        dev = L.A.coeffs.device
+        out[i] = FacedStencilOperator(
+            values=torch.from_numpy(vals.astype(np.float32)).to(dev),
+            face_coeffs=tuple(torch.from_numpy(p.astype(np.float32)).to(dev)
+                              for p in planes),
+            offsets=L.A.offsets, shape=L.A.grid_shape, face_axes=axes,
+        )
+        del C
+    return out
+
+
+def on_cpu(op):
+    return dataclasses.replace(op, values=op.values.cpu(),
+                               face_coeffs=tuple(f.cpu() for f in op.face_coeffs))
+
+
+def phase_faced(dev, unfaced, faced_cycles):
+    """The faced operator on the card: the 128³, 64³ and 32³ levels of the
+    256³ Poisson hierarchy as ``FacedStencilOperator``s (from the unfaced
+    hierarchy's grids); ``apply``, ``residual`` and one Jacobi and one
+    red/black ``smooth`` held against the varying operator on the card (K4
+    passes) and against the faced operator's plain version on the CPU;
+    then the 256³ solve on the hierarchy with those faced levels."""
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.core.hierarchy import Level
+    from openmg_tpu_torch.ops import smoothers, stencil
+
+    solver = unfaced[0]
+    h = solver.hierarchy
+    ops = faced_ops(h)
+    rows = []
+    for i, op in ops.items():
+        L = h.levels[i]
+        shape = L.grid_shape
+        b, x = randn(shape, 40 + i, dev), randn(shape, 50 + i, dev)
+        cop = on_cpu(op)
+        calls = {
+            "apply": (lambda A, bb, xx, inv: stencil.apply(A, xx), 0),
+            "residual": (lambda A, bb, xx, inv: stencil.residual(A, bb, xx), 1),
+            "jacobi": (lambda A, bb, xx, inv: smoothers.smooth(
+                "jacobi", A, inv, bb, xx, 1, OMEGA), 1),
+            "rbgs": (lambda A, bb, xx, inv: smoothers.smooth(
+                "rbgs", A, inv, bb, xx, 1, OMEGA), 2),
+        }
+        for name, (fn, k3) in calls.items():
+            zero_counts()
+            got = fn(op, b, x, None)
+            torch.cuda.synchronize()
+            launched = counts()
+            vary = fn(L.A, b, x, L.inv_diag)
+            plain = fn(cop, b.cpu(), x.cpu(), None)
+            torch.cuda.synchronize()
+            if launched != {"K1": 0, "K2": 0, "K3": k3, "K4": 0, "K5": 0}:
+                fail(f"faced {shape} {name}: launches {launched}")
+            errs = {}
+            for ref_name, ref in (("varying_K4", vary.cpu()), ("cpu_plain", plain)):
+                err = float((got.cpu() - ref).abs().max())
+                tol = max(FACED_TOL_ABS, FACED_TOL_REL * float(ref.abs().max()))
+                if not err <= tol:
+                    fail(f"faced {shape} {name} against {ref_name}: err "
+                         f"{err:.3e} > {tol:.3e}")
+                errs[ref_name] = {"max_abs_err": err, "tolerance": tol}
+            ms = time_ms(lambda: fn(op, b, x, None), 5)
+            ms_vary = time_ms(lambda: fn(L.A, b, x, L.inv_diag), 5)
+            rows.append({"level": list(shape), "call": name,
+                         "k3_launches": k3, "ms": ms, "ms_varying": ms_vary,
+                         **errs})
+        del b, x, cop
+
+    levels = list(h.levels)
+    for i, op in ops.items():
+        levels[i] = Level(A=op, inv_diag=1.0 / op.values[0])
+    hf = dataclasses.replace(h, levels=tuple(levels))
+    cfg = solver.config
+    fs = mg.Solver(hf, cfg)
+    b = main_rhs(BIG, dev)
+    b64 = b.cpu().numpy().astype(np.float64)
+    per = 2 if cfg.smoother == "rbgs" else 1
+    k3_visit = per * (cfg.pre_iterations + cfg.post_iterations) + 1
+    n_faced = len(ops)
+    row = card_solve(
+        "faced 256^3", fs, b, lambda x64: residual_norm_host(b64, x64),
+        lambda c: {"K1": 2 * c, "K2": c, "K3": n_faced * k3_visit * c})
+    if row["cycles"] != faced_cycles:
+        fail(f"faced solve: {row['cycles']} cycles, the cornered solve took "
+             f"{faced_cycles}")
+    row.update(level_kinds=[type(L.A).__name__ for L in hf.levels],
+               cycles_cornered=faced_cycles,
+               face_planes_MB=sum(f.numel() * 4 for op in ops.values()
+                                  for f in op.face_coeffs) / 2 ** 20)
+    emit("faced", {"calls": rows, "solve": row})
+    return row["launches"]
+
+
+BASELINE1 = dict(gridlevels=2, smoother="jacobi", pre_iterations=2,
+                 post_iterations=2, cycles=400, max_dense_coarse=64)
+
+
+def k3_call(mode, values, offsets, b, x, corner):
+    """One K3 pass (its plain version for CPU tensors) in ``mode``."""
+    from openmg_tpu_torch.ops import kernels
+
+    if mode == "residual":
+        return kernels.residual_const_3d(values, offsets, b, x, corner=corner)
+    if mode == "jacobi":
+        return kernels.jacobi_const_3d(values, offsets, b, x, 1, OMEGA,
+                                       corner=corner)
+    return kernels.rbgs_half_sweep_const_3d(values, offsets, b, x, 0,
+                                            corner=corner)
+
+
+def lift_rows_1d(dev, h):
+    """K3 on the 1D lift ``(1, 1, n)`` (every visited level of ``h``:
+    constant, then cornered 3-point) and K2 on it, against their plain
+    versions; K3 timed with its bound."""
+    from openmg_tpu_torch.ops import kernels
+    from openmg_tpu_torch.ops.doublefloat import pow2_terms
+
+    rows = []
+    for L in h.levels[:-1]:
+        A = L.A
+        corner = (A.regions, A.table) if hasattr(A, "regions") else None
+        corner_c = None if corner is None else (corner[0], corner[1].cpu())
+        n = L.grid_shape[0]
+        b, x = randn((n,), 60, dev), randn((n,), 61, dev)
+        for mode in ("residual", "jacobi", "rbgs"):
+            before = kernels.LAUNCHES_K3
+            got = k3_call(mode, A.values, A.offsets, b, x, corner)
+            torch.cuda.synchronize()
+            moved = kernels.LAUNCHES_K3 - before
+            ref = k3_call(mode, A.values.cpu(), A.offsets, b.cpu(), x.cpu(), corner_c)
+            err = float((got.cpu() - ref).abs().max())
+            tol = SWEEP_TOL * float((b.cpu() if mode == "residual" else ref).abs().max())
+            if moved != 1 or not err <= tol:
+                fail(f"K3 on the 1D lift, {n} {mode}: launches {moved}, err "
+                     f"{err:.3e} > {tol:.3e}")
+            nbytes, flops, _ = sweep_bound(n, A.offsets, False, mode)
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_F32_FLOPS * 1e3
+            rows.append({
+                "kernel": "K3", "level": [1, 1, n], "mode": mode,
+                "cornered": corner is not None, "max_abs_err": err,
+                "tolerance": tol,
+                "ms": time_ms(lambda: k3_call(mode, A.values, A.offsets, b, x,
+                                              corner), 20),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    # K2 on the lift, bit for bit
+    A0 = h.levels[0].A
+    n = A0.grid_shape[0]
+    terms = tuple(pow2_terms(float(v)) for v in A0.values.cpu().numpy())
+    args = [randn((n,), 70 + j, dev, 1e-3 if j == 1 else 1.0) for j in range(5)]
+    before = kernels.LAUNCHES
+    got = kernels.df_update_residual_const_3d(A0.offsets, terms, *args, emit_norm=True)
+    torch.cuda.synchronize()
+    moved = kernels.LAUNCHES - before
+    ref = kernels.df_update_residual_const_3d(A0.offsets, terms,
+                                              *[a.cpu() for a in args], emit_norm=True)
+    equal = all(torch.equal(g.cpu(), r) for g, r in zip(got[:3], ref[:3]))
+    tot, want = float(got[3].sum()), float(torch.sum(ref[2].double() ** 2))
+    if moved != 1 or not equal or abs(tot - want) > 1e-6 * want:
+        fail(f"K2 on the 1D lift: launches {moved}, bit-equal {equal}, "
+             f"norm {tot} against {want}")
+    rows.append({"kernel": "K2", "level": [1, 1, n], "bit_equal": equal,
+                 "ms": time_ms(lambda: kernels.df_update_residual_const_3d(
+                     A0.offsets, terms, *args, emit_norm=True), 20)})
+    return rows
+
+
+def phase_solve_1d(dev):
+    """1D grids on the card (the ``(1, 1, n)`` lift: K3 passes, K2, the
+    tensor transfers): BASELINE config 1 and N = 256 at full depth (red/black
+    and Jacobi) against the CPU; K3 and K2 on the lift against their plain
+    versions; and a float64 cycle refused."""
+    import openmg_tpu_torch as mg
+
+    out = {"runs": []}
+    cases = [
+        ("baseline config 1", (64,), BASELINE1),
+        ("256 rbgs full depth", (256,), dict(MAIN_CFG, max_dense_coarse=8)),
+        ("256 jacobi full depth", (256,), dict(MAIN_CFG, smoother="jacobi",
+                                                max_dense_coarse=8)),
+    ]
+    for what, shape, kw in cases:
+        cfg = mg.SolverConfig(**kw)
+        sg = mg.setup(shape, cfg, device=dev)
+        sc = mg.setup(shape, cfg, device="cpu")
+        h = sg.hierarchy
+        if kw is BASELINE1:
+            # the right-hand side of tests/test_solver.py, not normalised:
+            # the JAX package takes 36 cycles on it
+            b = torch.from_numpy(mg.rhs_random(shape, seed=0).astype(np.float32)).to(dev)
+        else:
+            b = main_rhs(shape, dev, seed=1)
+        bnp = b.cpu().numpy().astype(np.float64)
+        per = 2 if cfg.smoother == "rbgs" else 1
+        k3_visit = per * (cfg.pre_iterations + cfg.post_iterations) + 1
+        visits = h.num_levels - 1
+        row = card_solve(what, sg, b, lambda x64: residual_norm_host(bnp, x64),
+                         lambda c: {"K3": k3_visit * visits * c, "K2": c},
+                         max_cycles=cfg.cycles)
+        xc, ic = sc.solve(bnp)
+        if ic["cycles"] != row["cycles"] or not ic["converged"]:
+            fail(f"1D {what}: card {row['cycles']} cycles, CPU {ic['cycles']}")
+        row.update(case=what, shape=list(shape), cycles_cpu=ic["cycles"],
+                   levels=[list(st[0]) for st in h.stats],
+                   level_kinds=[type(L.A).__name__ for L in h.levels])
+        out["runs"].append(row)
+    out["lift_kernels"] = lift_rows_1d(
+        dev, mg.setup((256,), mg.SolverConfig(**dict(MAIN_CFG, max_dense_coarse=8)),
+                      device=dev).hierarchy)
+    try:
+        mg.setup((64,), mg.SolverConfig(**dict(BASELINE1, dtype="float64")),
+                 device=dev)
+    except NotImplementedError:
+        out["refused_on_card"] = ["float64 cycle"]
+    else:
+        fail("a float64 cycle was set up on the card")
+    emit("solve_1d", out)
+    return out["runs"][0]["launches"]
+
+
+SETUP_TOL = 1e-5  # |device − host| ≤ SETUP_TOL · max|host| per level
+
+
+def compare_levels(what, hd, hh):
+    """Per level: offsets equal, coefficients and inverse diagonals within
+    ``SETUP_TOL`` · max|host| (float32 chains summed in the same order)."""
+    if hd.num_levels != hh.num_levels:
+        fail(f"{what}: {hd.num_levels} levels, the host chain {hh.num_levels}")
+    rows = []
+    for i, (Ld, Lh) in enumerate(zip(hd.levels, hh.levels)):
+        if Ld.A.offsets != Lh.A.offsets or Ld.A.is_constant != Lh.A.is_constant:
+            fail(f"{what} level {i}: offsets or kind differ")
+        if Ld.A.is_constant:
+            a, c = Ld.A.values.cpu(), Lh.A.values.cpu()
+        else:
+            a, c = Ld.A.coeffs.cpu(), Lh.A.coeffs.cpu()
+        err = float((a.double() - c.double()).abs().max())
+        tol = SETUP_TOL * float(c.abs().max())
+        ierr = float((Ld.inv_diag.cpu().double().reshape(-1)
+                      - Lh.inv_diag.cpu().double().reshape(-1)).abs().max())
+        itol = SETUP_TOL * float(Lh.inv_diag.abs().max())
+        if not (err <= tol and ierr <= itol):
+            fail(f"{what} level {i}: coefficients {err:.3e} (tol {tol:.3e}), "
+                 f"inv_diag {ierr:.3e} (tol {itol:.3e})")
+        rows.append({"level": list(Ld.grid_shape), "taps": len(Ld.A.offsets),
+                     "constant": Ld.A.is_constant, "max_abs_err": err,
+                     "tolerance": tol, "inv_diag_max_abs_err": ierr})
+    if tuple(hd.stats) != tuple(hh.stats):
+        fail(f"{what}: stats {hd.stats} against {hh.stats}")
+    return rows
+
+
+def float64_rounding(what, hd, h64):
+    """Per level of the float32 device chain ``hd``: its coefficients and
+    inverse diagonal against the float64 host chain ``h64``'s cast to
+    float32, within ``SETUP_TOL`` · max|ref| (float32 rounding of the same
+    sums; about 6e-7 relative at 64³)."""
+    rows = []
+    for i, (Ld, L64) in enumerate(zip(hd.levels, h64.levels)):
+        if Ld.A.offsets != L64.A.offsets:
+            fail(f"{what} level {i}: offsets differ from the float64 chain's")
+        pair = []
+        for a, c in ((Ld.A.values if Ld.A.is_constant else Ld.A.coeffs,
+                      L64.A.values if L64.A.is_constant else L64.A.coeffs),
+                     (Ld.inv_diag, L64.inv_diag)):
+            ref = c.cpu().to(torch.float32).double().reshape(-1)
+            got = a.cpu().double().reshape(-1)
+            pair.append(float((got - ref).abs().max()) / float(ref.abs().max()))
+        if not max(pair) <= SETUP_TOL:
+            fail(f"{what} level {i}: {pair} from the float64 chain (relative)")
+        rows.append({"level": list(Ld.grid_shape), "max_rel_err": pair[0],
+                     "inv_diag_max_rel_err": pair[1]})
+    return rows
+
+
+def phase_setup_device(dev, vary):
+    """``build_hierarchy_device`` on the card for the 256³ diffusion
+    coefficients and 256³ Poisson: its setup time beside the host Galerkin
+    chain's (``build_hierarchy``) in this run, its levels against the host
+    chain's, its peak memory, and a solve on each with the host-built
+    hierarchy's cycle count."""
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.core.hierarchy import build_hierarchy_device
+    from openmg_tpu_torch.models.poisson import poisson_offsets
+    from openmg_tpu_torch.ops.transfer import TRANSFERS
+
+    from openmg_tpu_torch.core import hierarchy as hmod
+
+    cfg = mg.SolverConfig(**MAIN_CFG)
+    tr = TRANSFERS[cfg.transfer]
+    common = dict(transfer=tr, max_dense_coarse=cfg.max_dense_coarse)
+    out = {}
+    # the seconds of the coarsest level's dense inverse (host LAPACK, in
+    # both chains), read out of the setup times
+    inv_s = []
+    real_inverse = hmod._coarse_inverse
+
+    def timed_inverse(*a, **k):
+        t = time.perf_counter()
+        got = real_inverse(*a, **k)
+        inv_s.append(time.perf_counter() - t)
+        return got
+
+    hmod._coarse_inverse = timed_inverse
+
+    def build(**kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        hd = build_hierarchy_device(device=dev, **common, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return hd, dt, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    # diffusion: the stencil pair's float64 grids, moved to the card
+    host_solver, offsets, coeffs, _, t_host = vary
+    hd, t_dev, peak = build(offsets=offsets, coeffs=coeffs)
+    inv_dev = inv_s[-1]
+    levels = compare_levels("diffusion", hd, host_solver.hierarchy)
+    # and against the host chain in float64, on the host
+    h64 = mg.build_hierarchy(offsets, coeffs, setup_dtype="float64",
+                             dtype=torch.float64, residual_dtype=torch.float64,
+                             device="cpu", **common)
+    rounding = float64_rounding("diffusion", hd, h64)
+    del h64
+    c32 = coeffs.astype(np.float32).astype(np.float64)  # the operator it solves
+    b = main_rhs(BIG, dev, seed=2)
+    b64 = b.cpu().numpy().astype(np.float64)
+    host_cycles = host_solver.solve(b)[1]["cycles"]
+    solver = mg.Solver(hd, cfg)
+    row = card_solve("device-built diffusion", solver, b,
+                     lambda x64: residual_norm_host_stencil(offsets, c32, b64, x64),
+                     lambda c: {"K4": legs_per_cycle(cfg, hd) * c}, max_cycles=60)
+    if row["cycles"] != host_cycles:
+        fail(f"device-built diffusion: {row['cycles']} cycles, host-built "
+             f"{host_cycles}")
+    out["diffusion_256^3"] = {"setup_s_device": t_dev, "setup_s_host_chain": t_host,
+                              "coarse_inverse_s_device_build": inv_dev,
+                              "against_float64_host_chain": rounding,
+                              "peak_memory_MB_build": peak, "levels": levels,
+                              "solve": row, "cycles_host_built": host_cycles}
+    del hd, solver
+
+    # Poisson: the constant fine stencil, materialized on the card for the
+    # first RAP step only; the host chain from the stencil pair
+    values = [6.0] + [-1.0] * 6
+    hd, t_dev, peak = build(offsets=poisson_offsets(3), fine_values=values,
+                            shape=BIG)
+    inv_dev = inv_s[-1]
+    t0 = time.perf_counter()
+    p_offsets, p_coeffs = mg.poisson_stencil(BIG, dtype=np.float32)
+    hh = mg.build_hierarchy(p_offsets, p_coeffs, residual_dtype="doublefloat",
+                            device=dev, **common)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter() - t0
+    inv_host = inv_s[-1]
+    del p_coeffs
+    levels = compare_levels("poisson", hd, hh)
+    b = main_rhs(BIG, dev)
+    b64 = b.cpu().numpy().astype(np.float64)
+    host_cycles = mg.Solver(hh, cfg).solve(b)[1]["cycles"]
+    del hh
+    solver = mg.Solver(hd, cfg)
+    row = card_solve("device-built poisson", solver, b,
+                     lambda x64: residual_norm_host(b64, x64),
+                     lambda c: {"K1": 2 * c, "K2": c,
+                                "K4": legs_per_cycle(cfg, hd) * c})
+    if row["cycles"] != host_cycles:
+        fail(f"device-built poisson: {row['cycles']} cycles, host-built "
+             f"{host_cycles}")
+    hmod._coarse_inverse = real_inverse
+    out["poisson_256^3"] = {"setup_s_device": t_dev, "setup_s_host_chain": t_host,
+                            "coarse_inverse_s_device_build": inv_dev,
+                            "coarse_inverse_s_host_chain": inv_host,
+                            "peak_memory_MB_build": peak, "levels": levels,
+                            "solve": row, "cycles_host_built": host_cycles,
+                            "fine_grids_MB_transient": 7 * 4 * int(np.prod(BIG)) / 2 ** 20}
+    emit("setup_device", out)
+    return {k: v["solve"]["launches"] for k, v in out.items()}
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -2751,12 +3312,18 @@ def main():
     # solve, whose peak memory would otherwise count them
     unfaced = setup_unfaced(dev)
     phase_solve_unfaced(dev, unfaced, faced_cycles, faced_rn64)
+    paths = {"faced 256^3": phase_faced(dev, unfaced, faced_cycles),
+             "1D baseline config 1": phase_solve_1d(dev)}
     vary = setup_vary(dev)
     sweeps = phase_sweeps(dev, copy_bw, vary[0].hierarchy,
                           unfaced[0].hierarchy)
     del unfaced
     vary_counts, f32_counts = phase_solve_vary(dev, vary)
     phase_solve_pcg(dev, pcg, vary)
+    paths.update({f"chebyshev {k}": v
+                  for k, v in phase_solve_cheb(dev, vary).items()})
+    paths.update({f"device-built {k}": v
+                  for k, v in phase_setup_device(dev, vary).items()})
     del vary
     torch.cuda.empty_cache()
     solvers = setup_sparse_solvers(dev)
@@ -2765,7 +3332,7 @@ def main():
     phase_solve_many_sparse(dev, solvers)
     del solvers
 
-    def entry(name, source, replaces, launches, main_row, all_rows):
+    def entry(name, source, replaces, launches, main_row, all_rows, key):
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2776,6 +3343,9 @@ def main():
             "shape": main_row["shape"],
             "mode": main_row.get("mode", "emit_norm"),
             "bound_ms_copy_bw": main_row["bound_ms_copy_bw"],
+            # the ninth slice's paths, each counted from 0 around its solve
+            "launches_by_path": {path: c[key] for path, c in paths.items()
+                                 if c.get(key)},
         }
 
     k1_main = next(r for r in rows if r["level"] == "main"
@@ -2792,30 +3362,30 @@ def main():
     print(json.dumps({"kernels": [
         entry("fused_stages_const_3d",
               "openmg_tpu_torch/csrc/fused_stages.cu",
-              "openmg_tpu/ops/fused.py:578", k1_launches, k1_main, rows),
+              "openmg_tpu/ops/fused.py:578", k1_launches, k1_main, rows, "K1"),
         entry("df_update_residual_const_3d",
               "openmg_tpu_torch/csrc/df_update.cu",
-              "openmg_tpu/ops/kernels.py:860", k2_launches, k2_main, k2_rows),
+              "openmg_tpu/ops/kernels.py:860", k2_launches, k2_main, k2_rows, "K2"),
         entry("half_sweep (constant / cornered taps)",
               "openmg_tpu_torch/csrc/half_sweep.cu",
               "openmg_tpu/ops/kernels.py:344", f32_counts["K3"], k3_main,
-              sweeps["K3"]),
+              sweeps["K3"], "K3"),
         entry("sweeps_vary_3d (per-point coefficients, a leg a launch)",
               "openmg_tpu_torch/csrc/vary_leg.cu",
               "openmg_tpu/ops/kernels.py:612", vary_counts["K4"], k4_main,
-              sweeps["K4"] + sweeps["K4_legs"]),
+              sweeps["K4"] + sweeps["K4_legs"], "K4"),
         entry("fused_stages_2d",
               "openmg_tpu_torch/csrc/fused_stages_2d.cu",
               "openmg_tpu/ops/kernels.py:1134", k5_counts["K5"], k5_main,
-              k5_rows),
+              k5_rows, "K5"),
         entry("spmv_ell (slot-offset ELL SpMV, spmv_banded at B=1)",
               "openmg_tpu_torch/csrc/spmv_banded.cu",
               "openmg_tpu/ops/ell.py:169", k6_launches, spmv_rows["K6"][0],
-              spmv_rows["K6"]),
+              spmv_rows["K6"], "K6"),
         entry("spmv_bsr (blocked-band BSR SpMV, spmv_banded)",
               "openmg_tpu_torch/csrc/spmv_banded.cu",
               "openmg_tpu/ops/bsr.py:114", k7_launches, spmv_rows["K7"][0],
-              spmv_rows["K7"]),
+              spmv_rows["K7"], "K7"),
     ]}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -8,13 +8,16 @@ function here has a named twin there; it imports ``torch``, ``numpy`` and
 
 What is ported so far:
 
-* the stencil engine's defect-correction solve on 2D and 3D grids: Poisson
-  from a grid shape (structured setup, constant and cornered levels), and
-  any radius-1 stencil pair such as variable-coefficient diffusion or a
-  matrix's extracted stencil (host Galerkin chain, varying levels);
-  V(pre, post) cycles with Jacobi or red-black smoothing and aggregate or
-  linear transfers; the double-float outer loop and the plain float32 /
-  float64 ones;
+* the stencil engine's defect-correction solve on 1D, 2D and 3D grids:
+  Poisson from a grid shape (structured setup, constant, cornered and faced
+  levels), and any radius-1 stencil pair such as variable-coefficient
+  diffusion or a matrix's extracted stencil (host Galerkin chain, or the
+  same chain on the device with ``core.hierarchy.build_hierarchy_device``;
+  varying levels); V, W and FMG cycles and MG-PCG with Jacobi, red-black or
+  4th-kind Chebyshev smoothing and aggregate or linear transfers; the
+  double-float outer loop and the plain float32 / float64 ones; a float64
+  cycle on the CPU; the numpy oracle of the original algorithm
+  (``utils/oracle.py``);
 * the general sparse engine (:func:`setup_sparse`, and ``mg_solve`` with
   ``format`` ``ell|csr|bsr|dense`` or a matrix that is not
   stencil-representable): host Galerkin chain of explicit transfer

@@ -43,7 +43,8 @@ class SolverConfig:
     krylov_iters: CG iterations (= cycles) per outer step with krylov="pcg".
     omega: weighted-Jacobi damping (2/3 is optimal for 1D Poisson; a robust
         all-round default).
-    dtype: cycle computation dtype (float32).
+    dtype: cycle computation dtype: float32, or float64 on the CPU only
+        (the stencil kernels are float32).
     transfer: intergrid transfer spec — "aggregate" is the reference's
         piecewise-constant scheme (parity default); "linear" is
         vertex-centered full-weighting/linear interpolation (much better

@@ -16,6 +16,15 @@ code on any device, as they are array code outside any kernel in the JAX
 package.  The coarsest level is one matrix–vector product with the
 precomputed dense inverse.
 
+The fused kernels take stage lists only, so a Chebyshev visit (and any
+visit of a faced level) is composed too: ``smooth`` (on the card one
+per-pass residual launch, K3 or K4, a Chebyshev iteration; a faced level's
+Jacobi or red/black passes are K3's constant passes with the face rows
+rewritten in tensor code), ``residual`` and the tensor ``restrict``, as the
+JAX package composes it.  A 1D level takes the same composed visit: the
+fused kernels take 2D and 3D grids, the per-pass kernel takes the 1D grid
+on its lift to ``(1, 1, n)``.
+
 A varying level's legs (the pre-smoothing from zero or from an iterate
 with the residual, and the post-smoothing) are one call each of
 :func:`~openmg_tpu_torch.ops.kernels.sweeps_vary_3d` on every device:

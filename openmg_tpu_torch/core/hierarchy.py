@@ -1,6 +1,6 @@
 """Grid-hierarchy construction (twin of ``openmg_tpu/core/hierarchy.py``).
 
-Two build functions:
+Three build functions:
 
 * :func:`build_hierarchy_structured` for constant fine stencils (Poisson),
   with its level classification.  The whole Galerkin chain is computed on
@@ -8,20 +8,26 @@ Two build functions:
   (:mod:`openmg_tpu_torch.core.structured`); a level that is exactly
   constant is stored as a ``(K,)`` value vector, a level that is constant
   away from its low faces/edges/corner as a
-  :class:`~openmg_tpu_torch.ops.stencil.CorneredOperator` (an O(K) table).
-  Neither kind streams coefficient grids during a sweep.  With
-  ``faced=False`` every level that is not constant is stored as per-point
-  coefficient grids (``varying``) with a grid of inverse diagonals, as in
-  the JAX package.  A level that classifies as ``faced`` raises
-  ``NotImplementedError`` (``FacedStencilOperator`` is ROADMAP queue 1,
-  item 15); the port never substitutes another representation silently.
+  :class:`~openmg_tpu_torch.ops.stencil.CorneredOperator` (an O(K) table),
+  and one that is constant away from its low faces only as a
+  :class:`~openmg_tpu_torch.ops.stencil.FacedStencilOperator` (dense face
+  planes).  None of these kinds streams coefficient grids during a sweep.
+  With ``faced=False`` every level that is not constant is stored as
+  per-point coefficient grids (``varying``) with a grid of inverse
+  diagonals, as in the JAX package.
 * :func:`build_hierarchy` for a general ``(offsets, coeffs)`` stencil pair
   (diffusion, a matrix's extracted stencil): the Galerkin chain on full
   coefficient arrays on the host (:mod:`openmg_tpu_torch.ops.galerkin`),
   each level stored as a constant operator where it is exactly one and as
   ``(K, *grid)`` coefficient grids otherwise, with a grid of inverse
-  diagonals.  The device-side build (``build_hierarchy_device``) waits for
-  a later slice.
+  diagonals.
+* :func:`build_hierarchy_device`, the same chain as tensor code on the
+  hierarchy's device (coefficient grids given as a tensor, or a constant
+  fine stencil materialized there for the chain's first step only): the
+  RAP steps, inverse diagonals, nonzero counts and constancy statistics
+  never leave the device; only the statistics' few scalars (to prune the
+  offsets and store the constant levels) and the coarsest level (for its
+  dense inverse) are read to the host.
 
 Level data and the coarsest level's dense inverse are placed on ``device``.
 
@@ -37,18 +43,21 @@ import numpy as np
 import torch
 
 from openmg_tpu_torch.models.poisson import stencil_to_csr
-from openmg_tpu_torch.ops.galerkin import galerkin_rap_stencil
+from openmg_tpu_torch.ops.galerkin import galerkin_rap_stencil, rap_output_offsets
 from openmg_tpu_torch.ops.stencil import (
     CorneredOperator,
+    FacedStencilOperator,
     StencilOperator,
+    _in_domain_mask,
     diag_index,
 )
-from openmg_tpu_torch.ops.transfer import AGGREGATE, Transfer
+from openmg_tpu_torch.ops.transfer import AGGREGATE, Transfer, coarse_shape
 
 __all__ = [
     "Level",
     "Hierarchy",
     "build_hierarchy",
+    "build_hierarchy_device",
     "build_hierarchy_structured",
     "default_gridlevels",
     "detect_constant",
@@ -59,7 +68,7 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class Level:
-    A: StencilOperator | CorneredOperator
+    A: StencilOperator | CorneredOperator | FacedStencilOperator
     # 1/diag: 0-d (constant / cornered interior) or a grid (varying)
     inv_diag: torch.Tensor
 
@@ -423,15 +432,17 @@ def _coarse_inverse(coarsest, max_dense_coarse, single_level: bool = False):
 def classify_level(offsets, rep):
     """``(kind, payload)`` of one boundary-collapsed level: ``const`` with
     its ``(K,)`` values, ``cornered`` with ``(values, subsets, deltas)``,
-    ``faced`` or ``varying`` (no payload)."""
+    ``faced`` with ``(values, face_axes, face_planes)``, or ``varying`` (no
+    payload)."""
     vals = detect_constant(offsets, rep)
     if vals is not None:
         return "const", vals
     cd = detect_cornered(offsets, rep)
     if cd is not None:
         return "cornered", cd
-    if detect_faced(offsets, rep) is not None:
-        return "faced", None
+    fd = detect_faced(offsets, rep)
+    if fd is not None:
+        return "faced", fd
     return "varying", None
 
 
@@ -455,7 +466,9 @@ def build_hierarchy_structured(
     where the level tables and the coarse inverse are placed.
 
     ``faced=True`` stores a level that is constant away from its low faces
-    as a :class:`~openmg_tpu_torch.ops.stencil.CorneredOperator`;
+    as a :class:`~openmg_tpu_torch.ops.stencil.CorneredOperator`, or as a
+    :class:`~openmg_tpu_torch.ops.stencil.FacedStencilOperator` where the
+    sharper cornered form does not hold;
     ``faced=False`` stores every level that is not constant as coefficient
     grids, expanded on ``device`` from the level's representative, with
     ``inv_diag = 1 / coeffs[diag]`` per point (the JAX package's
@@ -505,10 +518,24 @@ def build_hierarchy_structured(
                 subsets=subsets,
             )
         else:
-            raise NotImplementedError(
-                f"level {i} {lvl.real_shape} classifies as {kind!r}: the "
-                "structured setup stores constant, cornered and varying "
-                "levels only (ROADMAP queue 1, item 15: FacedStencilOperator)"
+            vals, face_axes, face_planes = payload
+            # each (collapsed) face plane expanded over its remaining axes
+            planes = []
+            for a, plane in zip(face_axes, face_planes):
+                rest = [
+                    (m, n) for j, (m, n) in
+                    enumerate(zip(lvl.m_shape, lvl.real_shape)) if j != a
+                ]
+                for ax, (m, n) in enumerate(rest):
+                    if m < n:
+                        plane = expand_rep_np(plane, ax, n)
+                planes.append(put(plane.astype(np_dtype)))
+            op = FacedStencilOperator(
+                values=put(vals.astype(np_dtype)),
+                face_coeffs=tuple(planes),
+                offsets=lvl.offsets,
+                shape=lvl.real_shape,
+                face_axes=face_axes,
             )
         if kind != "varying":
             inv_diag = put(np.asarray(1.0 / vals[di]).astype(np_dtype))
@@ -543,6 +570,161 @@ def build_hierarchy_structured(
     return Hierarchy(
         levels=tuple(levels),
         coarse_inv=put(coarse_inv.astype(np_dtype)),
+        fine_hi=fine_hi,
+        fine_hi_lo=fine_hi_lo,
+        stats=tuple(stats),
+        transfer=transfer,
+    )
+
+
+# ---------------------------------------------------------------------------
+# setup on the device
+# ---------------------------------------------------------------------------
+
+
+def _materialize_constant(values, offsets, shape, dtype):
+    """A constant stencil as full ``(K, *shape)`` coefficient grids with
+    Dirichlet zero truncation (value × in-domain mask), on the device of
+    ``values``."""
+    ks = []
+    for k, off in enumerate(offsets):
+        mask = _in_domain_mask(off, shape, values.device)
+        v = values[k].to(dtype)
+        if mask is None:
+            ks.append(torch.zeros(shape, dtype=dtype, device=values.device) + v)
+        else:
+            ks.append(v * mask.to(dtype))
+    return torch.stack(ks)
+
+
+def _interior_stats(cur, offsets, shape):
+    """Per offset, the min and max of its grid over the rows whose
+    neighbour stays in the grid (0 where there is none): two ``(K,)``
+    tensors on the device."""
+    mins, maxs = [], []
+    zero = torch.zeros((), dtype=cur.dtype, device=cur.device)
+    for k, off in enumerate(offsets):
+        if all(s - abs(o) > 0 for o, s in zip(off, shape)):
+            inner = cur[k][_interior_slice(off, shape)]
+            mins.append(inner.min())
+            maxs.append(inner.max())
+        else:
+            mins.append(zero)
+            maxs.append(zero)
+    return torch.stack(mins), torch.stack(maxs)
+
+
+def build_hierarchy_device(
+    offsets,
+    coeffs=None,
+    *,
+    fine_values=None,
+    shape=None,
+    gridlevels=None,
+    dtype=torch.float32,
+    residual_dtype="doublefloat",
+    transfer: Transfer = AGGREGATE,
+    max_dense_coarse: int = 512,
+    min_coarse_dim: int = 1,
+    device,
+) -> Hierarchy:
+    """Setup on the device: the Galerkin chain as tensor code on ``device``.
+
+    Pass either ``coeffs`` (``(K, *shape)`` coefficient grids, a tensor or
+    an array; moved to ``device`` in ``dtype``) or ``fine_values`` +
+    ``shape`` (a constant fine stencil such as Poisson: its grids are
+    materialized on the device for the first RAP step only and never
+    stored).
+
+    Every level's RAP step, inverse diagonal, nonzero count and per-offset
+    interior min/max run on the device.  A level whose interior min and max
+    agree for every offset is stored as a constant ``(K,)`` operator (its
+    zero offsets pruned), any other as coefficient grids with the offsets
+    that are zero everywhere pruned; the few scalars that decide this are
+    read to the host, one read a level.  The coarsest level is read to the
+    host for its dense inverse.  With ``residual_dtype="doublefloat"`` the
+    fine operator's lo part is zero: the chain solves the operator as given
+    in ``dtype``.
+    """
+    device = torch.device(device)
+    offsets = tuple(tuple(int(o) for o in off) for off in offsets)
+    if fine_values is not None:
+        if shape is None:
+            raise ValueError("shape is required with fine_values")
+        shape = tuple(int(s) for s in shape)
+        values = torch.tensor(
+            [float(v) for v in fine_values], dtype=dtype, device=device
+        )
+        cur = _materialize_constant(values, offsets, shape, dtype)
+    else:
+        cur = torch.as_tensor(coeffs).to(device=device, dtype=dtype)
+        shape = tuple(int(s) for s in cur.shape[1:])
+    if gridlevels is None:
+        gridlevels = default_gridlevels(shape, max_dense_coarse, min_coarse_dim)
+
+    levels, stats = [], []
+    cur_offs, cur_shape = offsets, shape
+    for lvl in range(int(gridlevels)):
+        if lvl > 0:
+            want = rap_output_offsets(cur_offs, cur_shape, transfer)
+            cur_offs, cur = galerkin_rap_stencil(
+                cur_offs, cur, transfer=transfer, prune=False
+            )
+            assert tuple(cur_offs) == tuple(want)
+            cur_shape = coarse_shape(cur_shape)
+        mins, maxs = _interior_stats(cur, cur_offs, cur_shape)
+        nz_any = torch.any(cur.reshape(cur.shape[0], -1) != 0, dim=1)
+        nnz = torch.count_nonzero(cur)
+        # the level's scalars, in one read
+        host = torch.cat(
+            [mins.double(), maxs.double(), nz_any.double(), nnz.double()[None]]
+        ).cpu().numpy()
+        K = len(cur_offs)
+        mins_h, maxs_h, nz_h = host[:K], host[K:2 * K], host[2 * K:3 * K]
+        nnz_val = int(host[3 * K])
+        if np.all(mins_h == maxs_h):
+            keep = [
+                i for i in range(K) if not (mins_h[i] == 0 and maxs_h[i] == 0)
+            ] or [0]
+            offs_k = tuple(cur_offs[i] for i in keep)
+            vals = mins[keep]
+            op = StencilOperator(None, offs_k, vals, cur_shape)
+            inv_diag = 1.0 / vals[diag_index(offs_k)]
+        else:
+            keep = [i for i in range(K) if nz_h[i]] or [0]
+            offs_k = tuple(cur_offs[i] for i in keep)
+            op = StencilOperator(cur[keep] if len(keep) < K else cur, offs_k)
+            inv_diag = 1.0 / op.coeffs[diag_index(offs_k)]
+        levels.append(Level(A=op, inv_diag=inv_diag))
+        stats.append((cur_shape, len(offs_k), nnz_val))
+
+    coarse_op = levels[-1].A
+    if coarse_op.is_constant:
+        c_vals = coarse_op.values.double().cpu().numpy()
+        c_cfs = np.zeros((len(coarse_op.offsets),) + cur_shape)
+        for k, off in enumerate(coarse_op.offsets):
+            c_cfs[(k,) + _interior_slice(off, cur_shape)] = c_vals[k]
+    else:
+        c_cfs = coarse_op.coeffs.double().cpu().numpy()
+    coarse_inv = _coarse_inverse(
+        (coarse_op.offsets, c_cfs), max_dense_coarse,
+        single_level=len(levels) == 1,
+    )
+
+    fine_op = levels[0].A
+    if residual_dtype == "doublefloat":
+        fine_hi = fine_op
+        fine_hi_lo = StencilOperator(
+            None, fine_op.offsets,
+            torch.zeros(len(fine_op.offsets), dtype=dtype, device=device),
+            fine_op.grid_shape,
+        )
+    else:
+        fine_hi = fine_op.astype(residual_dtype)
+        fine_hi_lo = None
+    return Hierarchy(
+        levels=tuple(levels),
+        coarse_inv=_put(coarse_inv.astype(_np_dtype(dtype)), device),
         fine_hi=fine_hi,
         fine_hi_lo=fine_hi_lo,
         stats=tuple(stats),

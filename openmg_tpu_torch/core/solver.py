@@ -43,9 +43,14 @@ The inner error solve of an outer step is one cycle of ``cycle_type``
 CG steps (:func:`_inner_solve`).  :meth:`Solver.solve_many` runs a batch of
 right-hand sides in lockstep, one host read of the batch's norms a step.
 
-Waiting for later slices (each raises ``NotImplementedError``):
-checkpoint/resume, the chebyshev smoother, ``dtype="float64"`` and 1D grids
-on the stencil engine.
+Grids of one, two and three dimensions take the same loop; a 1D grid runs
+through the kernels on its lift to ``(1, 1, n)``, as a 2D one does on
+``(1, ny, nx)``.  ``dtype="float64"`` runs the whole cycle in float64 on
+the CPU (``residual_dtype="auto"`` is then float64 too); on the card a
+float64 cycle is refused, because the stencil kernels are float32.
+
+Waiting for a later slice (raises ``NotImplementedError``):
+checkpoint/resume (ROADMAP queue 1, item 19).
 """
 
 from __future__ import annotations
@@ -96,11 +101,15 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def _resolve_residual_mode(name):
+def _resolve_residual_mode(name, cycle_dtype=torch.float32):
     """``"doublefloat"``, a torch dtype, or None (the cycle's dtype).
-    ``"auto"`` means double-float on every device."""
+    ``"auto"`` means double-float on every device for a float32 cycle, and
+    float64 for a float64 cycle (the JAX package's ``"auto"`` on the CPU with
+    x64 on)."""
     if name in (None, ""):
         return None
+    if name == "auto" and cycle_dtype == torch.float64:
+        return torch.float64
     if name in ("doublefloat", "auto"):
         return "doublefloat"
     if name in ("float32", "float64"):
@@ -108,6 +117,20 @@ def _resolve_residual_mode(name):
     raise ValueError(
         f"residual_dtype={name!r}; choose doublefloat|auto|float32|float64"
     )
+
+
+def _cycle_dtype(name, device) -> torch.dtype:
+    """The cycle's torch dtype for ``SolverConfig.dtype``: float32 on any
+    device, float64 on the CPU only (the stencil kernels are float32, and
+    plain tensor code does not run on the card)."""
+    if name not in ("float32", "float64"):
+        raise ValueError(f"dtype={name!r}; choose float32|float64")
+    if name == "float64" and torch.device(device).type != "cpu":
+        raise NotImplementedError(
+            f"a float64 cycle on {device}: the stencil kernels take float32 "
+            "only, and plain tensor code does not run on the card"
+        )
+    return getattr(torch, name)
 
 
 def exact_residual_terms(hierarchy: Hierarchy):
@@ -267,27 +290,24 @@ class Solver:
         self.hierarchy = hierarchy
         self.config = config
         self.device = hierarchy.device
-        if config.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype={config.dtype!r}: the cycle is ported for float32 only"
-            )
+        self.dtype = _cycle_dtype(config.dtype, self.device)
         self.residual_mode = (
-            _resolve_residual_mode(config.residual_dtype) or torch.float32
+            _resolve_residual_mode(config.residual_dtype, self.dtype)
+            or self.dtype
         )
-        if len(hierarchy.grid_shape) not in (2, 3):
-            raise NotImplementedError(
-                f"a {len(hierarchy.grid_shape)}D grid: the cycle is ported for "
-                "2D and 3D grids; 1D grids are not ported yet (ROADMAP queue 1, "
-                "item 17)"
+        if len(hierarchy.grid_shape) not in (1, 2, 3):
+            raise ValueError(
+                f"a {len(hierarchy.grid_shape)}D grid: grids of 1, 2 or 3 "
+                "dimensions are solved"
             )
         if self.residual_mode == "doublefloat" and hierarchy.fine_hi_lo is None:
             raise ValueError(
                 "hierarchy was not built with residual_dtype='doublefloat'"
             )
-        if config.smoother == "chebyshev":
-            raise NotImplementedError(
-                "the chebyshev smoother is not ported yet (ROADMAP queue 1, "
-                "item 15)"
+        if self.residual_mode == "doublefloat" and self.dtype != torch.float32:
+            raise ValueError(
+                "the double-float residual pairs with a float32 cycle; a "
+                "float64 cycle takes residual_dtype='float64' or 'auto'"
             )
         self._exact_terms = (
             exact_residual_terms(hierarchy)
@@ -302,7 +322,7 @@ class Solver:
     def _inner(self, r):
         cfg = self.config
         return _inner_solve(
-            self.hierarchy, r.to(torch.float32), cycle_type=cfg.cycle_type,
+            self.hierarchy, r.to(self.dtype), cycle_type=cfg.cycle_type,
             pre=cfg.pre_iterations, post=cfg.post_iterations,
             smoother=cfg.smoother, omega=cfg.omega, krylov=cfg.krylov,
             krylov_iters=cfg.krylov_iters,
@@ -399,6 +419,9 @@ class Solver:
         one outer step (one inner solve: a cycle, or ``krylov_iters`` CG
         steps with ``krylov="pcg"``).
 
+        ``info["host_reads"]`` counts the loop's device-to-host reads (one
+        before every outer step and one after the last).
+
         Result type follows the input (see :meth:`_deliver`): numpy/f64
         ``b`` → exact float64 numpy ``x``; a float32 tensor ``b`` on the
         solver's device → float32 tensor ``x`` on that device, with the
@@ -412,7 +435,7 @@ class Solver:
         limit = cfg.cycles if cfg.cycles > 0 else 10_000
         t_start = time.perf_counter()
         step, device_native = self._step(b, x0)
-        (history,), (converged,), _, _ = lockstep(
+        (history,), (converged,), _, reads = lockstep(
             [step], limit, float(cfg.threshold), self._say
         )
         solve_time = time.perf_counter() - t_start
@@ -424,6 +447,7 @@ class Solver:
             "final_norm": history[-1],
             **self._info(solve_time),
             "mean_cycle_time_s": solve_time / max(k, 1),
+            "host_reads": reads,
         }
         df = self.residual_mode == "doublefloat"
         return self._deliver(step.x, df, device_native, info), info
@@ -528,11 +552,8 @@ def setup(
         raise ValueError(
             f"unknown transfer {config.transfer!r}; choose from {sorted(TRANSFERS)}"
         )
-    if config.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype={config.dtype!r}: the cycle is ported for float32 only"
-        )
-    rmode = _resolve_residual_mode(config.residual_dtype) or torch.float32
+    dtype = _cycle_dtype(config.dtype, device)
+    rmode = _resolve_residual_mode(config.residual_dtype, dtype) or dtype
     if isinstance(problem, ProblemConfig):
         shape_like = tuple(problem.shape)
     elif isinstance(problem, (tuple, list)) and all(
@@ -543,7 +564,7 @@ def setup(
         shape_like = None
     common = dict(
         gridlevels=config.gridlevels,
-        dtype=torch.float32,
+        dtype=dtype,
         residual_dtype=rmode,
         transfer=TRANSFERS[config.transfer],
         max_dense_coarse=config.max_dense_coarse,

@@ -14,18 +14,22 @@ would target out-of-domain coarse columns are zeroed at the end to keep
 the stencil invariant (coeff = 0 where row + offset leaves the grid).
 
 The arithmetic and its order are the JAX package's numpy path exactly, so
-the level tables built from it are equal bit for bit.  The traced
-(on-device) RAP of the JAX package waits with the device-side hierarchy
-build.
+the level tables built from it are equal bit for bit.  The same functions
+take torch tensors on any device (the JAX package's ``_xp`` lets them take
+``jnp`` arrays): :func:`galerkin_rap_device` runs one RAP step on the
+tensors' device, as tensor code (the JAX package's is XLA, not a Pallas
+kernel), and prunes the offsets that are zero everywhere with one reduction
+read to the host.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from openmg_tpu_torch.ops.transfer import AGGREGATE, Transfer, coarse_shape
 
-__all__ = ["galerkin_rap_stencil", "rap_output_offsets"]
+__all__ = ["galerkin_rap_stencil", "galerkin_rap_device", "rap_output_offsets"]
 
 
 def _parity_slice(x, pm: int, axis: int):
@@ -35,11 +39,11 @@ def _parity_slice(x, pm: int, axis: int):
 
 
 def _shift_axis_np(x, s: int, axis: int):
-    """z[i] = x[i + s] along axis, zero-filled."""
+    """z[i] = x[i + s] along axis, zero-filled (a numpy array or a tensor)."""
     if s == 0:
         return x
     n = x.shape[axis]
-    z = np.zeros_like(x)
+    z = torch.zeros_like(x) if isinstance(x, torch.Tensor) else np.zeros_like(x)
     src = [slice(None)] * x.ndim
     dst = [slice(None)] * x.ndim
     if s > 0:
@@ -55,6 +59,7 @@ def _shift_axis_np(x, s: int, axis: int):
 def _rap_axis(offsets, coeffs, axis: int, r_taps, p_taps):
     """Contract one grid axis by factor 2 with the given taps (accumulates
     in place: every avoided full-array pass matters at large setups)."""
+    on_torch = isinstance(coeffs, torch.Tensor)
     acc: dict = {}
     for k, off in enumerate(offsets):
         ck = coeffs[k]
@@ -74,12 +79,15 @@ def _rap_axis(offsets, coeffs, axis: int, r_taps, p_taps):
                 if samp is None:
                     samp = _shift_axis_np(_parity_slice(ck, pm, axis), s, axis)
                 w = wr * wp
-                if newoff in acc:
-                    np.add(acc[newoff], samp * w, out=acc[newoff])
-                else:
+                if newoff not in acc:
                     acc[newoff] = samp * w  # first term owns the buffer
+                elif on_torch:
+                    acc[newoff] += samp * w
+                else:
+                    np.add(acc[newoff], samp * w, out=acc[newoff])
     new_offsets = list(acc.keys())
-    stacked = np.stack([acc[D] for D in new_offsets])
+    stack = torch.stack if on_torch else np.stack
+    stacked = stack([acc[D] for D in new_offsets])
     return new_offsets, stacked
 
 
@@ -103,12 +111,15 @@ def _zero_oob(offsets, coeffs):
 def galerkin_rap_stencil(
     offsets, coeffs, transfer: Transfer = AGGREGATE, prune: bool = True
 ):
-    """Structured RAP on raw ``(offsets, coeffs)`` numpy arrays.
+    """Structured RAP on raw ``(offsets, coeffs)``: numpy arrays, or torch
+    tensors on any device (the result stays on it).
 
     Returns coarse ``(offsets, coeffs)``.  ``prune`` drops coarse offsets
     whose coefficient grid is identically zero.
     """
-    coeffs = np.asarray(coeffs)
+    on_torch = isinstance(coeffs, torch.Tensor)
+    if not on_torch:
+        coeffs = np.asarray(coeffs)
     shape = tuple(coeffs.shape[1:])
     d = len(shape)
     axes = [a for a in range(d) if shape[a] > 1]
@@ -122,7 +133,7 @@ def galerkin_rap_stencil(
             cur_offsets, cur, a, transfer.r_taps, transfer.p_taps
         )
     cur = _zero_oob(cur_offsets, cur)
-    cur = cur.astype(coeffs.dtype, copy=False)
+    cur = cur.to(coeffs.dtype) if on_torch else cur.astype(coeffs.dtype, copy=False)
     assert tuple(cur.shape[1:]) == coarse_shape(shape)
 
     if prune:
@@ -130,7 +141,7 @@ def galerkin_rap_stencil(
         if not keep:  # degenerate all-zero operator; keep the diagonal slot
             keep = [0]
         cur_offsets = [cur_offsets[i] for i in keep]
-        cur = cur[np.asarray(keep)]
+        cur = cur[keep] if on_torch else cur[np.asarray(keep)]
 
     # diagonal-first convention
     zero = (0,) * d
@@ -139,7 +150,7 @@ def galerkin_rap_stencil(
         key=lambda i: (cur_offsets[i] != zero, cur_offsets[i]),
     )
     cur_offsets = [cur_offsets[i] for i in order]
-    cur = cur[np.asarray(order)]
+    cur = cur[order] if on_torch else cur[np.asarray(order)]
     return tuple(cur_offsets), cur
 
 
@@ -150,3 +161,18 @@ def rap_output_offsets(offsets, shape, transfer: Transfer = AGGREGATE):
     dummy = np.ones((len(offsets),) + dummy_shape, dtype=np.float32)
     offs, _ = galerkin_rap_stencil(offsets, dummy, transfer=transfer, prune=False)
     return offs
+
+
+def galerkin_rap_device(offsets, coeffs: torch.Tensor, transfer: Transfer = AGGREGATE):
+    """One Galerkin step on the device of ``coeffs`` (a ``(K, *grid)``
+    tensor): the unpruned RAP as tensor code, its offset list known ahead
+    from :func:`rap_output_offsets`, then the offsets whose grid is zero
+    everywhere pruned by one reduction read to the host."""
+    offsets = tuple(tuple(int(o) for o in off) for off in offsets)
+    shape = tuple(int(s) for s in coeffs.shape[1:])
+    out_offsets = rap_output_offsets(offsets, shape, transfer)
+    offs, cur = galerkin_rap_stencil(offsets, coeffs, transfer=transfer, prune=False)
+    assert tuple(offs) == tuple(out_offsets)
+    nz = torch.any(cur.reshape(cur.shape[0], -1) != 0, dim=1).cpu().tolist()
+    keep = [i for i in range(len(out_offsets)) if nz[i]] or [0]
+    return tuple(out_offsets[i] for i in keep), cur[keep]

@@ -13,7 +13,8 @@ cornered one), or for per-point coefficient grids ``(K, nz, ny, nx)``.  The
 entry points keep the JAX package's names and argument order
 (``residual_const_3d``, ``jacobi_const_3d``, ``rbgs_const_3d``,
 ``rbgs_half_sweep_const_3d`` and their ``_vary_3d`` twins) and lift a 2D
-operand, cornered ones included, to ``(1, ny, nx)``.
+operand, cornered ones included, to ``(1, ny, nx)`` and a 1D one to
+``(1, 1, n)``.
 
 **One leg of a varying-level visit** (K4 again, one launch for all the
 passes of the JAX module's ``rbgs_vary_3d`` / ``jacobi_vary_3d`` and the
@@ -240,7 +241,8 @@ def df_update_residual_const_3d(
     """Outer-loop step for dyadic constant 3D stencils; returns
     ``(x_hi', x_lo', r_hi)`` and, with ``emit_norm``, a 1-D tensor of
     partial sums whose total is ‖r_hi‖².  A 2D grid runs lifted to
-    ``(1, ny, nx)`` with offsets ``(0, oy, ox)``, on either device.
+    ``(1, ny, nx)`` with offsets ``(0, oy, ox)``, a 1D grid to ``(1, 1, n)``
+    with offsets ``(0, 0, o)``, on either device.
 
     ``offsets`` / ``terms`` are static host tuples.  Inputs are never
     modified.  On a CUDA tensor the kernel is enqueued on the current
@@ -248,12 +250,12 @@ def df_update_residual_const_3d(
     """
     offsets = tuple(tuple(int(o) for o in off) for off in offsets)
     terms = tuple(tuple(t) for t in terms)
-    if x_hi.ndim == 2:
+    if x_hi.ndim in (1, 2):
         out = df_update_residual_const_3d(
-            _lift2d(offsets), terms, x_hi[None], x_lo[None], e[None],
-            b_hi[None], b_lo[None], emit_norm=emit_norm,
+            _lift(offsets), terms, *map(_up, (x_hi, x_lo, e, b_hi, b_lo)),
+            emit_norm=emit_norm,
         )
-        return tuple(a[0] for a in out[:3]) + tuple(out[3:])
+        return tuple(a.reshape(x_hi.shape) for a in out[:3]) + tuple(out[3:])
     if x_hi.device.type == "cpu":
         return df_update_residual_const_3d_plain(
             offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm
@@ -274,6 +276,23 @@ _MODE_CODE = {"jacobi": 0, "rbgs": 1, "residual": 2}
 
 def _lift2d(offsets):
     return tuple((0,) + tuple(o) for o in offsets)
+
+
+def _lift1d(offsets):
+    return tuple((0, 0) + tuple(o) for o in offsets)
+
+
+def _lift(offsets):
+    """Offsets of a 1D or 2D operator on its lift to 3D."""
+    return _lift1d(offsets) if len(offsets[0]) == 1 else _lift2d(offsets)
+
+
+def _up(t):
+    """A 1D or 2D grid tensor as its lift ``(1, 1, n)`` / ``(1, ny, nx)``
+    (a view; None passes through)."""
+    if t is None:
+        return None
+    return t.reshape((1,) * (3 - t.ndim) + tuple(t.shape))
 
 
 def _norm_offsets(offsets):
@@ -478,28 +497,31 @@ def _half_sweep_vary(coeffs, b, x, *, offsets, mode, omega, color):
     return _half_sweep_cuda(coeffs, offsets, b, x, mode, omega, color, True, None)
 
 
-def _lift_corner(corner):
-    """The region table of a cornered 2D operator for its ``(1, ny, nx)``
-    lift: the face axes 0, 1 become the lifted axes 1, 2 (the lifted axis 0
-    is 0 everywhere and selects no row)."""
+def _lift_corner(corner, ndim=2):
+    """The region table of a cornered 2D (or 1D) operator for its
+    ``(1, ny, nx)`` (or ``(1, 1, n)``) lift: the face axes move up by the
+    lifted axes in front (which are 0 everywhere and select no row)."""
     if not corner:
         return None
     regions, table = corner
-    return tuple(tuple(a + 1 for a in R) for R in regions), table
+    up = 3 - ndim
+    return tuple(tuple(a + up for a in R) for R in regions), table
 
 
 def _lifted(fn, first, offsets, b, x, *rest, vary=False, **kw):
-    """Run a 3D entry point on 2D operands lifted to ``(1, ny, nx)``."""
+    """Run a 3D entry point on 1D or 2D operands lifted to ``(1, 1, n)`` or
+    ``(1, ny, nx)``."""
     if kw.get("corner"):
-        kw["corner"] = _lift_corner(kw["corner"])
-    first = first[:, None] if vary else first
-    return fn(first, _lift2d(offsets), b[None], x[None], *rest, **kw)[0]
+        kw["corner"] = _lift_corner(kw["corner"], x.ndim)
+    first = _up_coeffs(first, x) if vary else first
+    out = fn(first, _lift(offsets), _up(b), _up(x), *rest, **kw)
+    return out.reshape(x.shape)
 
 
 def residual_const_3d(values, offsets, b, x, corner=None):
-    """Residual ``r = b − A x`` of a 2D/3D constant (or, with ``corner=``,
+    """Residual ``r = b − A x`` of a 1D/2D/3D constant (or, with ``corner=``,
     cornered) stencil: one pass."""
-    if x.ndim == 2:
+    if x.ndim in (1, 2):
         return _lifted(residual_const_3d, values, offsets, b, x, corner=corner)
     return _half_sweep(
         values, b, x, offsets=_norm_offsets(offsets), mode="residual",
@@ -509,8 +531,8 @@ def residual_const_3d(values, offsets, b, x, corner=None):
 
 def jacobi_const_3d(values, offsets, b, x, iterations: int, omega: float,
                     corner=None):
-    """Weighted-Jacobi sweeps of a 2D/3D constant stencil, one pass each."""
-    if x.ndim == 2:
+    """Weighted-Jacobi sweeps of a 1D/2D/3D constant stencil, one pass each."""
+    if x.ndim in (1, 2):
         return _lifted(
             jacobi_const_3d, values, offsets, b, x, iterations, omega,
             corner=corner,
@@ -525,9 +547,9 @@ def jacobi_const_3d(values, offsets, b, x, iterations: int, omega: float,
 
 
 def rbgs_const_3d(values, offsets, b, x, iterations: int, corner=None):
-    """Red–black Gauss–Seidel sweeps of a 2D/3D constant stencil, two
+    """Red–black Gauss–Seidel sweeps of a 1D/2D/3D constant stencil, two
     passes each."""
-    if x.ndim == 2:
+    if x.ndim in (1, 2):
         return _lifted(
             rbgs_const_3d, values, offsets, b, x, iterations, corner=corner
         )
@@ -542,8 +564,8 @@ def rbgs_const_3d(values, offsets, b, x, iterations: int, corner=None):
 
 
 def rbgs_half_sweep_const_3d(values, offsets, b, x, color: int, corner=None):
-    """One single-colour red/black pass of a 2D/3D constant stencil."""
-    if x.ndim == 2:
+    """One single-colour red/black pass of a 1D/2D/3D constant stencil."""
+    if x.ndim in (1, 2):
         return _lifted(
             rbgs_half_sweep_const_3d, values, offsets, b, x, color,
             corner=corner,
@@ -555,9 +577,9 @@ def rbgs_half_sweep_const_3d(values, offsets, b, x, color: int, corner=None):
 
 
 def jacobi_vary_3d(coeffs, offsets, b, x, iterations: int, omega: float):
-    """Weighted-Jacobi sweeps of a varying-coefficient 2D/3D stencil (one
+    """Weighted-Jacobi sweeps of a varying-coefficient 1D/2D/3D stencil (one
     pass per sweep: K coefficient grids, x and b in, x out)."""
-    if x.ndim == 2:
+    if x.ndim in (1, 2):
         return _lifted(
             jacobi_vary_3d, coeffs, offsets, b, x, iterations, omega, vary=True
         )
@@ -570,9 +592,9 @@ def jacobi_vary_3d(coeffs, offsets, b, x, iterations: int, omega: float):
 
 
 def rbgs_vary_3d(coeffs, offsets, b, x, iterations: int):
-    """Red–black Gauss–Seidel sweeps of a varying-coefficient 2D/3D
+    """Red–black Gauss–Seidel sweeps of a varying-coefficient 1D/2D/3D
     stencil."""
-    if x.ndim == 2:
+    if x.ndim in (1, 2):
         return _lifted(rbgs_vary_3d, coeffs, offsets, b, x, iterations, vary=True)
     offsets = _norm_offsets(offsets)
     for _ in range(iterations):
@@ -586,7 +608,7 @@ def rbgs_vary_3d(coeffs, offsets, b, x, iterations: int):
 
 def rbgs_half_sweep_vary_3d(coeffs, offsets, b, x, color: int):
     """One single-colour red/black pass of a varying-coefficient stencil."""
-    if x.ndim == 2:
+    if x.ndim in (1, 2):
         return _lifted(
             rbgs_half_sweep_vary_3d, coeffs, offsets, b, x, color, vary=True
         )
@@ -597,8 +619,8 @@ def rbgs_half_sweep_vary_3d(coeffs, offsets, b, x, color: int):
 
 
 def residual_vary_3d(coeffs, offsets, b, x):
-    """Residual of a varying-coefficient 2D/3D stencil: one pass."""
-    if x.ndim == 2:
+    """Residual of a varying-coefficient 1D/2D/3D stencil: one pass."""
+    if x.ndim in (1, 2):
         return _lifted(residual_vary_3d, coeffs, offsets, b, x, vary=True)
     return _half_sweep_vary(
         coeffs, b, x, offsets=_norm_offsets(offsets), mode="residual",
@@ -662,6 +684,12 @@ def leg_chunks(passes: int, emit_residual: bool, depth_cap: int):
     return out
 
 
+def _up_coeffs(coeffs, b):
+    """``(K, *grid)`` coefficient grids of a 1D or 2D operator on the lift
+    of ``b``."""
+    return coeffs.reshape((coeffs.shape[0],) + tuple(_up(b).shape))
+
+
 def sweeps_vary_plain(coeffs, offsets, b, x, passes, mode="rbgs",
                       omega=2.0 / 3.0, emit_residual=False, inv_diag=None):
     """Plain PyTorch version of a leg: ``passes`` passes of
@@ -670,14 +698,15 @@ def sweeps_vary_plain(coeffs, offsets, b, x, passes, mode="rbgs",
     last iterate; returns ``x`` or ``(x, r)``.
     ``inv_diag``: the grid of ``1 / coeffs[diag]`` where the caller keeps
     one (a level's ``inv_diag``), else it is formed here.  2D operands
-    run as ``(1, ny, nx)``."""
-    if b.ndim == 2:
+    run as ``(1, ny, nx)``, 1D ones as ``(1, 1, n)``."""
+    if b.ndim in (1, 2):
         got = sweeps_vary_plain(
-            coeffs[:, None], _lift2d(offsets), b[None],
-            None if x is None else x[None], passes, mode, omega,
-            emit_residual, None if inv_diag is None else inv_diag[None],
+            _up_coeffs(coeffs, b), _lift(offsets), _up(b), _up(x), passes,
+            mode, omega, emit_residual, _up(inv_diag),
         )
-        return tuple(t[0] for t in got) if emit_residual else got[0]
+        if emit_residual:
+            return tuple(t.reshape(b.shape) for t in got)
+        return got.reshape(b.shape)
     offsets = _norm_offsets(offsets)
     if inv_diag is None:
         inv_diag = 1.0 / coeffs[diag_index(offsets)]
@@ -764,7 +793,7 @@ def _vary_leg_cuda(coeffs, offsets, b, x, passes, mode, omega, emit_residual,
 
 def sweeps_vary_3d(coeffs, offsets, b, x, passes: int, mode="rbgs",
                    omega=2.0 / 3.0, emit_residual=False, inv_diag=None):
-    """A leg of a varying-level visit on 2D/3D operands, by the device of
+    """A leg of a varying-level visit on 1D/2D/3D operands, by the device of
     ``b``: ``passes`` Jacobi or red/black passes (colours 0, 1, 0, … — a
     red/black sweep is two passes) from ``x``, or from zero when ``x`` is
     None (then never read), and with ``emit_residual`` the residual of the
@@ -774,13 +803,14 @@ def sweeps_vary_3d(coeffs, offsets, b, x, passes: int, mode="rbgs",
     :func:`leg_depth` passes and the residual; a deeper leg takes
     ``⌈depth / leg_depth⌉`` (:func:`leg_chunks`), and a launch of one
     level is a pass of ``csrc/half_sweep.cu``."""
-    if b.ndim == 2:
+    if b.ndim in (1, 2):
         got = sweeps_vary_3d(
-            coeffs[:, None], _lift2d(offsets), b[None],
-            None if x is None else x[None], passes, mode, omega, emit_residual,
-            None if inv_diag is None else inv_diag[None],
+            _up_coeffs(coeffs, b), _lift(offsets), _up(b), _up(x), passes,
+            mode, omega, emit_residual, _up(inv_diag),
         )
-        return tuple(t[0] for t in got) if emit_residual else got[0]
+        if emit_residual:
+            return tuple(t.reshape(b.shape) for t in got)
+        return got.reshape(b.shape)
     offsets = _norm_offsets(offsets)
     if b.device.type == "cpu":
         return sweeps_vary_plain(

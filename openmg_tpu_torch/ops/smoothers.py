@@ -16,12 +16,25 @@ them a formulation independent of the pass-by-pass plain versions in
 :mod:`openmg_tpu_torch.ops.fused` and :mod:`openmg_tpu_torch.ops.kernels`,
 which the tests hold against them.
 
+:func:`chebyshev` is the 4th-kind Chebyshev polynomial smoother with a
+Gershgorin bound on λmax(D⁻¹A) (:func:`gershgorin_lambda_max`): each
+iteration's ``r ← r − A d`` is one :func:`~openmg_tpu_torch.ops.stencil.
+residual`, the ``d`` and ``x`` updates are tensor code, as they are array
+code in the JAX package.
+
 :func:`smooth` dispatches on the device of ``b``: CPU tensors take
-``jacobi`` / ``rbgs``; on the card a constant or cornered operator goes to
-the fused kernel first (K1 in 3D, K5 in 2D) and to the per-pass kernel (K3,
-a 2D operand lifted to ``(1, ny, nx)``) where that declines, a varying
-operator to the per-pass kernel (K4), and what neither takes raises.
-Chebyshev smoothing and faced operators wait for a later slice.
+``jacobi`` / ``rbgs`` / ``chebyshev``; on the card a constant or cornered
+operator goes to the fused kernel first (K1 in 3D, K5 in 2D) and to the
+per-pass kernel (K3, a 1D or 2D operand lifted to ``(1, 1, n)`` or ``(1,
+ny, nx)``) where that declines, a varying operator to the per-pass kernel
+(K4), and what neither takes raises.  A faced operator
+(:class:`~openmg_tpu_torch.ops.stencil.FacedStencilOperator`) takes K3's
+constant passes one at a time on either device (the plain version on the
+CPU) and its face planes in tensor code after each, as in the JAX package.
+Chebyshev on the card is one per-pass residual launch (K3, or K4 on a
+varying level) an iteration; its λmax and full inverse diagonal are
+computed once per operator and kept as device tensors, never read to the
+host.
 """
 
 from __future__ import annotations
@@ -31,12 +44,25 @@ import torch
 from openmg_tpu_torch.ops import stencil as _stencil
 from openmg_tpu_torch.ops.stencil import (
     CorneredOperator,
+    FacedStencilOperator,
     StencilOperator,
+    _fix_faces,
+    _once,
     diag_index,
+    face_apply,
     residual,
 )
 
-__all__ = ["jacobi", "rbgs", "smooth", "red_mask", "diag_full"]
+__all__ = [
+    "jacobi",
+    "rbgs",
+    "chebyshev",
+    "gershgorin_lambda_max",
+    "cornered_inv_diag_full",
+    "smooth",
+    "red_mask",
+    "diag_full",
+]
 
 
 def red_mask(shape, device="cpu") -> torch.Tensor:
@@ -66,11 +92,12 @@ def diag_full(op):
             )
             d[idx] = tbl[r, di]
         return d
+    if isinstance(op, FacedStencilOperator):
+        d = torch.zeros(op.shape, dtype=op.dtype, device=op.device) + op.values[di]
+        return _fix_faces(op, d, lambda fi: op.face_coeffs[fi][di])
     if isinstance(op, StencilOperator):
         return op.coeff(di)
-    raise NotImplementedError(
-        f"{type(op).__name__} smoothing is not ported (ROADMAP queue 1, slice B)"
-    )
+    raise TypeError(f"no diagonal for a {type(op).__name__}")
 
 
 def jacobi(op, inv_diag, b, x, iterations: int, omega: float = 2.0 / 3.0):
@@ -94,23 +121,154 @@ def rbgs(op, inv_diag, b, x, iterations: int):
     return x
 
 
-def _smooth_kernel(name, op, b, x, iterations, omega):
+def gershgorin_lambda_max(op, inv_diag):
+    """Upper bound on λmax(D⁻¹A): ``max_i (1 + Σ_j≠i |a_ij| / a_ii)``, a
+    0-d tensor on the operator's device.  Exactly 2 for Poisson."""
+    di = diag_index(op.offsets)
+    if isinstance(op, (CorneredOperator, FacedStencilOperator)):
+        offsum_int = sum(
+            torch.abs(op.values[k]) for k in range(op.num_offsets) if k != di
+        )
+        lam = 1.0 + offsum_int / torch.abs(op.values[di])
+    if isinstance(op, CorneredOperator):
+        tbl = op.table
+        for r, R in enumerate(op.regions):
+            offsum = sum(
+                torch.abs(tbl[r, k])
+                for k, off in enumerate(op.offsets)
+                # taps reaching i_b = −1 for b ∈ R are outside the domain on
+                # every row of the region: leaving them out tightens the
+                # bound, which stays a bound
+                if k != di and not any(off[b] < 0 for b in R)
+            )
+            lam = torch.maximum(lam, 1.0 + offsum / torch.abs(tbl[r, di]))
+        return lam
+    if isinstance(op, FacedStencilOperator):
+        for fc in op.face_coeffs:
+            offsum = None
+            for k in range(op.num_offsets):
+                if k == di:
+                    continue
+                t = torch.abs(fc[k])
+                offsum = t if offsum is None else offsum + t
+            lam = torch.maximum(lam, 1.0 + torch.max(offsum / torch.abs(fc[di])))
+        return lam
+    if op.is_constant:
+        offsum = sum(
+            torch.abs(op.values[k]) for k in range(op.num_offsets) if k != di
+        )
+        return 1.0 + offsum * torch.abs(inv_diag)
+    offsum = None
+    for k in range(op.num_offsets):
+        if k == di:
+            continue
+        t = torch.abs(op.coeffs[k])
+        offsum = t if offsum is None else offsum + t
+    return 1.0 + torch.max(offsum * torch.abs(inv_diag))
+
+
+def chebyshev(op, inv_diag, b, x, iterations: int, lam_max=None):
+    """Fourth-kind Chebyshev polynomial smoother: ``iterations`` steps of
+    ``x ← x + d_k`` with
+
+        d_1 = 4/(3 λmax) · D⁻¹ r₀
+        d_{k+1} = (2k−1)/(2k+3) · d_k + (8k+4)/((2k+3) λmax) · D⁻¹ r_k
+
+    and ``r_k ← r_{k−1} − A d_k`` by :func:`~openmg_tpu_torch.ops.stencil.
+    residual` (one per-pass kernel launch on the card).  One iteration with
+    λmax = 2 is ω = 2/3 weighted Jacobi.  ``lam_max`` defaults to
+    :func:`gershgorin_lambda_max`; it stays a tensor on the device."""
+    if lam_max is None:
+        lam_max = gershgorin_lambda_max(op, inv_diag)
+    lam_max = torch.as_tensor(lam_max, dtype=x.dtype, device=x.device)
+    r = residual(op, b, x)
+    d = (4.0 / 3.0) / lam_max * inv_diag * r
+    for k in range(1, iterations + 1):
+        x = x + d
+        if k == iterations:
+            break
+        r = residual(op, r, d)  # r ← r − A d
+        d = ((2 * k - 1) / (2 * k + 3)) * d + (
+            (8 * k + 4) / (2 * k + 3)
+        ) / lam_max * inv_diag * r
+    return x
+
+
+def cornered_inv_diag_full(op: CorneredOperator, dtype=None):
+    """The full-grid exact 1/diag of a cornered operator (Chebyshev's
+    preconditioner; the half-sweeps never form it)."""
+    return (1.0 / diag_full(op)).to(dtype or op.dtype)
+
+
+def _chebyshev_level(op, inv_diag, b, x, iterations):
+    """Chebyshev on a level: the exact full inverse diagonal on cornered
+    and faced operators, the level's ``inv_diag`` otherwise; λmax and the
+    full diagonal computed once per operator (the cycle passes a level's
+    own ``inv_diag`` with its operator)."""
+    if isinstance(op, (CorneredOperator, FacedStencilOperator)):
+        invd = _once(op, "_cheb_inv_diag", lambda: 1.0 / diag_full(op))
+    else:
+        invd = 1.0 / op.diag() if inv_diag is None else inv_diag
+    lam = _once(op, "_cheb_lam_max", lambda: gershgorin_lambda_max(op, invd))
+    return chebyshev(op, invd.to(x.dtype), b, x, iterations, lam)
+
+
+def _faced_fix_half_sweep(op, b, x_old, x_new, mode, omega, color):
+    """Rewrite the low-face rows of ``x_new`` (a fresh tensor) with the
+    exact half-sweep update from ``x_old``, the iterate before the pass
+    (every point of a half-sweep reads the old values, so all faces are
+    fixed from the same state; where faces meet they agree)."""
+
+    def plane(fi):
+        a = op.face_axes[fi]
+        invd = op.face_inv_diag(fi)
+        b_f = b.select(a, 0)
+        x_f = x_old.select(a, 0)
+        if mode == "jacobi":
+            return x_f + omega * invd * (b_f - face_apply(op, fi, x_old))
+        xn = invd * (b_f - face_apply(op, fi, x_old, exclude_diag=True))
+        red = red_mask(x_f.shape, x_f.device)
+        return torch.where(red if color == 0 else ~red, xn, x_f)
+
+    return _fix_faces(op, x_new, plane)
+
+
+def _smooth_faced(name, op, b, x, iterations, omega):
+    """Jacobi or red/black on a faced operator: the constant pass of K3 on
+    the whole grid (its plain version on the CPU), then the exact face rows,
+    after every pass.  A deeper fusion would carry wrong face values
+    inwards, so there is none."""
+    from openmg_tpu_torch.ops import kernels
+
+    for _ in range(iterations):
+        if name == "jacobi":
+            xn = kernels.jacobi_const_3d(op.values, op.offsets, b, x, 1, omega)
+            x = _faced_fix_half_sweep(op, b, x, xn, "jacobi", omega, 0)
+        else:
+            for color in (0, 1):
+                xn = kernels.rbgs_half_sweep_const_3d(
+                    op.values, op.offsets, b, x, color
+                )
+                x = _faced_fix_half_sweep(op, b, x, xn, "rb", omega, color)
+    return x
+
+
+def _smooth_kernel(name, op, inv_diag, b, x, iterations, omega):
     """``smooth`` through the kernels, or raise: nothing here is plain
-    tensor code."""
+    tensor code but Chebyshev's vector updates and a faced operator's face
+    rows, which are array code in the JAX package too."""
     from openmg_tpu_torch.ops import fused, kernels
 
-    if name == "chebyshev":
-        raise NotImplementedError(
-            "the chebyshev smoother is not ported (ROADMAP queue 1, item 15)"
-        )
-    if name not in ("jacobi", "rbgs"):
-        raise ValueError(f"unknown smoother {name!r}")
     why = _stencil.kernel_operands_ok(op, x)
     if why is not None:
         raise NotImplementedError(
             f"smooth on {b.device}: {why} is not taken by the smoother "
             "kernels, and plain tensor code does not run on the card"
         )
+    if name == "chebyshev":
+        return _chebyshev_level(op, inv_diag, b, x, iterations)
+    if isinstance(op, FacedStencilOperator):
+        return _smooth_faced(name, op, b, x, iterations, omega)
     if isinstance(op, CorneredOperator) or op.is_constant:
         y = fused.smooth_fused(name, op, b, x, iterations, omega)
         if y is not None:
@@ -131,14 +289,14 @@ def _smooth_kernel(name, op, b, x, iterations, omega):
 def smooth(name: str, op, inv_diag, b, x, iterations: int, omega: float):
     if iterations <= 0:
         return x
+    if name not in ("jacobi", "rbgs", "chebyshev"):
+        raise ValueError(f"unknown smoother {name!r}")
     if not _stencil._on_cpu(b):
-        return _smooth_kernel(name, op, b, x, iterations, omega)
+        return _smooth_kernel(name, op, inv_diag, b, x, iterations, omega)
+    if name == "chebyshev":
+        return _chebyshev_level(op, inv_diag, b, x, iterations)
+    if isinstance(op, FacedStencilOperator):
+        return _smooth_faced(name, op, b, x, iterations, omega)
     if name == "jacobi":
         return jacobi(op, inv_diag, b, x, iterations, omega)
-    if name == "rbgs":
-        return rbgs(op, inv_diag, b, x, iterations)
-    if name == "chebyshev":
-        raise NotImplementedError(
-            "the chebyshev smoother is not ported (ROADMAP queue 1, item 15)"
-        )
-    raise ValueError(f"unknown smoother {name!r}")
+    return rbgs(op, inv_diag, b, x, iterations)

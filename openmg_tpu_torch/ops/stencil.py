@@ -7,15 +7,19 @@ gather, no index traffic.
 
 Ported here: :class:`StencilOperator` (constant and varying storage),
 :class:`CorneredOperator` (the O(K) exact form of the linear-transfer
-Galerkin levels), ``region_table``, ``diag_index``, ``shift``, ``apply``
-and ``residual``.  ``apply`` is plain tensor code on any device, as it is
-array code outside any kernel in the JAX package.  ``residual`` dispatches
-on the device of ``b``: CPU tensors take the plain tensor code below; CUDA
-float32 operands of a radius-1 3D (or lifted 2D) operator go to the
-per-pass kernel of :mod:`openmg_tpu_torch.ops.kernels` (constant and
-cornered taps, or per-point coefficient grids; a cornered 2D operator lifts
-its region table too); any other case on the card raises.
-``FacedStencilOperator`` waits for a later slice.
+Galerkin levels), :class:`FacedStencilOperator` (the JAX package's legacy
+form of the same levels: constant taps and dense low-face planes),
+``region_table``, ``diag_index``, ``shift``, ``face_apply``, ``apply`` and
+``residual``.  ``apply`` and ``face_apply`` are plain tensor code on any
+device, as they are array code outside any kernel in the JAX package.
+``residual`` dispatches on the device of ``b``: CPU tensors take the plain
+tensor code below; CUDA float32 operands of a radius-1 3D (or lifted 1D or
+2D) operator go to the per-pass kernel of
+:mod:`openmg_tpu_torch.ops.kernels` (constant and cornered taps, or
+per-point coefficient grids; a cornered 1D or 2D operator lifts its region
+table too); a faced operator takes the constant pass on the whole grid and
+then its face planes in tensor code, as in the JAX package; any other case
+on the card raises.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ import torch.nn.functional as F
 __all__ = [
     "StencilOperator",
     "CorneredOperator",
+    "FacedStencilOperator",
+    "face_apply",
     "shift",
     "apply",
     "residual",
@@ -233,6 +239,116 @@ class CorneredOperator:
         return StencilOperator(torch.stack(ks), self.offsets)
 
 
+def _in_domain_mask(off, shape, device):
+    """Boolean grid, True where ``i + off`` stays in the grid; None when
+    every row does (the zero offset)."""
+    mask = None
+    for axis, o in enumerate(off):
+        if o == 0:
+            continue
+        view = [1] * len(shape)
+        view[axis] = -1
+        i = torch.arange(shape[axis], device=device).reshape(view)
+        cond = i < shape[axis] - o if o > 0 else i >= -o
+        mask = cond if mask is None else mask & cond
+    return None if mask is None else mask.expand(tuple(shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class FacedStencilOperator:
+    """Boundary-corrected constant stencil with dense low-face planes (the
+    JAX package's legacy exact form of the linear-transfer Galerkin levels,
+    superseded there by :class:`CorneredOperator`).
+
+    * ``values``: (K,) interior taps, Dirichlet zero-truncated as in
+      :class:`StencilOperator`'s constant mode.
+    * ``face_axes``: the axes carrying a low-face correction.
+    * ``face_coeffs``: per face axis, the exact ``(K, *shape-minus-axis)``
+      coefficients of the rows ``i_axis == 0`` (edge and corner values
+      included, so fixing faces in sequence is idempotent where they meet).
+
+    The smoothers run the constant pass on the whole grid and then rewrite
+    the face rows exactly.
+    """
+
+    values: torch.Tensor  # (K,)
+    face_coeffs: tuple  # per face axis: (K, *shape_minus_axis)
+    offsets: tuple
+    shape: tuple
+    face_axes: tuple
+
+    @property
+    def is_constant(self) -> bool:
+        return False
+
+    @property
+    def is_faced(self) -> bool:
+        return True
+
+    @property
+    def grid_shape(self) -> tuple:
+        return tuple(self.shape)
+
+    @property
+    def ndim(self) -> int:
+        return len(self.offsets[0])
+
+    @property
+    def n(self) -> int:
+        return int(np.prod(self.shape))
+
+    @property
+    def num_offsets(self) -> int:
+        return len(self.offsets)
+
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+    @property
+    def device(self):
+        return self.values.device
+
+    @property
+    def const_op(self) -> StencilOperator:
+        """The interior constant stencil as a plain operator."""
+        return StencilOperator(None, self.offsets, self.values, self.shape)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        return apply(self, x)
+
+    def face_inv_diag(self, face_index: int) -> torch.Tensor:
+        """Exact 1/diag plane of ``face_axes[face_index]``."""
+        di = diag_index(self.offsets)
+        return 1.0 / self.face_coeffs[face_index][di]
+
+    def astype(self, dtype) -> "FacedStencilOperator":
+        return dataclasses.replace(
+            self,
+            values=self.values.to(dtype),
+            face_coeffs=tuple(f.to(dtype) for f in self.face_coeffs),
+        )
+
+    def to_varying(self) -> StencilOperator:
+        """Materialize the full ``(K, *grid)`` coefficient tensor (value ×
+        in-domain mask, then the face planes), equal to the JAX package's
+        bit for bit."""
+        ks = []
+        for k, off in enumerate(self.offsets):
+            mask = _in_domain_mask(off, self.shape, self.device)
+            if mask is None:
+                ks.append(
+                    torch.full(self.shape, 0.0, dtype=self.dtype,
+                               device=self.device) + self.values[k]
+                )
+            else:
+                ks.append(self.values[k] * mask.to(self.dtype))
+        coeffs = torch.stack(ks)
+        for fi, a in enumerate(self.face_axes):
+            coeffs.select(a + 1, 0).copy_(self.face_coeffs[fi])
+        return StencilOperator(coeffs, self.offsets)
+
+
 def region_table(op: CorneredOperator) -> torch.Tensor:
     """Per-(region, offset) cumulative tap table, ``(n_regions, K)``.
 
@@ -310,6 +426,60 @@ def _write_region(arr, R, block):
     return arr
 
 
+def _once(op, key, make):
+    """``make()``, computed once per operator instance and kept on it (the
+    operators are immutable dataclasses, so it cannot go stale)."""
+    cache = op.__dict__
+    if key not in cache:
+        cache[key] = make()
+    return cache[key]
+
+
+def face_apply(
+    op: FacedStencilOperator, face_index: int, x: torch.Tensor,
+    exclude_diag: bool = False,
+) -> torch.Tensor:
+    """Exact ``(A x)`` (or ``(A − D) x``) on the low face of
+    ``op.face_axes[face_index]``, a plane.  It reads the planes ``i_a ∈ {0,
+    1}`` only, padded with zeros (the plane ``i_a = −1`` and the rim), takes
+    every tap's shifted plane as a view, and sums ``fc[k] · plane_k`` over
+    the taps in one product and one reduction: a few launches a face, not a
+    few a tap (the face rows are tensor code on the card too)."""
+    a = op.face_axes[face_index]
+    di = diag_index(op.offsets)
+    if exclude_diag:
+        fc = _once(op, ("_face_offdiag", face_index), lambda: torch.cat([
+            op.face_coeffs[face_index][:di],
+            torch.zeros_like(op.face_coeffs[face_index][di:di + 1]),
+            op.face_coeffs[face_index][di + 1:],
+        ]))
+    else:
+        fc = op.face_coeffs[face_index]
+    nb = min(2, x.shape[a])
+    planes = x.narrow(a, 0, nb).movedim(a, 0)
+    pad = [1, 1] * (x.ndim - 1) + [1, 2 - nb]  # F.pad lists the last dim first
+    P = F.pad(planes, pad)  # planes −1, 0, 1 along a; a zero rim elsewhere
+    rest_shape = planes.shape[1:]
+    views = []
+    for off in op.offsets:
+        rest = [o for i, o in enumerate(off) if i != a]
+        idx = (off[a] + 1,) + tuple(
+            slice(1 + o, 1 + o + n) for o, n in zip(rest, rest_shape)
+        )
+        views.append(P[idx])
+    return torch.sum(fc * torch.stack(views), dim=0)
+
+
+def _fix_faces(op: FacedStencilOperator, y, planes_of):
+    """Write ``planes_of(fi)`` into the low face ``face_axes[fi]`` of ``y``
+    (a fresh tensor owned by the caller), every plane computed before any is
+    written."""
+    planes = [planes_of(fi) for fi in range(len(op.face_axes))]
+    for a, p in zip(op.face_axes, planes):
+        y.select(a, 0).copy_(p)
+    return y
+
+
 def apply(op, x: torch.Tensor) -> torch.Tensor:
     """SpMV ``y = A x`` on grid-shaped ``x`` (gather-free)."""
     if isinstance(op, CorneredOperator):
@@ -318,6 +488,10 @@ def apply(op, x: torch.Tensor) -> torch.Tensor:
         for r, R in enumerate(op.regions):
             y = _write_region(y, R, _region_apply(op, tbl, r, R, x))
         return y
+    if isinstance(op, FacedStencilOperator):
+        return _fix_faces(
+            op, apply(op.const_op, x), lambda fi: face_apply(op, fi, x)
+        )
     y = None
     for k, off in enumerate(op.offsets):
         t = op.coeff(k) * shift(x, off)
@@ -343,8 +517,8 @@ def kernel_operands_ok(op, x: torch.Tensor):
     does not (used where a CUDA tensor must reach a kernel or raise)."""
     if x.dtype != torch.float32 or op.dtype != torch.float32:
         return f"{x.dtype} operands with a {op.dtype} operator (float32 only)"
-    if x.ndim not in (2, 3) or op.ndim != x.ndim:
-        return f"a {x.ndim}D grid with a {op.ndim}D operator (2D and 3D only)"
+    if x.ndim not in (1, 2, 3) or op.ndim != x.ndim:
+        return f"a {x.ndim}D grid with a {op.ndim}D operator (1D to 3D only)"
     return kernel_taps_ok(op.offsets)
 
 
@@ -370,6 +544,11 @@ def _residual_kernel(op, b, x):
 def residual(op, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``r = b − A x``: plain tensor code for CPU tensors, the per-pass
     kernel for any other device (see the module docstring)."""
+    if isinstance(op, FacedStencilOperator):
+        return _fix_faces(
+            op, residual(op.const_op, b, x),
+            lambda fi: b.select(op.face_axes[fi], 0) - face_apply(op, fi, x),
+        )
     if not _on_cpu(b):
         return _residual_kernel(op, b, x)
     if isinstance(op, CorneredOperator):

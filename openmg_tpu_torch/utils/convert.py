@@ -14,11 +14,13 @@ only numpy and the port.
     {
       "transfer": "linear" | "aggregate",
       "levels": [            # finest first
-        {"kind": "const" | "cornered" | "varying",
+        {"kind": "const" | "cornered" | "faced" | "varying",
          "offsets": ((0,0,0), ...), "shape": (nz, ny, nx),
-         "values": (K,) array,             # const, cornered
+         "values": (K,) array,             # const, cornered, faced
          # cornered only:
          "deltas": (n_subsets, K) array, "subsets": ((0,), (1,), ...),
+         # faced only: per face axis its (K, *shape-minus-axis) plane
+         "face_axes": (0, 1, 2), "face_coeffs": [array, ...],
          # varying only:
          "coeffs": (K, nz, ny, nx) array},
         ...
@@ -57,6 +59,7 @@ import torch
 from openmg_tpu_torch.core.hierarchy import Hierarchy, Level
 from openmg_tpu_torch.ops.stencil import (
     CorneredOperator,
+    FacedStencilOperator,
     StencilOperator,
     diag_index,
 )
@@ -92,10 +95,16 @@ def hierarchy_from_numpy(spec: dict, device) -> Hierarchy:
                 shape=tuple(int(s) for s in lv["shape"]),
                 subsets=tuple(tuple(int(a) for a in S) for S in lv["subsets"]),
             )
-        else:
-            raise NotImplementedError(
-                f"level kind {kind!r} is not ported (ROADMAP queue 1, item 15)"
+        elif kind == "faced":
+            op = FacedStencilOperator(
+                values=put(lv["values"]),
+                face_coeffs=tuple(put(p) for p in lv["face_coeffs"]),
+                offsets=tuple(tuple(int(o) for o in off) for off in lv["offsets"]),
+                shape=tuple(int(s) for s in lv["shape"]),
+                face_axes=tuple(int(a) for a in lv["face_axes"]),
             )
+        else:
+            raise ValueError(f"unknown level kind {kind!r}")
         di = diag_index(op.offsets)
         diag = np.asarray(
             lv["coeffs"][di] if kind == "varying" else lv["values"][di],

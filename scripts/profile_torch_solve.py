@@ -6,13 +6,16 @@
         [--levels] [--root DIR] [--leg-depth-27 D] [--warm W]
         [--residual-dtype doublefloat|float32] [--krylov none|pcg]
         [--krylov-iters K] [--cycle-type v|w|f]
+        [--smoother rbgs|jacobi|chebyshev] [--setup host|device]
 
 Sets up a solve of ``chip_smoke.py`` (V(2,2) red-black, linear transfers,
 double-float outer loop, or with ``--residual-dtype float32`` the float32
 outer residual of one K3 pass a cycle and a threshold of 1e-5 (2D: 2e-5),
 dense coarsest level of at most 4096 points; ``--cycle-type`` w or f runs
 W or FMG cycles, ``--krylov pcg`` runs ``--krylov-iters`` (default 2)
-MG-preconditioned CG steps an outer step):
+MG-preconditioned CG steps an outer step; ``--smoother`` chebyshev runs
+the 4th-kind Chebyshev smoother, one per-pass residual launch of K3 or K4
+an iteration):
 ``poisson`` on n³ from the grid shape (fused level visits, the double-float
 update kernel), ``unfaced`` the same with ``setup(..., faced=False)`` (its
 27-point levels as coefficient grids, visited by K4's legs), ``diffusion``
@@ -36,7 +39,11 @@ sweep, in as many launches as the port takes), each as device milliseconds
 a visit, 20 visits back to back (2D: one call of ``fused._fused2d``, the
 V-cycle's kernel call, a visit).  ``--root`` profiles the package of another checkout
 (an earlier commit unpacked with ``git archive``), so two versions are
-timed by the same script.  Needs a CUDA device; fails without one.
+timed by the same script.  ``--setup device`` builds the hierarchy of
+``poisson`` or ``diffusion`` with ``build_hierarchy_device`` (the Galerkin
+chain as tensor code on the card) instead of the host chain, and profiles
+that build too (``setup_profile``: device time by kernel, busy ms, peak
+memory).  Needs a CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -141,6 +148,47 @@ def level_visits_2d(hierarchy, dev):
     return out
 
 
+def device_setup(problem_name, problem, cfg):
+    """``build_hierarchy_device`` of the problem on the card, once to warm
+    up and once under ``torch.profiler``: (seconds, profile, hierarchy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from openmg_tpu_torch.core.hierarchy import build_hierarchy_device
+    from openmg_tpu_torch.models.poisson import poisson_offsets
+    from openmg_tpu_torch.ops.transfer import TRANSFERS
+
+    kw = dict(transfer=TRANSFERS[cfg.transfer],
+              max_dense_coarse=cfg.max_dense_coarse, device="cuda")
+    if problem_name == "poisson":
+        kw.update(offsets=poisson_offsets(3), fine_values=[6.0] + [-1.0] * 6,
+                  shape=problem)
+    else:
+        kw.update(offsets=problem[0], coeffs=problem[1])
+    build_hierarchy_device(**kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        h = build_hierarchy_device(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or getattr(
+            ev, "self_cuda_time_total", 0)
+        if dev_us > 0 and str(ev.device_type).endswith("CUDA"):
+            row = by_kernel.setdefault(ev.key[:70], {"ms": 0.0, "count": 0})
+            row["ms"] += dev_us / 1e3
+            row["count"] += ev.count
+    busy = sum(v["ms"] for v in by_kernel.values())
+    return wall, {
+        "setup_s_profiled": wall, "device_busy_ms": busy,
+        "device_operations": sum(v["count"] for v in by_kernel.values()),
+        "peak_memory_MB": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "kernels": dict(sorted(by_kernel.items(), key=lambda kv: -kv[1]["ms"])[:12]),
+    }, h
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--problem",
@@ -157,6 +205,9 @@ def main():
     ap.add_argument("--krylov", choices=("none", "pcg"), default="none")
     ap.add_argument("--krylov-iters", type=int, default=2)
     ap.add_argument("--cycle-type", choices=("v", "w", "f"), default="v")
+    ap.add_argument("--smoother", choices=("rbgs", "jacobi", "chebyshev"),
+                    default="rbgs")
+    ap.add_argument("--setup", choices=("host", "device"), default="host")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -177,7 +228,8 @@ def main():
     # a float32 outer residual stalls near 1e-5 with ‖b‖₂ = 1 (2e-5 in 2D)
     f32 = args.residual_dtype == "float32"
     cfg = mg.SolverConfig(
-        smoother="rbgs", transfer="linear", residual_dtype=args.residual_dtype,
+        smoother=args.smoother, transfer="linear",
+        residual_dtype=args.residual_dtype,
         max_dense_coarse=4096, cycles=60, krylov=args.krylov,
         krylov_iters=args.krylov_iters, cycle_type=args.cycle_type,
         **({"threshold": 2e-5 if args.problem == "poisson2d" else 1e-5}
@@ -188,13 +240,20 @@ def main():
         problem = mg.diffusion_stencil(kappa)
     else:
         problem = shape
+    setup_profile = None
     t0 = time.perf_counter()
-    if args.problem == "unfaced":
+    if args.setup == "device":
+        if args.problem not in ("poisson", "diffusion"):
+            ap.error("--setup device takes --problem poisson or diffusion")
+        setup_s, setup_profile, hierarchy = device_setup(args.problem, problem, cfg)
+        solver = mg.Solver(hierarchy, cfg)
+    elif args.problem == "unfaced":
         solver = mg.setup(problem, cfg, faced=False)
     else:
         solver = mg.setup(problem, cfg)
     torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    if args.setup == "host":
+        setup_s = time.perf_counter() - t0
     del problem
     bnp = mg.rhs_random(shape, seed=1)
     bnp /= np.linalg.norm(bnp.ravel())
@@ -236,6 +295,8 @@ def main():
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "problem": args.problem, "residual_dtype": args.residual_dtype,
+        "smoother": args.smoother, "setup": args.setup,
+        "setup_profile": setup_profile,
         "krylov": args.krylov, "krylov_iters": args.krylov_iters,
         "cycle_type": args.cycle_type,
         "shape": list(shape), "cycles": info["cycles"], "setup_s": setup_s,

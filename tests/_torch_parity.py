@@ -57,13 +57,28 @@ def assert_close(got, ref, factor=2e-6, what="", scale=None):
 
 
 def port_op(op, device="cpu"):
-    """The port's operator for a JAX-package constant or cornered operator
-    (tables copied as numpy)."""
+    """The port's operator for a JAX-package constant, cornered, faced or
+    varying operator (tables copied as numpy)."""
     from openmg_tpu.ops.stencil import CorneredOperator as JC
-    from openmg_tpu_torch.ops.stencil import CorneredOperator, StencilOperator
+    from openmg_tpu.ops.stencil import FacedStencilOperator as JF
+    from openmg_tpu_torch.ops.stencil import (
+        CorneredOperator,
+        FacedStencilOperator,
+        StencilOperator,
+    )
 
     offsets = tuple(tuple(int(o) for o in off) for off in op.offsets)
     shape = tuple(int(s) for s in op.grid_shape)
+    if isinstance(op, JF):
+        return FacedStencilOperator(
+            values=to_t(op.values).to(device),
+            face_coeffs=tuple(to_t(p).to(device) for p in op.face_coeffs),
+            offsets=offsets,
+            shape=shape,
+            face_axes=tuple(int(a) for a in op.face_axes),
+        )
+    if not isinstance(op, JC) and not op.is_constant:
+        return StencilOperator(to_t(op.coeffs).to(device), offsets)
     if isinstance(op, JC):
         return CorneredOperator(
             values=to_t(op.values).to(device),
@@ -72,7 +87,6 @@ def port_op(op, device="cpu"):
             shape=shape,
             subsets=tuple(tuple(S) for S in op.subsets),
         )
-    assert op.is_constant
     return StencilOperator(None, offsets, to_t(op.values).to(device), shape)
 
 
@@ -90,11 +104,21 @@ def spec_from_jax_hierarchy(h):
     """Plain-numpy ``spec`` of a JAX-package hierarchy, in the layout of
     ``openmg_tpu_torch.utils.convert.hierarchy_from_numpy``."""
     from openmg_tpu.ops.stencil import CorneredOperator as JC
+    from openmg_tpu.ops.stencil import FacedStencilOperator as JF
 
     levels = []
     for L in h.levels:
         A = L.A
-        if isinstance(A, JC):
+        if isinstance(A, JF):
+            lv = {
+                "kind": "faced",
+                "offsets": tuple(A.offsets),
+                "shape": tuple(A.grid_shape),
+                "values": np.asarray(A.values),
+                "face_axes": tuple(A.face_axes),
+                "face_coeffs": [np.asarray(p) for p in A.face_coeffs],
+            }
+        elif isinstance(A, JC):
             lv = {
                 "kind": "cornered",
                 "offsets": tuple(A.offsets),

@@ -291,7 +291,7 @@ def test_cornered_2d_pass_matches_the_smoothers(port):
 
 
 # ---------------------------------------------------------------------------
-# (e) the matrix and stencil-pair entry points in 2D; 1D waits
+# (e) the matrix and stencil-pair entry points in 2D; a 1D grid
 # ---------------------------------------------------------------------------
 
 # nx is neither a multiple of 128 nor 32 or 64: the JAX package takes its
@@ -326,9 +326,14 @@ def test_2d_matrix_and_stencil_pair_match_reference(what):
 
 
 def test_1d_grid_waits():
-    with pytest.raises(NotImplementedError, match="1D"):
-        tmg.setup((64,), tmg.SolverConfig(gridlevels=2, max_dense_coarse=64),
-                  device="cpu")
+    """A 1D grid, refused before the 1D path was ported, sets up and solves
+    (BASELINE config 1's hierarchy)."""
+    b = tpoisson.rhs_random((64,), seed=3)
+    solver = tmg.setup((64,), tmg.SolverConfig(gridlevels=2, max_dense_coarse=64),
+                       device="cpu")
+    x, info = solver.solve(b)
+    assert info["converged"] and solver.hierarchy.num_levels == 2
+    assert np.linalg.norm(b - tpoisson.poisson((64,)) @ x) < 1e-10 * 1.05
 
 
 # ---------------------------------------------------------------------------

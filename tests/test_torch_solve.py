@@ -206,9 +206,21 @@ STUB_CONFIGS = [
 
 @pytest.mark.parametrize("kw", STUB_CONFIGS, ids=lambda kw: "-".join(map(str, kw.values())))
 def test_unported_configurations_raise(kw):
+    """The Chebyshev smoother and the float64 cycle, refused before they
+    were ported, set up and solve on the CPU; on the card a float64 cycle
+    is still refused (the stencil kernels are float32)."""
+    shape = (4, 4, 8)
     cfg = tmg.SolverConfig(**{**dict(gridlevels=2, max_dense_coarse=64), **kw})
-    with pytest.raises(NotImplementedError):
-        tmg.setup((4, 4, 8), cfg, device="cpu")
+    b = tmg.rhs_random(shape, seed=4)
+    solver = tmg.setup(shape, cfg, device="cpu")
+    x, info = solver.solve(b)
+    assert info["converged"] and x.shape == shape
+    assert np.linalg.norm(b.ravel() - tmg.poisson(shape) @ x.ravel()) < 1e-10 * 1.05
+    if "dtype" in kw:
+        assert solver.hierarchy.levels[0].A.dtype == torch.float64
+        assert info["residual_mode"] == "float64"
+        with pytest.raises(NotImplementedError, match="float32"):
+            tmg.setup(shape, cfg, device="meta")
 
 
 CYCLE_CONFIGS = [
@@ -342,13 +354,9 @@ def test_stencil_pair_and_matrix_entry_points_work():
 
 @pytest.mark.parametrize("shape", [(32, 32), (64,)])
 def test_unported_grid_dimensions_raise(shape):
-    """1D grids wait; 2D grids, refused before the 2D path was ported, now
-    set up and solve."""
+    """1D and 2D grids, refused before their paths were ported, now set up
+    and solve."""
     cfg = tmg.SolverConfig(gridlevels=2, max_dense_coarse=512)
-    if len(shape) == 1:
-        with pytest.raises(NotImplementedError, match="1D"):
-            tmg.setup(shape, cfg, device="cpu")
-        return
     b = tmg.rhs_random(shape, seed=1)
     x, info = tmg.setup(shape, cfg, device="cpu").solve(b)
     assert info["converged"] and x.shape == shape
@@ -427,24 +435,30 @@ def test_card_refuses_what_the_kernel_does_not_take(port, monkeypatch):
 
 @pytest.mark.parametrize("kind", ["faced", "varying"])
 def test_unported_level_kinds_raise(monkeypatch, kind):
-    """A level that classifies as faced is refused by name.  A varying one
-    is stored as coefficient grids (the structured setup's ``faced=False``
-    form), no longer refused: the cornered levels reclassified as varying
-    give the operators of their ``to_varying``."""
+    """Neither kind is refused any more.  A level that classifies as faced
+    is stored as a ``FacedStencilOperator``, a varying one as coefficient
+    grids (the structured setup's ``faced=False`` form): the cornered
+    levels reclassified either way give the operators of their
+    ``to_varying``."""
+    from openmg_tpu_torch.ops.stencil import FacedStencilOperator
+
     real = thier.classify_level
 
     def fake(offsets, rep):
         k, payload = real(offsets, rep)
-        return (kind, None) if k == "cornered" else (k, payload)
+        if k != "cornered":
+            return k, payload
+        return kind, (thier.detect_faced(offsets, rep) if kind == "faced" else None)
 
     cfg = tmg.SolverConfig(**CFG_KW)
     want = tmg.setup(SHAPE, cfg, device="cpu").hierarchy
     monkeypatch.setattr(thier, "classify_level", fake)
-    if kind == "faced":
-        with pytest.raises(NotImplementedError, match=kind):
-            tmg.setup(SHAPE, cfg, device="cpu")
-        return
     got = tmg.setup(SHAPE, cfg, device="cpu").hierarchy
+    if kind == "faced":
+        assert all(isinstance(L.A, FacedStencilOperator) for L in got.levels[1:])
+        for L, W in zip(got.levels[1:], want.levels[1:]):
+            assert torch.equal(L.A.to_varying().coeffs, W.A.to_varying().coeffs)
+        return
     assert [L.A.is_constant for L in got.levels] == [True] + [False] * (
         got.num_levels - 1)
     for L, W in zip(got.levels[1:], want.levels[1:]):

@@ -711,5 +711,10 @@ def test_residual_and_smooth_reach_the_kernel_wrappers(monkeypatch, port):
         tstencil.residual(vary.A, b.double(), x.double())
     with pytest.raises(NotImplementedError, match="float32"):
         tsmoothers.smooth("rbgs", vary.A, vary.inv_diag, b.double(), x.double(), 1, OMEGA)
-    with pytest.raises(NotImplementedError, match="chebyshev"):
-        tsmoothers.smooth("chebyshev", vary.A, vary.inv_diag, b, x, 1, OMEGA)
+    # Chebyshev: one per-pass residual launch an iteration, never apply()
+    del seen[:]
+    y = tsmoothers.smooth("chebyshev", vary.A, vary.inv_diag, b, x, 2, OMEGA)
+    assert seen == ["residual_vary_3d"] * 2 and bool(torch.isfinite(y).all())
+    with pytest.raises(NotImplementedError, match="float32"):
+        tsmoothers.smooth("chebyshev", vary.A, vary.inv_diag, b.double(),
+                          x.double(), 1, OMEGA)
