@@ -173,7 +173,28 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                cycle count (diffusion: K4 legs; Poisson: K1 and K2 on the
                constant fine level, K4 legs on the varying ones);
 15. ``solve_many_sparse`` ``AlgebraicSolver.solve_many`` on the 1024² ELL
-               hierarchy, K=4, with the checks of ``solve_many``.
+               hierarchy, K=4, with the checks of ``solve_many``;
+14c. ``halo_kernels`` (after ``setup_device``) the halo forms of K1–K4 on
+               the 256³ hierarchy cut into 4 z-slabs, each slab's planes
+               cut from its neighbours (zeros at the domain edges): K3 in
+               every mode on 256³ and on the cornered 128³ level, K4 one
+               pass on the 256³ diffusion grids, K2 on 256³, K1's down-leg,
+               up-leg with ``ec`` and residual with restriction on 256³
+               and 128³; each slab held against the form's plain version
+               (the tolerances below; K2 bit for bit) and the slabs
+               together against the whole-grid kernel's rows; device ms
+               of an inner slab beside the whole grid's ms / 4 and the
+               slab's bound;
+16. ``solve_dist`` the 256³ Poisson solve of ``solve`` on P = 2 and P = 4
+               ranks, each a process of this script (``--dist-rank``) on
+               the one card, gloo with the planes staged through the host;
+               PCG(2) on a (2, 2) mesh; the 128³ diffusion solve on 2
+               ranks (K4's halo form); one NCCL rank with every level
+               partitioned (``force_partition``): the single-device
+               cycles, ‖x_dist − x_single‖₂ ≤ 2e-10/λ_min against the
+               single-device solve on the card, launches by kernel on rank
+               0, halo bytes a cycle, warm ms (one card shared by P ranks:
+               not a scaling figure); any rank's failure fails the script.
 
 Every solve of 11-15 and 14a-14b prints its cycles, final norm, the float64 residual
 of the merged pair on the host, warm and first solve ms, peak memory and
@@ -228,6 +249,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -3290,7 +3312,512 @@ def phase_setup_device(dev, vary):
     emit("setup_device", out)
     return {k: v["solve"]["launches"] for k, v in out.items()}
 
+# ---------------------------------------------------------------------------
+# the halo forms of K1–K4 and the distributed solve
+# ---------------------------------------------------------------------------
+
+HALO_SLABS = 4  # halo_kernels: 256³ (and 128³) cut into this many z-slabs
+# solve_dist: ranks on the one card, each its own process
+DIST_RANKS = (2, 4)
+DIST_TIMEOUT_S = 240
+DIFFUSION_DIST = (128, 128, 128)
+
+
+def halo_counts():
+    from openmg_tpu_torch.ops import fused, kernels
+
+    return {"K1_halo": fused.LAUNCHES_HALO, "K2_halo": kernels.LAUNCHES_K2_HALO,
+            "K3_halo": kernels.LAUNCHES_K3_HALO, "K4_halo": kernels.LAUNCHES_K4_HALO}
+
+
+def zero_halo_counts():
+    from openmg_tpu_torch.ops import fused, kernels
+
+    fused.LAUNCHES_HALO = kernels.LAUNCHES_K2_HALO = 0
+    kernels.LAUNCHES_K3_HALO = kernels.LAUNCHES_K4_HALO = 0
+
+
+def cut(t, i, P, lo, hi):
+    """Slab i of P along axis 0 and its neighbours' planes: the ``lo`` last
+    of slab i − 1 and the ``hi`` first of slab i + 1 (zeros at the domain
+    edges), as a rank would receive them."""
+    n = t.shape[0] // P
+
+    def z(k):
+        return torch.zeros((k,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+
+    lower = t[i * n - lo:i * n] if i > 0 else z(lo)
+    upper = t[(i + 1) * n:(i + 1) * n + hi] if i < P - 1 else z(hi)
+    return t[i * n:(i + 1) * n].contiguous(), lower.contiguous(), upper.contiguous()
+
+
+def halo_case(what, run, run_plain, run_whole, tol_scale, exact, bound, copy_bw,
+              P=HALO_SLABS, reps=20):
+    """One halo form on every slab: held against its plain version on the
+    same slab (bit for bit where ``exact``, else within K1_TOL · scale)
+    and bit for bit against the rows of the whole-grid kernel.  ``run(i)``
+    only launches the wrapper on slab i's operands, which the caller cut
+    once beforehand.  Device ms of a launch on an inner slab (both halos
+    live; the calls rotate over the inner slabs) beside the whole-grid
+    launch's device ms / P and the slab's bound; ``ms_host_paced`` is one
+    call's time by events around it, which counts the host's cost of the
+    call where the launch is shorter."""
+    whole = run_whole()
+    whole = whole if isinstance(whole, tuple) else (whole,)
+    torch.cuda.synchronize()
+    parts, worst_plain, worst_whole = [], 0.0, 0.0
+    for i in range(P):
+        got = run(i)
+        got = got if isinstance(got, tuple) else (got,)
+        ref = run_plain(i)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.cuda.synchronize()
+        for j, (g, r) in enumerate(zip(got, ref)):
+            if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+                fail(f"halo {what} slab {i}: bad output {j}")
+            err = float((g - r).abs().max())
+            if (exact and not torch.equal(g, r)) or err > K1_TOL * tol_scale[j]:
+                fail(f"halo {what} slab {i} output {j}: err {err:.3e} against "
+                     f"the plain version (tolerance {K1_TOL * tol_scale[j]:.3e})")
+            worst_plain = max(worst_plain, err)
+        parts.append(got)
+    for j, w in enumerate(whole):
+        cat = torch.cat([p[j] for p in parts])
+        err = float((cat - w).abs().max())
+        if not torch.equal(cat, w):
+            fail(f"halo {what} output {j}: err {err:.3e}, not bit-equal to the "
+                 f"whole-grid kernel's rows")
+        worst_whole = max(worst_whole, err)
+    nbytes, flops = bound
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    inner = [functools.partial(run, i) for i in range(1, P - 1)]
+    return {
+        "case": what, "max_abs_err": worst_plain,
+        "max_abs_err_vs_whole_grid_kernel": worst_whole,
+        "bit_equal_to_plain": exact, "bit_equal_to_whole_grid_kernel": True,
+        "ms": device_ms(inner, reps),
+        "whole_ms_over_P": device_ms([run_whole], reps) / P,
+        "ms_host_paced": time_ms(lambda: run(1), reps),
+        "whole_ms_over_P_host_paced": time_ms(run_whole, reps) / P,
+        "plain_ms": time_ms(lambda: run_plain(1), 3, warm=1),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms_copy_bw": nbytes / copy_bw * 1e3, "library_ms": None,
+    }
+
+
+def phase_halo_kernels(dev, copy_bw, h_vary):
+    """K1–K4's halo forms on 256³ (and the cornered 128³ level) cut into
+    ``HALO_SLABS`` z-slabs, each slab's planes from its neighbours by
+    slicing."""
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.ops import fused, kernels
+
+    P = HALO_SLABS
+    h = mg.setup(BIG, mg.SolverConfig(**MAIN_CFG), device=dev).hierarchy
+    tr = h.transfer
+    rb4 = fused.stages_for("rbgs", 2, OMEGA)
+    rows = {"K1": [], "K2": [], "K3": [], "K4": []}
+    zero_halo_counts()
+    for tag, L in (("256^3 constant", h.levels[0]), ("128^3 cornered", h.levels[1])):
+        op = L.A
+        shape = L.grid_shape
+        nz = shape[0]
+        n = int(np.prod(shape)) // P
+        plane = shape[1] * shape[2]
+        cshape = tuple(s // 2 for s in shape)
+        nc = int(np.prod(cshape)) // P
+        corner = fused._corner_info(op)
+        V, O, K = op.values, op.offsets, len(op.offsets)
+        b = randn(shape, 11, dev)
+        x = randn(shape, 12, dev)
+        ec = randn(cshape, 13, dev)
+        bmax = float(b.abs().max())
+        # K3: one pass of each mode
+        for mode, kmode, color in SWEEP_MODES:
+            whole = lambda: kernels._half_sweep(  # noqa: E731
+                V, b, x, offsets=O, mode=kmode, omega=OMEGA, color=color, corner=corner)
+
+            slabs = [(cut(b, i, P, 0, 0)[0],) + cut(x, i, P, 1, 1) for i in range(P)]
+
+            def one(i, plain=False, kmode=kmode, color=color, slabs=slabs):
+                bs, xs, lo, hi = slabs[i]
+                if plain:
+                    return kernels.half_sweep_plain(
+                        V, O, bs, xs, kmode, OMEGA, color,
+                        fused.gate_corner(corner, int(i > 0)), halos=(lo, hi))
+                return kernels.halo_half_sweep_const_3d(
+                    V, O, bs, xs, kmode, OMEGA, color, lo, hi, corner=corner,
+                    open_lo=int(i > 0))
+
+            nb, fl, _ = sweep_bound(n, O, False, kmode)
+            ref_scale = float(whole().abs().max()) if kmode != "residual" else bmax
+            rows["K3"].append({"level": tag, "mode": mode, "shape": [nz // P] + list(shape[1:]),
+                               **halo_case(f"K3 {mode} {tag}", one,
+                                           lambda i, one=one: one(i, True), whole,
+                                           (ref_scale,), False, (nb + 8 * plane, fl), copy_bw)})
+        # K1: the down-leg, the up-leg with ec, the residual with restriction
+        k1 = {
+            "down: zero start, 4 rb stages, restrict": dict(
+                stages=rb4, emit_residual=True, restrict_transfer=tr, has_x=False),
+            "up: x + P ec, 4 rb stages": dict(
+                stages=rb4, ec=True, prolong_transfer=tr, has_x=True),
+            "residual + restrict, no x out": dict(
+                stages=(), emit_residual=True, restrict_transfer=tr, emit_x=False,
+                has_x=True),
+        }
+        for mode, kw in k1.items():
+            kw = dict(kw)
+            has_x, use_ec = kw.pop("has_x"), kw.pop("ec", False)
+            D = fused.halo_depth(len(kw["stages"]), kw.get("emit_residual", False),
+                                 "restrict_transfer" in kw, use_ec)
+
+            def whole(kw=kw, has_x=has_x, use_ec=use_ec):
+                return fused.fused_stages_const_3d(
+                    V, O, b, x if has_x else None, corner=corner,
+                    ec=ec if use_ec else None, **kw)
+
+            def slab(i, D=D, has_x=has_x, use_ec=use_ec):
+                bs, blo, bhi = cut(b, i, P, D, D)
+                xs, xlo, xhi = cut(x, i, P, D, D)
+                es, elo, ehi = cut(ec, i, P, D // 2, D // 2 + 1)
+                return bs, xs, es, ((int(i > 0), int(i < P - 1)), (blo, bhi),
+                                    (xlo, xhi) if has_x else None,
+                                    (elo, ehi) if use_ec else None)
+
+            slabs = [slab(i) for i in range(P)]
+
+            def one(i, plain=False, kw=kw, has_x=has_x, use_ec=use_ec, slabs=slabs):
+                bs, xs, es, halos = slabs[i]
+                if plain:
+                    return fused.fused_stages_const_3d_plain(
+                        V, O, bs, xs if has_x else None,
+                        corner=fused.gate_corner(corner, int(i > 0)),
+                        ec=es if use_ec else None, halos=halos, **kw)
+                return fused.fused_stages_const_3d(
+                    V, O, bs, xs if has_x else None, corner=corner,
+                    ec=es if use_ec else None, halos=halos, **kw)
+
+            outs = whole()
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            scales = []
+            names = (("r",) if not kw.get("emit_x", True)
+                     else ("x", "r") if kw.get("emit_residual") else ("x",))
+            for nm, o in zip(names, outs):
+                scales.append(bmax if nm == "r" else float(o.abs().max()))
+            nb, fl = k1_bound(mode, n, nc, K)
+            halo_bytes = 4 * plane * 2 * D * (2 if has_x else 1)
+            rows["K1"].append({"level": tag, "mode": mode, "depth": D,
+                               "shape": [nz // P] + list(shape[1:]),
+                               **halo_case(f"K1 {mode} {tag}", one,
+                                           lambda i, one=one: one(i, True), whole,
+                                           tuple(scales), False,
+                                           (nb + halo_bytes, fl), copy_bw)})
+        del b, x, ec
+    # K2 on 256³
+    shape = BIG
+    n = int(np.prod(shape)) // P
+    plane = shape[1] * shape[2]
+    L0 = h.levels[0]
+    terms = mg.core.solver.exact_residual_terms(h)
+    xh = randn(shape, 21, dev)
+    xl = randn(shape, 22, dev, 1e-8)
+    e = randn(shape, 23, dev, 1e-3)
+    bh = randn(shape, 24, dev)
+    bl = randn(shape, 25, dev, 1e-8)
+
+    def k2_slab(i):
+        sl = [cut(t, i, P, 1, 1) for t in (xh, xl, e, bh, bl)]
+        return [s[0] for s in sl], tuple((s[1], s[2]) for s in sl[:3])
+
+    k2_slabs = [k2_slab(i) for i in range(P)]
+
+    def k2_one(i, plain=False):
+        args, halos = k2_slabs[i]
+        if plain:
+            return kernels.df_update_residual_const_3d_plain(
+                L0.A.offsets, terms, *args, True, halos)
+        return kernels.df_update_residual_const_3d(
+            L0.A.offsets, terms, *args, emit_norm=True, halos=halos)
+
+    def k2_whole():
+        out = kernels.df_update_residual_const_3d(
+            L0.A.offsets, terms, xh, xl, e, bh, bl, emit_norm=True)
+        return out
+
+    nb, fl = k2_bound(n, terms, True)
+    row = {"level": "256^3 constant", "mode": "emit_norm", "shape": [shape[0] // P, *shape[1:]]}
+    # the kernel's partials are its own (one a block): compare x', x_lo', r
+    # bit for bit and the norms' sums
+    row.update(halo_case(
+        "K2 256^3", lambda i: k2_one(i)[:3], lambda i: k2_one(i, True)[:3],
+        lambda: k2_whole()[:3], (1.0, 1.0, 1.0), True, (nb + 24 * plane, fl), copy_bw))
+    pn = sum(float(k2_one(i)[3].double().sum()) for i in range(P))
+    pw = float(k2_whole()[3].double().sum())
+    if abs(pn - pw) > 1e-6 * pw:
+        fail(f"halo K2: ‖r‖² over the slabs {pn} against the whole grid's {pw}")
+    row["norm_sq_slabs"], row["norm_sq_whole"] = pn, pw
+    rows["K2"].append(row)
+    del xh, xl, e, bh, bl, k2_slabs
+    # K4: one pass on the 256³ diffusion grids
+    Lv = h_vary.levels[0]
+    op = Lv.A
+    shape = Lv.grid_shape
+    n = int(np.prod(shape)) // P
+    b = randn(shape, 31, dev)
+    x = randn(shape, 32, dev)
+    m = shape[0] // P
+    # a rank's own coefficient grids: cut (copied) once, as _slab_op does
+    k4_slabs = [(op.coeffs[:, i * m:(i + 1) * m].contiguous(), cut(b, i, P, 0, 0)[0])
+                + cut(x, i, P, 1, 1) for i in range(P)]
+    for mode, kmode, color in (("rb colour 0", "rbgs", 0), ("residual", "residual", 0)):
+        def whole(kmode=kmode, color=color):
+            return kernels._half_sweep_vary(
+                op.coeffs, b, x, offsets=op.offsets, mode=kmode, omega=OMEGA, color=color)
+
+        def one(i, plain=False, kmode=kmode, color=color):
+            cs, bs, xs, lo, hi = k4_slabs[i]
+            if plain:
+                return kernels.half_sweep_vary_plain(
+                    cs, op.offsets, bs, xs, kmode, OMEGA, color, halos=(lo, hi))
+            return kernels.halo_half_sweep_vary_3d(
+                cs, op.offsets, bs, xs, kmode, OMEGA, color, lo, hi)
+
+        nb, fl, _ = sweep_bound(n, op.offsets, True, kmode)
+        scale = float(b.abs().max()) if kmode == "residual" else float(whole().abs().max())
+        rows["K4"].append({"level": "256^3 diffusion", "mode": mode,
+                           "shape": [shape[0] // P, *shape[1:]],
+                           **halo_case(f"K4 {mode}", one, lambda i, one=one: one(i, True),
+                                       whole, (scale,), False,
+                                       (nb + 8 * shape[1] * shape[2], fl), copy_bw)})
+    del k4_slabs, b, x
+    launched = halo_counts()
+    if not all(launched.values()):
+        fail(f"halo_kernels: launches {launched}")
+    emit("halo_kernels", {"slabs": P, "rows": rows, "launches": launched})
+    del h
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dist_rank(argv):
+    """One rank of ``solve_dist`` (``chip_smoke.py --dist-rank RANK WORLD
+    STORE CASES OUT``): joins the group, runs the cases, and on rank 0
+    writes the results (and the solutions) for the parent."""
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.parallel.mesh import initialize_distributed
+
+    rank, world, store, cases_path, out = argv
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    spec = json.loads(open(cases_path).read())
+    dev = torch.device(spec["device"])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    initialize_distributed(init_method="file://" + store, rank=rank,
+                           world_size=world, backend=spec["backend"], device=dev)
+    results = []
+    for case in spec["cases"]:
+        cfg = mg.SolverConfig(**case["config"])
+        mc = mg.MeshConfig(**{k: tuple(v) if isinstance(v, list) else v
+                              for k, v in case["mesh"].items()})
+        shape = tuple(case["shape"])
+        t0 = time.perf_counter()
+        if case["problem"] == "diffusion":
+            problem = mg.diffusion_stencil(medium(shape))
+        else:
+            problem = shape
+        solver = mg.distributed_setup(problem, cfg, mc, device=dev)
+        sync()
+        setup_s = time.perf_counter() - t0
+        b = main_rhs(shape, dev)
+        x1, info1 = solver.solve(b)   # the first: the library loads
+        sync()
+        zero_counts()
+        zero_halo_counts()
+        solver.comm.reset_stats()
+        torch.distributed.barrier()
+        x, info = solver.solve(b)
+        sync()
+        launched = {**counts(), **halo_counts()}
+        stats = dict(solver.comm.stats)
+        cycles = info["cycles"]
+        res = {
+            "name": case["name"], "ranks": world, "mesh": case["mesh"],
+            "backend": spec["backend"], "transport": solver.comm.transport,
+            "partition_plan": list(info["partition_plan"]),
+            "cycles": cycles, "final_norm": info["final_norm"],
+            "residual_norms": info["residual_norms"], "converged": info["converged"],
+            "launches_rank0": {k: v for k, v in launched.items() if v},
+            "halo_bytes_sent_per_cycle": stats["bytes_sent"] / max(cycles, 1),
+            # the halo planes' copies through the host (to and from), not the
+            # gathers (the coarse transition, and the whole solution's at
+            # the end, which a solve delivers on every rank)
+            "halo_staged_bytes_per_cycle": stats["staged_bytes"] / max(cycles, 1),
+            "gathered_bytes": stats["gathered_bytes"],
+            "exchanges_per_cycle": stats["exchanges"] / max(cycles, 1),
+            "host_reads": info["host_reads"],
+            "setup_s": setup_s,
+            "first_solve_ms": info1["solve_time_s"] * 1e3,
+            "warm_solve_ms": info["solve_time_s"] * 1e3,
+            "warm_solve_ms_is": f"one card shared by {world} ranks over "
+                                f"{spec['backend']}: not a scaling figure",
+            "equal_to_first_solve": bool(torch.equal(x, x1)),
+        }
+        if rank == 0:
+            hi, lo = info["x_df"]
+            x64 = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+            np.save(f"{out}_{case['name']}.npy", x64)
+            results.append(res)
+        del solver, x, x1, b
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(out + ".json", "w") as f:
+            json.dump(results, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(world, backend, cases, tmp, device="cuda:0"):
+    """Run ``cases`` on ``world`` ranks of this script, each its own
+    process on the one card; every rank must exit 0 within
+    ``DIST_TIMEOUT_S``.  Returns rank 0's results."""
+    tag = f"{backend}{world}"
+    store = os.path.join(tmp, f"store_{tag}")
+    cases_path = os.path.join(tmp, f"cases_{tag}.json")
+    out = os.path.join(tmp, f"out_{tag}")
+    with open(cases_path, "w") as f:
+        json.dump({"backend": backend, "device": device, "cases": cases}, f)
+    logs, procs = [], []
+    for r in range(world):
+        log = open(os.path.join(tmp, f"rank_{tag}_{r}.log"), "w")
+        logs.append(log)
+        env = dict(os.environ, LOCAL_RANK="0", OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
+             str(world), store, cases_path, out],
+            stdout=log, stderr=subprocess.STDOUT, env=env))
+    deadline = time.perf_counter() + DIST_TIMEOUT_S
+    rcs = []
+    try:
+        for p in procs:
+            rcs.append(p.wait(timeout=max(1.0, deadline - time.perf_counter())))
+    except subprocess.TimeoutExpired:
+        rcs.append("timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    if any(rc != 0 for rc in rcs) or len(rcs) != world:
+        tails = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank_{tag}_{r}.log")) as f:
+                tails.append(f"--- rank {r}:\n" + f.read()[-3000:])
+        fail(f"solve_dist {tag}: ranks exited {rcs}\n" + "\n".join(tails))
+    with open(out + ".json") as f:
+        results = json.load(f)
+    for res in results:
+        res["x_path"] = f"{out}_{res['name']}.npy"
+    return results
+
+
+def lambda_min_poisson(shape):
+    """The least eigenvalue of the Dirichlet 7-point Poisson operator
+    (diagonal 6, neighbours −1) on ``shape``."""
+    return sum(2.0 - 2.0 * math.cos(math.pi / (n + 1)) for n in shape)
+
+
+def phase_solve_dist(dev):
+    """The 256³ main-path solve on P = 2 and P = 4 ranks sharing the card
+    (gloo, planes staged through the host), PCG(2) on a (2, 2) mesh, the
+    128³ diffusion solve on two ranks (K4's halo form), and the one-rank
+    NCCL solve with every level partitioned (zero halos), each against the
+    single-device solve on the card."""
+    import tempfile
+
+    import openmg_tpu_torch as mg
+
+    # the single-device solutions to hold the ranks' against
+    b = main_rhs(BIG, dev)
+    single = mg.setup(BIG, mg.SolverConfig(**MAIN_CFG), device=dev)
+    _, info = single.solve(b)
+    hi, lo = info["x_df"]
+    x_single = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+    single_cycles = info["cycles"]
+    pcg = mg.setup(BIG, mg.SolverConfig(**MAIN_CFG, krylov="pcg", krylov_iters=2),
+                   device=dev)
+    _, info = pcg.solve(b)
+    hi, lo = info["x_df"]
+    x_pcg = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+    del single, pcg, hi, lo, b
+    bd = main_rhs(DIFFUSION_DIST, dev)
+    dsolver = mg.setup(mg.diffusion_stencil(medium(DIFFUSION_DIST)),
+                       mg.SolverConfig(**MAIN_CFG), device=dev)
+    _, info = dsolver.solve(bd)
+    hi, lo = info["x_df"]
+    x_diff = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+    diff_cycles = info["cycles"]
+    del dsolver, hi, lo, bd
+    torch.cuda.empty_cache()
+
+    bound = 2e-10 / lambda_min_poisson(BIG)
+    v_case = dict(problem="poisson", shape=list(BIG), config=MAIN_CFG)
+    plans = {
+        2: [dict(v_case, name="v_P2", mesh={"n_devices": 2}),
+            dict(problem="diffusion", shape=list(DIFFUSION_DIST), config=MAIN_CFG,
+                 name="diffusion_P2", mesh={"n_devices": 2})],
+        4: [dict(v_case, name="v_P4", mesh={"n_devices": 4}),
+            dict(v_case, name="pcg2_mesh2x2",
+                 config=dict(MAIN_CFG, krylov="pcg", krylov_iters=2),
+                 mesh={"mesh_shape": [2, 2]})],
+    }
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [(P, "gloo", plans[P]) for P in DIST_RANKS]
+        runs.append((1, "nccl", [dict(v_case, name="v_P1_nccl_forced",
+                                      mesh={"n_devices": 1, "force_partition": True})]))
+        for world, backend, cases in runs:
+            t0 = time.perf_counter()
+            for res in spawn_ranks(world, backend, cases, tmp):
+                xd = np.load(res.pop("x_path"))
+                name = res["name"]
+                if name.startswith("diffusion"):
+                    ref, want_cycles, key = x_diff, diff_cycles, "K4_halo"
+                elif name.startswith("pcg"):
+                    ref, want_cycles, key = x_pcg, None, "K1_halo"
+                else:
+                    ref, want_cycles, key = x_single, single_cycles, "K1_halo"
+                diff = float(np.linalg.norm((xd - ref).ravel()))
+                res["norm_x_dist_minus_x_single"] = diff
+                res["single_device_cycles"] = want_cycles
+                if not res["converged"] or not res["final_norm"] < 1e-10:
+                    fail(f"solve_dist {name}: {res['residual_norms']}")
+                if want_cycles is not None and res["cycles"] != want_cycles:
+                    fail(f"solve_dist {name}: {res['cycles']} cycles, the single-"
+                         f"device solve {want_cycles}")
+                if name.startswith("pcg") and res["cycles"] > PCG_RECORD_OUTER:
+                    fail(f"solve_dist {name}: {res['cycles']} outer steps")
+                if not name.startswith("diffusion"):
+                    res["bound_2e-10_over_lambda_min"] = bound
+                    if not diff <= bound:
+                        fail(f"solve_dist {name}: ‖x_dist − x_single‖ = {diff:.3e} "
+                             f"> {bound:.3e}")
+                if not res["launches_rank0"].get(key) or not res["equal_to_first_solve"]:
+                    fail(f"solve_dist {name}: launches {res['launches_rank0']}, "
+                         f"repeat equal {res['equal_to_first_solve']}")
+                out[name] = res
+            out[f"spawn_{backend}{world}_s"] = time.perf_counter() - t0
+    emit("solve_dist", out)
+    return out
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "--dist-rank":
+        dist_rank(sys.argv[2:])
+        return
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -3324,6 +3851,7 @@ def main():
                   for k, v in phase_solve_cheb(dev, vary).items()})
     paths.update({f"device-built {k}": v
                   for k, v in phase_setup_device(dev, vary).items()})
+    halo_rows = phase_halo_kernels(dev, copy_bw, vary[0].hierarchy)
     del vary
     torch.cuda.empty_cache()
     solvers = setup_sparse_solvers(dev)
@@ -3331,6 +3859,8 @@ def main():
     k7_launches, k6_launches = phase_solve_sparse(dev, solvers)
     phase_solve_many_sparse(dev, solvers)
     del solvers
+    torch.cuda.empty_cache()
+    dist_runs = phase_solve_dist(dev)
 
     def entry(name, source, replaces, launches, main_row, all_rows, key):
         return {
@@ -3386,6 +3916,31 @@ def main():
               "openmg_tpu_torch/csrc/spmv_banded.cu",
               "openmg_tpu/ops/bsr.py:114", k7_launches, spmv_rows["K7"][0],
               spmv_rows["K7"], "K7"),
+        # the halo forms: times of one inner slab of 256³ / 4 (halo_kernels),
+        # launches on rank 0 of the two-rank 256³ solve (the diffusion one
+        # for K4's)
+        entry("fused_stages_const_3d (halos=, a rank's slab)",
+              "openmg_tpu_torch/csrc/fused_stages.cu",
+              "openmg_tpu/ops/fused.py:578",
+              dist_runs["v_P2"]["launches_rank0"]["K1_halo"],
+              halo_rows["K1"][0], halo_rows["K1"], "K1_halo"),
+        entry("df_update_residual_const_3d (halos=, a rank's slab)",
+              "openmg_tpu_torch/csrc/df_update.cu",
+              "openmg_tpu/ops/kernels.py:860",
+              dist_runs["v_P2"]["launches_rank0"]["K2_halo"],
+              halo_rows["K2"][0], halo_rows["K2"], "K2_halo"),
+        entry("halo_half_sweep_const_3d (K3's halo form)",
+              "openmg_tpu_torch/csrc/half_sweep.cu",
+              "openmg_tpu/ops/kernels.py:502",
+              dist_runs["v_P2"]["launches_rank0"]["K3_halo"],
+              next(r for r in halo_rows["K3"] if r["mode"] == "residual"),
+              halo_rows["K3"], "K3_halo"),
+        entry("halo_half_sweep_vary_3d (K4's halo form)",
+              "openmg_tpu_torch/csrc/half_sweep.cu",
+              "openmg_tpu/ops/kernels.py:678",
+              dist_runs["diffusion_P2"]["launches_rank0"]["K4_halo"],
+              next(r for r in halo_rows["K4"] if r["mode"] == "residual"),
+              halo_rows["K4"], "K4_halo"),
     ]}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

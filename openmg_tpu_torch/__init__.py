@@ -24,7 +24,14 @@ What is ported so far:
   matrices, levels in ELL / CSR / BSR / dense containers, Jacobi,
   multicolour Gauss–Seidel or Chebyshev smoothing, V and W cycles, vector
   problems with ``dofs`` unknowns a node (:func:`elasticity`,
-  :func:`coupled_diffusion`).
+  :func:`coupled_diffusion`);
+* the distributed stencil engine (:func:`distributed_setup`,
+  :class:`DistributedSolver`): levels cut into z-slabs over
+  ``torch.distributed`` ranks (NCCL between cards, gloo on the CPU), halos
+  read inside the kernels, coarse levels replicated;
+* checkpoint/resume of a solve (``utils/checkpoint.py``), profiler traces
+  and solve reports (``utils/observe.py``), and the command line
+  (``python -m openmg_tpu_torch``).
 
 Its kernels are hand-written CUDA under ``csrc/``, built with ``nvcc`` at
 first use (:mod:`openmg_tpu_torch._build`):
@@ -38,14 +45,17 @@ first use (:mod:`openmg_tpu_torch._build`):
   ``_vary_3d`` — one smoother or residual pass, for the levels and residuals
   the others do not take;
 * ``ops/ell.py::spmv_ell`` and ``ops/bsr.py::spmv_bsr`` — the SpMV of a
-  banded ELL and of a blocked-band BSR level of the sparse engine.
+  banded ELL and of a blocked-band BSR level of the sparse engine;
+* the halo forms of the first four (``halos=``, and
+  ``kernels.halo_half_sweep_const_3d`` / ``_vary_3d``) — the same work on a
+  rank's slab with the planes received from its neighbours.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; on
 CPU tensors each kernel wrapper runs its plain PyTorch version.
 """
 
 from openmg_tpu_torch.core.algebraic import AlgebraicSolver, setup_sparse
-from openmg_tpu_torch.core.config import ProblemConfig, SolverConfig
+from openmg_tpu_torch.core.config import MeshConfig, ProblemConfig, SolverConfig
 from openmg_tpu_torch.core.hierarchy import Hierarchy, Level, build_hierarchy
 from openmg_tpu_torch.core.solver import Solver, mg_solve, setup, solve
 from openmg_tpu_torch.models.elasticity import coupled_diffusion, elasticity
@@ -68,6 +78,8 @@ from openmg_tpu_torch.ops.sparse import (
     to_scipy,
 )
 from openmg_tpu_torch.ops.stencil import CorneredOperator, StencilOperator
+from openmg_tpu_torch.parallel.dist import DistributedSolver, distributed_setup
+from openmg_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 
 __version__ = "0.1.0"
 
@@ -80,6 +92,11 @@ __all__ = [
     "AlgebraicSolver",
     "SolverConfig",
     "ProblemConfig",
+    "MeshConfig",
+    "DistributedSolver",
+    "distributed_setup",
+    "initialize_distributed",
+    "make_mesh",
     "Hierarchy",
     "Level",
     "build_hierarchy",

@@ -7,6 +7,12 @@ beside this file, and loaded with ``ctypes``.  The library's name carries a
 hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is not.
 
+Ranks of a distributed solve that share the checkout build at first use
+too: the build holds an exclusive ``flock`` on ``_build/.lock``, so one
+process compiles and the others wait, then load its library (the lock is
+the kernel's, released when its holder exits, so a killed build leaves no
+stale lock behind).
+
 Nothing here runs at import time: the tests import every module on machines
 that have neither ``nvcc`` nor a GPU.  The build runs when a CUDA tensor
 first reaches a kernel wrapper.  A failed build raises with the compiler's
@@ -16,6 +22,7 @@ output; nothing falls back to another implementation.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -74,15 +81,27 @@ def _digest(srcs) -> str:
 
 def build() -> Path:
     """Compile the sources if their library is not there yet; return its
-    path."""
+    path.  Concurrent processes build once (``_build/.lock``)."""
     srcs = _sources()
     tag = _digest(srcs)
     lib_path = BUILD_DIR / f"libopenmg_kernels_{tag}.so"
     if lib_path.exists():
         info.update(seconds=0.0, log="", path=str(lib_path), cached=True)
         return lib_path
-    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib_path.exists():   # another process built it meanwhile
+                info.update(seconds=0.0, log="", path=str(lib_path), cached=True)
+                return lib_path
+            return _compile(srcs, tag, lib_path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _compile(srcs, tag, lib_path) -> Path:
+    nvcc = _nvcc()
     t0 = time.perf_counter()
     objs, procs = [], []
     for src in srcs:

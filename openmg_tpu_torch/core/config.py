@@ -3,9 +3,7 @@
 Pure Python, copied: the same frozen dataclasses, field names, defaults,
 validation and JSON round-trip, so a configuration written for the JAX
 package drives the port unchanged.  ``MeshConfig`` comes with the
-distributed slice.  Options the port does not run yet are accepted here
-(the vocabulary is shared) and refused where they would be used, with
-``NotImplementedError``.
+distributed solver (:mod:`openmg_tpu_torch.parallel.dist`).
 """
 
 from __future__ import annotations
@@ -14,7 +12,7 @@ import dataclasses
 import json
 from typing import Optional, Tuple
 
-__all__ = ["SolverConfig", "ProblemConfig"]
+__all__ = ["SolverConfig", "ProblemConfig", "MeshConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +52,9 @@ class SolverConfig:
         evaluated at this precision, which is how 1e-10 absolute residuals
         are reached (SURVEY.md §7 "Hard parts", Plan A).  Choices:
         "doublefloat" (two-f32 compensated arithmetic, no f64 on the
-        device) or "auto" (default; the port resolves it to doublefloat).
-        "float64", "float32" and None name the reference's plain modes,
-        which the port does not run yet.
+        device) or "auto" (default; the port resolves it to doublefloat, or
+        to float64 for a float64 cycle); "float32" and "float64" evaluate
+        the residual in that plain type.
     max_dense_coarse: largest coarsest-level size solved by the
         precomputed dense solve (T8).
     outer_loop: kept for configuration compatibility; the port always
@@ -164,3 +162,37 @@ class ProblemConfig:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), sort_keys=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process layout of the distributed solver: one rank a process, one
+    device a rank, grid axis 0 cut into contiguous slabs over the ranks.
+
+    n_devices: ranks along the partition axis (None: the whole world
+        group).
+    axis_name: the partition axis's name (kept for configuration
+        compatibility; a rank's place on the axis is its group rank).
+    min_rows_per_device: a level whose axis-0 slab would fall below this
+        many planes (or lose factor-2 divisibility) is replicated instead
+        of partitioned.
+    overlap_halo: kept so the JAX package's configurations load; the port
+        reads it nowhere: partitioned levels always run the halo forms of
+        the stencil kernels, which consume the received planes inside the
+        kernel.
+    mesh_shape: optional ``(n_hosts, chips_per_host)``: the partition axis
+        spans both axes in host-major order; None is a 1D mesh of
+        ``n_devices``.
+    axis_names: the two axes' names with ``mesh_shape``.
+    force_partition: mark levels partitioned even on one rank, whose halos
+        are then zero planes: the per-rank program of a larger mesh runs on
+        one device.
+    """
+
+    n_devices: Optional[int] = None
+    axis_name: str = "x"
+    min_rows_per_device: int = 2
+    overlap_halo: bool = True
+    mesh_shape: Optional[tuple] = None
+    axis_names: tuple = ("host", "chip")
+    force_partition: bool = False

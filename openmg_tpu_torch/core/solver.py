@@ -49,8 +49,12 @@ through the kernels on its lift to ``(1, 1, n)``, as a 2D one does on
 the CPU (``residual_dtype="auto"`` is then float64 too); on the card a
 float64 cycle is refused, because the stencil kernels are float32.
 
-Waiting for a later slice (raises ``NotImplementedError``):
-checkpoint/resume (ROADMAP queue 1, item 19).
+Checkpoint/resume (:mod:`openmg_tpu_torch.utils.checkpoint`): with
+``checkpoint_path`` the loop writes the full-precision iterate, the cycle
+counter and the residual history every ``checkpoint_every`` cycles (one
+host read a write); ``resume=True`` continues from the file.  The file
+format and the configuration hash are the JAX package's, so a checkpoint
+of either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -243,7 +247,7 @@ class _Step:
         self.r, self.rn = self.resid(self.x)
 
 
-def lockstep(steps, limit, threshold, say=None):
+def lockstep(steps, limit, threshold, say=None, after=None, norms=None):
     """Run the outer loops of ``steps`` (each with a 0-d tensor ``rn``, its
     residual norm, and ``advance()``) in lockstep.  Every round reads the
     norms of the members not yet done to the host in ONE copy; a member
@@ -261,7 +265,9 @@ def lockstep(steps, limit, threshold, say=None):
     pending = list(range(len(steps)))
     reads = 0
     while pending:
-        if len(pending) == 1:
+        if norms is not None:
+            vals = norms([steps[i].rn for i in pending])
+        elif len(pending) == 1:
             vals = [float(steps[pending[0]].rn)]
         else:
             vals = torch.stack([steps[i].rn for i in pending]).cpu().tolist()
@@ -279,8 +285,48 @@ def lockstep(steps, limit, threshold, say=None):
             t0 = time.perf_counter()
             steps[i].advance()
             times[i].append(time.perf_counter() - t0)
+            if after is not None:
+                after(i, hist[i])
         pending = nxt
     return hist, converged, times, reads
+
+
+class _Checkpointer:
+    """The checkpoint side of an outer loop: what a resume starts from
+    (``x0``, ``start`` cycles done, their ``history``) and the writes every
+    ``every`` cycles (``save``).  Inert without a path."""
+
+    def __init__(self, path, every, resume, config, grid_shape, write=True):
+        import os
+
+        from openmg_tpu_torch.utils.checkpoint import config_hash, load_checkpoint
+
+        self.path, self.every, self.write = path, int(every), write
+        self.x0, self.start, self.history, self.writes = None, 0, [], 0
+        if path is None:
+            return
+        if self.every < 1:
+            raise ValueError(f"checkpoint_every={every}; must be >= 1")
+        self.hash = config_hash(config, grid_shape)
+        if resume and os.path.exists(path):
+            x0, self.start, self.history = load_checkpoint(path, self.hash)
+            self.x0 = x0.reshape(tuple(grid_shape))
+
+    def save(self, merged, hist):
+        """After a step of the loop, whose norms so far are ``hist`` (one a
+        step): write ``merged()`` (the iterate as float64 numpy, one host
+        read) when the cycle count is a multiple of ``every``.  ``write``
+        False (a distributed rank other than the first) gathers but does
+        not write."""
+        from openmg_tpu_torch.utils.checkpoint import save_checkpoint
+
+        cycle = self.start + len(hist)
+        if self.path is None or cycle % self.every:
+            return
+        x = merged()
+        self.writes += 1
+        if self.write:
+            save_checkpoint(self.path, x, cycle, self.history + list(hist), self.hash)
 
 
 class Solver:
@@ -420,24 +466,43 @@ class Solver:
         steps with ``krylov="pcg"``).
 
         ``info["host_reads"]`` counts the loop's device-to-host reads (one
-        before every outer step and one after the last).
+        before every outer step and one after the last; a checkpoint write
+        adds its own).
+
+        Checkpoint/resume: with ``checkpoint_path`` the full-precision
+        iterate, the cycle counter and the residual history are written
+        atomically every ``checkpoint_every`` cycles; ``resume=True``
+        restarts from the file when it exists (the configuration hash is
+        checked: a checkpoint resumes only into the same solver on the
+        same problem).  A resumed solve takes the cycles the uncut one
+        would have taken, and ``info["cycles"]`` counts them from the
+        start.
 
         Result type follows the input (see :meth:`_deliver`): numpy/f64
         ``b`` → exact float64 numpy ``x``; a float32 tensor ``b`` on the
         solver's device → float32 tensor ``x`` on that device, with the
         full-precision pair in ``info['x_df']``.
         """
-        if checkpoint_path is not None or resume:
-            raise NotImplementedError(
-                "checkpoint/resume is not ported yet (ROADMAP queue 1, item 19)"
-            )
         cfg = self.config
         limit = cfg.cycles if cfg.cycles > 0 else 10_000
         t_start = time.perf_counter()
-        step, device_native = self._step(b, x0)
-        (history,), (converged,), _, reads = lockstep(
-            [step], limit, float(cfg.threshold), self._say
+        ckpt = _Checkpointer(
+            checkpoint_path, checkpoint_every, resume, cfg, self.grid_shape
         )
+        if ckpt.x0 is not None:
+            x0 = ckpt.x0
+        step, device_native = self._step(b, x0)
+        df = self.residual_mode == "doublefloat"
+
+        def after(_, hist):
+            ckpt.save(lambda: df_merge(step.x) if df else
+                      step.x.detach().cpu().numpy().astype(np.float64), hist)
+
+        (history,), (converged,), _, reads = lockstep(
+            [step], limit - ckpt.start, float(cfg.threshold), self._say,
+            after if checkpoint_path is not None else None,
+        )
+        history = ckpt.history + history
         solve_time = time.perf_counter() - t_start
         k = len(history) - 1
         info = {
@@ -447,9 +512,8 @@ class Solver:
             "final_norm": history[-1],
             **self._info(solve_time),
             "mean_cycle_time_s": solve_time / max(k, 1),
-            "host_reads": reads,
+            "host_reads": reads + ckpt.writes,
         }
-        df = self.residual_mode == "doublefloat"
         return self._deliver(step.x, df, device_native, info), info
 
     def solve_many(self, bs, x0s=None):

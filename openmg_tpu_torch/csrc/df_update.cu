@@ -40,6 +40,13 @@
 //     the partials sum to ||r_hi||^2; their number (omg_df_num_partials,
 //     a function of the grid's shape alone) and layout are this kernel's
 //     own.
+//
+// The halo form (a rank's z-slab of a row-partitioned grid; the TPU
+// kernel's halos= argument): the (ny, nx) planes of x_hi, x_lo and e
+// received from the ranks below and above stand for planes -1 and nz.  The
+// window loads them as it loads its own planes and df-updates them the same
+// way, so the neighbours' x' is formed in the kernel and no edge repair
+// follows.  Null planes are the Dirichlet zero, as without halos.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +64,12 @@ constexpr int NLOAD = NVEC + 2 * SY;     // ... and the two halo columns
 // blocks a launch aims at: about eight waves of one block an SM on an H100
 // (a plain constant, so the partial count depends on the shape alone)
 constexpr long TARGET_BLOCKS = 1024;
+
+// The received planes of a halo form: x_hi, x_lo, e below plane 0 (lh, ll,
+// le) and above plane nz - 1 (uh, ul, ue); all null without halos.
+struct DfHalo {
+    const float *lh, *ll, *le, *uh, *ul, *ue;
+};
 
 struct DfStencil {
     int K;
@@ -146,12 +159,22 @@ struct PlaneLoad {
 
 __device__ __forceinline__ void load_piece(
     PlaneLoad& v, const float* __restrict__ xh, const float* __restrict__ xl,
-    const float* __restrict__ e, int gz, int y0, int x0, int nz, int ny,
-    int nx, bool vec_ok)
+    const float* __restrict__ e, const DfHalo& hl, int gz, int y0, int x0,
+    int nz, int ny, int nx, bool vec_ok)
 {
     const int tid = threadIdx.x;
     v.h = v.l = v.e = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (tid >= NLOAD || gz < 0 || gz >= nz) return;
+    if (tid >= NLOAD) return;
+    // plane gz of the three grids: the slab's own, a received one, or none
+    if (gz < 0 || gz >= nz) {
+        if (gz != -1 && gz != nz) return;
+        const bool lo = gz == -1;
+        xh = lo ? hl.lh : hl.uh;
+        xl = lo ? hl.ll : hl.ul;
+        e = lo ? hl.le : hl.ue;
+        if (xh == nullptr) return;
+        gz = 0;
+    }
     int ly, gx, width;
     if (tid < NVEC) {
         ly = tid / (TX / 4);
@@ -222,7 +245,8 @@ __global__ void __launch_bounds__(THREADS) df_update_residual_kernel(
     const float* __restrict__ e, const float* __restrict__ bh,
     const float* __restrict__ bl, float* __restrict__ oxh,
     float* __restrict__ oxl, float* __restrict__ orh,
-    float* __restrict__ partials, int nz, int ny, int nx, int zc)
+    float* __restrict__ partials, const DfHalo hl, int nz, int ny, int nx,
+    int zc)
 {
     __shared__ float wh[3 * SP];
     __shared__ float wl[3 * SP];
@@ -235,7 +259,9 @@ __global__ void __launch_bounds__(THREADS) df_update_residual_kernel(
     const int gx = x0 + lx, gy = y0 + ly;
     const bool own = gx < nx && gy < ny;
     const bool vec_ok = (nx & 3) == 0 &&
-        ((((uintptr_t)xh) | ((uintptr_t)xl) | ((uintptr_t)e)) & 15) == 0;
+        ((((uintptr_t)xh) | ((uintptr_t)xl) | ((uintptr_t)e) | ((uintptr_t)hl.lh) |
+          ((uintptr_t)hl.ll) | ((uintptr_t)hl.le) | ((uintptr_t)hl.uh) |
+          ((uintptr_t)hl.ul) | ((uintptr_t)hl.ue)) & 15) == 0;
     // window slot of plane z: (z - z0 + 1) % 3
     auto slot = [&](int z) { return ((z - z0 + 1) % 3) * SP; };
 
@@ -245,10 +271,10 @@ __global__ void __launch_bounds__(THREADS) df_update_residual_kernel(
         // a 2D operator lifted to (1, ny, nx): no tap leaves the plane, so
         // each plane is loaded, updated and used alone (no z-halo)
         PlaneLoad v;
-        load_piece(v, xh, xl, e, z0, y0, x0, nz, ny, nx, vec_ok);
+        load_piece(v, xh, xl, e, hl, z0, y0, x0, nz, ny, nx, vec_ok);
         for (int z = z0; z < z1; ++z) {
             store_piece(v, wh, wl);
-            if (z + 1 < z1) load_piece(v, xh, xl, e, z + 1, y0, x0, nz, ny, nx, vec_ok);
+            if (z + 1 < z1) load_piece(v, xh, xl, e, hl, z + 1, y0, x0, nz, ny, nx, vec_ok);
             __syncthreads();
             if (own) {
                 const size_t g = ((size_t)z * ny + gy) * nx + gx;
@@ -265,12 +291,12 @@ __global__ void __launch_bounds__(THREADS) df_update_residual_kernel(
         // x_hi, x_lo, e of the planes z + 1 and z + 2, and b of z and z + 1, in
         // registers: two planes of loads in flight while plane z is computed
         PlaneLoad v, v2;
-        load_piece(v, xh, xl, e, z0 - 1, y0, x0, nz, ny, nx, vec_ok);
+        load_piece(v, xh, xl, e, hl, z0 - 1, y0, x0, nz, ny, nx, vec_ok);
         store_piece(v, wh + slot(z0 - 1), wl + slot(z0 - 1));
-        load_piece(v, xh, xl, e, z0, y0, x0, nz, ny, nx, vec_ok);
+        load_piece(v, xh, xl, e, hl, z0, y0, x0, nz, ny, nx, vec_ok);
         store_piece(v, wh + slot(z0), wl + slot(z0));
-        load_piece(v, xh, xl, e, z0 + 1, y0, x0, nz, ny, nx, vec_ok);
-        load_piece(v2, xh, xl, e, z0 + 2, y0, x0, nz, ny, nx, vec_ok);
+        load_piece(v, xh, xl, e, hl, z0 + 1, y0, x0, nz, ny, nx, vec_ok);
+        load_piece(v2, xh, xl, e, hl, z0 + 2, y0, x0, nz, ny, nx, vec_ok);
         float nbh = 0.0f, nbl = 0.0f, nbh2 = 0.0f, nbl2 = 0.0f;
         if (own) {
             const size_t g = ((size_t)z0 * ny + gy) * nx + gx;
@@ -287,7 +313,7 @@ __global__ void __launch_bounds__(THREADS) df_update_residual_kernel(
             // their way while plane z is computed
             store_piece(v, wh + slot(z + 1), wl + slot(z + 1));
             v = v2;
-            if (z + 3 <= z1) load_piece(v2, xh, xl, e, z + 3, y0, x0, nz, ny, nx, vec_ok);
+            if (z + 3 <= z1) load_piece(v2, xh, xl, e, hl, z + 3, y0, x0, nz, ny, nx, vec_ok);
             float acch = nbh, accl = nbl;
             nbh = nbh2;
             nbl = nbl2;
@@ -375,10 +401,10 @@ template <int SH>
 void launch(dim3 grid, cudaStream_t stream, const DfStencil& st,
             const float* xh, const float* xl, const float* e, const float* bh,
             const float* bl, float* oxh, float* oxl, float* orh,
-            float* partials, int nz, int ny, int nx, int zc)
+            float* partials, const DfHalo& hl, int nz, int ny, int nx, int zc)
 {
     df_update_residual_kernel<SH><<<grid, THREADS, 0, stream>>>(
-        st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, nz, ny, nx, zc);
+        st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, hl, nz, ny, nx, zc);
 }
 
 }  // namespace
@@ -395,15 +421,22 @@ extern "C" int omg_df_num_partials(int nz, int ny, int nx)
 // and terms (K*3 floats, tap k's terms at [3k, 3k + nterms[k])) are host
 // pointers; everything else is a device pointer to (nz, ny, nx) float32,
 // except partials: (omg_df_num_partials,) float32, or null for no norm.
-// Outputs must not alias inputs (neighbours read the old x).  Returns 0, a
-// CUDA error code, or -1 for arguments the kernel does not take.
+// Outputs must not alias inputs (neighbours read the old x).  lh, ll, le /
+// uh, ul, ue: the halo form's received (ny, nx) planes of x_hi, x_lo, e below
+// and above the slab, or all null.  Returns 0, a CUDA error code, or -1 for
+// arguments the kernel does not take.
 extern "C" int omg_df_update_residual(
     const int* offs, const int* nterms, const float* terms, int K,
     const float* xh, const float* xl, const float* e, const float* bh,
     const float* bl, float* oxh, float* oxl, float* orh, float* partials,
-    int nz, int ny, int nx, void* stream_ptr)
+    const float* lh, const float* ll, const float* le, const float* uh,
+    const float* ul, const float* ue, int nz, int ny, int nx, void* stream_ptr)
 {
     if (K < 1 || K > MAXK || nz < 1 || ny < 1 || nx < 1) return -1;
+    const DfHalo hl = {lh, ll, le, uh, ul, ue};
+    if ((lh == nullptr) != (ll == nullptr) || (lh == nullptr) != (le == nullptr) ||
+        (uh == nullptr) != (ul == nullptr) || (uh == nullptr) != (ue == nullptr))
+        return -1;
     DfStencil st;
     st.K = K;
     for (int k = 0; k < MAXK; ++k) {
@@ -427,9 +460,9 @@ extern "C" int omg_df_update_residual(
     dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + zc - 1) / zc);
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     switch (shape_of(st)) {
-    case 7: launch<7>(grid, stream, st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, nz, ny, nx, zc); break;
-    case 5: launch<5>(grid, stream, st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, nz, ny, nx, zc); break;
-    default: launch<0>(grid, stream, st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, nz, ny, nx, zc); break;
+    case 7: launch<7>(grid, stream, st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, hl, nz, ny, nx, zc); break;
+    case 5: launch<5>(grid, stream, st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, hl, nz, ny, nx, zc); break;
+    default: launch<0>(grid, stream, st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, hl, nz, ny, nx, zc); break;
     }
     return (int)cudaGetLastError();
 }

@@ -113,6 +113,19 @@
 //     memory requests made it slower: the latency of each level's loads, in
 //     a chain of levels behind one barrier a step, with one block an SM.
 //
+// THE HALO FORM (a rank's z-slab of a row-partitioned grid; the TPU
+// kernel's halos= argument), marching shape only.  The marching visit
+// already walks D planes past its chunk's edges and recomputes them; at the
+// slab's edges those planes now come from the D-deep slabs of b and x (and
+// the coarse slabs of ec) received from the ranks below and above, where
+// the flags open_lo / open_hi say there is a neighbour.  Planes of the
+// valid range [zmin, zmax) (zmin = -D with a neighbour below, else 0; zmax
+// likewise) are loaded and computed like the slab's own; only the owned
+// planes are written.  So a slab's output is the whole grid's rows, with no
+// epilogue.  A cornered level's axis-0 regions lie on the first rank only:
+// the wrapper drops them from the region table of the others.  The
+// resident shape declines halos (its tiles hold no halo along z).
+//
 // Cornered levels (both shapes): the tap of point i for offset k is one row
 // of an at most 8-row table, chosen by which of i's coordinates are 0.
 // Interior cells use the interior taps; the few cells on a low face whose
@@ -167,7 +180,24 @@ struct Plan {
     int vec;                // 8-byte global access: nx even, aligned pointers
     int vec4;               // 16-byte global access: nx % 4 == 0, aligned pointers
     float rw[3], pw[3];     // transfer weights of taps -1, 0, +1
+    // the halo form: received slabs (null without), their planes, and the
+    // valid planes [zmin, zmax) of the fine grids, [czmin, czmax) of ec
+    const float *b_lo, *b_hi, *x_lo, *x_hi, *ec_lo, *ec_hi;
+    int hlo, hhi, clo, chi;
+    int zmin, zmax, czmin, czmax;
+    int halo;
 };
+
+// Plane z of a grid of (n, plane) floats: its own, or of the received slab
+// below (`below` planes: plane z < 0 is its plane below + z) or above.
+__device__ __forceinline__ const float* plane_ptr(
+    const float* g, const float* lo, const float* hi, int below, int z, int n,
+    size_t plane)
+{
+    if (z < 0) return lo + (size_t)(below + z) * plane;
+    if (z >= n) return hi + (size_t)(z - n) * plane;
+    return g + (size_t)z * plane;
+}
 
 // Floats of dynamic shared memory a launch takes: the rings and the coarse
 // ec planes.
@@ -330,6 +360,7 @@ struct Tile {
     int gy0, gx0;   // global index of tile cell (0, 0)
     int z0, z1;     // planes the block owns
     int nz, ny, nx;
+    int zmin, zmax; // the valid planes (a halo form's reach past the slab)
 };
 
 // A thread's word of the tile (the same at every level and step): four
@@ -385,7 +416,7 @@ __device__ __forceinline__ void level_pass(
 {
     const bool act = w.r >= lo && w.r < pl.PY - lo;
     const int i = w.i, gz = t.gz;
-    if (gz < 0 || gz >= t.nz) {   // the same for the whole block
+    if (gz < t.zmin || gz >= t.zmax) {   // the same for the whole block
         if (act && dst != nullptr)
             *reinterpret_cast<float4*>(dst + i) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         return;
@@ -543,6 +574,7 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
 
     Tile tl;
     tl.nz = nz; tl.ny = ny; tl.nx = nx;
+    tl.zmin = pl.zmin; tl.zmax = pl.zmax;
     const int fy0 = blockIdx.y * TYO, fx0 = blockIdx.x * pl.TXO;
     tl.gy0 = fy0 - D;
     tl.gx0 = fx0 - H;
@@ -597,28 +629,32 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
 
     // plane s of the pipeline (global z = zlo + s) into its slot, and the
     // coarse ec plane it is the first to need
+    const size_t fplane = (size_t)ny * nx;
     auto load_plane = [&](int s) {
         const int gz = zlo + s;
-        const bool inz = gz >= 0 && gz < nz;
+        const bool inz = gz >= pl.zmin && gz < pl.zmax;
         float* dx = ring0 + (s % X) * PL;   // once a step: not in a level
+        // the plane's x: the slab's own, or a received one
+        const float* xp = pl.has_x && inz
+            ? plane_ptr(xin, pl.x_lo, pl.x_hi, pl.hlo, gz, nz, fplane) : xin;
         if (pl.has_x || (pl.has_ec && !inz)) {
             for (int w4 = tid; w4 < PY * C4; w4 += THREADS) {
                 const int r = w4 / C4, c = 4 * (w4 % C4);
                 const int gy = tl.gy0 + r, gx = tl.gx0 + c;
                 const bool iny = pl.has_x && inz && gy >= 0 && gy < ny;
-                const size_t g = iny ? ((size_t)gz * ny + gy) * nx : 0;
+                const size_t g = iny ? (size_t)gy * nx : 0;
                 float* d = dx + r * PX + c;
                 if (pl.has_x && pl.vec) {
 #pragma unroll
                     for (int h = 0; h < 2; ++h) {
                         const bool ok = iny && gx + 2 * h >= 0 && gx + 2 * h < nx;
-                        cp_async8(d + 2 * h, ok ? xin + g + gx + 2 * h : xin, ok);
+                        cp_async8(d + 2 * h, ok ? xp + g + gx + 2 * h : xin, ok);
                     }
                 } else if (pl.has_x) {
 #pragma unroll
                     for (int j = 0; j < 4; ++j) {
                         const bool ok = iny && gx + j >= 0 && gx + j < nx;
-                        cp_async4(d + j, ok ? xin + g + gx + j : xin, ok);
+                        cp_async4(d + j, ok ? xp + g + gx + j : xin, ok);
                     }
                 } else {
                     *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -631,13 +667,16 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
             const bool fresh = s == 0 || (gz & 1);
             for (int c = c_first; fresh && c <= (gz + 1) >> 1; ++c) {
                 float* dc = cring + ((c - czlo) % 3) * (pl.CPY * CPX);
-                const bool incz = c >= 0 && c < ncz;
+                const bool incz = c >= pl.czmin && c < pl.czmax;
+                const float* ep = incz ? plane_ptr(ec, pl.ec_lo, pl.ec_hi, pl.clo, c, ncz,
+                                                   (size_t)ncy * ncx)
+                                       : ec;
                 for (int i = tid; i < pl.CPY * CPX; i += THREADS) {
                     const int ry = i / CPX, rx = i - ry * CPX;
                     const int cy = cy0 + ry, cx = cx0 + rx;
                     const bool ok = incz && cy >= 0 && cy < ncy && cx >= 0 && cx < ncx;
-                    const size_t g = ok ? ((size_t)c * ncy + cy) * ncx + cx : 0;
-                    cp_async4(dc + i, ec + g, ok);
+                    const size_t g = ok ? (size_t)cy * ncx + cx : 0;
+                    cp_async4(dc + i, ok ? ep + g : ec, ok);
                 }
             }
         }
@@ -658,8 +697,9 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
     auto load_b = [&](int s, int L) {
         float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         const int pr = s - 2 * L + d0, gz = zlo + pr;
-        if (pr < L || pr > T0 - 1 - L || gz < 0 || gz >= nz || !wd.iny) return v;
-        const float* p = b + (size_t)gz * ny * nx + wd.g;
+        if (pr < L || pr > T0 - 1 - L || gz < pl.zmin || gz >= pl.zmax || !wd.iny)
+            return v;
+        const float* p = plane_ptr(b, pl.b_lo, pl.b_hi, pl.hlo, gz, nz, fplane) + wd.g;
         if (pl.vec) {
             if (wd.xin & 1u) {
                 const float2 lo = __ldg(reinterpret_cast<const float2*>(p));
@@ -693,7 +733,7 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
             const int gz = zlo + s;
             float* px = ring0 + xs * PL;
             const bool write = S == 0 && gz >= tl.z0 && gz < tl.z1;
-            if (gz >= 0 && gz < nz && wd.iny && wd.xin != 0u)
+            if (gz >= pl.zmin && gz < pl.zmax && wd.iny && wd.xin != 0u)
                 prolong_word(pl, px + wd.r * PX + wd.c, cring, czlo, cy0, cx0, gz,
                              wd.gy, wd.gx, wd.xin,
                              write && wd.own2 ? x_out + (size_t)gz * ny * nx + wd.g
@@ -1356,9 +1396,11 @@ int launch(Plan& pl, cudaStream_t stream, const float* values,
     if (e == cudaSuccess)
         e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
-    const int rc = launch_resident<SH>(pl, stream, values, table, b, x, ec, x_out,
-                                       r_out, nz, ny, nx, nsm);
-    if (rc != NO_FIT) return rc;
+    if (!pl.halo) {
+        const int rc = launch_resident<SH>(pl, stream, values, table, b, x, ec, x_out,
+                                           r_out, nz, ny, nx, nsm);
+        if (rc != NO_FIT) return rc;
+    }
     const int tys[3] = {32, 24, 16};
     for (int ty : tys) {
         Plan t = pl;
@@ -1409,12 +1451,19 @@ extern "C" int omg_fused_max_depth() { return MAX_DEPTH; }
 //   x_out is written when there are stages or an ec; with neither, the
 //     residual is taken of x itself.  Outputs must not alias inputs.
 //   n_stages + (emit >= 1) + (emit == 2) <= omg_fused_max_depth().
+//   The halo form: b_lo / b_hi (hlo / hhi planes of (ny, nx)), x_lo / x_hi
+//     (as deep; null for a zero start), ec_lo / ec_hi (clo / chi coarse
+//     planes; null without ec), with open_lo / open_hi: is there a rank
+//     below / above.  hlo, hhi >= D; clo >= (D + 1) / 2, chi >= D / 2 + 1.
+//     All null and 0 for a whole grid.
 extern "C" int omg_fused_stages(
     const float* values, const float* table, const int* offs, int K,
     const int* rowmap, const float* b, const float* x, const float* ec,
     float* x_out, float* r_out, int nz, int ny, int nx, int n_stages,
     const int* kinds, const float* pars, int emit_residual, const float* rw,
-    const float* pw, void* stream_ptr)
+    const float* pw, const float* b_lo, const float* b_hi, const float* x_lo,
+    const float* x_hi, const float* ec_lo, const float* ec_hi, int open_lo,
+    int open_hi, int hlo, int hhi, int clo, int chi, void* stream_ptr)
 {
     if (K < 1 || K > MAXK || nz < 1 || ny < 1 || nx < 1) return -1;
     if (emit_residual < 0 || emit_residual > 2) return -1;
@@ -1474,6 +1523,22 @@ extern "C" int omg_fused_stages(
         pl.rw[t] = rw[t];
         pl.pw[t] = pw[t];
     }
+    pl.halo = open_lo || open_hi || b_lo != nullptr;
+    pl.b_lo = b_lo; pl.b_hi = b_hi; pl.x_lo = x_lo; pl.x_hi = x_hi;
+    pl.ec_lo = ec_lo; pl.ec_hi = ec_hi;
+    pl.hlo = hlo; pl.hhi = hhi; pl.clo = clo; pl.chi = chi;
+    open_lo = open_lo && pl.halo;
+    open_hi = open_hi && pl.halo;
+    if (open_lo && (b_lo == nullptr || hlo < D || (x != nullptr && x_lo == nullptr) ||
+                    (ec != nullptr && (ec_lo == nullptr || clo < (D + 1) / 2))))
+        return -1;
+    if (open_hi && (b_hi == nullptr || hhi < D || (x != nullptr && x_hi == nullptr) ||
+                    (ec != nullptr && (ec_hi == nullptr || chi < D / 2 + 1))))
+        return -1;
+    pl.zmin = open_lo ? -D : 0;
+    pl.zmax = open_hi ? nz + D : nz;
+    pl.czmin = open_lo ? -clo : 0;
+    pl.czmax = open_hi ? (nz >> 1) + chi : nz >> 1;
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     switch (shape_of(offs, K)) {
     case 7:

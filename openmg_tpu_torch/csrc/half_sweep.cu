@@ -59,6 +59,16 @@
 //   * The tap count is a compile-time constant for 7 and 27 taps; any other
 //     count up to 27 takes a generic instantiation.
 //
+// The halo form (a rank's z-slab of a row-partitioned grid, replacing the
+// TPU kernels halo_half_sweep_const_3d / halo_half_sweep_vary_3d of
+// openmg_tpu/ops/kernels.py): two more pointers, the (ny, nx) planes
+// received from the ranks below and above, stand for planes -1 and nz.  Both
+// bodies read a plane through plane_of(), which returns them there (null,
+// the Dirichlet zero, where a pointer is null), so the received planes are
+// consumed where the pass reads its neighbours: no boundary epilogue and no
+// concatenated slab.  Everything else, bytes and tiling included, is the
+// whole-grid pass's; the two planes add 2 / nz to the bytes read.
+//
 // Rounding: the sum runs in the order of the offsets list (the diagonal is
 // skipped in a red/black pass) and the update multiplies by 1/diag, as the
 // TPU kernels do; nvcc may contract a*b+c into a fused multiply-add, which
@@ -283,15 +293,25 @@ __device__ __forceinline__ void prefetch_l2(const float* p)
     asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
 }
 
-// Plane z of x with a one-cell halo into a slot: tile rows gy0 - 1 ..
-// gy0 + CY, columns gx0 - 1 .. gx0 + CX, zero outside the plane.  A plane
-// outside the grid is not loaded: the pass reads it as zero.
-__device__ __forceinline__ void load_plane(
-    float* dst, const float* x, int z, int gy0, int gx0, int nz, int ny, int nx,
-    bool vec, int tid)
+// Plane z of x: the grid's own plane, the received plane below (z == -1)
+// or above (z == nz) of a halo form, or null (outside the grid: zero).
+__device__ __forceinline__ const float* plane_of(
+    const float* x, const float* lower, const float* upper, int z, int nz,
+    int ny, int nx)
 {
-    if (z < 0 || z >= nz) return;
-    const float* xp = x + (size_t)z * ny * nx;
+    if (z >= 0 && z < nz) return x + (size_t)z * ny * nx;
+    return z == -1 ? lower : z == nz ? upper : nullptr;
+}
+
+// Plane xp (plane_of) with a one-cell halo into a slot: tile rows gy0 - 1
+// .. gy0 + CY, columns gx0 - 1 .. gx0 + CX, zero outside the plane.  A
+// plane outside the grid (null) is not loaded: the pass reads it as zero.
+__device__ __forceinline__ void load_plane(
+    float* dst, const float* xp, int gy0, int gx0, int ny, int nx, bool vec,
+    int tid)
+{
+    if (xp == nullptr) return;
+    const float* x = xp;   // a valid address for the copies that read nothing
     if (vec) {
         for (int i = tid; i < (CY + 2) * (CX / 4); i += CTHREADS) {
             const int r = i / (CX / 4), c = 4 * (i % (CX / 4));
@@ -339,7 +359,8 @@ template <int PAT, int MODE>
 __global__ void __launch_bounds__(CTHREADS, 2) const_pass_kernel(
     const Sweep st, const float* __restrict__ values,
     const float* __restrict__ table, const float* __restrict__ b,
-    const float* __restrict__ x, float* __restrict__ out, int nz, int ny,
+    const float* __restrict__ x, const float* __restrict__ lower,
+    const float* __restrict__ upper, float* __restrict__ out, int nz, int ny,
     int nx, float omega, int color, int zc, int tiles_x, int tiles_y, int vec)
 {
     __shared__ __align__(16) float ring[RING * PLANE];
@@ -373,7 +394,9 @@ __global__ void __launch_bounds__(CTHREADS, 2) const_pass_kernel(
     // slot q % RING holds plane z0 - 1 + q; planes past z1 are never read
     for (int q = 0; q < PF + 2; ++q) {
         if (z0 - 1 + q <= z1)
-            load_plane(ring + q * PLANE, x, z0 - 1 + q, gy0, gx0, nz, ny, nx, vec, tid);
+            load_plane(ring + q * PLANE,
+                       plane_of(x, lower, upper, z0 - 1 + q, nz, ny, nx), gy0, gx0,
+                       ny, nx, vec, tid);
         cp_async_commit();
     }
     float bn[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -382,8 +405,9 @@ __global__ void __launch_bounds__(CTHREADS, 2) const_pass_kernel(
     for (int z = z0; z < z1; ++z) {
         const int q = z - z0 + 1;
         if (z + PF + 1 <= z1)
-            load_plane(ring + ((q + PF + 1) % RING) * PLANE, x, z + PF + 1, gy0,
-                       gx0, nz, ny, nx, vec, tid);
+            load_plane(ring + ((q + PF + 1) % RING) * PLANE,
+                       plane_of(x, lower, upper, z + PF + 1, nz, ny, nx), gy0, gx0,
+                       ny, nx, vec, tid);
         cp_async_commit();   // an empty group past z1 keeps the count
         cp_async_wait<PF>();      // planes up to z + 1 have landed
         __syncthreads();
@@ -394,9 +418,11 @@ __global__ void __launch_bounds__(CTHREADS, 2) const_pass_kernel(
         if (z + 1 < z1) load4(bn, b, z + 1, y, x0, ny, nx, vec);
         if (z + PF + 1 < z1) prefetch_l2(b + ((size_t)(z + PF + 1) * ny + y) * nx + x0);
 
-        const float* pm = z > 0 ? ring + ((q - 1) % RING) * PLANE : nullptr;
+        const float* pm = z > 0 || lower != nullptr ? ring + ((q - 1) % RING) * PLANE
+                                                   : nullptr;
         const float* pc = ring + (q % RING) * PLANE;
-        const float* pp = z + 1 < nz ? ring + ((q + 1) % RING) * PLANE : nullptr;
+        const float* pp = z + 1 < nz || upper != nullptr
+                              ? ring + ((q + 1) % RING) * PLANE : nullptr;
         float seg[9][6];
         if constexpr (PAT != 0) Rows<PAT, 0>::load(seg, pm, pc, pp, off);
         const int upd = MODE == MODE_RB ? ((color - z - y) & 1) : 0;
@@ -423,7 +449,8 @@ __global__ void __launch_bounds__(CTHREADS, 2) const_pass_kernel(
 
 template <int PAT>
 int launch_const(int mode, const Sweep& st, const float* values,
-                 const float* table, const float* b, const float* x, float* out,
+                 const float* table, const float* b, const float* x,
+                 const float* lower, const float* upper, float* out,
                  int nz, int ny, int nx, float omega, int color, int zc, int vec,
                  cudaStream_t s)
 {
@@ -434,18 +461,18 @@ int launch_const(int mode, const Sweep& st, const float* values,
     switch (mode) {
     case MODE_JACOBI:
         const_pass_kernel<PAT, MODE_JACOBI><<<grid, CTHREADS, 0, s>>>(
-            st, values, table, b, x, out, nz, ny, nx, omega, color, zc, tiles_x,
-            tiles_y, vec);
+            st, values, table, b, x, lower, upper, out, nz, ny, nx, omega, color,
+            zc, tiles_x, tiles_y, vec);
         return 0;
     case MODE_RB:
         const_pass_kernel<PAT, MODE_RB><<<grid, CTHREADS, 0, s>>>(
-            st, values, table, b, x, out, nz, ny, nx, omega, color, zc, tiles_x,
-            tiles_y, vec);
+            st, values, table, b, x, lower, upper, out, nz, ny, nx, omega, color,
+            zc, tiles_x, tiles_y, vec);
         return 0;
     case MODE_RESIDUAL:
         const_pass_kernel<PAT, MODE_RESIDUAL><<<grid, CTHREADS, 0, s>>>(
-            st, values, table, b, x, out, nz, ny, nx, omega, color, zc, tiles_x,
-            tiles_y, vec);
+            st, values, table, b, x, lower, upper, out, nz, ny, nx, omega, color,
+            zc, tiles_x, tiles_y, vec);
         return 0;
     }
     return -2;
@@ -469,6 +496,7 @@ template <int MODE, int KT>
 __global__ void __launch_bounds__(BX * BY) vary_pass_kernel(
     const Sweep st, const float* __restrict__ coef,
     const float* __restrict__ b, const float* __restrict__ x,
+    const float* __restrict__ lower, const float* __restrict__ upper,
     float* __restrict__ out, int nz, int ny, int nx, float omega, int color,
     int vec)
 {
@@ -496,8 +524,9 @@ __global__ void __launch_bounds__(BX * BY) vary_pass_kernel(
         if (KT == 0 && k >= st.K) break;
         if (MODE == MODE_RB && k == st.di) continue;
         const int zz = gz + st.oz[k], yy = gy + st.oy[k];
-        if (zz < 0 || zz >= nz || yy < 0 || yy >= ny) continue;
-        const float* row = x + ((size_t)zz * ny + yy) * nx;
+        const float* pz = plane_of(x, lower, upper, zz, nz, ny, nx);
+        if (pz == nullptr || yy < 0 || yy >= ny) continue;
+        const float* row = pz + (size_t)yy * nx;
         const int x0 = gx + st.ox[k], x1 = x0 + 1;
         float a0 = 0.0f, a1 = 0.0f;
         const float* ck = coef + (size_t)k * n + c;
@@ -543,38 +572,39 @@ __global__ void __launch_bounds__(BX * BY) vary_pass_kernel(
 template <int MODE>
 void launch_vary_by_taps(
     const Sweep& st, const float* coef, const float* b, const float* x,
-    float* out, int nz, int ny, int nx, float omega, int color, int vec,
-    cudaStream_t s)
+    const float* lower, const float* upper, float* out, int nz, int ny, int nx,
+    float omega, int color, int vec, cudaStream_t s)
 {
     const dim3 block(BX, BY, 1);
     const dim3 grid((nx + 2 * BX - 1) / (2 * BX), (ny + BY - 1) / BY, nz);
     if (st.K == 7)
         vary_pass_kernel<MODE, 7><<<grid, block, 0, s>>>(
-            st, coef, b, x, out, nz, ny, nx, omega, color, vec);
+            st, coef, b, x, lower, upper, out, nz, ny, nx, omega, color, vec);
     else if (st.K == 27)
         vary_pass_kernel<MODE, 27><<<grid, block, 0, s>>>(
-            st, coef, b, x, out, nz, ny, nx, omega, color, vec);
+            st, coef, b, x, lower, upper, out, nz, ny, nx, omega, color, vec);
     else
         vary_pass_kernel<MODE, 0><<<grid, block, 0, s>>>(
-            st, coef, b, x, out, nz, ny, nx, omega, color, vec);
+            st, coef, b, x, lower, upper, out, nz, ny, nx, omega, color, vec);
 }
 
 int launch_vary(int mode, const Sweep& st, const float* coef, const float* b,
-                const float* x, float* out, int nz, int ny, int nx, float omega,
-                int color, int vec, cudaStream_t s)
+                const float* x, const float* lower, const float* upper, float* out,
+                int nz, int ny, int nx, float omega, int color, int vec,
+                cudaStream_t s)
 {
     if (nz > 65535 || (ny + BY - 1) / BY > 65535) return -2;
     switch (mode) {
     case MODE_JACOBI:
-        launch_vary_by_taps<MODE_JACOBI>(st, coef, b, x, out, nz, ny, nx, omega,
+        launch_vary_by_taps<MODE_JACOBI>(st, coef, b, x, lower, upper, out, nz, ny, nx, omega,
                                          color, vec, s);
         return 0;
     case MODE_RB:
-        launch_vary_by_taps<MODE_RB>(st, coef, b, x, out, nz, ny, nx, omega,
+        launch_vary_by_taps<MODE_RB>(st, coef, b, x, lower, upper, out, nz, ny, nx, omega,
                                      color, vec, s);
         return 0;
     case MODE_RESIDUAL:
-        launch_vary_by_taps<MODE_RESIDUAL>(st, coef, b, x, out, nz, ny, nx, omega,
+        launch_vary_by_taps<MODE_RESIDUAL>(st, coef, b, x, lower, upper, out, nz, ny, nx, omega,
                                            color, vec, s);
         return 0;
     }
@@ -588,6 +618,8 @@ int launch_vary(int mode, const Sweep& st, const float* coef, const float* b,
 extern "C" int omg_half_sweep_tile(int axis) { return axis == 0 ? CX : CY; }
 
 // One pass.  offs: K*3 ints; rowmap: 8 ints (all -1 without a region table).
+// lower / upper: the (ny, nx) planes below plane 0 and above plane nz - 1
+// (the halo form), or null (the Dirichlet zero).
 // vary != 0: coef is (K, nz, ny, nx) and table/rowmap/zc are not read;
 // otherwise a block marches zc planes of a tile (ops/kernels.py::sweep_plan).
 // Returns 0, a negative code of its own (-1: stencil not taken, -2: bad mode
@@ -595,8 +627,8 @@ extern "C" int omg_half_sweep_tile(int axis) { return axis == 0 ? CX : CY; }
 extern "C" int omg_half_sweep(
     const float* coef, const float* table, const int* offs, int K,
     const int* rowmap, int vary, int mode, float omega, int color,
-    const float* b, const float* x, float* out, int nz, int ny, int nx,
-    int zc, void* stream)
+    const float* b, const float* x, const float* lower, const float* upper,
+    float* out, int nz, int ny, int nx, int zc, void* stream)
 {
     if (K < 1 || K > MAXK) return -1;
     Sweep st;
@@ -624,24 +656,26 @@ extern "C" int omg_half_sweep(
         st.corner |= st.rowmap[m] >= 0;
     }
     if (nz < 1 || ny < 1 || nx < 1 || mode < 0 || mode > 2) return -2;
-    if (out == x || out == b) return -3;
+    if (out == x || out == b || out == lower || out == upper) return -3;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     int rc;
     if (vary) {
         const int vec = (nx % 2 == 0)
             && ((((uintptr_t)b) | ((uintptr_t)x) | ((uintptr_t)out)
                  | ((uintptr_t)coef)) & 7) == 0;
-        rc = launch_vary(mode, st, coef, b, x, out, nz, ny, nx, omega, color, vec, s);
+        rc = launch_vary(mode, st, coef, b, x, lower, upper, out, nz, ny, nx, omega,
+                         color, vec, s);
     } else {
         if (zc < 1) return -2;
         const int vec = (nx % 4 == 0)
-            && ((((uintptr_t)b) | ((uintptr_t)x) | ((uintptr_t)out)) & 15) == 0;
+            && ((((uintptr_t)b) | ((uintptr_t)x) | ((uintptr_t)out)
+                 | ((uintptr_t)lower) | ((uintptr_t)upper)) & 15) == 0;
         const float* table_ = table;
-        rc = is_pat<1>(st) ? launch_const<1>(mode, st, coef, table_, b, x, out, nz, ny, nx, omega, color, zc, vec, s)
-           : is_pat<2>(st) ? launch_const<2>(mode, st, coef, table_, b, x, out, nz, ny, nx, omega, color, zc, vec, s)
-           : is_pat<3>(st) ? launch_const<3>(mode, st, coef, table_, b, x, out, nz, ny, nx, omega, color, zc, vec, s)
-           : is_pat<4>(st) ? launch_const<4>(mode, st, coef, table_, b, x, out, nz, ny, nx, omega, color, zc, vec, s)
-           : launch_const<0>(mode, st, coef, table_, b, x, out, nz, ny, nx, omega, color, zc, vec, s);
+        rc = is_pat<1>(st) ? launch_const<1>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, s)
+           : is_pat<2>(st) ? launch_const<2>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, s)
+           : is_pat<3>(st) ? launch_const<3>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, s)
+           : is_pat<4>(st) ? launch_const<4>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, s)
+           : launch_const<0>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, s);
     }
     if (rc != 0) return rc;
     return static_cast<int>(cudaGetLastError());

@@ -24,6 +24,19 @@ is split by :func:`depth_chunks` into ``⌈depth / MAX_DEPTH⌉`` consecutive
 launches of the same kernel (on the CPU, into as many calls of the plain
 version, which give the same values as one whole call).
 
+**The halo form** (``halos=``, the row-partitioned tier of
+:mod:`openmg_tpu_torch.parallel.fast`): a visit on a rank's z-slab with
+D-deep slabs of ``b`` and ``x`` (and of the coarse ``ec``) received from the
+ranks below and above, and the flags ``(open_lo, open_hi)`` that say which
+edges have a neighbour.  The kernel walks the received planes as the
+planes past the slab's edges (its marching shape already recomputes a
+D-deep halo at every chunk's edge; the resident shape declines halos), so
+the slab's own planes come out as the whole grid's rows would.  A
+cornered level's axis-0 regions lie on the first rank only
+(:func:`gate_corner`).  Its plain version runs the whole-grid plain
+version on the slab extended by the received planes and slices it.
+Halo launches count apart, in ``LAUNCHES_HALO``.
+
 The entry points (:func:`smooth_fused`, :func:`presmooth_residual_fused`,
 :func:`presmooth_restrict_fused`, :func:`residual_restrict_fused`,
 :func:`prolong_smooth_fused`) keep the JAX package's signatures.  A 2D
@@ -49,6 +62,9 @@ from openmg_tpu_torch.ops.transfer import prolong, restrict
 
 __all__ = [
     "LAUNCHES",
+    "LAUNCHES_HALO",
+    "gate_corner",
+    "halo_depth",
     "MAX_DEPTH",
     "depth_chunks",
     "stages_for",
@@ -63,6 +79,8 @@ __all__ = [
 
 # launches of the CUDA kernel (one a call up to MAX_DEPTH)
 LAUNCHES = 0
+# ... of its halo form (a rank's slab with received planes)
+LAUNCHES_HALO = 0
 # the deepest visit one launch of csrc/fused_stages.cu takes (stages, +1
 # with a residual, +1 more with a restriction); its MAX_DEPTH
 MAX_DEPTH = 6
@@ -108,6 +126,42 @@ def _axis_weights(taps):
     return (w[-1], w[0], w[1])
 
 
+_KEEP_INDEX = {}
+
+
+def gate_corner(corner, open_lo):
+    """A cornered operator's ``(regions, table)`` as a rank's slab sees
+    it: with a neighbour below (``open_lo``) the slab's plane 0 is not the
+    grid's, so the regions on axis 0 are dropped (a point there takes the
+    row of its other zero coordinates); the first rank keeps them all.
+
+    The rows kept are selected on the table's device by an index made once
+    per device and reused: a host list copied to the card at every call
+    would wait for the stream (a copy from pageable memory) and hold each
+    gated pass to the host's pace."""
+    if not corner or not open_lo:
+        return corner
+    regions, table = corner
+    keep = tuple(r for r, R in enumerate(regions) if 0 not in R)
+    if not keep:
+        return None
+    key = (keep, table.device)
+    idx = _KEEP_INDEX.get(key)
+    if idx is None:
+        idx = _KEEP_INDEX[key] = torch.tensor(keep, device=table.device)
+    return tuple(regions[r] for r in keep), table.index_select(0, idx)
+
+
+def halo_depth(n_stages: int, emit_residual: bool, restrict: bool, ec: bool) -> int:
+    """The planes of ``b`` and ``x`` a halo visit needs from each
+    neighbour: its depth (stages, +1 with a residual, +1 more with a
+    restriction), rounded up to even with a prolongation (the coarse slabs
+    are then ``depth // 2`` below and ``depth // 2 + 1`` above), as in the
+    JAX package."""
+    d = n_stages + int(bool(emit_residual)) + int(bool(restrict))
+    return d + d % 2 if ec else d
+
+
 def _row_map(corner):
     """For each mask of zero coordinates (bit a set: coordinate a is 0) the
     row of the region table a point uses, −1 for the interior values."""
@@ -144,10 +198,63 @@ def _tap_field(values, offsets, corner, k, shape):
     return f
 
 
+def _halo_plain(values, offsets, b, x, stages, emit_residual, corner,
+                restrict_transfer, ec, prolong_transfer, emit_x, halos):
+    """The halo form's plain version: the whole-grid plain version on the
+    slab extended at each open edge by the received slabs (and one zero
+    plane where their depth is odd, so the extension is even: the colours
+    and the coarse planes stay aligned), then the slab's own rows.  A
+    plane of the extension that the received slabs do not reach is wrong
+    after the visit's levels, but no output depends on it."""
+    (open_lo, open_hi), b_pair, x_pair, ec_pair = halos
+    nz = b.shape[0]
+
+    def pad_of(depth, cdepth, is_open):
+        if not is_open:
+            return 0
+        p = depth + depth % 2
+        return max(p, 2 * cdepth)
+
+    def ext(t, pair, plo, phi):
+        z = lambda n: torch.zeros((n,) + tuple(t.shape[1:]), dtype=t.dtype,  # noqa: E731
+                                  device=t.device)
+        lo, hi = pair if pair is not None else (z(0), z(0))
+        lo = lo[max(0, lo.shape[0] - plo):]
+        hi = hi[:phi]
+        return torch.cat([z(plo - lo.shape[0]), lo, t, hi, z(phi - hi.shape[0])], 0)
+
+    hd = b_pair[0].shape[0]
+    clo = ec_pair[0].shape[0] if ec_pair is not None else 0
+    chi = ec_pair[1].shape[0] if ec_pair is not None else 0
+    plo = pad_of(hd, clo, open_lo)
+    phi = pad_of(hd, 0, open_hi)
+    if ec is not None and open_hi:
+        # the odd plane at the top of the extension reads the coarse plane
+        # above it: two more (zero) fine planes make room for it
+        phi += 2
+    b_e = ext(b, b_pair, plo, phi)
+    x_e = None if x is None else ext(x, x_pair, plo, phi)
+    ec_e = None
+    if ec is not None:
+        ec_e = ext(ec, ec_pair, plo // 2, phi // 2)
+    out = fused_stages_const_3d_plain(
+        values, offsets, b_e, x_e, stages, emit_residual, corner,
+        restrict_transfer, ec_e, prolong_transfer, emit_x,
+    )
+    own = lambda t: t[plo: plo + nz]  # noqa: E731
+    if not emit_residual:
+        return own(out)
+    r = out if not emit_x else out[1]
+    r = r[plo // 2: plo // 2 + nz // 2] if restrict_transfer is not None else own(r)
+    if not emit_x:
+        return r
+    return own(out[0]), r
+
+
 def fused_stages_const_3d_plain(
     values, offsets, b, x, stages, emit_residual: bool = False,
     corner=None, restrict_transfer=None, ec=None, prolong_transfer=None,
-    emit_x: bool = True,
+    emit_x: bool = True, halos=None,
 ):
     """Plain PyTorch version of :func:`fused_stages_const_3d`: the same
     function in whole-grid tensor operations, one stage after the other.
@@ -156,7 +263,12 @@ def fused_stages_const_3d_plain(
     ``offsets``; interior points multiply by the reciprocal of the
     interior diagonal, region points divide by their own diagonal.  Not bit
     for bit the kernel (which may fuse multiply-adds), but within a few ulp.
+    ``halos``: as in :func:`fused_stages_const_3d` (``corner`` already
+    gated for the slab).
     """
+    if halos is not None:
+        return _halo_plain(values, offsets, b, x, stages, emit_residual, corner,
+                           restrict_transfer, ec, prolong_transfer, emit_x, halos)
     offsets = tuple(tuple(o) for o in offsets)
     stages = _norm_stages(stages)
     shape = tuple(b.shape)
@@ -242,7 +354,10 @@ def _kernel():
             p, p,                 # x_out, r_out
             i, i, i,              # nz, ny, nx
             i, p, p, i,           # n_stages, kinds, pars, emit_residual
-            p, p, p,              # rw, pw, stream
+            p, p,                 # rw, pw
+            p, p, p, p, p, p,     # halo slabs: b lo/hi, x lo/hi, ec lo/hi
+            i, i, i, i, i, i,     # open_lo, open_hi, planes of b/x lo, hi, ec lo, hi
+            p,                    # stream
         ]
         fn.restype = i
         depth = lib.omg_fused_max_depth
@@ -292,11 +407,11 @@ def _transfer_weights(shape, device, restrict_transfer, ec, prolong_transfer):
 
 def _fused_stages_cuda(
     values, offsets, b, x, stages, emit_residual, corner, restrict_transfer,
-    ec, prolong_transfer, emit_x,
+    ec, prolong_transfer, emit_x, halos=None,
 ):
     """One launch of ``csrc/fused_stages.cu``: a visit of depth at most
     ``MAX_DEPTH``."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_HALO
     dev = b.device
     if b.ndim != 3:
         raise ValueError(f"b must be 3D, got shape {tuple(b.shape)}")
@@ -336,6 +451,34 @@ def _fused_stages_cuda(
         else:
             mode, r_out = 1, torch.empty_like(b)
 
+    slabs, flags = [None] * 6, [0] * 6
+    if halos is not None:
+        (open_lo, open_hi), b_pair, x_pair, ec_pair = halos
+        flags[:2] = int(bool(open_lo)), int(bool(open_hi))
+        trail = shape[1:]
+        for j, (name, pair) in enumerate((("b", b_pair), ("x", x_pair), ("ec", ec_pair))):
+            if pair is None:
+                continue
+            for side, t in enumerate(pair):
+                _check(f"{name} halo", t, None, dev)
+                want = trail if name != "ec" else tuple(s // 2 for s in trail)
+                if tuple(t.shape[1:]) != want:
+                    raise ValueError(f"{name} halo of shape {tuple(t.shape)}")
+                slabs[2 * j + side] = t.data_ptr()
+        flags[2], flags[3] = b_pair[0].shape[0], b_pair[1].shape[0]
+        if x is not None and (x_pair is None or tuple(
+                t.shape[0] for t in x_pair) != tuple(flags[2:4])):
+            raise ValueError("x needs halo slabs as deep as b's")
+        if ec is not None:
+            if ec_pair is None:
+                raise ValueError("ec needs its halo slabs")
+            flags[4], flags[5] = ec_pair[0].shape[0], ec_pair[1].shape[0]
+        need = n + int(bool(emit_residual)) + int(restrict_transfer is not None)
+        if min(flags[2:4]) < need or (ec is not None and (
+                flags[4] < (need + 1) // 2 or flags[5] < need // 2 + 1)):
+            raise ValueError(
+                f"halo slabs of {flags[2:6]} planes for a visit of depth {need}"
+            )
     offs_c = (ctypes.c_int * (3 * K))(*[o for off in offsets for o in off])
     rowmap_c = (ctypes.c_int * 8)(*_row_map(corner))
     kinds_c = (ctypes.c_int * max(n, 1))(*[_KIND_CODE[k] for k, _ in stages])
@@ -352,11 +495,15 @@ def _fused_stages_cuda(
             ptr(values), ptr(table), offs_c, K, rowmap_c,
             ptr(b), ptr(x), ptr(ec),
             ptr(x_out) if writes_x else None, ptr(r_out),
-            nz, ny, nx, n, kinds_c, pars_c, mode, rw_c, pw_c, stream,
+            nz, ny, nx, n, kinds_c, pars_c, mode, rw_c, pw_c, *slabs, *flags,
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_fused_stages failed with code {rc}")
-    LAUNCHES += 1
+    if halos is None:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_HALO += 1
     if not emit_residual:
         return x_out
     if not emit_x:
@@ -367,7 +514,7 @@ def _fused_stages_cuda(
 def fused_stages_const_3d(
     values, offsets, b, x, stages, emit_residual: bool = False,
     corner=None, restrict_transfer=None, ec=None, prolong_transfer=None,
-    emit_x: bool = True,
+    emit_x: bool = True, halos=None,
 ):
     """Run ``stages`` half-sweeps (and optionally the final residual) for a
     constant or cornered 3D stencil.  ``x=None`` means a zero initial guess
@@ -387,9 +534,36 @@ def fused_stages_const_3d(
     (:func:`depth_chunks`) on either device; every visit of a V(2,2) cycle
     is one launch.  Inputs are never modified.  On a CUDA tensor the kernel
     is enqueued on the current stream and the call does not wait for it.
+
+    ``halos`` (a rank's z-slab): ``((open_lo, open_hi), (b_lo, b_hi),
+    x_pair or None, ec_pair or None)``; ``b_lo`` holds the last D planes of
+    the rank below, ``b_hi`` the first D of the rank above (zeros at a
+    domain edge), D at least the visit's depth (:func:`halo_depth`); the
+    coarse ``ec`` pair has ``D // 2`` and ``D // 2 + 1`` planes.
+    ``corner`` is gated for the slab here (:func:`gate_corner`).  A halo
+    visit must fit one launch (depth at most ``MAX_DEPTH``): the caller
+    exchanges the iterate between chunks.
     """
     offsets = tuple(tuple(int(o) for o in off) for off in offsets)
     stages = _norm_stages(stages)
+    if halos is not None:
+        corner = gate_corner(corner, halos[0][0])
+        depth = len(stages) + int(bool(emit_residual)) + int(restrict_transfer is not None)
+        if depth > MAX_DEPTH:
+            raise ValueError(
+                f"a halo visit of depth {depth}: one launch takes {MAX_DEPTH}"
+            )
+        if b.device.type == "cpu":
+            return fused_stages_const_3d_plain(
+                values, offsets, b, x, stages, emit_residual, corner,
+                restrict_transfer, ec, prolong_transfer, emit_x, halos,
+            )
+        if b.device.type != "cuda":
+            raise ValueError(f"unsupported device {b.device}")
+        return _fused_stages_cuda(
+            values, offsets, b, x, stages, emit_residual, corner,
+            restrict_transfer, ec, prolong_transfer, emit_x, halos,
+        )
     if not emit_x and not (emit_residual and not stages):
         raise ValueError(
             "emit_x=False only applies to stage-free residual(+restrict) calls"
@@ -507,12 +681,13 @@ def presmooth_residual_fused(name, op, b, iterations: int, omega: float):
 
 
 def presmooth_restrict_fused(name, op, b, x, iterations: int, omega: float,
-                             transfer):
+                             transfer, halos=None):
     """Pre-smoothing with the level residual AND its restriction: returns
     ``(x, bc)`` where ``bc = R (b − A x)`` is the next level's rhs, or None
     when unsupported.  ``x=None`` is the zero-start path (reads only
-    ``b``).  The fine residual is never stored."""
-    if b.ndim == 2:
+    ``b``).  The fine residual is never stored.  ``halos``: a rank's slab
+    (:func:`fused_stages_const_3d`)."""
+    if b.ndim == 2 and halos is None:
         return _fused2d(name, op, b, x, iterations, omega, True,
                         restrict_transfer=transfer)
     stages = stages_for(name, iterations, omega)
@@ -525,30 +700,32 @@ def presmooth_restrict_fused(name, op, b, x, iterations: int, omega: float,
         return None
     return fused_stages_const_3d(
         op.values, op.offsets, b, x, stages, emit_residual=True,
-        corner=_corner_info(op), restrict_transfer=transfer,
+        corner=_corner_info(op), restrict_transfer=transfer, halos=halos,
     )
 
 
-def residual_restrict_fused(op, b, x, transfer):
+def residual_restrict_fused(op, b, x, transfer, halos=None):
     """The level residual with its restriction, no smoothing stages:
     ``bc = R (b − A x)`` without storing the fine residual or rewriting
     ``x``.  Returns ``bc`` or None when unsupported (every 2D grid, as in
-    the JAX package)."""
+    the JAX package).  ``halos``: a rank's slab."""
     if not _stencil_ok(op, b) or not _transfer_ok(b.shape, transfer):
         return None
     return fused_stages_const_3d(
         op.values, op.offsets, b, x, (), emit_residual=True,
         corner=_corner_info(op), restrict_transfer=transfer, emit_x=False,
+        halos=halos,
     )
 
 
 def prolong_smooth_fused(name, op, b, x, ec, iterations: int, omega: float,
-                         transfer):
+                         transfer, halos=None):
     """Coarse-correction prolongation + add with post-smoothing: returns
     ``smooth(b, x + P ec)`` without storing ``P ec``, or None when
     unsupported.  ``iterations=0`` is the prolongation and add alone (3D
-    only: a 2D visit with no stages returns None, as in the JAX package)."""
-    if b.ndim == 2:
+    only: a 2D visit with no stages returns None, as in the JAX package).
+    ``halos``: a rank's slab."""
+    if b.ndim == 2 and halos is None:
         return _fused2d(name, op, b, x, iterations, omega, False,
                         ec=ec, prolong_transfer=transfer)
     stages = stages_for(name, iterations, omega)
@@ -560,5 +737,5 @@ def prolong_smooth_fused(name, op, b, x, ec, iterations: int, omega: float,
         return None
     return fused_stages_const_3d(
         op.values, op.offsets, b, x, stages, corner=_corner_info(op),
-        ec=ec, prolong_transfer=transfer,
+        ec=ec, prolong_transfer=transfer, halos=halos,
     )

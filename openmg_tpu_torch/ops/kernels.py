@@ -55,8 +55,18 @@ K3/K4/K5 within a few ulp (the compiler contracts multiply-adds).
 count launched kernels: one per pass for K3 and the per-pass K4, one per
 leg (or chunk of one) for :func:`sweeps_vary_3d`, one per visit for K5.
 
-Waiting for later slices: the ``halos=`` variants of these kernels (the
-row-partitioned tier) and the folded-2D tier.
+**The halo forms** (the row-partitioned tier,
+:mod:`openmg_tpu_torch.parallel.fast`): :func:`halo_half_sweep_const_3d`
+(K3), :func:`halo_half_sweep_vary_3d` (K4) and
+``df_update_residual_const_3d(..., halos=...)`` (K2) run on a rank's
+z-slab with the planes received from the ranks below and above, which the
+kernel reads in place of the Dirichlet zero at the slab's first and last
+plane (no boundary epilogue, no concatenated slab).  Their plain versions
+concatenate the planes and slice the result.  They count apart:
+``LAUNCHES_K3_HALO``, ``LAUNCHES_K4_HALO``, ``LAUNCHES_K2_HALO``.
+
+The JAX package's folded-2D tier is its own hardware's layout and is not
+ported.
 """
 
 from __future__ import annotations
@@ -74,6 +84,11 @@ __all__ = [
     "LAUNCHES_K3",
     "LAUNCHES_K4",
     "LAUNCHES_K5",
+    "LAUNCHES_K2_HALO",
+    "LAUNCHES_K3_HALO",
+    "LAUNCHES_K4_HALO",
+    "halo_half_sweep_const_3d",
+    "halo_half_sweep_vary_3d",
     "MAX_DEPTH_2D",
     "fused2d_plan",
     "df_num_partials",
@@ -107,18 +122,37 @@ LAUNCHES_K3 = 0
 LAUNCHES_K4 = 0
 # launches of the whole-visit 2D stage fusion (K5)
 LAUNCHES_K5 = 0
+# launches of the halo forms (a rank's slab with received planes): K2, K3, K4
+LAUNCHES_K2_HALO = 0
+LAUNCHES_K3_HALO = 0
+LAUNCHES_K4_HALO = 0
 
 
 def df_update_residual_const_3d_plain(
-    offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm: bool = False
+    offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm: bool = False,
+    halos=None,
 ):
     """Plain PyTorch version of :func:`df_update_residual_const_3d`, in the
     kernel's order of operations: update every point, then for each offset
     and each of its power-of-two terms ``p`` one compensated
     ``acc ← acc − p·x'[i + off]`` (neighbours outside the domain are zero).
     With ``emit_norm`` the partials are one sum of ``r_hi²`` per slice of
-    the first axis (a z-plane, or a row of a 2D grid)."""
+    the first axis (a z-plane, or a row of a 2D grid).  ``halos``: the
+    received ``(lower, upper)`` planes of ``x_hi``, ``x_lo`` and ``e``,
+    updated and read as the neighbours across the slab's z edges."""
     offsets = tuple(tuple(o) for o in offsets)
+    if halos is not None:
+        x_hi, x_lo, e = (
+            torch.cat([lo, t, hi], dim=0)
+            for t, (lo, hi) in zip((x_hi, x_lo, e), halos)
+        )
+        zero = torch.zeros_like(b_hi[:1])
+        b_hi = torch.cat([zero, b_hi, zero], dim=0)
+        b_lo = torch.cat([zero, b_lo, zero], dim=0)
+        out = df_update_residual_const_3d_plain(
+            offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm
+        )
+        return tuple(a[1:-1] for a in out)
     nxh, nxl = df_add_f32((x_hi, x_lo), e)
     acch, accl = b_hi, b_lo
     for off, tp in zip(offsets, terms):
@@ -164,7 +198,7 @@ def _kernel():
         lib = _build.load()
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.omg_df_update_residual
-        fn.argtypes = [p, p, p, i] + [p] * 9 + [i, i, i, p]
+        fn.argtypes = [p, p, p, i] + [p] * 9 + [p] * 6 + [i, i, i, p]
         fn.restype = i
         npart = lib.omg_df_num_partials
         npart.argtypes = [i, i, i]
@@ -173,8 +207,9 @@ def _kernel():
     return _fns
 
 
-def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm):
-    global LAUNCHES
+def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm,
+                             halos=None):
+    global LAUNCHES, LAUNCHES_K2_HALO
     dev = x_hi.device
     if x_hi.ndim != 3:
         raise ValueError(f"the kernel takes 3D grids, got shape {tuple(x_hi.shape)}")
@@ -191,6 +226,15 @@ def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_nor
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    planes = [None] * 6
+    if halos is not None:
+        from openmg_tpu_torch.ops.fused import _check
+
+        # x_hi, x_lo, e: lower then upper; each one (1, ny, nx) plane
+        for j, (name, pair) in enumerate(zip(("x_hi", "x_lo", "e"), halos)):
+            for side, t in enumerate(pair):
+                _check(f"{name} halo", t, (1,) + shape[1:], dev)
+                planes[3 * side + j] = t.data_ptr()
     K = len(offsets)
     if K > 27 or any(abs(o) > 1 for off in offsets for o in off):
         raise ValueError("the kernel takes radius-1 stencils of at most 27 taps")
@@ -225,24 +269,36 @@ def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_nor
             b_hi.data_ptr(), b_lo.data_ptr(),
             oxh.data_ptr(), oxl.data_ptr(), orh.data_ptr(),
             None if partials is None else partials.data_ptr(),
-            nz, ny, nx, stream,
+            *planes, nz, ny, nx, stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_df_update_residual failed with code {rc}")
-    LAUNCHES += 1
+    if halos is None:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_K2_HALO += 1
     if emit_norm:
         return oxh, oxl, orh, partials
     return oxh, oxl, orh
 
 
 def df_update_residual_const_3d(
-    offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm: bool = False
+    offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm: bool = False,
+    halos=None,
 ):
     """Outer-loop step for dyadic constant 3D stencils; returns
     ``(x_hi', x_lo', r_hi)`` and, with ``emit_norm``, a 1-D tensor of
     partial sums whose total is ‖r_hi‖².  A 2D grid runs lifted to
     ``(1, ny, nx)`` with offsets ``(0, oy, ox)``, a 1D grid to ``(1, 1, n)``
     with offsets ``(0, 0, o)``, on either device.
+
+    ``halos`` (a rank's z-slab): ``((xh_lo, xh_hi), (xl_lo, xl_hi), (e_lo,
+    e_hi))``, the planes of ``x_hi``, ``x_lo`` and ``e`` received from the
+    ranks below and above (zeros at the domain edges), each ``(1, ny,
+    nx)``.  The kernel updates them as it does its own planes and reads
+    them as the neighbours across the slab's edges; no edge repair
+    follows.  A 2D or 1D grid refuses halos: its lift puts the partition
+    axis on the kernel's y axis, as in the JAX package.
 
     ``offsets`` / ``terms`` are static host tuples.  Inputs are never
     modified.  On a CUDA tensor the kernel is enqueued on the current
@@ -251,6 +307,12 @@ def df_update_residual_const_3d(
     offsets = tuple(tuple(int(o) for o in off) for off in offsets)
     terms = tuple(tuple(t) for t in terms)
     if x_hi.ndim in (1, 2):
+        if halos is not None:
+            raise ValueError(
+                "halos on a 2D or 1D grid: the lift maps the partition axis "
+                "to the kernel's y axis (partitioned 2D slabs take the "
+                "tensor double-float residual)"
+            )
         out = df_update_residual_const_3d(
             _lift(offsets), terms, *map(_up, (x_hi, x_lo, e, b_hi, b_lo)),
             emit_norm=emit_norm,
@@ -258,12 +320,12 @@ def df_update_residual_const_3d(
         return tuple(a.reshape(x_hi.shape) for a in out[:3]) + tuple(out[3:])
     if x_hi.device.type == "cpu":
         return df_update_residual_const_3d_plain(
-            offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm
+            offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm, halos
         )
     if x_hi.device.type != "cuda":
         raise ValueError(f"unsupported device {x_hi.device}")
     return _df_update_residual_cuda(
-        offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm
+        offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm, halos
     )
 
 
@@ -299,11 +361,13 @@ def _norm_offsets(offsets):
     return tuple(tuple(int(o) for o in off) for off in offsets)
 
 
-def _pass_plain(fields, offsets, b, x, mode, omega, color, inv_d, region):
+def _pass_plain(fields, offsets, b, x, mode, omega, color, inv_d, region, z0=0):
     """One pass in the kernel's order: the taps summed in the order of
     ``offsets`` (the diagonal skipped in a red/black pass), then
     ``inv_d · (b − sum)``; the points of ``region`` (a boolean grid, or
-    None) divide by their own diagonal instead."""
+    None) divide by their own diagonal instead.  ``z0``: the z index of
+    the first plane (a red/black colour is the parity of the local
+    index)."""
     if mode not in _MODE_CODE:
         raise ValueError(f"unknown mode {mode!r}; choose jacobi|rbgs|residual")
     di = diag_index(offsets)
@@ -329,17 +393,43 @@ def _pass_plain(fields, offsets, b, x, mode, omega, color, inv_d, region):
     nz, ny, nx = x.shape
     dev = x.device
     par = (
-        torch.arange(nz, device=dev).view(-1, 1, 1)
+        torch.arange(z0, z0 + nz, device=dev).view(-1, 1, 1)
         + torch.arange(ny, device=dev).view(1, -1, 1)
         + torch.arange(nx, device=dev).view(1, 1, -1)
     ) & 1
     return torch.where(par == int(color), xn, x)
 
 
-def half_sweep_plain(values, offsets, b, x, mode, omega=0.0, color=0, corner=None):
+def _ext_planes(t, halos):
+    """``t`` with one plane on each side: the received planes ``halos``, or
+    (``halos`` None) a copy of its edge planes, for grids whose values
+    there are never used."""
+    if halos is None:
+        return torch.cat([t[:1], t, t[-1:]], dim=0)
+    return torch.cat([halos[0], t, halos[1]], dim=0)
+
+
+def _halo_pass_plain(fields, offsets, b, x, mode, omega, color, inv_d, region,
+                     halos):
+    """One pass on a slab with the received ``(lower, upper)`` planes: the
+    pass on the slab extended by them, then its own planes."""
+    grid = lambda t: t if t.ndim == 0 else _ext_planes(t, None)  # noqa: E731
+    zero = torch.zeros_like(b[:1])
+    out = _pass_plain(
+        [grid(f) for f in fields], offsets, torch.cat([zero, b, zero], dim=0),
+        _ext_planes(x, halos), mode, omega, color, grid(inv_d),
+        None if region is None else grid(region), z0=-1,
+    )
+    return out[1:-1]
+
+
+def half_sweep_plain(values, offsets, b, x, mode, omega=0.0, color=0, corner=None,
+                     halos=None):
     """Plain PyTorch version of one constant-tap pass (3D operands).
     ``corner``: optional ``(regions, (n_regions, K) table)`` of a cornered
-    operator; its low faces, edges and corner take their own tap rows."""
+    operator; its low faces, edges and corner take their own tap rows.
+    ``halos``: the received ``(lower, upper)`` planes of a rank's slab
+    (:func:`halo_half_sweep_const_3d`)."""
     offsets = _norm_offsets(offsets)
     shape = tuple(x.shape)
     fields, region = [values[k] for k in range(len(offsets))], None
@@ -357,15 +447,22 @@ def half_sweep_plain(values, offsets, b, x, mode, omega=0.0, color=0, corner=Non
             for k in range(len(offsets)):
                 fields[k][idx] = tbl[r, k]
     inv_d = 1.0 / values[diag_index(offsets)]
+    if halos is not None:
+        return _halo_pass_plain(fields, offsets, b, x, mode, omega, color, inv_d,
+                                region, halos)
     return _pass_plain(fields, offsets, b, x, mode, omega, color, inv_d, region)
 
 
-def half_sweep_vary_plain(coeffs, offsets, b, x, mode, omega=0.0, color=0):
+def half_sweep_vary_plain(coeffs, offsets, b, x, mode, omega=0.0, color=0,
+                          halos=None):
     """Plain PyTorch version of one varying-coefficient pass (3D operands):
     ``coeffs`` is ``(K, nz, ny, nx)``, ``inv_d = 1 / coeffs[diag]`` per
-    point."""
+    point.  ``halos``: as in :func:`half_sweep_plain`."""
     offsets = _norm_offsets(offsets)
     inv_d = 1.0 / coeffs[diag_index(offsets)]
+    if halos is not None:
+        return _halo_pass_plain(list(coeffs), offsets, b, x, mode, omega, color,
+                                inv_d, None, halos)
     return _pass_plain(coeffs, offsets, b, x, mode, omega, color, inv_d, None)
 
 
@@ -408,7 +505,7 @@ def _sweep_kernel():
         fn.argtypes = [
             p, p, p, i, p,      # coef, table, offs, K, rowmap
             i, i, f, i,         # vary, mode, omega, color
-            p, p, p,            # b, x, out
+            p, p, p, p, p,      # b, x, lower, upper, out
             i, i, i, i, p,      # nz, ny, nx, zc, stream
         ]
         fn.restype = i
@@ -423,9 +520,11 @@ def _sweep_kernel():
     return _sweep_fn
 
 
-def _half_sweep_cuda(coef, offsets, b, x, mode, omega, color, vary, corner):
-    """Launch one pass of ``csrc/half_sweep.cu``; returns the new array."""
-    global LAUNCHES_K3, LAUNCHES_K4
+def _half_sweep_cuda(coef, offsets, b, x, mode, omega, color, vary, corner,
+                     halos=None):
+    """Launch one pass of ``csrc/half_sweep.cu``; returns the new array.
+    ``halos``: the ``(lower, upper)`` planes a halo form reads."""
+    global LAUNCHES_K3, LAUNCHES_K4, LAUNCHES_K3_HALO, LAUNCHES_K4_HALO
     from openmg_tpu_torch.ops.fused import _check, _row_map
 
     if mode not in _MODE_CODE:
@@ -452,6 +551,11 @@ def _half_sweep_cuda(coef, offsets, b, x, mode, omega, color, vary, corner):
         if corner:
             table = corner[1]
             _check("region table", table, (len(corner[0]), K), dev)
+    lower = upper = None
+    if halos is not None:
+        lower, upper = halos
+        _check("lower halo", lower, (1,) + shape[1:], dev)
+        _check("upper halo", upper, (1,) + shape[1:], dev)
     out = torch.empty_like(x)
     zc = 0 if vary else sweep_plan(*shape, _sms(dev))[0]
     offs_c = (ctypes.c_int * (3 * K))(*[o for off in offsets for o in off])
@@ -462,11 +566,18 @@ def _half_sweep_cuda(coef, offsets, b, x, mode, omega, color, vary, corner):
             coef.data_ptr(), None if table is None else table.data_ptr(),
             offs_c, K, rowmap_c, int(bool(vary)), _MODE_CODE[mode],
             float(omega), int(color), b.data_ptr(), x.data_ptr(),
+            None if lower is None else lower.data_ptr(),
+            None if upper is None else upper.data_ptr(),
             out.data_ptr(), shape[0], shape[1], shape[2], zc, stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_half_sweep failed with code {rc}")
-    if vary:
+    if halos is not None:
+        if vary:
+            LAUNCHES_K4_HALO += 1
+        else:
+            LAUNCHES_K3_HALO += 1
+    elif vary:
         LAUNCHES_K4 += 1
     else:
         LAUNCHES_K3 += 1
@@ -495,6 +606,76 @@ def _half_sweep_vary(coeffs, b, x, *, offsets, mode, omega, color):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     return _half_sweep_cuda(coeffs, offsets, b, x, mode, omega, color, True, None)
+
+
+def _slab_lift(offsets, corner, *grids):
+    """A 2D slab ``(ny, nx)`` partitioned along y as the 3D slab
+    ``(ny, 1, nx)``: the partition axis becomes the kernels' z axis, so a
+    halo form takes its received rows as planes.  Offsets ``(oy, ox)`` go to
+    ``(oy, 0, ox)`` and the region axes of a cornered operator move the
+    same way; coefficient grids ``(K, ny, nx)`` go to ``(K, ny, 1, nx)``."""
+    offs = tuple((o[0], 0, o[1]) for o in offsets)
+    if corner:
+        regions, table = corner
+        corner = (tuple(tuple(2 * a for a in R) for R in regions), table)
+    ups = tuple(
+        None if g is None else g.unsqueeze(-2) for g in grids
+    )
+    return offs, corner, ups
+
+
+def halo_half_sweep_const_3d(values, offsets, b, x, mode: str, omega: float,
+                             color: int, lower, upper, corner=None, open_lo=0):
+    """One constant-tap pass (``mode`` jacobi|rbgs|residual) on a rank's
+    slab, with the planes ``lower`` / ``upper`` received from the ranks
+    below and above (zeros at the domain edges) read by the kernel at the
+    slab's first and last plane: one launch (K3), no epilogue.
+
+    ``corner``: a cornered operator's ``(regions, table)``; its regions on
+    axis 0 lie at the global plane 0, so a rank with a neighbour below
+    (``open_lo``) drops them (the other regions span every rank).  A 2D
+    slab ``(ny, nx)`` with halo rows ``(1, nx)`` runs as ``(ny, 1, nx)``.
+    A red/black colour is the parity of the local index: the partition
+    keeps every slab's first global index even."""
+    from openmg_tpu_torch.ops.fused import gate_corner
+
+    offsets = _norm_offsets(offsets)
+    corner = gate_corner(corner, open_lo)
+    if x.ndim == 2:
+        offs, corner, (bb, xx, lo, up) = _slab_lift(offsets, corner, b, x, lower, upper)
+        out = halo_half_sweep_const_3d(
+            values, offs, bb, xx, mode, omega, color, lo, up, corner=corner
+        )
+        return out.reshape(x.shape)
+    if x.device.type == "cpu":
+        return half_sweep_plain(values, offsets, b, x, mode, omega, color, corner,
+                                halos=(lower, upper))
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _half_sweep_cuda(values, offsets, b, x, mode, omega, color, False, corner,
+                            halos=(lower, upper))
+
+
+def halo_half_sweep_vary_3d(coeffs, offsets, b, x, mode: str, omega: float,
+                            color: int, lower, upper):
+    """The varying-coefficient twin of :func:`halo_half_sweep_const_3d`
+    (K4's per-pass kernel; ``coeffs`` holds the slab's own coefficient
+    grids).  The leg kernel (``csrc/vary_leg.cu``) takes no halos: the
+    partitioned varying tier is a pass a launch, as in the JAX package."""
+    offsets = _norm_offsets(offsets)
+    if x.ndim == 2:
+        offs, _, (cc, bb, xx, lo, up) = _slab_lift(
+            offsets, None, coeffs, b, x, lower, upper
+        )
+        out = halo_half_sweep_vary_3d(cc, offs, bb, xx, mode, omega, color, lo, up)
+        return out.reshape(x.shape)
+    if x.device.type == "cpu":
+        return half_sweep_vary_plain(coeffs, offsets, b, x, mode, omega, color,
+                                     halos=(lower, upper))
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return _half_sweep_cuda(coeffs, offsets, b, x, mode, omega, color, True, None,
+                            halos=(lower, upper))
 
 
 def _lift_corner(corner, ndim=2):

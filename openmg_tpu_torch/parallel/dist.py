@@ -1,0 +1,644 @@
+"""Distributed multigrid: row-partitioned levels over ``torch.distributed``
+ranks (twin of ``openmg_tpu/parallel/dist.py``).
+
+Design, as in the JAX package:
+
+* One rank a process, one device a rank.  Every partitioned level's grids
+  are cut along axis 0 into contiguous slabs, one a rank, in rank order;
+  the static *partition plan* (:func:`partition_plan`) says which levels
+  stay partitioned.
+* A partitioned level's passes and visits run the halo forms of the stencil
+  kernels (:mod:`openmg_tpu_torch.parallel.fast`): the received planes are
+  read inside the kernel.  The partitioned transfers take their axis-0 taps
+  from one-plane halos (:mod:`openmg_tpu_torch.parallel.halo`).
+* Where a level's slab would become too small (or lose factor-2
+  divisibility) the cycle *redistributes*: the restricted residual is
+  gathered (``all_gather_into_tensor``) and every coarser level runs
+  replicated, each rank the same computation through the single-device
+  cycle (:func:`~openmg_tpu_torch.core.cycle.v_cycle`, its fused kernels
+  included); on the way up each rank slices its rows of the correction.
+* Norms and inner products are ``all_reduce`` sums; every rank takes the
+  same stopping decision from the same reduced norm.  A solve reads one
+  scalar to the host a cycle on each rank, as the single-device loop does.
+* The outer step of a dyadic constant fine operator is one launch of K2's
+  halo form (the ``(x_hi, x_lo, e)`` planes exchanged in one batch); any
+  other fine operator takes the double-float residual in tensor code over
+  one-plane halos.
+
+:meth:`DistributedSolver.solve` takes the whole right-hand side on every
+rank and returns the whole solution on every rank (gathered at the end).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from openmg_tpu_torch.core.config import MeshConfig, SolverConfig
+from openmg_tpu_torch.core.cycle import v_cycle
+from openmg_tpu_torch.core.hierarchy import Hierarchy
+from openmg_tpu_torch.core.solver import (
+    _Checkpointer,
+    exact_residual_terms,
+    lockstep,
+)
+from openmg_tpu_torch.ops import kernels
+from openmg_tpu_torch.ops.doublefloat import df_add_f32, df_merge, df_mul, df_split, df_sub
+from openmg_tpu_torch.ops.stencil import (
+    CorneredOperator,
+    FacedStencilOperator,
+    StencilOperator,
+    diag_index,
+    shift,
+)
+from openmg_tpu_torch.ops.transfer import _prolong_axis, _restrict_axis
+from openmg_tpu_torch.parallel import fast
+from openmg_tpu_torch.parallel.halo import (
+    Comm,
+    halo_exchange,
+    prolong_axis0_ext,
+    restrict_axis0_ext,
+    shifted_ext,
+)
+from openmg_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, make_mesh_2d
+
+__all__ = ["partition_plan", "DistributedSolver", "distributed_setup"]
+
+
+def partition_plan(
+    shapes, n_dev: int, min_rows_per_device: int = 2, force: bool = False
+) -> tuple:
+    """Static per-level partitioned / replicated decision.
+
+    Level ℓ stays partitioned while all of: the previous level is
+    partitioned, ``shape0 % n_dev == 0``, the slab is at least
+    ``min_rows_per_device`` planes, and the slab's extent is even (so a
+    factor-2 restriction never splits a coarse cell between ranks).  The
+    coarsest level is always replicated (its direct solve runs on every
+    rank).  ``force=True`` (``MeshConfig.force_partition``) marks levels
+    partitioned on one rank too, whose halos are then zero planes."""
+    plan = []
+    prev = True
+    for i, shape in enumerate(shapes):
+        s0 = int(shape[0])
+        ok = (
+            prev
+            and (n_dev > 1 or force)
+            and s0 % n_dev == 0
+            and s0 // n_dev >= min_rows_per_device
+            and (s0 // n_dev) % 2 == 0
+        )
+        if i == len(shapes) - 1:
+            ok = False
+        plan.append(ok)
+        prev = ok
+    return tuple(plan)
+
+
+def _kind(A):
+    if isinstance(A, CorneredOperator):
+        return "corner"
+    return "const" if A.is_constant else "vary"
+
+
+def _slab_op(A, lo, hi):
+    """The operator of a level restricted to planes ``[lo, hi)``: the same
+    taps (and region table) for a constant or cornered level, the slab of
+    the coefficient grids for a varying one."""
+    shape = (hi - lo,) + tuple(A.grid_shape[1:])
+    if isinstance(A, CorneredOperator):
+        return dataclasses.replace(A, shape=shape)
+    if A.is_constant:
+        return StencilOperator(None, A.offsets, A.values, shape)
+    return StencilOperator(A.coeffs[:, lo:hi].contiguous(), A.offsets)
+
+
+def _unfaced(level):
+    """A faced level as coefficient grids (the partitioned tier takes
+    constant, cornered and varying levels), as in the JAX package."""
+    if not isinstance(level.A, FacedStencilOperator):
+        return level
+    A = level.A.to_varying()
+    di = diag_index(A.offsets)
+    return dataclasses.replace(level, A=A, inv_diag=1.0 / A.coeff(di))
+
+
+class _DistStep:
+    """One right-hand side's outer loop on this rank's slab.  ``rn`` is the
+    slab's LOCAL sum of ``r_hi²``; the loop reduces it over the ranks
+    (:meth:`DistributedSolver._norms`)."""
+
+    def __init__(self, solver, b_pair, x_pair):
+        self.s, self.b = solver, b_pair
+        if x_pair is None:
+            z = torch.zeros_like(b_pair[0])
+            self.x = (z, z.clone())
+            self.r = b_pair[0]
+            self.rn = torch.sum(self.r * self.r)
+        else:
+            self.x = x_pair
+            self.r, self.rn = solver._residual_df(b_pair, x_pair)
+
+    def advance(self):
+        s = self.s
+        e = s._error_solve(self.r.to(s.dtype))
+        if s._fused_terms is not None:
+            planes = s.comm.exchange([(t, 1, 1) for t in (self.x[0], self.x[1], e)])
+            xh, xl, self.r, pn = kernels.df_update_residual_const_3d(
+                s._fine_offsets, s._fused_terms, self.x[0], self.x[1], e,
+                self.b[0], self.b[1], emit_norm=True, halos=tuple(planes),
+            )
+            self.x = (xh, xl)
+            self.rn = torch.sum(pn)
+        else:
+            self.x = df_add_f32(self.x, e)
+            self.r, self.rn = s._residual_df(self.b, self.x)
+
+
+class DistributedSolver:
+    """Multi-rank solver: the contract of
+    :class:`~openmg_tpu_torch.core.solver.Solver`, with every partitioned
+    level cut into slabs over the ranks.  Only the double-float outer
+    residual is offered, as in the JAX package.
+
+    Scope, checked here: every partitioned level's operator reaches one
+    plane across a slab boundary (radius 1 on axis 0), true of the
+    Poisson/Galerkin family; the finest level must be partitionable over
+    more than one rank.  ``hierarchy`` is the whole hierarchy on this
+    rank's ``device``; each rank keeps its slabs of the partitioned levels
+    and the whole of the replicated ones.
+    """
+
+    def __init__(
+        self,
+        hierarchy: Hierarchy,
+        config: SolverConfig,
+        mesh_config: MeshConfig | None = None,
+        device=None,
+    ):
+        if hierarchy.fine_hi_lo is None:
+            raise ValueError(
+                "distributed solver requires residual_dtype='doublefloat'"
+            )
+        if config.cycle_type not in ("v", "w", "f"):
+            raise ValueError(f"unknown cycle_type {config.cycle_type!r}; choose v|w|f")
+        if config.krylov not in (None, "none", "pcg"):
+            raise ValueError(f"unknown krylov {config.krylov!r}; choose none|pcg")
+        if any(isinstance(l.A, FacedStencilOperator) for l in hierarchy.levels):
+            hierarchy = dataclasses.replace(
+                hierarchy, levels=tuple(_unfaced(l) for l in hierarchy.levels)
+            )
+        self.hierarchy = hierarchy
+        self.config = config
+        self.device = torch.device(device) if device is not None else hierarchy.device
+        self.dtype = torch.float32
+        self.mesh_config = mc = mesh_config or MeshConfig()
+        if mc.mesh_shape is not None:
+            self.mesh = make_mesh_2d(mc.mesh_shape, mc.axis_names)
+        else:
+            self.mesh = make_mesh(mc.n_devices, mc.axis_name)
+        if self.mesh.index < 0:
+            raise ValueError(
+                f"rank {dist.get_rank()} is not in the mesh of {self.mesh.size} ranks"
+            )
+        self.comm = Comm(self.mesh, self.device)
+        self.n_dev = self.mesh.size
+        shapes = [tuple(s[0]) for s in hierarchy.stats]
+        self.plan = partition_plan(
+            shapes, self.n_dev, mc.min_rows_per_device, force=mc.force_partition
+        )
+        if not self.plan[0] and self.n_dev > 1:
+            raise ValueError(
+                f"finest level shape {shapes[0]} cannot be row-partitioned "
+                f"over {self.n_dev} ranks (axis 0 must divide evenly with "
+                f">= {2 * mc.min_rows_per_device} rows a rank)"
+            )
+        self.grid_shape = shapes[0]
+        self.stats = hierarchy.stats
+        self.transfer = hierarchy.transfer
+        for i, l in enumerate(hierarchy.levels):
+            if self.plan[i] and any(abs(o[0]) > 1 for o in l.A.offsets):
+                raise ValueError(
+                    f"level {i} operator reaches more than one plane across the "
+                    "partition boundary; the halo exchange takes radius 1 only"
+                )
+        self.kinds = tuple(_kind(l.A) for l in hierarchy.levels)
+        self.coarsened_axes = tuple(
+            tuple(
+                a for a in range(len(shapes[i]))
+                if shapes[i + 1][a] * 2 == shapes[i][a]
+            )
+            for i in range(len(shapes) - 1)
+        ) + ((),)
+        # the rank's rows of every partitioned level
+        self.rows = []
+        self.ops, self.inv_diags = [], []
+        for i, l in enumerate(hierarchy.levels):
+            n0 = shapes[i][0]
+            loc = n0 // self.n_dev if self.plan[i] else n0
+            lo = self.mesh.index * loc if self.plan[i] else 0
+            self.rows.append((lo, lo + loc))
+            if self.plan[i]:
+                self.ops.append(_slab_op(l.A, lo, lo + loc))
+                inv = l.inv_diag
+                self.inv_diags.append(inv if inv.ndim == 0 else inv[lo:lo + loc].contiguous())
+            else:
+                self.ops.append(l.A)
+                self.inv_diags.append(l.inv_diag)
+        lo0, hi0 = self.rows[0]
+        self.fine_hi = _slab_op(hierarchy.fine_hi, lo0, hi0)
+        self.fine_lo = _slab_op(hierarchy.fine_hi_lo, lo0, hi0)
+        self._fine_offsets = hierarchy.fine_hi.offsets
+        self._exact_terms = exact_residual_terms(hierarchy)
+        local0 = (hi0 - lo0,) + tuple(self.grid_shape[1:])
+        self._fused_terms = (
+            self._exact_terms
+            if self._exact_terms is not None and hierarchy.fine_hi.is_constant
+            and len(local0) == 3
+            else None
+        )
+        self.gamma = {"v": 1, "w": 2, "f": 1}[config.cycle_type]
+
+    # -- the cycle ---------------------------------------------------------
+
+    def _deep(self, level) -> bool:
+        """A partitioned constant or cornered 3D level whose coarser level
+        is partitioned too, every axis coarsening: K1's halo form takes
+        its visits."""
+        return (
+            self.plan[level] and self.plan[level + 1]
+            and self.kinds[level] in ("const", "corner")
+            and self.coarsened_axes[level] == (0, 1, 2)
+        )
+
+    def _smooth(self, level, b, x, iters):
+        if iters <= 0:
+            return x
+        cfg, op, comm = self.config, self.ops[level], self.comm
+        if self.kinds[level] in ("const", "corner"):
+            y = fast.smooth_chunks_part(cfg.smoother, op, b, x, iters, cfg.omega, comm)
+            if y is not None:
+                return y
+            return fast.smooth_part(cfg.smoother, op, b, x, iters, cfg.omega, comm)
+        return fast.smooth_part_vary(
+            cfg.smoother, op, self.inv_diags[level], b, x, iters, cfg.omega, comm
+        )
+
+    def _residual(self, level, b, x):
+        op = self.ops[level]
+        if self.kinds[level] in ("const", "corner"):
+            return fast.residual_part(op, b, x, self.comm)
+        return fast.residual_part_vary(op, b, x, self.comm)
+
+    def _restrict(self, level, r):
+        """Level → level + 1, axis 0 by halo taps on a partitioned level;
+        the gather at the partitioned → replicated transition."""
+        taps = self.transfer.r_taps
+        out = r
+        for a in self.coarsened_axes[level]:
+            if a == 0 and self.plan[level]:
+                out = restrict_axis0_ext(halo_exchange(out, self.comm), taps)
+            else:
+                out = _restrict_axis(out, a, taps)
+        if self.plan[level] and not self.plan[level + 1]:
+            out = self.comm.all_gather(out)
+        return out
+
+    def _prolong(self, level, ec):
+        """Level + 1 → level: halo taps between partitioned levels; the
+        whole prolongation and this rank's rows below a replicated level."""
+        taps = self.transfer.p_taps
+        axes = self.coarsened_axes[level]
+        up = ec
+        if self.plan[level] and self.plan[level + 1]:
+            for a in reversed(axes):
+                if a == 0:
+                    up = prolong_axis0_ext(halo_exchange(up, self.comm), taps)
+                else:
+                    up = _prolong_axis(up, a, taps)
+            return up
+        for a in reversed(axes):
+            up = _prolong_axis(up, a, taps)
+        if self.plan[level]:
+            lo, hi = self.rows[level]
+            up = up[lo:hi].contiguous()
+        return up
+
+    def _vc(self, level, b, x, x_zero=False):
+        """One µ-cycle from ``level`` on this rank's slabs."""
+        cfg, comm = self.config, self.comm
+        h = self.hierarchy
+        pre, post, sm, om = (
+            cfg.pre_iterations, cfg.post_iterations, cfg.smoother, cfg.omega
+        )
+        if not self.plan[level]:
+            # replicated from here down: every rank runs the single-device
+            # cycle on the same data
+            return v_cycle(h, b, x, level, pre, post, sm, om, self.gamma,
+                           x_zero=x_zero)
+        op, tr = self.ops[level], self.transfer
+        deep = self._deep(level)
+        bc = None
+        if pre > 0 and deep:
+            out = fast.presmooth_restrict_part(
+                sm, op, b, None if x_zero else x, pre, om, tr, comm
+            )
+            if out is not None:
+                x, bc = out
+        if bc is None:
+            if x_zero or x is None:
+                x = torch.zeros_like(b)
+            x = self._smooth(level, b, x, pre)
+            if deep:
+                bc = fast.residual_restrict_part(op, b, x, tr, comm)
+            if bc is None:
+                bc = self._restrict(level, self._residual(level, b, x))
+        visits = 1 if level == h.num_levels - 2 else self.gamma
+        ec = None
+        for v in range(visits):
+            ec = self._vc(level + 1, bc, ec, x_zero=(v == 0))
+        if post > 0 and deep:
+            y = fast.prolong_smooth_part(sm, op, b, x, ec, post, om, tr, comm)
+            if y is not None:
+                return y
+            if post > 1:
+                y = fast.prolong_smooth_part(sm, op, b, x, ec, 1, om, tr, comm)
+                if y is not None:
+                    return self._smooth(level, b, y, post - 1)
+        x = x + self._prolong(level, ec)
+        return self._smooth(level, b, x, post)
+
+    def _fmg(self, r):
+        """Full multigrid: the rhs restricted to every level with the
+        cycle's transfers (and its gather), the coarsest solved exactly,
+        then a µ-cycle a level upward from the prolonged iterate."""
+        h = self.hierarchy
+        bs = [r]
+        for level in range(h.num_levels - 1):
+            bs.append(self._restrict(level, bs[-1]))
+        x = self._vc(h.num_levels - 1, bs[-1], None, x_zero=True)
+        for level in range(h.num_levels - 2, -1, -1):
+            x = self._prolong(level, x)
+            x = self._vc(level, bs[level], x)
+        return x
+
+    def _cycle(self, r):
+        if self.config.cycle_type == "f":
+            return self._fmg(r)
+        return self._vc(0, r, None, x_zero=True)
+
+    def _apply_A(self, p):
+        """``A p`` on the fine slab: ``−(0 − A p)`` through the partitioned
+        residual kernels."""
+        if not self.plan[0]:
+            from openmg_tpu_torch.ops.stencil import apply as stencil_apply
+
+            return stencil_apply(self.ops[0], p)
+        return -self._residual(0, torch.zeros_like(p), p)
+
+    def _pdot(self, a, b):
+        s = torch.sum(a * b)
+        return self.comm.all_reduce(s) if self.plan[0] else s
+
+    def _pcg(self, r0):
+        """``krylov_iters`` CG steps on ``A e = r0`` from zero, each
+        preconditioned by one cycle; the inner products are ``all_reduce``
+        sums (device tensors, never read to the host under NCCL)."""
+        iters = self.config.krylov_iters
+        e = torch.zeros_like(r0)
+        r = r0
+        z = self._cycle(r)
+        p = z
+        rz = self._pdot(r, z)
+        for it in range(iters):
+            Ap = self._apply_A(p)
+            alpha = rz / self._pdot(p, Ap)
+            e = e + alpha * p
+            if it == iters - 1:
+                break
+            r = r - alpha * Ap
+            z = self._cycle(r)
+            rz_new = self._pdot(r, z)
+            beta = rz_new / rz
+            rz = rz_new
+            p = z + beta * p
+        return e
+
+    def _error_solve(self, r):
+        if self.config.krylov == "pcg":
+            return self._pcg(r)
+        return self._cycle(r)
+
+    # -- the outer loop ----------------------------------------------------
+
+    def _residual_df(self, b_pair, x_pair):
+        """Double-float ``r = b − A x`` on the fine slab (tensor code over
+        one-plane halos) and its local ``Σ r_hi²``."""
+        offsets = self._fine_offsets
+        xh, xl = x_pair
+        if self.plan[0]:
+            eh, el = (halo_exchange(t, self.comm) for t in (xh, xl))
+            samples = [(shifted_ext(eh, o), shifted_ext(el, o)) for o in offsets]
+        else:
+            samples = [(shift(xh, o), shift(xl, o)) for o in offsets]
+        acc = b_pair
+        for k, xs in enumerate(samples):
+            if self._exact_terms is not None:
+                for p in self._exact_terms[k]:
+                    acc = df_sub(acc, (float(p) * xs[0], float(p) * xs[1]))
+            else:
+                acc = df_sub(acc, df_mul((self.fine_hi.coeff(k), self.fine_lo.coeff(k)), xs))
+        return acc[0], torch.sum(acc[0] * acc[0])
+
+    def _norms(self, rns):
+        """The pending members' ‖r‖ from their local sums: one reduction
+        and one host read for all of them."""
+        sums = torch.stack(rns)
+        total = self.comm.host_sums(sums) if self.plan[0] else sums.cpu()
+        return total.double().sqrt().tolist()
+
+    def _local(self, a):
+        """This rank's rows of a whole fine grid (numpy float64 or a tensor
+        on the rank's device)."""
+        lo, hi = self.rows[0]
+        return a[lo:hi]
+
+    def _gather(self, t):
+        """The whole fine grid from every rank's slab."""
+        return self.comm.all_gather(t.contiguous()) if self.plan[0] else t
+
+    def _step(self, b, x0):
+        shape = self.grid_shape
+        native = isinstance(b, torch.Tensor) and b.dtype == torch.float32
+        if native:
+            if b.device != self.device:
+                raise ValueError(f"b is on {b.device} but the solver is on {self.device}")
+            bh = self._local(b.reshape(shape)).contiguous()
+            b_pair = (bh, torch.zeros_like(bh))
+        else:
+            if isinstance(b, torch.Tensor):
+                b = b.detach().cpu().numpy()
+            b_np = self._local(np.asarray(b, dtype=np.float64).reshape(shape))
+            b_pair = df_split(np.ascontiguousarray(b_np), self.device)
+        x_pair = None
+        if x0 is not None:
+            if isinstance(x0, torch.Tensor):
+                x0 = x0.detach().cpu().numpy()
+            x_np = self._local(np.asarray(x0, dtype=np.float64).reshape(shape))
+            x_pair = df_split(np.ascontiguousarray(x_np), self.device)
+        return _DistStep(self, b_pair, x_pair), native
+
+    def _info(self, solve_time):
+        return {
+            "gridlevels": self.hierarchy.num_levels,
+            "level_stats": self.stats,
+            "transfer": self.transfer.name,
+            "residual_mode": "doublefloat",
+            "partition_plan": self.plan,
+            "n_devices": self.n_dev,
+            "transport": self.comm.transport,
+            "outer_loop": "host",
+            "solve_time_s": solve_time,
+        }
+
+    def _deliver(self, x_pair, native, info):
+        """The whole solution on every rank: float64 numpy (the exact merge
+        of the pair) for a host caller; for a float32 tensor caller the hi
+        part on the device, the pair in ``info['x_df']``."""
+        xh, xl = (self._gather(t) for t in x_pair)
+        shape = self.grid_shape
+        if native:
+            info["x_df"] = (xh.reshape(shape), xl.reshape(shape))
+            return info["x_df"][0]
+        return df_merge((xh, xl)).reshape(shape)
+
+    def solve(self, b, x0=None, *, checkpoint_path=None, checkpoint_every: int = 1,
+              resume: bool = False):
+        """Solve ``A x = b``; ``b`` (and ``x0``) are the whole grid on every
+        rank.  Same contract as
+        :meth:`~openmg_tpu_torch.core.solver.Solver.solve`, checkpoint/
+        resume included: the iterate is gathered for a write and the first
+        rank writes it; every rank reads it on resume."""
+        cfg = self.config
+        limit = cfg.cycles if cfg.cycles > 0 else 10_000
+        t_start = time.perf_counter()
+        ckpt = _Checkpointer(
+            checkpoint_path, checkpoint_every, resume, cfg, self.grid_shape,
+            write=self.mesh.index == 0,
+        )
+        if ckpt.x0 is not None:
+            x0 = ckpt.x0
+        step, native = self._step(b, x0)
+
+        def after(_, hist):
+            ckpt.save(lambda: df_merge(tuple(self._gather(t) for t in step.x))
+                      .reshape(self.grid_shape), hist)
+
+        (history,), (converged,), _, reads = lockstep(
+            [step], limit - ckpt.start, float(cfg.threshold), self._say,
+            after if checkpoint_path is not None else None, self._norms,
+        )
+        history = ckpt.history + history
+        solve_time = time.perf_counter() - t_start
+        k = len(history) - 1
+        info = {
+            "residual_norms": history,
+            "cycles": k,
+            "converged": bool(converged),
+            "final_norm": history[-1],
+            **self._info(solve_time),
+            "mean_cycle_time_s": solve_time / max(k, 1),
+            "host_reads": reads + ckpt.writes,
+        }
+        return self._deliver(step.x, native, info), info
+
+    def solve_many(self, bs, x0s=None):
+        """A batch of right-hand sides in lockstep: every round advances
+        each member not yet converged one outer step and reduces the
+        members' norms in one ``all_reduce`` and one host read.  Returns
+        ``(xs, info)`` stacked as :meth:`solve` returns one (whole grids on
+        every rank), with per-member ``cycles``, ``converged``,
+        ``final_norm`` and ``residual_norms``."""
+        cfg = self.config
+        shape = self.grid_shape
+        native = isinstance(bs, torch.Tensor) and bs.dtype == torch.float32
+        members = list(bs.reshape((bs.shape[0],) + tuple(shape))) if native else list(bs)
+        K = len(members)
+        if x0s is None:
+            x0s = [None] * K
+        elif len(x0s) != K:
+            raise ValueError(f"{len(x0s)} initial guesses for {K} right-hand sides")
+        limit = cfg.cycles if cfg.cycles > 0 else 10_000
+        t_start = time.perf_counter()
+        steps = [self._step(b, x0)[0] for b, x0 in zip(members, x0s)]
+        histories, converged, _, reads = lockstep(
+            steps, limit, float(cfg.threshold),
+            lambda i, k, v: self._say(i, k, v, batch=True), None, self._norms,
+        )
+        info = {
+            "batch": K,
+            "cycles": [len(h) - 1 for h in histories],
+            "converged": converged,
+            "final_norm": [h[-1] for h in histories],
+            "residual_norms": histories,
+            **self._info(time.perf_counter() - t_start),
+            "host_reads": reads,
+        }
+        outs, pairs = [], []
+        for s in steps:
+            one = {}
+            outs.append(self._deliver(s.x, native, one))
+            pairs.append(one.get("x_df"))
+        if native:
+            info["x_df"] = (torch.stack([p[0] for p in pairs]),
+                            torch.stack([p[1] for p in pairs]))
+            return info["x_df"][0], info
+        return np.stack(outs), info
+
+    def _say(self, i, k, rnorm, batch=False):
+        if self.config.verbose and self.mesh.index == 0:
+            who = f" rhs {i}" if batch else ""
+            print(f"[openmg_tpu_torch/dist]{who} cycle {k}: ‖r‖ = {rnorm:.3e}")
+
+
+def _default_device():
+    """``cuda:{LOCAL_RANK}``: a rank's own card.  Never the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the distributed solver runs on the GPU by default; "
+            "pass device='cpu' explicitly to run on the CPU"
+        )
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+
+
+def distributed_setup(
+    problem,
+    config: SolverConfig | None = None,
+    mesh_config: MeshConfig | None = None,
+    *,
+    device=None,
+) -> DistributedSolver:
+    """Build a :class:`DistributedSolver` on this rank.
+
+    ``device``: ``cuda:{LOCAL_RANK}`` when None (never the CPU by itself);
+    ``"cpu"`` for CPU ranks, or ``"cuda:0"`` for ranks that share one card.
+    Joins the process group first if this process has not (from the
+    environment ``torchrun`` sets; a lone process is a world of one).
+    """
+    from openmg_tpu_torch.core.solver import setup
+
+    device = _default_device() if device is None else torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    if not dist.is_initialized():
+        initialize_distributed(device=device)
+    config = config or SolverConfig(residual_dtype="doublefloat")
+    if config.residual_dtype != "doublefloat":
+        config = dataclasses.replace(config, residual_dtype="doublefloat")
+    base = setup(problem, config, faced=True, device=device)
+    return DistributedSolver(base.hierarchy, config, mesh_config, device)

@@ -1,0 +1,239 @@
+"""The port's distributed stencil engine on gloo ranks (CPU processes)
+against the JAX package's ``DistributedSolver`` on as many of the virtual
+CPU devices ``tests/conftest.py`` provides, at the dry run's shape
+``(max(32, 8·P), 8, 16)`` (three levels, the first two partitioned): the
+V-cycle on two ranks, MG-PCG(2) on a (2, 2) mesh, and the V-cycle on a 2D
+grid cut along y over two ranks (the port's ``(ny, 1, nx)`` slabs against
+the reference's boundary-row epilogue).  The W and F cycles on two ranks
+are held against the port's single-device W and F solves, which
+``tests/test_torch_cycles.py`` holds against the JAX package's: each
+reference W or F build costs more than the rest of this file's reference
+solves together.
+
+Equal cycle counts, residual histories within rtol 1e-3 (the norms are
+sums in another order over other slabs, and the solutions differ at the
+double-float floor), and ‖x_port − x_ref‖₂ ≤ 2e-10/λ_min (both below the
+1e-10 threshold, so their difference is at most 2e-10/λ_min in exact
+arithmetic).
+
+Time: each mesh is ONE spawn of its ranks (``tests/_torch_dist_worker.py``,
+which imports torch and the port only) running all its cases, through a
+file store under ``tmp_path`` (no port to collide on between test workers),
+with a time limit on every wait; the JAX package's solves run once, in a
+module fixture, with its host loop (cheaper to compile than its
+device loop at this size).
+"""
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+WORKER = pathlib.Path(__file__).resolve().parent / "_torch_dist_worker.py"
+TIMEOUT_S = 120
+CFG = dict(smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
+           gridlevels=3, cycles=60)
+CASES = {
+    # name: (ranks, config overrides, mesh)
+    "v": (2, {}, {"n_devices": 2}),
+    "w": (2, {"cycle_type": "w"}, {"n_devices": 2}),
+    "f": (2, {"cycle_type": "f"}, {"n_devices": 2}),
+    "pcg2_mesh2x2": (4, {"krylov": "pcg", "krylov_iters": 2}, {"mesh_shape": [2, 2]}),
+}
+
+
+# a 2D grid cut along y: its passes run on (ny, 1, nx) slabs
+SHAPE_2D = (64, 32)
+CFG_2D = dict(CFG, max_dense_coarse=4096)
+# the cases held against the JAX package's DistributedSolver
+REFERENCE = ("v", "pcg2_mesh2x2", "v2d")
+
+
+def shape_of(P):
+    return (max(32, 8 * P), 8, 16)
+
+
+def config_of(name):
+    P, over, _ = CASES[name]
+    return dict(CFG, max_dense_coarse=int(np.prod(shape_of(P))), **over)
+
+
+def case_of(name):
+    """``(shape, config, mesh)`` of a reference case."""
+    if name == "v2d":
+        return SHAPE_2D, CFG_2D, {"n_devices": 2}
+    return shape_of(CASES[name][0]), config_of(name), CASES[name][2]
+
+
+def assert_solves_agree(hist, x, want_hist, want_x, shape):
+    assert len(hist) == len(want_hist), (hist, want_hist)
+    np.testing.assert_allclose(hist, want_hist, rtol=1e-3)
+    assert hist[-1] < 1e-10
+    assert x.shape == shape
+    assert np.linalg.norm((x - want_x).ravel()) <= 2e-10 / lam_min(shape)
+
+
+def lam_min(shape):
+    return sum(2 - 2 * np.cos(np.pi / (n + 1)) for n in shape)
+
+
+def spawn(tmp, world, cases):
+    """Run ``cases`` on ``world`` gloo ranks; rank 0's results."""
+    cases_json = tmp / "cases.json"
+    cases_json.write_text(json.dumps(cases))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    env.pop("JAX_PLATFORMS", None)
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(WORKER), str(r), str(world), str(tmp / "store"),
+             str(cases_json), str(tmp / "out")],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)
+    ]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
+    with np.load(tmp / "out.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def port_cases(world):
+    out = []
+    for name, (P, _, mesh) in CASES.items():
+        if P == world:
+            out.append({"name": name, "shape": shape_of(P), "config": config_of(name),
+                        "mesh": mesh})
+    if world == 2:
+        out.append({"name": "v_resumed", "shape": shape_of(2), "config": config_of("v"),
+                    "mesh": CASES["v"][2], "cut": 3})
+        out.append({"name": "v2d", "shape": SHAPE_2D, "config": CFG_2D,
+                    "mesh": {"n_devices": 2}})
+        out.append({"name": "v_many", "shape": shape_of(2), "config": config_of("v"),
+                    "mesh": CASES["v"][2], "many": [0, 5]})
+    return out
+
+
+@pytest.fixture(scope="module")
+def port(tmp_path_factory):
+    res = {}
+    for world in (2, 4):
+        res.update(spawn(tmp_path_factory.mktemp(f"ranks{world}"), world,
+                         port_cases(world)))
+    return res
+
+
+@pytest.fixture(scope="module")
+def reference():
+    from openmg_tpu import MeshConfig, SolverConfig
+    from openmg_tpu.models.poisson import rhs_random
+    from openmg_tpu.parallel.dist import distributed_setup
+
+    out = {}
+    for name in REFERENCE:
+        shape, cfg, mesh = case_of(name)
+        mc = (MeshConfig(mesh_shape=tuple(mesh["mesh_shape"])) if "mesh_shape" in mesh
+              else MeshConfig(**mesh))
+        solver = distributed_setup(shape, SolverConfig(**cfg, outer_loop="host"), mc)
+        b = rhs_random(shape, seed=0)
+        x, info = solver.solve(b / np.linalg.norm(b.ravel()))
+        out[name] = (np.asarray(x), info)
+    return out
+
+
+@pytest.mark.parametrize("name", REFERENCE)
+def test_distributed_matches_reference(port, reference, name):
+    jx, jinfo = reference[name]
+    assert jinfo["converged"]
+    assert int(port[f"{name}/cycles"]) == jinfo["cycles"]
+    assert tuple(port[f"{name}/plan"]) == tuple(jinfo["partition_plan"]) == (True, True, False)
+    assert_solves_agree(port[f"{name}/hist"], port[f"{name}/x"],
+                        jinfo["residual_norms"], jx, case_of(name)[0])
+
+
+@pytest.mark.parametrize("name", ["w", "f"])
+def test_distributed_w_f_match_single_device(port, name):
+    """W and F on two ranks: the port's single-device solve's cycles,
+    history and solution (that solve is the reference's in
+    ``tests/test_torch_cycles.py``)."""
+    import openmg_tpu_torch as tmg
+
+    shape = shape_of(CASES[name][0])
+    solver = tmg.setup(shape, tmg.SolverConfig(**config_of(name)), device="cpu")
+    b = tmg.rhs_random(shape, seed=0)
+    x, info = solver.solve(b / np.linalg.norm(b.ravel()))
+    assert info["converged"]
+    assert int(port[f"{name}/cycles"]) == info["cycles"]
+    assert tuple(port[f"{name}/plan"]) == (True, True, False)
+    assert_solves_agree(port[f"{name}/hist"], port[f"{name}/x"],
+                        info["residual_norms"], x, shape)
+
+
+def test_ranks_exchange_halos_and_import_no_jax(port):
+    assert int(port["v/exchanges"]) > 0
+    assert list(port["jax_modules"]) == []
+
+
+def test_distributed_resume_equals_uncut(port):
+    """Cut after 3 cycles with a checkpoint (gathered and written by the
+    first rank), resumed on every rank: the uncut solve's cycles and x."""
+    assert int(port["v_resumed/cut_cycles"]) == 3
+    assert int(port["v_resumed/cycles"]) == int(port["v/cycles"])
+    np.testing.assert_array_equal(port["v_resumed/x"], port["v/x"])
+
+
+def test_partition_plan_and_device_rule():
+    """The plan is the reference's; ``distributed_setup`` never picks the
+    CPU by itself."""
+    import torch
+
+    from openmg_tpu.parallel.dist import partition_plan as jplan
+    from openmg_tpu_torch.parallel.dist import distributed_setup, partition_plan
+
+    for shapes, n, mr, force in [
+        ([(32, 8, 16), (16, 4, 8), (8, 2, 4)], 2, 2, False),
+        ([(64, 8, 8), (32, 4, 4), (16, 2, 2), (8, 1, 1)], 4, 2, False),
+        ([(64, 8, 8), (32, 4, 4), (16, 2, 2)], 8, 4, False),
+        ([(16, 8, 8), (8, 4, 4)], 1, 2, True),
+        ([(16, 8, 8), (8, 4, 4)], 1, 2, False),
+        ([(24, 8, 8), (12, 4, 4), (6, 2, 2)], 4, 2, False),
+    ]:
+        assert partition_plan(shapes, n, mr, force) == jplan(shapes, n, mr, force)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            distributed_setup((32, 8, 16))
+
+
+def test_2d_slabs_match_single_device(port):
+    """A 2D grid partitioned along y (K3h on ``(ny, 1, nx)`` slabs, the
+    tensor double-float residual) takes the single-device solve's cycles
+    and solution."""
+    import openmg_tpu_torch as tmg
+
+    solver = tmg.setup(SHAPE_2D, tmg.SolverConfig(**CFG_2D), device="cpu")
+    b = tmg.rhs_random(SHAPE_2D, seed=0)
+    x, info = solver.solve(b / np.linalg.norm(b))
+    assert int(port["v2d/cycles"]) == info["cycles"]
+    assert tuple(port["v2d/plan"]) == (True, True, False)
+    assert np.linalg.norm((port["v2d/x"] - x).ravel()) <= 2e-10 / lam_min(SHAPE_2D)
+
+
+def test_solve_many_members_equal_scalar_solves(port):
+    """``solve_many`` in lockstep (one reduction and one host read of the
+    members' norms a round): member 0 is bit-equal to the scalar solve of
+    the same right-hand side."""
+    xs = port["v_many/x"]
+    assert xs.shape == (2,) + shape_of(2)
+    np.testing.assert_array_equal(xs[0], port["v/x"])
+    assert int(port["v_many/cycles"]) == int(port["v/cycles"])

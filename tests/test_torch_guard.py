@@ -9,7 +9,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "openmg_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "openmg_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py"]
 FORBIDDEN = ("jax", "jaxlib", "openmg_tpu")
 
 
@@ -39,6 +40,10 @@ def test_port_has_all_its_modules():
         "openmg_tpu_torch/ops/ell.py", "openmg_tpu_torch/ops/bsr.py",
         "openmg_tpu_torch/models/elasticity.py",
         "openmg_tpu_torch/utils/oracle.py",
+        "openmg_tpu_torch/utils/checkpoint.py", "openmg_tpu_torch/utils/observe.py",
+        "openmg_tpu_torch/cli.py", "openmg_tpu_torch/__main__.py",
+        "openmg_tpu_torch/parallel/mesh.py", "openmg_tpu_torch/parallel/halo.py",
+        "openmg_tpu_torch/parallel/fast.py", "openmg_tpu_torch/parallel/dist.py",
         "chip_smoke.py",
     ):
         assert want in names, want
@@ -62,7 +67,10 @@ def test_import_leaves_jax_out():
         "openmg_tpu_torch.ops.fused, openmg_tpu_torch.ops.kernels, "
         "openmg_tpu_torch.ops.ell, openmg_tpu_torch.ops.bsr, "
         "openmg_tpu_torch.core.algebraic, openmg_tpu_torch.utils.oracle, "
-        "openmg_tpu_torch._build; "
+        "openmg_tpu_torch.utils.checkpoint, openmg_tpu_torch.utils.observe, "
+        "openmg_tpu_torch.cli, openmg_tpu_torch.parallel.mesh, "
+        "openmg_tpu_torch.parallel.halo, openmg_tpu_torch.parallel.fast, "
+        "openmg_tpu_torch.parallel.dist, openmg_tpu_torch._build; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'openmg_tpu')]; "
         "assert not bad, bad"
     )

@@ -276,9 +276,11 @@ def test_float32_residual_solve_follows_the_reference_history(reference):
     assert np.linalg.norm(res) < 1.5 * threshold
 
 
-def test_unported_entry_points_raise(port):
-    """Checkpoint and resume wait; ``solve_many``, the W and F cycles and
-    PCG, refused before they were ported, run."""
+def test_unported_entry_points_raise(port, tmp_path):
+    """Every entry point refused before it was ported runs now:
+    checkpoint/resume (a checkpointed solve gives the same x; ``resume``
+    without a file is a plain solve, as in the JAX package),
+    ``solve_many``, the W and F cycles and PCG."""
     from openmg_tpu_torch.ops.stencil import apply
 
     solver, x_port, info_port = port
@@ -287,10 +289,11 @@ def test_unported_entry_points_raise(port):
     xs, info = solver.solve_many([_rhs()])
     np.testing.assert_array_equal(xs[0], x_port)
     assert info["cycles"] == [info_port["cycles"]]
-    with pytest.raises(NotImplementedError, match="item 19"):
-        solver.solve(_rhs(), checkpoint_path="ckpt.npz")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        solver.solve(_rhs(), resume=True)
+    xc, ic = solver.solve(_rhs(), checkpoint_path=tmp_path / "ckpt.npz")
+    np.testing.assert_array_equal(xc, x_port)
+    assert ic["cycles"] == info_port["cycles"] and (tmp_path / "ckpt.npz").exists()
+    xr, _ = solver.solve(_rhs(), resume=True)
+    np.testing.assert_array_equal(xr, x_port)
     w = tcycle.run_cycle(h, r, "w")
     assert torch.equal(w, tcycle.v_cycle(h, r, None, gamma=2, x_zero=True))
     assert torch.equal(tcycle.run_cycle(h, r, "f"), tcycle.fmg_cycle(h, r))
