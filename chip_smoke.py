@@ -194,7 +194,24 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                cycles, ‖x_dist − x_single‖₂ ≤ 2e-10/λ_min against the
                single-device solve on the card, launches by kernel on rank
                0, halo bytes a cycle, warm ms (one card shared by P ranks:
-               not a scaling figure); any rank's failure fails the script.
+               not a scaling figure); any rank's failure fails the script;
+               every solve's bytes sent, staged and gathered equal to the
+               communication model's (``parallel/model.py``) for it;
+17. ``solve_sparse_dist`` (its ranks are those of ``solve_dist``) the
+               1024² ELL solve of ``solve_sparse`` on the distributed
+               general-sparse engine: V(2,2) red/black on P = 2 and P = 4
+               gloo ranks, PCG(2) on a (2, 2) mesh, one NCCL rank with
+               ``force_partition``; the 262,144-row irregular matrix on the
+               gathered-x tier (one NCCL rank, ``force_partition``); each
+               against the single-device solve on the card (its cycles;
+               ‖Δx‖₂ ≤ 2e-10/λ_min), with K6h's and K6's launches, the
+               model's bytes against ``Comm.stats``, and the model's HBM
+               bytes a cycle over the measured cycle time × copy bandwidth
+               for the two one-rank NCCL solves (256³ stencil, 1024² ELL);
+               and K6's halo form (K6h) on the inner row blocks of the
+               1024² level 0 (H = 1024) and the k-9 512² level (H = 513)
+               cut in 4, against its plain version and the whole-vector
+               K6's rows, timed beside the whole vector's device ms / 4.
 
 Every solve of 11-15 and 14a-14b prints its cycles, final norm, the float64 residual
 of the merged pair on the host, warm and first solve ms, peak memory and
@@ -214,6 +231,9 @@ same order of summation, but nvcc fuses multiply-adds and the region rows
 divide where the plain version divides too — a few ulp.  K2
 (``df_update_residual_const_3d``): ``x_hi'``, ``x_lo'``, ``r_hi`` equal bit
 for bit; the partial sums' total within 1e-6 relative of ``sum(r_hi²)``.
+K6h against ``spmv_banded_halo_plain`` and the whole-vector K6's rows: bit
+for bit by design (the same slot order and round-to-nearest arithmetic),
+failing only beyond K6's tolerance.
 K3 and K4 (one pass of ``csrc/half_sweep.cu``) against ``half_sweep_plain``
 / ``half_sweep_vary_plain``, K4's legs (``csrc/vary_leg.cu``) against
 ``sweeps_vary_plain`` (the loop of those passes), and K5
@@ -3601,11 +3621,63 @@ def phase_halo_kernels(dev, copy_bw, h_vary):
     return rows
 
 
+def sparse_halo_counts():
+    from openmg_tpu_torch.ops import ell
+
+    return {**sparse_counts(), "K6_halo": ell.LAUNCHES_K6H}
+
+
+def sparse_matrix(kind, shape):
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.models.spd import irregular_spd
+
+    if kind == "poisson":
+        return mg.poisson(shape)
+    return irregular_spd(int(np.prod(shape)), couplings=IRREGULAR_COUPLINGS)
+
+
+def sparse_rhs(n, seed, dev):
+    """``models.spd.unit_rhs(n, seed)`` as a float32 card tensor
+    (``solve_sparse``'s right-hand sides)."""
+    from openmg_tpu_torch.models.spd import unit_rhs
+
+    return torch.from_numpy(unit_rhs(n, seed).astype(np.float32)).to(dev)
+
+
+def model_check(solver, stats, cycles, sparse):
+    """The communication model of ``solver`` against what its ``Comm``
+    counted over a solve of ``cycles`` cycles from zero: bytes sent, staged
+    and gathered, equal."""
+    from openmg_tpu_torch.parallel.model import comm_model, comm_model_sparse
+
+    m = (comm_model_sparse if sparse else comm_model)(solver)
+    want = {
+        "bytes_sent": cycles * m["halo_bytes_per_cycle"],
+        "staged_bytes": cycles * m["staged_bytes_per_cycle"],
+        "gathered_bytes": cycles * m["gathered_bytes_per_cycle"]
+        + m["delivery_gathered_bytes"],
+    }
+    return {
+        "model_halo_bytes_per_cycle": m["halo_bytes_per_cycle"],
+        "model_staged_bytes_per_cycle": m["staged_bytes_per_cycle"],
+        "model_gathered_bytes_per_cycle": m["gathered_bytes_per_cycle"],
+        "model_hbm_bytes_per_cycle": m["hbm_bytes_per_cycle"],
+        "model_efficiency_bound_no_overlap": m["efficiency_bound_no_overlap"],
+        "model_matches_comm_stats": all(stats[k] == v for k, v in want.items()),
+        "model_expected_stats": want,
+    }
+
+
 def dist_rank(argv):
     """One rank of ``solve_dist`` (``chip_smoke.py --dist-rank RANK WORLD
     STORE CASES OUT``): joins the group, runs the cases, and on rank 0
-    writes the results (and the solutions) for the parent."""
+    writes the results (and the solutions) for the parent.  A sparse case
+    reuses the host hierarchy of the rank's previous case of the same
+    matrix, shape and hierarchy settings (``sparse_dist.hierarchy_settings``:
+    everything of the config that the build reads)."""
     import openmg_tpu_torch as mg
+    from openmg_tpu_torch.ops import ell
+    from openmg_tpu_torch.parallel.sparse_dist import hierarchy_settings
     from openmg_tpu_torch.parallel.mesh import initialize_distributed
 
     rank, world, store, cases_path, out = argv
@@ -3617,29 +3689,43 @@ def dist_rank(argv):
     initialize_distributed(init_method="file://" + store, rank=rank,
                            world_size=world, backend=spec["backend"], device=dev)
     results = []
+    hierarchies = {}
     for case in spec["cases"]:
         cfg = mg.SolverConfig(**case["config"])
         mc = mg.MeshConfig(**{k: tuple(v) if isinstance(v, list) else v
                               for k, v in case["mesh"].items()})
         shape = tuple(case["shape"])
+        sparse = case["problem"] == "sparse"
         t0 = time.perf_counter()
-        if case["problem"] == "diffusion":
-            problem = mg.diffusion_stencil(medium(shape))
+        if sparse:
+            key = (case["matrix"], tuple(shape),
+                   tuple(sorted(hierarchy_settings(cfg).items())))
+            if key in hierarchies:
+                solver = mg.DistributedAlgebraicSolver(hierarchies[key], cfg, mc, device=dev)
+            else:
+                solver = mg.setup_sparse_distributed(
+                    sparse_matrix(case["matrix"], shape), shape, cfg, mc, device=dev)
+                hierarchies[key] = solver.hierarchy
+            b = sparse_rhs(solver.n, case["seed"], dev)
         else:
-            problem = shape
-        solver = mg.distributed_setup(problem, cfg, mc, device=dev)
+            if case["problem"] == "diffusion":
+                problem = mg.diffusion_stencil(medium(shape))
+            else:
+                problem = shape
+            solver = mg.distributed_setup(problem, cfg, mc, device=dev)
+            b = main_rhs(shape, dev)
         sync()
         setup_s = time.perf_counter() - t0
-        b = main_rhs(shape, dev)
         x1, info1 = solver.solve(b)   # the first: the library loads
         sync()
         zero_counts()
         zero_halo_counts()
+        ell.LAUNCHES_K6H = 0
         solver.comm.reset_stats()
         torch.distributed.barrier()
         x, info = solver.solve(b)
         sync()
-        launched = {**counts(), **halo_counts()}
+        launched = {**counts(), **halo_counts(), **sparse_halo_counts()}
         stats = dict(solver.comm.stats)
         cycles = info["cycles"]
         res = {
@@ -3656,6 +3742,8 @@ def dist_rank(argv):
             "halo_staged_bytes_per_cycle": stats["staged_bytes"] / max(cycles, 1),
             "gathered_bytes": stats["gathered_bytes"],
             "exchanges_per_cycle": stats["exchanges"] / max(cycles, 1),
+            "comm_stats": stats,
+            **model_check(solver, stats, cycles, sparse),
             "host_reads": info["host_reads"],
             "setup_s": setup_s,
             "first_solve_ms": info1["solve_time_s"] * 1e3,
@@ -3730,12 +3818,156 @@ def lambda_min_poisson(shape):
     return sum(2.0 - 2.0 * math.cos(math.pi / (n + 1)) for n in shape)
 
 
-def phase_solve_dist(dev):
+# solve_sparse_dist: the 1024² ELL solve of solve_sparse (its right-hand side
+# of seed 2) and the gathered-x tier at SPARSEDIST_r05.json's size
+ELL_DIST_CFG = dict(format="ell", transfer="linear", smoother="rbgs",
+                    max_dense_coarse=4096, threshold=1e-10,
+                    residual_dtype="doublefloat", cycles=60)
+ELL_SEED = 2
+IRREGULAR_N = 262144
+IRREGULAR_COUPLINGS = 8  # SPARSEDIST_r05.json's matrix
+IRREGULAR_CFG = dict(format="ell", residual_dtype="doublefloat", cycles=60)
+IRREGULAR_SEED = 3
+
+
+def gershgorin_lambda_min(A):
+    """A lower bound of the least eigenvalue of the symmetric matrix ``A``:
+    min_i (a_ii − Σ_{j≠i} |a_ij|).  Where it is positive, 2e-10 over it
+    bounds ‖Δx‖₂ of two solutions within 1e-10 of one system (loosely: the
+    bound is the larger).  For the irregular matrix it is within 2 % of
+    the least eigenvalue, which shift-invert Lanczos cannot resolve in
+    minutes at 262,144 rows (its lowest eigenvalues cluster)."""
+    d = A.diagonal()
+    off = np.asarray(abs(A).sum(axis=1)).ravel() - np.abs(d)
+    return float(np.min(d - off))
+
+
+def merged_pair(info):
+    hi, lo = info["x_df"]
+    return hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+
+
+def sparse_dist_refs(dev, solvers):
+    """The single-device solves on the card that ``solve_sparse_dist`` holds
+    its distributed solves against: V and PCG(2) on ``solve_sparse``'s 1024²
+    ELL hierarchy, and the 262,144-row irregular matrix (red/black by its
+    greedy colours, aggregate transfers: the defaults)."""
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.ops import ell
+
+    h = solvers["ell"].hierarchy
+    b = sparse_rhs(h.n, ELL_SEED, dev)
+    out = {"ell_lambda_min": sum(4.0 * np.sin(np.pi / (2 * (m + 1))) ** 2
+                                 for m in ELL_SHAPE)}
+    for name, cfg in (("v", ELL_DIST_CFG), ("pcg", dict(ELL_DIST_CFG, **INNER_KW["pcg"]))):
+        zero_counts()
+        _, info = mg.AlgebraicSolver(h, mg.SolverConfig(**cfg)).solve(b)
+        torch.cuda.synchronize()
+        out[name] = {"x": merged_pair(info), "cycles": info["cycles"],
+                     "K6_per_cycle": ell.LAUNCHES_K6 / info["cycles"],
+                     "converged": info["converged"]}
+    A = sparse_matrix("irregular", (IRREGULAR_N,))
+    t0 = time.perf_counter()
+    solver = mg.setup_sparse(A, (IRREGULAR_N,), mg.SolverConfig(**IRREGULAR_CFG), device=dev)
+    setup_s = time.perf_counter() - t0
+    _, info = solver.solve(sparse_rhs(IRREGULAR_N, IRREGULAR_SEED, dev))
+    out["irregular"] = {"x": merged_pair(info), "cycles": info["cycles"],
+                        "converged": info["converged"], "setup_s": setup_s,
+                        "lambda_min_lower_bound": gershgorin_lambda_min(A),
+                        "plan_levels": len(solver.hierarchy.levels)}
+    for k in ("v", "pcg", "irregular"):
+        if not out[k]["converged"]:
+            fail(f"solve_sparse_dist: the single-device {k} solve did not converge")
+    return out
+
+
+def phase_k6h(dev, copy_bw, h_ell, P=HALO_SLABS, reps=20):
+    """K6h on the 1024² ELL hierarchy's level 0 (k 5, H = 1024) and its k-9
+    512² level (H = 513) cut into ``P`` row blocks, each block's halos cut
+    from its neighbours (zeros at the domain's edges): every block against
+    the plain version and the whole-vector K6's rows (bit for bit by design;
+    failing beyond K6's tolerance); device ms of an inner block (each call
+    on another copy of its operands) beside the whole vector's / P, the
+    block's bound and the plain version's time."""
+    from openmg_tpu_torch.ops import ell
+
+    rows = []
+    for tag, lv in (("1024^2 level 0", 0), ("512^2 level 1 (k 9)", 1)):
+        M = h_ell.levels[lv].A
+        offs = M.slot_offsets
+        n, k = M.shape[0], M.k
+        m, H = n // P, ell.band_halo(offs)
+        x = randn((n,), 40 + lv, dev)
+        terms = ell.spmv_banded_plain(M.data.abs(), offs, x.abs())
+        scale = float(terms.max())
+        blocks = [(M.data[:, i * m:(i + 1) * m].contiguous(),) + cut(x, i, P, H, H)
+                  for i in range(P)]
+        whole = ell.spmv_ell(M, x)
+        worst_plain = worst_whole = 0.0
+        bit_plain = bit_whole = True
+        for i, (d, xs, lo, hi) in enumerate(blocks):
+            got = ell.spmv_banded_halo(d, offs, xs, lo, hi)
+            ref = ell.spmv_banded_halo_plain(d, offs, xs, lo, hi)
+            torch.cuda.synchronize()
+            if got.shape != (m,) or not bool(torch.isfinite(got).all()):
+                fail(f"K6h {tag} block {i}: bad output")
+            w = whole[i * m:(i + 1) * m]
+            e_plain = float((got - ref).abs().max())
+            e_whole = float((got - w).abs().max())
+            bit_plain &= bool(torch.equal(got, ref))
+            bit_whole &= bool(torch.equal(got, w))
+            worst_plain, worst_whole = max(worst_plain, e_plain), max(worst_whole, e_whole)
+            if max(e_plain, e_whole) > SPARSE_TOL * scale:
+                fail(f"K6h {tag} block {i}: err {e_plain:.3e} against the plain version, "
+                     f"{e_whole:.3e} against K6's rows (tolerance {SPARSE_TOL * scale:.3e})")
+        es = x.element_size()
+        nbytes = (k * m + m + 2 * H + m) * es
+        flops = 2 * k * m
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+        # copies of the inner blocks' operands, so that each call reads them
+        # from device memory; and of the whole vector's
+        inner = [blocks[i] for i in range(1, P - 1)]
+        ops = [tuple(t.clone() for t in inner[c % len(inner)])
+               for c in range(max(len(inner), operand_copies(nbytes)))]
+        wops = [(dataclasses.replace(M, data=M.data.clone()), x.clone())
+                for _ in range(operand_copies((M.data.numel() + 2 * n) * es))]
+        d1, x1, lo1, hi1 = blocks[1]
+        before = ell.LAUNCHES_K6H
+        rows.append({
+            "level": tag, "mode": f"inner block of {P}", "shape": [m], "k": k, "H": H,
+            "bit_equal_to_plain": bit_plain,
+            "bit_equal_to_whole_vector_kernel": bit_whole,
+            "max_abs_err": worst_plain, "max_abs_err_vs_whole_vector_kernel": worst_whole,
+            "tolerance": SPARSE_TOL * scale,
+            "ms": device_ms([functools.partial(ell.spmv_banded_halo, d, offs, xs, lo, hi)
+                             for d, xs, lo, hi in ops], reps),
+            "whole_ms_over_P": device_ms([functools.partial(ell.spmv_ell, Mc, xc)
+                                          for Mc, xc in wops], reps) / P,
+            "ms_l2_warm": device_ms([functools.partial(ell.spmv_banded_halo, d1, offs,
+                                                       x1, lo1, hi1)], reps),
+            "plain_ms": time_ms(lambda: ell.spmv_banded_halo_plain(d1, offs, x1, lo1, hi1),
+                                3, warm=1),
+            "operand_copies": len(ops),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_copy_bw": nbytes / copy_bw * 1e3, "bytes": nbytes, "flops": flops,
+            "library_ms": None,
+        })
+        if ell.LAUNCHES_K6H == before:
+            fail("K6h: the timed calls launched nothing")
+        del blocks, ops, wops, whole, terms
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_solve_dist(dev, copy_bw, sparse_refs, k6h_rows):
     """The 256³ main-path solve on P = 2 and P = 4 ranks sharing the card
     (gloo, planes staged through the host), PCG(2) on a (2, 2) mesh, the
     128³ diffusion solve on two ranks (K4's halo form), and the one-rank
     NCCL solve with every level partitioned (zero halos), each against the
-    single-device solve on the card."""
+    single-device solve on the card (``solve_dist``); in the same spawns the
+    distributed sparse solves (``solve_sparse_dist``).  Every solve's
+    ``Comm.stats`` must equal its communication model's."""
     import tempfile
 
     import openmg_tpu_torch as mg
@@ -3744,46 +3976,68 @@ def phase_solve_dist(dev):
     b = main_rhs(BIG, dev)
     single = mg.setup(BIG, mg.SolverConfig(**MAIN_CFG), device=dev)
     _, info = single.solve(b)
-    hi, lo = info["x_df"]
-    x_single = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+    x_single = merged_pair(info)
     single_cycles = info["cycles"]
     pcg = mg.setup(BIG, mg.SolverConfig(**MAIN_CFG, krylov="pcg", krylov_iters=2),
                    device=dev)
     _, info = pcg.solve(b)
-    hi, lo = info["x_df"]
-    x_pcg = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
-    del single, pcg, hi, lo, b
+    x_pcg = merged_pair(info)
+    del single, pcg, b, info
     bd = main_rhs(DIFFUSION_DIST, dev)
     dsolver = mg.setup(mg.diffusion_stencil(medium(DIFFUSION_DIST)),
                        mg.SolverConfig(**MAIN_CFG), device=dev)
     _, info = dsolver.solve(bd)
-    hi, lo = info["x_df"]
-    x_diff = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
+    x_diff = merged_pair(info)
     diff_cycles = info["cycles"]
-    del dsolver, hi, lo, bd
+    del dsolver, bd, info
     torch.cuda.empty_cache()
 
     bound = 2e-10 / lambda_min_poisson(BIG)
     v_case = dict(problem="poisson", shape=list(BIG), config=MAIN_CFG)
+    ell_case = dict(problem="sparse", matrix="poisson", shape=list(ELL_SHAPE),
+                    config=ELL_DIST_CFG, seed=ELL_SEED)
+    ell_pcg = dict(ELL_DIST_CFG, **INNER_KW["pcg"])
+    forced = {"n_devices": 1, "force_partition": True}
     plans = {
         2: [dict(v_case, name="v_P2", mesh={"n_devices": 2}),
             dict(problem="diffusion", shape=list(DIFFUSION_DIST), config=MAIN_CFG,
-                 name="diffusion_P2", mesh={"n_devices": 2})],
+                 name="diffusion_P2", mesh={"n_devices": 2}),
+            dict(ell_case, name="ell_v_P2", mesh={"n_devices": 2})],
         4: [dict(v_case, name="v_P4", mesh={"n_devices": 4}),
             dict(v_case, name="pcg2_mesh2x2",
                  config=dict(MAIN_CFG, krylov="pcg", krylov_iters=2),
+                 mesh={"mesh_shape": [2, 2]}),
+            dict(ell_case, name="ell_v_P4", mesh={"n_devices": 4}),
+            dict(ell_case, name="ell_pcg2_mesh2x2", config=ell_pcg,
                  mesh={"mesh_shape": [2, 2]})],
     }
-    out = {}
+    nccl = [dict(v_case, name="v_P1_nccl_forced", mesh=forced),
+            dict(ell_case, name="ell_v_P1_nccl_forced", mesh=forced),
+            dict(problem="sparse", matrix="irregular", shape=[IRREGULAR_N],
+                 config=IRREGULAR_CFG, seed=IRREGULAR_SEED,
+                 name="irregular_P1_nccl_forced", mesh=forced)]
+    ell_bound = 2e-10 / sparse_refs["ell_lambda_min"]
+    out, sparse_out = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         runs = [(P, "gloo", plans[P]) for P in DIST_RANKS]
-        runs.append((1, "nccl", [dict(v_case, name="v_P1_nccl_forced",
-                                      mesh={"n_devices": 1, "force_partition": True})]))
+        runs.append((1, "nccl", nccl))
         for world, backend, cases in runs:
             t0 = time.perf_counter()
             for res in spawn_ranks(world, backend, cases, tmp):
                 xd = np.load(res.pop("x_path"))
                 name = res["name"]
+                launched = res["launches_rank0"]
+                if not res["model_matches_comm_stats"]:
+                    fail(f"solve_dist {name}: Comm.stats {res['comm_stats']}, the model "
+                         f"{res['model_expected_stats']}")
+                if not res["converged"] or not res["final_norm"] < 1e-10:
+                    fail(f"solve_dist {name}: {res['residual_norms']}")
+                if not res["equal_to_first_solve"]:
+                    fail(f"solve_dist {name}: the warm solve differs from the first")
+                if name.startswith(("ell", "irregular")):
+                    sparse_check(name, res, xd, sparse_refs, ell_bound)
+                    sparse_out[name] = res
+                    continue
                 if name.startswith("diffusion"):
                     ref, want_cycles, key = x_diff, diff_cycles, "K4_halo"
                 elif name.startswith("pcg"):
@@ -3793,8 +4047,6 @@ def phase_solve_dist(dev):
                 diff = float(np.linalg.norm((xd - ref).ravel()))
                 res["norm_x_dist_minus_x_single"] = diff
                 res["single_device_cycles"] = want_cycles
-                if not res["converged"] or not res["final_norm"] < 1e-10:
-                    fail(f"solve_dist {name}: {res['residual_norms']}")
                 if want_cycles is not None and res["cycles"] != want_cycles:
                     fail(f"solve_dist {name}: {res['cycles']} cycles, the single-"
                          f"device solve {want_cycles}")
@@ -3805,13 +4057,65 @@ def phase_solve_dist(dev):
                     if not diff <= bound:
                         fail(f"solve_dist {name}: ‖x_dist − x_single‖ = {diff:.3e} "
                              f"> {bound:.3e}")
-                if not res["launches_rank0"].get(key) or not res["equal_to_first_solve"]:
-                    fail(f"solve_dist {name}: launches {res['launches_rank0']}, "
-                         f"repeat equal {res['equal_to_first_solve']}")
+                if not launched.get(key):
+                    fail(f"solve_dist {name}: launches {launched}")
                 out[name] = res
             out[f"spawn_{backend}{world}_s"] = time.perf_counter() - t0
+    # the card's analogue of the JAX package's calibration: the model's
+    # memory bytes a cycle over the bytes the measured cycle time moves at
+    # the copy bandwidth of this run
+    calibration = {}
+    for name, res in (("256^3 stencil, v_P1_nccl_forced", out["v_P1_nccl_forced"]),
+                      ("1024^2 ELL, ell_v_P1_nccl_forced",
+                       sparse_out["ell_v_P1_nccl_forced"])):
+        ms_cycle = res["warm_solve_ms"] / res["cycles"]
+        calibration[name] = {
+            "model_hbm_bytes_per_cycle": res["model_hbm_bytes_per_cycle"],
+            "warm_ms_per_cycle": ms_cycle, "copy_bytes_per_s": copy_bw,
+            "ratio_model_over_time_x_bw": res["model_hbm_bytes_per_cycle"]
+            / (ms_cycle * 1e-3 * copy_bw),
+        }
     emit("solve_dist", out)
-    return out
+    emit("solve_sparse_dist", {"k6h": k6h_rows, "solves": sparse_out,
+                               "model_calibration": calibration,
+                               "single_device": {k: {kk: vv for kk, vv in v.items() if kk != "x"}
+                                                 for k, v in sparse_refs.items()
+                                                 if isinstance(v, dict)}})
+    return out, sparse_out
+
+
+def sparse_check(name, res, xd, refs, ell_bound):
+    """A distributed sparse solve against the single-device one on the card:
+    its cycles, ‖Δx‖₂ ≤ 2e-10/λ_min, the fine level partitioned, and K6h's
+    launches (a V cycle of the ELL hierarchy with all four ELL levels
+    partitioned launches K6h where the single-device cycle launches K6,
+    and K6 never)."""
+    launched = res["launches_rank0"]
+    if name.startswith("irregular"):
+        ref = refs["irregular"]
+        bound = 2e-10 / ref["lambda_min_lower_bound"]
+        per_cycle = None
+    else:
+        ref = refs["pcg" if "pcg" in name else "v"]
+        bound = ell_bound
+        per_cycle = refs["v"]["K6_per_cycle"]
+        if "pcg" in name:  # krylov_iters cycles and as many A p a step
+            per_cycle = INNER_KW["pcg"]["krylov_iters"] * (per_cycle + 1)
+    diff = float(np.linalg.norm(xd - ref["x"]))
+    res.update({"norm_x_dist_minus_x_single": diff, "bound_2e-10_over_lambda_min": bound,
+                "single_device_cycles": ref["cycles"]})
+    if res["cycles"] != ref["cycles"]:
+        fail(f"solve_sparse_dist {name}: {res['cycles']} cycles, the single-device "
+             f"solve {ref['cycles']}")
+    if not diff <= bound:
+        fail(f"solve_sparse_dist {name}: ‖x_dist − x_single‖ = {diff:.3e} > {bound:.3e}")
+    if not res["partition_plan"][0] or launched.get("K6"):
+        fail(f"solve_sparse_dist {name}: plan {res['partition_plan']}, launches {launched}")
+    if per_cycle is not None:
+        res["K6_halo_per_cycle"] = launched.get("K6_halo", 0) / res["cycles"]
+        if not all(res["partition_plan"][:-1]) or res["K6_halo_per_cycle"] != per_cycle:
+            fail(f"solve_sparse_dist {name}: {launched} in {res['cycles']} cycles, "
+                 f"expected {per_cycle} K6h a cycle with every ELL level partitioned")
 
 
 def main():
@@ -3858,9 +4162,12 @@ def main():
     spmv_rows = phase_spmv(dev, copy_bw, solvers)
     k7_launches, k6_launches = phase_solve_sparse(dev, solvers)
     phase_solve_many_sparse(dev, solvers)
+    k6h_rows = phase_k6h(dev, copy_bw, solvers["ell"].hierarchy)
+    sparse_refs = sparse_dist_refs(dev, solvers)
     del solvers
     torch.cuda.empty_cache()
-    dist_runs = phase_solve_dist(dev)
+    dist_runs, sparse_dist_runs = phase_solve_dist(dev, copy_bw, sparse_refs, k6h_rows)
+    del sparse_refs
 
     def entry(name, source, replaces, launches, main_row, all_rows, key):
         return {
@@ -3941,6 +4248,14 @@ def main():
               dist_runs["diffusion_P2"]["launches_rank0"]["K4_halo"],
               next(r for r in halo_rows["K4"] if r["mode"] == "residual"),
               halo_rows["K4"], "K4_halo"),
+        # K6's halo form: an inner row block of the 1024² ELL level 0 cut in
+        # 4; launches on rank 0 of the two-rank ELL solve. It replaces the
+        # JAX package's shifted slices outside any Pallas kernel
+        entry("spmv_banded_halo (K6's halo form, a rank's rows)",
+              "openmg_tpu_torch/csrc/spmv_banded.cu",
+              "openmg_tpu/parallel/sparse_dist.py:167",
+              sparse_dist_runs["ell_v_P2"]["launches_rank0"]["K6_halo"],
+              k6h_rows[0], k6h_rows, "K6_halo"),
     ]}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

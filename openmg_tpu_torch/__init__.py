@@ -28,7 +28,10 @@ What is ported so far:
 * the distributed stencil engine (:func:`distributed_setup`,
   :class:`DistributedSolver`): levels cut into z-slabs over
   ``torch.distributed`` ranks (NCCL between cards, gloo on the CPU), halos
-  read inside the kernels, coarse levels replicated;
+  read inside the kernels, coarse levels replicated; and the distributed
+  general-sparse engine (:func:`setup_sparse_distributed`,
+  :class:`DistributedAlgebraicSolver`): ELL levels cut into row blocks,
+  banded ones with halo rows, irregular ones on gathered vectors;
 * checkpoint/resume of a solve (``utils/checkpoint.py``), profiler traces
   and solve reports (``utils/observe.py``), and the command line
   (``python -m openmg_tpu_torch``).
@@ -47,8 +50,9 @@ first use (:mod:`openmg_tpu_torch._build`):
 * ``ops/ell.py::spmv_ell`` and ``ops/bsr.py::spmv_bsr`` — the SpMV of a
   banded ELL and of a blocked-band BSR level of the sparse engine;
 * the halo forms of the first four (``halos=``, and
-  ``kernels.halo_half_sweep_const_3d`` / ``_vary_3d``) — the same work on a
-  rank's slab with the planes received from its neighbours.
+  ``kernels.halo_half_sweep_const_3d`` / ``_vary_3d``) and of the ELL SpMV
+  (``ops/ell.py::spmv_banded_halo``) — the same work on a rank's slab with
+  the planes or rows received from its neighbours.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``; on
 CPU tensors each kernel wrapper runs its plain PyTorch version.
@@ -80,6 +84,10 @@ from openmg_tpu_torch.ops.sparse import (
 from openmg_tpu_torch.ops.stencil import CorneredOperator, StencilOperator
 from openmg_tpu_torch.parallel.dist import DistributedSolver, distributed_setup
 from openmg_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+from openmg_tpu_torch.parallel.sparse_dist import (
+    DistributedAlgebraicSolver,
+    setup_sparse_distributed,
+)
 
 __version__ = "0.1.0"
 
@@ -95,6 +103,8 @@ __all__ = [
     "MeshConfig",
     "DistributedSolver",
     "distributed_setup",
+    "DistributedAlgebraicSolver",
+    "setup_sparse_distributed",
     "initialize_distributed",
     "make_mesh",
     "Hierarchy",

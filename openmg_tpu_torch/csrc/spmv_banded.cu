@@ -11,6 +11,10 @@
 //
 //   y[i] = sum_s data[s, i] * x[i + d_s]
 //
+// The halo form K6h (omg_spmv_banded_halo, at the end) runs the same body
+// at B = 1 on a rank's slab of rows, reading the H rows received from each
+// neighbour where they lie (term()'s source selector).
+//
 // Replaces openmg_tpu/ops/ell.py::spmv_ell (body _dia_kernel), which streams
 // data and a three-tile window of x and forms each shift with sublane slices
 // and lane rolls, and openmg_tpu/ops/bsr.py::spmv_bsr (body _bsr_kernel),
@@ -73,27 +77,44 @@ __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-// Term t = j*kb + s of row r (block row I).
+// The rows a rank's slab receives (K6h): lo holds the H rows below the
+// slab, hi the H rows above it (zeros at the domain's edges).
 template <typename T>
+struct Halo {
+    const T* lo;
+    const T* hi;
+    long long H;
+};
+
+// Term t = j*kb + s of row r (block row I).  HALO (B = 1 only): x is the
+// slab's m = nbr rows and row J of [lo | x | hi] is read where it lies, so
+// the caller never concatenates them; the slot offsets are at most H.
+template <typename T, bool HALO>
 __device__ __forceinline__ T term(
     const T* __restrict__ data, const int* offs, const T* __restrict__ x,
-    int t, int kb, int B, long long I, long long r, long long nbr,
-    long long n)
+    const Halo<T>& halo, int t, int kb, int B, long long I, long long r,
+    long long nbr, long long n)
 {
     const int j = t / kb;
     const int s = t - j * kb;
     const long long J = I + offs[s];
-    const T xv = (J >= 0 && J < nbr) ? __ldg(x + J * B + j) : T(0);
+    T xv;
+    if constexpr (HALO)
+        xv = J < 0 ? __ldg(halo.lo + halo.H + J)
+           : J < nbr ? __ldg(x + J) : __ldg(halo.hi + (J - nbr));
+    else
+        xv = (J >= 0 && J < nbr) ? __ldg(x + J * B + j) : T(0);
     return mul_rn(__ldg(data + ((long long)s * B + j) * n + r), xv);
 }
 
 // BC, KC > 0: the block size and slot count at compile time; 0: at run
-// time.  G lanes a row.
-template <typename T, int BC, int KC, int G>
+// time.  G lanes a row.  HALO: a rank's slab with its received rows (K6h).
+template <typename T, int BC, int KC, int G, bool HALO>
 __global__ void __launch_bounds__(THREADS) spmv_banded_kernel(
     const T* __restrict__ data, const __grid_constant__ Slots slots,
     const int* __restrict__ offs_dev, int k_run, int b_run,
-    const T* __restrict__ x, T* __restrict__ y, long long n)
+    const T* __restrict__ x, const __grid_constant__ Halo<T> halo,
+    T* __restrict__ y, long long n)
 {
     extern __shared__ int offs[];
     const int B = BC > 0 ? BC : b_run;
@@ -115,7 +136,7 @@ __global__ void __launch_bounds__(THREADS) spmv_banded_kernel(
         if (r < n) {
             const long long I = r / B;
             // lane g's terms t = g, g + G, ...: the first exists (G <= kb*B)
-            acc = term(data, offs, x, g, kb, B, I, r, nbr, n);
+            acc = term<T, HALO>(data, offs, x, halo, g, kb, B, I, r, nbr, n);
             // the terms a lane takes at most, where that is known
             constexpr int NT = BC > 0 && KC > 0 ? (BC * KC + G - 1) / G : 0;
             if constexpr (NT > 0 && NT <= 32) {
@@ -123,16 +144,16 @@ __global__ void __launch_bounds__(THREADS) spmv_banded_kernel(
                 for (int i = 1; i < NT; ++i) {
                     const int t = i * G + g;
                     if (t < nt)
-                        acc = add_rn(acc, term(data, offs, x, t, kb, B, I, r,
-                                               nbr, n));
+                        acc = add_rn(acc, term<T, HALO>(data, offs, x, halo, t,
+                                                        kb, B, I, r, nbr, n));
                 }
             } else {
                 // unrolled by 8: the loads of eight terms go out together
                 // without a register for every term of a long row
 #pragma unroll 8
                 for (int t = g + G; t < nt; t += G)
-                    acc = add_rn(acc, term(data, offs, x, t, kb, B, I, r,
-                                           nbr, n));
+                    acc = add_rn(acc, term<T, HALO>(data, offs, x, halo, t,
+                                                    kb, B, I, r, nbr, n));
             }
         }
 #pragma unroll
@@ -149,13 +170,33 @@ int blocks_for(long long threads)
     return (int)(b < cap ? (b < 1 ? 1 : b) : cap);
 }
 
-template <typename T, int BC, int KC, int G>
+// HALO: the m = n rows of a rank's slab with the rows it received (K6h,
+// B = 1, G = 1); else halo is unused.
+template <typename T, int BC, int KC, int G, bool HALO = false>
 void go(const T* data, const Slots& sl, const int* offs, int k, int B,
-        const T* x, T* y, long long n, cudaStream_t st)
+        const T* x, T* y, long long n, cudaStream_t st,
+        const Halo<T>& halo = Halo<T>{nullptr, nullptr, 0})
 {
-    spmv_banded_kernel<T, BC, KC, G>
+    spmv_banded_kernel<T, BC, KC, G, HALO>
         <<<blocks_for(n * G), THREADS, k * sizeof(int), st>>>(
-            data, sl, offs, k, B, x, y, n);
+            data, sl, offs, k, B, x, halo, y, n);
+}
+
+// A slot-offset ELL matrix (B = 1, one lane a row), whole (K6) or a rank's
+// slab (K6h): the common float32 slot counts at compile time.
+template <typename T, bool HALO>
+void ell(const T* data, const Slots& sl, const int* offs, int k, const T* x,
+         T* y, long long n, cudaStream_t st, const Halo<T>& halo)
+{
+    if constexpr (sizeof(T) == 4) {
+        switch (k) {
+        case 5: go<T, 1, 5, 1, HALO>(data, sl, offs, k, 1, x, y, n, st, halo); return;
+        case 7: go<T, 1, 7, 1, HALO>(data, sl, offs, k, 1, x, y, n, st, halo); return;
+        case 9: go<T, 1, 9, 1, HALO>(data, sl, offs, k, 1, x, y, n, st, halo); return;
+        default: break;
+        }
+    }
+    go<T, 1, 0, 1, HALO>(data, sl, offs, k, 1, x, y, n, st, halo);
 }
 
 template <typename T, int BC, int G>
@@ -187,12 +228,8 @@ void launch_f32(const float* data, const Slots& sl, const int* offs, int k,
                 cudaStream_t st)
 {
     if (B == 1) {  // ELL: one lane a row
-        switch (k) {
-        case 5: go<float, 1, 5, 1>(data, sl, offs, k, B, x, y, n, st); break;
-        case 7: go<float, 1, 7, 1>(data, sl, offs, k, B, x, y, n, st); break;
-        case 9: go<float, 1, 9, 1>(data, sl, offs, k, B, x, y, n, st); break;
-        default: go<float, 1, 0, 1>(data, sl, offs, k, B, x, y, n, st); break;
-        }
+        ell<float, false>(data, sl, offs, k, x, y, n, st,
+                          Halo<float>{nullptr, nullptr, 0});
         return;
     }
     switch (G) {
@@ -242,5 +279,41 @@ extern "C" int omg_spmv_banded(
     else
         launch_f32((const float*)data, sl, offs_dev, k, B, lanes,
                    (const float*)x, (float*)y, n, st);
+    return (int)cudaGetLastError();
+}
+
+// K6h, the halo form of the slot-offset ELL SpMV on a rank's slab of m
+// rows (B = 1):
+//
+//   y[i] = sum_s data[s, i] * xe[i + d_s + H],   xe = [lo | x | hi]
+//
+// data (k, m), x (m,), lo and hi (H,) of one type; the received rows are
+// read where they lie.  The same slot order and round-to-nearest products
+// and sums as the whole-vector kernel, so a slab's rows equal that
+// kernel's rows of the whole vector bit for bit.  Replaces no TPU kernel:
+// the JAX package forms these shifted slices with jnp outside any Pallas
+// kernel (openmg_tpu/parallel/sparse_dist.py::_spmv_banded_local).
+// Returns 0, a negative code for arguments the kernel does not take (an
+// offset beyond H among them), or the CUDA error of the launch.
+extern "C" int omg_spmv_banded_halo(
+    const void* data, const int* offs_host, const int* offs_dev, int k,
+    const void* x, const void* lo, const void* hi, long long H, void* y,
+    long long m, int is_double, void* stream)
+{
+    if (k < 1 || m < 1 || H < 0) return -1;
+    if (y == x || (H > 0 && (y == lo || y == hi))) return -3;
+    for (int i = 0; i < k; ++i)
+        if (offs_host[i] > H || -offs_host[i] > H) return -4;
+    Slots sl;
+    for (int i = 0; i < MAX_SLOTS; ++i) sl.d[i] = i < k ? offs_host[i] : 0;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (is_double)
+        ell<double, true>(
+            (const double*)data, sl, offs_dev, k, (const double*)x, (double*)y,
+            m, st, Halo<double>{(const double*)lo, (const double*)hi, H});
+    else
+        ell<float, true>(
+            (const float*)data, sl, offs_dev, k, (const float*)x, (float*)y,
+            m, st, Halo<float>{(const float*)lo, (const float*)hi, H});
     return (int)cudaGetLastError();
 }

@@ -15,6 +15,12 @@ launches.  The kernel is the blocked-band BSR kernel (K7,
 :mod:`openmg_tpu_torch.ops.bsr`) at block size 1, and
 :func:`spmv_banded_cuda` is the one launch of both.
 
+K6h (:func:`spmv_banded_halo`) is its halo form on a rank's slab of rows
+of the distributed sparse engine (:mod:`openmg_tpu_torch.parallel.
+sparse_dist`): the same sum over the slab's ``m`` rows with ``x`` extended
+by the ``H`` rows received from each neighbour, read in place by the
+kernel.  ``LAUNCHES_K6H`` counts its launches.
+
 The JAX package's tile-height and VMEM rules (``pick_tile_rows``), its size
 gate (``prefer_kernel``) and its lane shifts (``_shift_rows``) are that
 hardware's and are not copied: :func:`supports` asks only for a square,
@@ -37,10 +43,15 @@ __all__ = [
     "offsets_tensor",
     "check_operands",
     "spmv_banded_cuda",
+    "LAUNCHES_K6H",
+    "band_halo",
+    "spmv_banded_halo_plain",
+    "spmv_banded_halo",
 ]
 
-# launches of the slot-offset ELL kernel (K6)
+# launches of the slot-offset ELL kernel (K6) and of its halo form (K6h)
 LAUNCHES_K6 = 0
+LAUNCHES_K6H = 0
 
 
 def detect_slot_offsets(data, cols):
@@ -89,6 +100,7 @@ def spmv_banded_plain(data, slot_offsets, x):
 
 
 _fn = None
+_fn_halo = None
 _offsets_on = {}  # (slot offsets, device) -> int32 tensor of the offsets
 _offsets_host = {}  # slot offsets -> ctypes int array of them (by value)
 
@@ -105,6 +117,30 @@ def _kernel():
         fn.restype = i
         _fn = fn
     return _fn
+
+
+def _kernel_halo():
+    global _fn_halo
+    if _fn_halo is None:
+        from openmg_tpu_torch import _build
+
+        fn = _build.load().omg_spmv_banded_halo
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # data, offs (host), offs (device), k, x, lo, hi, H, y, m, dbl, stream
+        fn.argtypes = [p, p, p, i, p, p, p, ll, p, ll, i, p]
+        fn.restype = i
+        _fn_halo = fn
+    return _fn_halo
+
+
+def _host_offsets(slot_offsets):
+    """The slot offsets as a ctypes int array (by value to the kernel),
+    made once per offset tuple."""
+    key = tuple(int(d) for d in slot_offsets)
+    host = _offsets_host.get(key)
+    if host is None:
+        host = _offsets_host[key] = (ctypes.c_int * len(key))(*key)
+    return host
 
 
 def offsets_tensor(offsets, device) -> torch.Tensor:
@@ -155,10 +191,7 @@ def spmv_banded_cuda(what, data, slot_offsets, B, x, lanes=1):
         )
     dev = x.device
     offs = offsets_tensor(slot_offsets, dev)
-    key = tuple(int(d) for d in slot_offsets)
-    host = _offsets_host.get(key)
-    if host is None:
-        host = _offsets_host[key] = (ctypes.c_int * k)(*key)
+    host = _host_offsets(slot_offsets)
     y = torch.empty_like(x)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -186,4 +219,86 @@ def spmv_ell(M, x):
         raise ValueError(f"unsupported device {x.device}")
     y = spmv_banded_cuda("spmv_ell", M.data, M.slot_offsets, 1, x)
     LAUNCHES_K6 += 1
+    return y
+
+
+def band_halo(slot_offsets) -> int:
+    """``H = max |d_j|``: the rows a banded row reaches across a slab edge."""
+    return max((abs(int(d)) for d in slot_offsets), default=0)
+
+
+def spmv_banded_halo_plain(data, slot_offsets, x, lo, hi):
+    """Plain PyTorch version of K6h: ``y = Σ_j data[j] ⊙ xe[H + d_j : H +
+    d_j + m]`` with ``xe = [lo | x | hi]``, summed in slot order (the
+    shifted slices of the JAX package's ``_spmv_banded_local``).  Its rows
+    equal :func:`spmv_banded_plain`'s rows of the whole vector bit for
+    bit."""
+    H, m = lo.shape[0], x.shape[0]
+    xe = torch.cat([lo, x, hi]) if H else x
+    acc = None
+    for j, d in enumerate(slot_offsets):
+        t = data[j] * xe[H + int(d): H + int(d) + m]
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def check_halo_operands(data, slot_offsets, x, lo, hi):
+    """Raise unless ``data`` ``(k, m)``, ``x`` ``(m,)`` and the received
+    rows ``lo``, ``hi`` ``(H,)`` are what K6h takes: float32 or float64
+    alike, one device, contiguous, ``k`` slot offsets none beyond ``H``."""
+    what = "spmv_banded_halo"
+    ts = (data, x, lo, hi)
+    if data.dtype not in (torch.float32, torch.float64) or any(
+            t.dtype != data.dtype for t in ts):
+        raise ValueError(
+            f"{what} takes float32 or float64 operands of one type, got "
+            f"{[str(t.dtype) for t in ts]}"
+        )
+    if any(t.device != x.device for t in ts):
+        raise ValueError(f"{what}: operands on {[str(t.device) for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{what} takes contiguous operands")
+    if x.ndim != 1 or lo.ndim != 1 or hi.ndim != 1 or lo.shape != hi.shape:
+        raise ValueError(
+            f"{what}: x {tuple(x.shape)}, lo {tuple(lo.shape)}, hi "
+            f"{tuple(hi.shape)}: a slab and two halos of H rows"
+        )
+    m, H, k = x.shape[0], lo.shape[0], len(slot_offsets)
+    if tuple(data.shape) != (k, m):
+        raise ValueError(
+            f"{what}: data {tuple(data.shape)} for {k} slot offsets and {m} rows"
+        )
+    if band_halo(slot_offsets) > H:
+        raise ValueError(
+            f"{what}: slot offsets reach {band_halo(slot_offsets)} rows, the "
+            f"halos hold {H}"
+        )
+
+
+def spmv_banded_halo(data, slot_offsets, x, lo, hi):
+    """K6h: ``y = A_slab x`` on a rank's ``m`` rows of a banded ELL level
+    (``data`` its slot planes' columns ``(k, m)``), ``lo``/``hi`` the ``H``
+    rows received from the rank below / above (zeros at the domain's edges),
+    by the device of ``x``: the CUDA kernel on the card (``x`` is never
+    concatenated with its halos there), the plain version on the CPU."""
+    global LAUNCHES_K6H
+    check_halo_operands(data, slot_offsets, x, lo, hi)
+    if x.device.type == "cpu":
+        return spmv_banded_halo_plain(data, slot_offsets, x, lo, hi)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    dev = x.device
+    offs = offsets_tensor(slot_offsets, dev)
+    y = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _kernel_halo()(
+            data.data_ptr(), _host_offsets(slot_offsets), offs.data_ptr(),
+            len(slot_offsets), x.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            lo.shape[0], y.data_ptr(), x.shape[0],
+            int(x.dtype == torch.float64), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"omg_spmv_banded_halo failed with code {rc}")
+    LAUNCHES_K6H += 1
     return y

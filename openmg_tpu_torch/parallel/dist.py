@@ -100,6 +100,24 @@ def partition_plan(
     return tuple(plan)
 
 
+@dataclasses.dataclass(frozen=True)
+class LevelVisits:
+    """How the cycle runs a level's visit on this rank's slab: static (the
+    slab's shape, the operator, the config), built once by the solver
+    (:attr:`DistributedSolver.visits`), read by its cycle and by
+    :mod:`openmg_tpu_torch.parallel.model`.  A depth is K1h's halo depth
+    for that step (:mod:`openmg_tpu_torch.parallel.fast`'s predicates) and
+    None where the tier below takes it: K3h / K4h passes, a pass a launch,
+    and the tensor transfers.  ``chunks[iters]``: the K1h chunk lengths of
+    ``iters`` smoothing iterations (absent: a pass a launch)."""
+
+    pre: int | None = None  # pre-smoothing, residual and restriction
+    residual_restrict: int | None = None  # residual and restriction, no stages
+    post: int | None = None  # x + P ec and every post-smoothing stage
+    post_one: int | None = None  # x + P ec and one post stage (the rest apart)
+    chunks: dict = dataclasses.field(default_factory=dict)
+
+
 def _kind(A):
     if isinstance(A, CorneredOperator):
         return "corner"
@@ -129,9 +147,11 @@ def _unfaced(level):
 
 
 class _DistStep:
-    """One right-hand side's outer loop on this rank's slab.  ``rn`` is the
-    slab's LOCAL sum of ``r_hi²``; the loop reduces it over the ranks
-    (:meth:`DistributedSolver._norms`)."""
+    """One right-hand side's outer loop on this rank's slab (of either
+    distributed solver: ``solver`` provides ``dtype``, ``_error_solve``,
+    ``_residual_df`` and ``_fused_terms``, None where the outer step is not
+    K2's).  ``rn`` is the slab's LOCAL sum of ``r_hi²``; the loop reduces it
+    over the ranks (:meth:`_RankLoop._norms`)."""
 
     def __init__(self, solver, b_pair, x_pair):
         self.s, self.b = solver, b_pair
@@ -160,7 +180,86 @@ class _DistStep:
             self.r, self.rn = s._residual_df(self.b, self.x)
 
 
-class DistributedSolver:
+class _RankLoop:
+    """What the two distributed solvers share around their outer loops
+    (this one and :class:`~openmg_tpu_torch.parallel.sparse_dist.
+    DistributedAlgebraicSolver`): the reduction of the members' norms, the
+    delivery of the whole solution on every rank, and ``solve_many``.  A
+    subclass sets ``comm``, ``plan``, ``grid_shape``, ``config``, ``mesh``
+    and ``_tag`` and provides ``_step(b, x0)`` and ``_info(seconds)``."""
+
+    def _norms(self, rns):
+        """The pending members' ‖r‖ from their local sums: one reduction
+        and one host read for all of them."""
+        sums = torch.stack(rns)
+        total = self.comm.host_sums(sums) if self.plan[0] else sums.cpu()
+        return total.double().sqrt().tolist()
+
+    def _gather(self, t):
+        """The whole fine grid from every rank's slab."""
+        return self.comm.all_gather(t.contiguous()) if self.plan[0] else t
+
+    def _deliver(self, x_pair, native, info):
+        """The whole solution on every rank: float64 numpy (the exact merge
+        of the pair) for a host caller; for a float32 tensor caller the hi
+        part on the device, the pair in ``info['x_df']``."""
+        xh, xl = (self._gather(t) for t in x_pair)
+        shape = self.grid_shape
+        if native:
+            info["x_df"] = (xh.reshape(shape), xl.reshape(shape))
+            return info["x_df"][0]
+        return df_merge((xh, xl)).reshape(shape)
+
+    def solve_many(self, bs, x0s=None):
+        """A batch of right-hand sides in lockstep: every round advances
+        each member not yet converged one outer step and reduces the
+        members' norms in one ``all_reduce`` and one host read.  Returns
+        ``(xs, info)`` stacked as :meth:`solve` returns one (whole grids on
+        every rank), with per-member ``cycles``, ``converged``,
+        ``final_norm`` and ``residual_norms``."""
+        cfg = self.config
+        shape = self.grid_shape
+        native = isinstance(bs, torch.Tensor) and bs.dtype == torch.float32
+        members = list(bs.reshape((bs.shape[0],) + tuple(shape))) if native else list(bs)
+        K = len(members)
+        if x0s is None:
+            x0s = [None] * K
+        elif len(x0s) != K:
+            raise ValueError(f"{len(x0s)} initial guesses for {K} right-hand sides")
+        limit = cfg.cycles if cfg.cycles > 0 else 10_000
+        t_start = time.perf_counter()
+        steps = [self._step(b, x0)[0] for b, x0 in zip(members, x0s)]
+        histories, converged, _, reads = lockstep(
+            steps, limit, float(cfg.threshold),
+            lambda i, k, v: self._say(i, k, v, batch=True), None, self._norms,
+        )
+        info = {
+            "batch": K,
+            "cycles": [len(h) - 1 for h in histories],
+            "converged": converged,
+            "final_norm": [h[-1] for h in histories],
+            "residual_norms": histories,
+            **self._info(time.perf_counter() - t_start),
+            "host_reads": reads,
+        }
+        outs, pairs = [], []
+        for s in steps:
+            one = {}
+            outs.append(self._deliver(s.x, native, one))
+            pairs.append(one.get("x_df"))
+        if native:
+            info["x_df"] = (torch.stack([p[0] for p in pairs]),
+                            torch.stack([p[1] for p in pairs]))
+            return info["x_df"][0], info
+        return np.stack(outs), info
+
+    def _say(self, i, k, rnorm, batch=False):
+        if self.config.verbose and self.mesh.index == 0:
+            who = f" rhs {i}" if batch else ""
+            print(f"[openmg_tpu_torch/{self._tag}]{who} cycle {k}: ‖r‖ = {rnorm:.3e}")
+
+
+class DistributedSolver(_RankLoop):
     """Multi-rank solver: the contract of
     :class:`~openmg_tpu_torch.core.solver.Solver`, with every partitioned
     level cut into slabs over the ranks.  Only the double-float outer
@@ -195,6 +294,7 @@ class DistributedSolver:
             )
         self.hierarchy = hierarchy
         self.config = config
+        self._tag = "dist"
         self.device = torch.device(device) if device is not None else hierarchy.device
         self.dtype = torch.float32
         self.mesh_config = mc = mesh_config or MeshConfig()
@@ -263,6 +363,7 @@ class DistributedSolver:
             else None
         )
         self.gamma = {"v": 1, "w": 2, "f": 1}[config.cycle_type]
+        self.visits = tuple(self._visits(i) for i in range(len(shapes)))
 
     # -- the cycle ---------------------------------------------------------
 
@@ -276,14 +377,46 @@ class DistributedSolver:
             and self.coarsened_axes[level] == (0, 1, 2)
         )
 
+    def slab_shape(self, level):
+        """The shape of this rank's slab of ``level`` (the whole grid where
+        the level is replicated)."""
+        shape = tuple(int(v) for v in self.stats[level][0])
+        return (shape[0] // self.n_dev if self.plan[level] else shape[0],) + shape[1:]
+
+    def _visits(self, level) -> LevelVisits:
+        """The level's :class:`LevelVisits` (empty where it is replicated)."""
+        if not self.plan[level]:
+            return LevelVisits()
+        cfg, op, tr = self.config, self.ops[level], self.transfer
+        sm, om, pre, post = cfg.smoother, cfg.omega, cfg.pre_iterations, cfg.post_iterations
+        shape, dt = self.slab_shape(level), self.dtype
+        chunks = {}
+        for it in {pre, post, post - 1}:
+            sizes = fast.chunk_sizes(sm, op, shape, dt, it, om) if it > 0 else None
+            if sizes:
+                chunks[it] = sizes
+        if not self._deep(level):
+            return LevelVisits(chunks=chunks)
+        coarse = self.slab_shape(level + 1)[0]
+        return LevelVisits(
+            pre=fast.presmooth_depth(sm, op, shape, dt, pre, om, tr) if pre > 0 else None,
+            residual_restrict=fast.residual_restrict_depth(op, shape, dt, tr),
+            post=(fast.prolong_depth(sm, op, shape, coarse, dt, post, om, tr)
+                  if post > 0 else None),
+            post_one=(fast.prolong_depth(sm, op, shape, coarse, dt, 1, om, tr)
+                      if post > 1 else None),
+            chunks=chunks,
+        )
+
     def _smooth(self, level, b, x, iters):
         if iters <= 0:
             return x
         cfg, op, comm = self.config, self.ops[level], self.comm
+        sizes = self.visits[level].chunks.get(iters)
+        if sizes:
+            return fast.smooth_chunks_part(cfg.smoother, op, b, x, iters, cfg.omega,
+                                           comm, sizes)
         if self.kinds[level] in ("const", "corner"):
-            y = fast.smooth_chunks_part(cfg.smoother, op, b, x, iters, cfg.omega, comm)
-            if y is not None:
-                return y
             return fast.smooth_part(cfg.smoother, op, b, x, iters, cfg.omega, comm)
         return fast.smooth_part_vary(
             cfg.smoother, op, self.inv_diags[level], b, x, iters, cfg.omega, comm
@@ -341,35 +474,28 @@ class DistributedSolver:
             # cycle on the same data
             return v_cycle(h, b, x, level, pre, post, sm, om, self.gamma,
                            x_zero=x_zero)
-        op, tr = self.ops[level], self.transfer
-        deep = self._deep(level)
-        bc = None
-        if pre > 0 and deep:
-            out = fast.presmooth_restrict_part(
-                sm, op, b, None if x_zero else x, pre, om, tr, comm
+        op, tr, plan = self.ops[level], self.transfer, self.visits[level]
+        if plan.pre is not None:
+            x, bc = fast.presmooth_restrict_part(
+                sm, op, b, None if x_zero else x, pre, om, tr, comm, plan.pre
             )
-            if out is not None:
-                x, bc = out
-        if bc is None:
+        else:
             if x_zero or x is None:
                 x = torch.zeros_like(b)
             x = self._smooth(level, b, x, pre)
-            if deep:
-                bc = fast.residual_restrict_part(op, b, x, tr, comm)
-            if bc is None:
+            if plan.residual_restrict is not None:
+                bc = fast.residual_restrict_part(op, b, x, tr, comm, plan.residual_restrict)
+            else:
                 bc = self._restrict(level, self._residual(level, b, x))
         visits = 1 if level == h.num_levels - 2 else self.gamma
         ec = None
         for v in range(visits):
             ec = self._vc(level + 1, bc, ec, x_zero=(v == 0))
-        if post > 0 and deep:
-            y = fast.prolong_smooth_part(sm, op, b, x, ec, post, om, tr, comm)
-            if y is not None:
-                return y
-            if post > 1:
-                y = fast.prolong_smooth_part(sm, op, b, x, ec, 1, om, tr, comm)
-                if y is not None:
-                    return self._smooth(level, b, y, post - 1)
+        if plan.post is not None:
+            return fast.prolong_smooth_part(sm, op, b, x, ec, post, om, tr, comm, plan.post)
+        if plan.post_one is not None:
+            y = fast.prolong_smooth_part(sm, op, b, x, ec, 1, om, tr, comm, plan.post_one)
+            return self._smooth(level, b, y, post - 1)
         x = x + self._prolong(level, ec)
         return self._smooth(level, b, x, post)
 
@@ -455,22 +581,11 @@ class DistributedSolver:
                 acc = df_sub(acc, df_mul((self.fine_hi.coeff(k), self.fine_lo.coeff(k)), xs))
         return acc[0], torch.sum(acc[0] * acc[0])
 
-    def _norms(self, rns):
-        """The pending members' ‖r‖ from their local sums: one reduction
-        and one host read for all of them."""
-        sums = torch.stack(rns)
-        total = self.comm.host_sums(sums) if self.plan[0] else sums.cpu()
-        return total.double().sqrt().tolist()
-
     def _local(self, a):
         """This rank's rows of a whole fine grid (numpy float64 or a tensor
         on the rank's device)."""
         lo, hi = self.rows[0]
         return a[lo:hi]
-
-    def _gather(self, t):
-        """The whole fine grid from every rank's slab."""
-        return self.comm.all_gather(t.contiguous()) if self.plan[0] else t
 
     def _step(self, b, x0):
         shape = self.grid_shape
@@ -505,17 +620,6 @@ class DistributedSolver:
             "outer_loop": "host",
             "solve_time_s": solve_time,
         }
-
-    def _deliver(self, x_pair, native, info):
-        """The whole solution on every rank: float64 numpy (the exact merge
-        of the pair) for a host caller; for a float32 tensor caller the hi
-        part on the device, the pair in ``info['x_df']``."""
-        xh, xl = (self._gather(t) for t in x_pair)
-        shape = self.grid_shape
-        if native:
-            info["x_df"] = (xh.reshape(shape), xl.reshape(shape))
-            return info["x_df"][0]
-        return df_merge((xh, xl)).reshape(shape)
 
     def solve(self, b, x0=None, *, checkpoint_path=None, checkpoint_every: int = 1,
               resume: bool = False):
@@ -557,53 +661,14 @@ class DistributedSolver:
         }
         return self._deliver(step.x, native, info), info
 
-    def solve_many(self, bs, x0s=None):
-        """A batch of right-hand sides in lockstep: every round advances
-        each member not yet converged one outer step and reduces the
-        members' norms in one ``all_reduce`` and one host read.  Returns
-        ``(xs, info)`` stacked as :meth:`solve` returns one (whole grids on
-        every rank), with per-member ``cycles``, ``converged``,
-        ``final_norm`` and ``residual_norms``."""
-        cfg = self.config
-        shape = self.grid_shape
-        native = isinstance(bs, torch.Tensor) and bs.dtype == torch.float32
-        members = list(bs.reshape((bs.shape[0],) + tuple(shape))) if native else list(bs)
-        K = len(members)
-        if x0s is None:
-            x0s = [None] * K
-        elif len(x0s) != K:
-            raise ValueError(f"{len(x0s)} initial guesses for {K} right-hand sides")
-        limit = cfg.cycles if cfg.cycles > 0 else 10_000
-        t_start = time.perf_counter()
-        steps = [self._step(b, x0)[0] for b, x0 in zip(members, x0s)]
-        histories, converged, _, reads = lockstep(
-            steps, limit, float(cfg.threshold),
-            lambda i, k, v: self._say(i, k, v, batch=True), None, self._norms,
-        )
-        info = {
-            "batch": K,
-            "cycles": [len(h) - 1 for h in histories],
-            "converged": converged,
-            "final_norm": [h[-1] for h in histories],
-            "residual_norms": histories,
-            **self._info(time.perf_counter() - t_start),
-            "host_reads": reads,
-        }
-        outs, pairs = [], []
-        for s in steps:
-            one = {}
-            outs.append(self._deliver(s.x, native, one))
-            pairs.append(one.get("x_df"))
-        if native:
-            info["x_df"] = (torch.stack([p[0] for p in pairs]),
-                            torch.stack([p[1] for p in pairs]))
-            return info["x_df"][0], info
-        return np.stack(outs), info
-
-    def _say(self, i, k, rnorm, batch=False):
-        if self.config.verbose and self.mesh.index == 0:
-            who = f" rhs {i}" if batch else ""
-            print(f"[openmg_tpu_torch/dist]{who} cycle {k}: ‖r‖ = {rnorm:.3e}")
+def rank_device(device=None):
+    """A rank's device: ``cuda:{LOCAL_RANK}`` for None or an unnumbered
+    ``"cuda"`` (a rank's own card; never the CPU by itself), else
+    ``device``."""
+    device = _default_device() if device is None else torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    return device
 
 
 def _default_device():
@@ -632,9 +697,7 @@ def distributed_setup(
     """
     from openmg_tpu_torch.core.solver import setup
 
-    device = _default_device() if device is None else torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    device = rank_device(device)
     if not dist.is_initialized():
         initialize_distributed(device=device)
     config = config or SolverConfig(residual_dtype="doublefloat")

@@ -24,8 +24,13 @@ boundary rows of a zero-halo pass afterwards instead; the port has no such
 epilogue).  The fused visits take 3D slabs only, as in the JAX package.
 
 Every function takes the partition axis as a
-:class:`~openmg_tpu_torch.parallel.halo.Comm` and returns None where its
-tier does not take the case (the caller then takes the next tier down).
+:class:`~openmg_tpu_torch.parallel.halo.Comm`.  Whether K1h takes a visit,
+and at which halo depth, is a static function of the slab's shape, the
+operator and the config: the ``*_depth`` and :func:`chunk_sizes` predicates
+say it, the distributed solver evaluates them once a level
+(:attr:`~openmg_tpu_torch.parallel.dist.DistributedSolver.visits`), and its
+cycle and the communication model (:mod:`openmg_tpu_torch.parallel.model`)
+both read that plan.  A visit function takes the depth the plan gives it.
 """
 
 from __future__ import annotations
@@ -43,6 +48,10 @@ __all__ = [
     "residual_part",
     "smooth_part_vary",
     "residual_part_vary",
+    "chunk_sizes",
+    "presmooth_depth",
+    "prolong_depth",
+    "residual_restrict_depth",
     "smooth_chunks_part",
     "presmooth_restrict_part",
     "prolong_smooth_part",
@@ -170,12 +179,66 @@ def smooth_part_vary(name, op, inv_diag, b, x, iterations, omega, comm):
 # ---------------------------------------------------------------------------
 
 
-def _fusable(op, b) -> bool:
+def _fusable(op, shape, dtype) -> bool:
     return (
-        b.ndim == 3 and b.dtype == torch.float32 and is_fast_op(op)
+        len(shape) == 3 and dtype == torch.float32 and is_fast_op(op)
         and len(op.offsets) <= 27
         and all(abs(o) <= 1 for off in op.offsets for o in off)
     )
+
+
+def chunk_sizes(name, op, shape, dtype, iterations, omega):
+    """The K1h launches that smooth ``iterations`` on a slab of ``shape``:
+    their chunk lengths (the first the widest), or None where smoothing
+    runs a pass a launch."""
+    if not _fusable(op, shape, dtype):
+        return None
+    stages = fused.stages_for(name, iterations, omega)
+    if not stages or len(stages) < 2:
+        return None
+    c_max = min(len(stages), fused.MAX_DEPTH, shape[0])
+    if c_max < 2:
+        return None
+    sizes, rest = [], len(stages)
+    while rest:
+        sizes.append(min(c_max, rest))
+        rest -= sizes[-1]
+    return tuple(sizes)
+
+
+def presmooth_depth(name, op, shape, dtype, iterations, omega, transfer):
+    """The halo depth of K1h's pre-smoothing + residual + restriction visit
+    on a slab of ``shape``, or None where the tier does not take it."""
+    if not _fusable(op, shape, dtype) or not fused._transfer_ok(shape, transfer):
+        return None
+    stages = fused.stages_for(name, iterations, omega)
+    if not stages:
+        return None
+    depth = fused.halo_depth(len(stages), True, True, False)
+    return depth if depth <= fused.MAX_DEPTH and depth <= shape[0] else None
+
+
+def prolong_depth(name, op, shape, coarse_rows, dtype, iterations, omega, transfer):
+    """The halo depth of K1h's ``x + P ec`` + post-smoothing visit on a slab
+    of ``shape`` over a coarse slab of ``coarse_rows`` planes, or None."""
+    if not _fusable(op, shape, dtype) or not fused._transfer_ok(shape, transfer):
+        return None
+    stages = fused.stages_for(name, iterations, omega)
+    if stages is None:
+        return None
+    depth = fused.halo_depth(len(stages), False, False, True)
+    if len(stages) > fused.MAX_DEPTH or depth > shape[0] or depth // 2 + 1 > coarse_rows:
+        return None
+    return depth
+
+
+def residual_restrict_depth(op, shape, dtype, transfer):
+    """The halo depth of K1h's residual + restriction visit (no stages), or
+    None."""
+    if not _fusable(op, shape, dtype) or not fused._transfer_ok(shape, transfer):
+        return None
+    depth = fused.halo_depth(0, True, True, False)
+    return depth if depth <= shape[0] else None
 
 
 def _halos(comm, b, x, depth, ec=None):
@@ -193,24 +256,16 @@ def _halos(comm, b, x, depth, ec=None):
     return open_flags(comm), got[0], x_pair, ec_pair
 
 
-def smooth_chunks_part(name, op, b, x, iterations, omega, comm):
-    """Smoothing stages in chunks of up to ``MAX_DEPTH``, each chunk one
+def smooth_chunks_part(name, op, b, x, iterations, omega, comm, sizes):
+    """Smoothing stages in the chunks of :func:`chunk_sizes`, each chunk one
     launch of K1's halo form with chunk-deep slabs (``b``'s exchanged once
-    at the widest chunk, ``x``'s before each chunk).  Returns the smoothed
-    ``x`` or None where the tier does not take the case."""
-    if not _fusable(op, b):
-        return None
+    at the widest chunk, ``x``'s before each chunk)."""
     stages = fused.stages_for(name, iterations, omega)
-    if not stages or len(stages) < 2:
-        return None
-    c_max = min(len(stages), fused.MAX_DEPTH, b.shape[0])
-    if c_max < 2:
-        return None
+    c_max = sizes[0]
     flags = open_flags(comm)
     b_lo, b_hi = comm.exchange([(b, c_max, c_max)])[0]
     rest = list(stages)
-    while rest:
-        c = min(c_max, len(rest))
+    for c in sizes:
         chunk, rest = rest[:c], rest[c:]
         # the b slabs of a shorter chunk: the neighbours' last / first c
         b_pair = (b_lo[c_max - c:], b_hi[:c])
@@ -222,54 +277,32 @@ def smooth_chunks_part(name, op, b, x, iterations, omega, comm):
     return x
 
 
-def presmooth_restrict_part(name, op, b, x, iterations, omega, transfer, comm):
+def presmooth_restrict_part(name, op, b, x, iterations, omega, transfer, comm, depth):
     """Pre-smoothing (from zero, or from ``x``), the residual and its
-    restriction on the slab: one launch of K1's halo form, the fine
-    residual never stored.  Both this level and the next are partitioned
-    (the coarse slab is the rank's: slabs are even).  Returns ``(x,
-    bc_local)`` or None."""
-    if not _fusable(op, b) or not fused._transfer_ok(b.shape, transfer):
-        return None
-    stages = fused.stages_for(name, iterations, omega)
-    if not stages:
-        return None
-    depth = fused.halo_depth(len(stages), True, True, False)
-    if depth > fused.MAX_DEPTH or depth > b.shape[0]:
-        return None
+    restriction on the slab: one launch of K1's halo form at the halo depth
+    of :func:`presmooth_depth`, the fine residual never stored.  Both this
+    level and the next are partitioned (the coarse slab is the rank's:
+    slabs are even).  Returns ``(x, bc_local)``."""
     return fused.presmooth_restrict_fused(
         name, op, b, x, iterations, omega, transfer,
         halos=_halos(comm, b, x, depth),
     )
 
 
-def prolong_smooth_part(name, op, b, x, ec, iterations, omega, transfer, comm):
+def prolong_smooth_part(name, op, b, x, ec, iterations, omega, transfer, comm, depth):
     """``x + P ec`` and the post-smoothing on the slab: one launch of K1's
-    halo form (slabs of ``b``, ``x`` and the coarse ``ec``).  Returns the
-    smoothed ``x`` or None."""
-    if not _fusable(op, b) or not fused._transfer_ok(b.shape, transfer):
-        return None
-    stages = fused.stages_for(name, iterations, omega)
-    if stages is None:
-        return None
-    depth = fused.halo_depth(len(stages), False, False, True)
-    if (len(stages) > fused.MAX_DEPTH or depth > b.shape[0]
-            or depth // 2 + 1 > ec.shape[0]):
-        return None
+    halo form (slabs of ``b``, ``x`` and the coarse ``ec``) at the depth of
+    :func:`prolong_depth`.  Returns the smoothed ``x``."""
     return fused.prolong_smooth_fused(
         name, op, b, x, ec, iterations, omega, transfer,
         halos=_halos(comm, b, x, depth, ec),
     )
 
 
-def residual_restrict_part(op, b, x, transfer, comm):
+def residual_restrict_part(op, b, x, transfer, comm, depth):
     """The residual and its restriction on the slab, no stages: one launch
-    of K1's halo form (two-deep slabs of ``b`` and ``x``).  Returns the
-    coarse slab ``bc`` or None."""
-    if not _fusable(op, b) or not fused._transfer_ok(b.shape, transfer):
-        return None
-    depth = fused.halo_depth(0, True, True, False)
-    if depth > b.shape[0]:
-        return None
+    of K1's halo form (slabs of ``b`` and ``x`` at the depth of
+    :func:`residual_restrict_depth`).  Returns the coarse slab ``bc``."""
     return fused.residual_restrict_fused(
         op, b, x, transfer, halos=_halos(comm, b, x, depth)
     )

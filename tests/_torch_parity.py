@@ -8,11 +8,25 @@ x64, so the cast is explicit) and as a float32 CPU tensor to the port.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 # the test run uses several worker processes; one thread each is enough at
 # these sizes and keeps them from oversubscribing the machine
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_blas_thread():
+    """numpy's BLAS on one thread while a port test module runs (each
+    ``tests/test_torch_*.py`` imports this fixture).  Its default, a thread
+    per core in every test worker, spins and doubled the CPU time of the
+    port's tests beside the JAX package's; the limit is lifted when the
+    module ends, so the JAX package's own test files keep their setting."""
+    from threadpoolctl import threadpool_limits
+
+    with threadpool_limits(1, user_api="blas"):
+        yield
 
 
 def rand(shape, seed):

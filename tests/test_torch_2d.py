@@ -32,6 +32,7 @@ from openmg_tpu_torch.utils.convert import hierarchy_from_numpy
 from _torch_parity import (
     assert_close, port_op, rand, spec_from_jax_hierarchy, to_j, to_n, to_t,
 )
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 SHAPE = (64, 128)
 CFG_KW = dict(

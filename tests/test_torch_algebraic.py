@@ -34,6 +34,7 @@ from openmg_tpu_torch.utils.convert import sparse_hierarchy_from_numpy
 from _torch_parity import (
     non_stencil_spd, rand, sparse_spec_from_jax_hierarchy, to_j, to_n, to_t,
 )
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 
 def _rhs(n, seed):

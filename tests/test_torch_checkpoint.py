@@ -16,6 +16,7 @@ import openmg_tpu as jmg
 import openmg_tpu_torch as tmg
 from openmg_tpu.utils import checkpoint as jck
 from openmg_tpu_torch.utils import checkpoint as tck
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 SHAPE = (8, 8, 16)
 KW = dict(smoother="jacobi", pre_iterations=1, post_iterations=1, transfer="linear",

@@ -14,6 +14,7 @@ import pytest
 from openmg_tpu import cli as jcli
 from openmg_tpu_torch import cli as tcli
 from openmg_tpu_torch.utils import observe as tobs
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ARGS = ["--shape", "8", "8", "16", "--smoother", "jacobi", "--transfer", "linear",

@@ -29,6 +29,7 @@ from openmg_tpu_torch.core import cycle as tcycle
 from openmg_tpu_torch.utils.convert import hierarchy_from_numpy
 
 from _torch_parity import assert_close, rand, spec_from_jax_hierarchy, to_j, to_t
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 OMEGA = 2.0 / 3.0
 

@@ -24,6 +24,7 @@ from openmg_tpu_torch.ops import galerkin as tgal
 from openmg_tpu_torch.ops.transfer import TRANSFERS as TTRANSFERS
 
 from _torch_parity import to_j, to_n
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 SHAPE = (16, 16, 16)
 # two levels against the reference (its setup program and solve compile for

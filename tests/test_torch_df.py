@@ -20,6 +20,7 @@ from openmg_tpu_torch.ops import kernels as tkernels
 from openmg_tpu_torch.core.solver import _residual_norm_df_exact
 
 from _torch_parity import to_j, to_n
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 SHAPE = (4, 8, 128)
 OFFSETS = poisson_offsets(3)

@@ -17,50 +17,31 @@ double-float floor), and ‖x_port − x_ref‖₂ ≤ 2e-10/λ_min (both below 
 arithmetic).
 
 Time: each mesh is ONE spawn of its ranks (``tests/_torch_dist_worker.py``,
-which imports torch and the port only) running all its cases, through a
-file store under ``tmp_path`` (no port to collide on between test workers),
-with a time limit on every wait; the JAX package's solves run once, in a
-module fixture, with its host loop (cheaper to compile than its
-device loop at this size).
+which imports torch and the port only) running all its cases (the sparse
+engine's and the model's too), through a file store (no port to collide on
+between test workers), with a time limit on every wait, once a test session
+(``tests/_torch_dist_cases.py``); the JAX package's solves run once, in a
+module fixture, with its host loop (cheaper to compile than its device loop
+at this size).
 """
-
-import json
-import os
-import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
 
-ROOT = pathlib.Path(__file__).resolve().parent.parent
-WORKER = pathlib.Path(__file__).resolve().parent / "_torch_dist_worker.py"
-TIMEOUT_S = 120
-CFG = dict(smoother="rbgs", transfer="linear", residual_dtype="doublefloat",
-           gridlevels=3, cycles=60)
-CASES = {
-    # name: (ranks, config overrides, mesh)
-    "v": (2, {}, {"n_devices": 2}),
-    "w": (2, {"cycle_type": "w"}, {"n_devices": 2}),
-    "f": (2, {"cycle_type": "f"}, {"n_devices": 2}),
-    "pcg2_mesh2x2": (4, {"krylov": "pcg", "krylov_iters": 2}, {"mesh_shape": [2, 2]}),
-}
+from _torch_dist_cases import (
+    CASES,
+    CFG_2D,
+    SHAPE_2D,
+    assert_solves_agree as _agree,
+    config_of,
+    lam_min,
+    results,
+    shape_of,
+)
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
-
-# a 2D grid cut along y: its passes run on (ny, 1, nx) slabs
-SHAPE_2D = (64, 32)
-CFG_2D = dict(CFG, max_dense_coarse=4096)
 # the cases held against the JAX package's DistributedSolver
 REFERENCE = ("v", "pcg2_mesh2x2", "v2d")
-
-
-def shape_of(P):
-    return (max(32, 8 * P), 8, 16)
-
-
-def config_of(name):
-    P, over, _ = CASES[name]
-    return dict(CFG, max_dense_coarse=int(np.prod(shape_of(P))), **over)
 
 
 def case_of(name):
@@ -71,67 +52,12 @@ def case_of(name):
 
 
 def assert_solves_agree(hist, x, want_hist, want_x, shape):
-    assert len(hist) == len(want_hist), (hist, want_hist)
-    np.testing.assert_allclose(hist, want_hist, rtol=1e-3)
-    assert hist[-1] < 1e-10
-    assert x.shape == shape
-    assert np.linalg.norm((x - want_x).ravel()) <= 2e-10 / lam_min(shape)
-
-
-def lam_min(shape):
-    return sum(2 - 2 * np.cos(np.pi / (n + 1)) for n in shape)
-
-
-def spawn(tmp, world, cases):
-    """Run ``cases`` on ``world`` gloo ranks; rank 0's results."""
-    cases_json = tmp / "cases.json"
-    cases_json.write_text(json.dumps(cases))
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
-    env.pop("JAX_PLATFORMS", None)
-    procs = [
-        subprocess.Popen(
-            [sys.executable, str(WORKER), str(r), str(world), str(tmp / "store"),
-             str(cases_json), str(tmp / "out")],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)
-    ]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
-    with np.load(tmp / "out.npz") as z:
-        return {k: z[k] for k in z.files}
-
-
-def port_cases(world):
-    out = []
-    for name, (P, _, mesh) in CASES.items():
-        if P == world:
-            out.append({"name": name, "shape": shape_of(P), "config": config_of(name),
-                        "mesh": mesh})
-    if world == 2:
-        out.append({"name": "v_resumed", "shape": shape_of(2), "config": config_of("v"),
-                    "mesh": CASES["v"][2], "cut": 3})
-        out.append({"name": "v2d", "shape": SHAPE_2D, "config": CFG_2D,
-                    "mesh": {"n_devices": 2}})
-        out.append({"name": "v_many", "shape": shape_of(2), "config": config_of("v"),
-                    "mesh": CASES["v"][2], "many": [0, 5]})
-    return out
+    _agree(hist, x, want_hist, np.asarray(want_x).reshape(shape), lam_min(shape))
 
 
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
-    res = {}
-    for world in (2, 4):
-        res.update(spawn(tmp_path_factory.mktemp(f"ranks{world}"), world,
-                         port_cases(world)))
-    return res
+    return results(tmp_path_factory)
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,7 @@ from openmg_tpu_torch.ops import stencil as tst
 from openmg_tpu_torch.ops import transfer as ttr
 
 from _torch_parity import assert_close, port_op, rand, to_j, to_t
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 OMEGA = 2.0 / 3.0
 LIN_KW = dict(smoother="rbgs", transfer="linear", residual_dtype="doublefloat")

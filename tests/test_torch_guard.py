@@ -7,10 +7,13 @@ import subprocess
 import sys
 
 import pytest
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "openmg_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py"]
+    ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py",
+    ROOT / "tests" / "_torch_dist_cases.py",
+    ROOT / "scripts" / "dryrun_multichip_torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "openmg_tpu")
 
 
@@ -38,13 +41,14 @@ def test_port_has_all_its_modules():
         "openmg_tpu_torch/ops/transfer.py", "openmg_tpu_torch/utils/convert.py",
         "openmg_tpu_torch/core/algebraic.py", "openmg_tpu_torch/ops/sparse.py",
         "openmg_tpu_torch/ops/ell.py", "openmg_tpu_torch/ops/bsr.py",
-        "openmg_tpu_torch/models/elasticity.py",
+        "openmg_tpu_torch/models/elasticity.py", "openmg_tpu_torch/models/spd.py",
         "openmg_tpu_torch/utils/oracle.py",
         "openmg_tpu_torch/utils/checkpoint.py", "openmg_tpu_torch/utils/observe.py",
         "openmg_tpu_torch/cli.py", "openmg_tpu_torch/__main__.py",
         "openmg_tpu_torch/parallel/mesh.py", "openmg_tpu_torch/parallel/halo.py",
         "openmg_tpu_torch/parallel/fast.py", "openmg_tpu_torch/parallel/dist.py",
-        "chip_smoke.py",
+        "openmg_tpu_torch/parallel/sparse_dist.py", "openmg_tpu_torch/parallel/model.py",
+        "scripts/dryrun_multichip_torch.py", "chip_smoke.py",
     ):
         assert want in names, want
     assert (ROOT / "openmg_tpu_torch/csrc/fused_stages.cu").exists()
@@ -70,7 +74,8 @@ def test_import_leaves_jax_out():
         "openmg_tpu_torch.utils.checkpoint, openmg_tpu_torch.utils.observe, "
         "openmg_tpu_torch.cli, openmg_tpu_torch.parallel.mesh, "
         "openmg_tpu_torch.parallel.halo, openmg_tpu_torch.parallel.fast, "
-        "openmg_tpu_torch.parallel.dist, openmg_tpu_torch._build; "
+        "openmg_tpu_torch.parallel.dist, openmg_tpu_torch.parallel.sparse_dist, "
+        "openmg_tpu_torch.parallel.model, openmg_tpu_torch._build; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'openmg_tpu')]; "
         "assert not bad, bad"
     )

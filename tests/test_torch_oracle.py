@@ -15,6 +15,7 @@ import openmg_tpu_torch as tmg
 from openmg_tpu.utils import oracle as jor
 from openmg_tpu_torch.models import poisson as tpoisson
 from openmg_tpu_torch.utils import oracle as tor
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 PARAMS = {"problemshape": (16, 16), "gridlevels": 3, "iterations": 2,
           "post_iterations": 1, "cycles": 30, "threshold": 1e-10}

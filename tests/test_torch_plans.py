@@ -25,6 +25,7 @@ from openmg_tpu_torch.ops import kernels as tkernels
 from openmg_tpu_torch.ops.transfer import TRANSFERS as TTRANSFERS
 
 from _torch_parity import assert_close, port_op, rand, to_j, to_n, to_t
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 OMEGA = 2.0 / 3.0
 SMS = 132  # the H100's SMs, as the wrappers read them on the card

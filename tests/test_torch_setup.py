@@ -25,6 +25,7 @@ from openmg_tpu_torch.ops import stencil as tst
 from openmg_tpu_torch.ops import transfer as ttr
 
 from _torch_parity import assert_close, port_op, rand, to_j, to_n, to_t
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 SHAPE = (32, 32, 64)
 CFG_KW = dict(

@@ -26,6 +26,7 @@ from openmg_tpu_torch.ops import smoothers as tsm
 from openmg_tpu_torch.ops import stencil as tst
 
 from _torch_parity import assert_close, port_op, rand, to_j, to_n, to_t
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 OMEGA = 2.0 / 3.0
 SHAPES = {"3d": (16, 16, 16), "2d": (16, 16)}

@@ -19,6 +19,7 @@ from openmg_tpu_torch.core import hierarchy as thier
 from openmg_tpu_torch.utils.convert import hierarchy_from_numpy
 
 from _torch_parity import assert_close, rand, spec_from_jax_hierarchy, to_n, to_t
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 SHAPE = (32, 32, 64)
 CFG_KW = dict(

@@ -32,6 +32,7 @@ from openmg_tpu_torch.ops import sparse as tsparse
 from openmg_tpu_torch.ops.transfer import LINEAR
 
 from _torch_parity import non_stencil_spd, rand, to_j, to_n, to_t
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 
 MATRICES = {

@@ -36,6 +36,7 @@ from openmg_tpu_torch.ops.transfer import TRANSFERS as TTRANSFERS
 from openmg_tpu_torch.utils.convert import hierarchy_from_numpy
 
 from _torch_parity import assert_close, rand, spec_from_jax_hierarchy, to_j, to_n, to_t
+from _torch_parity import one_blas_thread  # noqa: F401  (autouse)
 
 KSHAPE = (8, 8, 128)  # the shape of tests/test_kernels.py
 OMEGA = 2.0 / 3.0
