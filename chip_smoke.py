@@ -18,6 +18,18 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                generic tap count), and times both; a visit of 14 Jacobi
                stages, deeper than one launch takes, must be
                ⌈14 / MAX_DEPTH⌉ launches;
+3a. ``batch_kernels`` the batched forms at K = 8 (the reference's kernels
+               under ``jax.vmap``): K1b's down-leg, up-leg with ``ec``,
+               residual with restriction and down-leg from x on 256³ and on
+               the cornered 128³, 64³ and 32³ levels (the shape it took,
+               resident or marching, beside the scalar launch's), K2b on
+               256³ and on the 4096² lift, K5b's down-leg and up-leg on
+               4096² and the cornered 2048² and 256² levels; each held
+               against its batched plain version with the scalar kernel's
+               tolerance (K2b bit for bit) and against K launches of the
+               scalar kernel, bit for bit member by member; device ms of
+               one batched launch beside K scalar launches and K × the
+               scalar bound;
 4. ``solve``   the 3D Poisson 256³ defect-correction solve (five levels,
                V(2,2) red-black, linear transfers, double-float outer loop)
                from a float32 tensor on the card, checked in float64 on the
@@ -141,12 +153,15 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                two launches of K1 or K5, one K2 launch an outer step), and
                the (32, 32, 64) solve with W, FMG and PCG(2) on the card
                against the CPU;
-13. ``solve_many`` ``Solver.solve_many`` at 256³ and at (64, 64, 128),
-               K=8 (seeds 1-8): each member's cycles and pair bit-equal to
-               its scalar solve on the card, one host read of the batch's
-               norms a step (the loop's count and the profiler's count of
-               device-to-host copies), ms per right-hand side beside the
-               scalar solve's, and from numpy input;
+13. ``solve_many`` ``Solver.solve_many`` at 256³, at (64, 64, 128) and
+               at 4096², K=8 (seeds 1-8): one K1b (K5b in 2D) launch a
+               level visit and one K2b launch an outer step for the whole
+               batch, no scalar K1, K2 or K5 launch; each member's cycles
+               and pair bit-equal to its scalar solve on the card, one host
+               read of the batch's norms a step (the loop's count and the
+               profiler's count of device-to-host copies), ms per
+               right-hand side beside the scalar solve's, peak memory, and
+               from numpy input;
 14. ``solve_pcg`` (after ``solve_vary``) the 256³ Poisson, 4096² Poisson
                and 256³ diffusion solves with ``krylov="pcg",
                krylov_iters=2`` (K1, K5 or K4 legs, two cycles an outer
@@ -231,6 +246,10 @@ same order of summation, but nvcc fuses multiply-adds and the region rows
 divide where the plain version divides too — a few ulp.  K2
 (``df_update_residual_const_3d``): ``x_hi'``, ``x_lo'``, ``r_hi`` equal bit
 for bit; the partial sums' total within 1e-6 relative of ``sum(r_hi²)``.
+The batched forms K1b, K2b, K5b take their scalar kernel's tolerance
+against their batched plain versions, and are held bit for bit, member by
+member, against the scalar kernel's launch on that member (K2b's partial
+row and the norm ``kernels.df_norms`` makes of it too).
 K6h against ``spmv_banded_halo_plain`` and the whole-vector K6's rows: bit
 for bit by design (the same slot order and round-to-nearest arithmetic),
 failing only beyond K6's tolerance.
@@ -381,6 +400,15 @@ def time_ms(fn, reps, warm=2):
 def randn(shape, seed, dev, scale=1.0):
     a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
     return torch.from_numpy(a * np.float32(scale)).to(dev)
+
+
+def randn_card(shape, seed, dev, scale=1.0, dtype=torch.float32):
+    """Normal random numbers made on the card from ``seed`` (the batched
+    phases' operands: eight members a case, too many to draw on the host
+    within the script's time)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev, dtype=dtype) * scale
 
 
 def check_outputs(what, outs, got, ref, b):
@@ -701,6 +729,250 @@ def phase_kernels(dev, copy_bw):
         "timed_launches": reps,
     })
     return rows, k2_rows, coarse_ms
+
+
+# ---------------------------------------------------------------------------
+# the batched forms K1b, K2b, K5b (solve_many's kernels)
+# ---------------------------------------------------------------------------
+
+BATCH_K = 8  # members of a batch, as in solve_many
+
+
+def tup(t):
+    return t if isinstance(t, tuple) else (t,)
+
+
+def batch_case(what, outs, run_b, run_m, run_plain, b, K, bound, copy_bw,
+               reps=10):
+    """One batched launch (``run_b()``) held against its batched plain
+    version with the scalar kernel's tolerance, and member by member
+    against the scalar kernel's launch on that member (``run_m(m)``) bit
+    for bit.  Device ms of the batched launch beside K scalar launches
+    (rotating over the members) and K × the scalar bound (``bound``: the
+    scalar call's (bytes, flops))."""
+    got = tup(run_b())
+    torch.cuda.synchronize()
+    ref = tup(run_plain())
+    torch.cuda.synchronize()
+    worst, errs = check_outputs(what, outs, got, ref, b)
+    del ref
+    for m in range(K):
+        one = tup(run_m(m))
+        for name, g, r in zip(outs, got, one):
+            if not torch.equal(g[m], r):
+                err = float((g[m] - r).abs().max())
+                fail(f"{what}: member {m} output {name} is not bit-equal to "
+                     f"the scalar launch (max {err:.3e})")
+        del one
+    del got
+    nbytes, flops = (K * v for v in bound)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    ms = device_ms([run_b], reps)
+    scalar_ms = device_ms([functools.partial(run_m, m) for m in range(K)], 2 * K)
+    return {
+        "case": what, "K": K, "errors": errs, "max_abs_err": worst,
+        "bit_equal_to_scalar_per_member": True,
+        "ms": ms, "ms_per_member": ms / K, "scalar_ms": scalar_ms,
+        "K_times_scalar_ms": K * scalar_ms, "batch_over_scalar": ms / (K * scalar_ms),
+        "plain_ms": time_ms(run_plain, 1, warm=0),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms_copy_bw": nbytes / copy_bw * 1e3, "library_ms": None,
+    }
+
+
+def phase_batch_kernels(dev, copy_bw):
+    """K1b, K2b and K5b at full width with K = 8: K1b's down-leg, up-leg
+    with ``ec``, residual with restriction and down-leg from x on 256³ and
+    on the cornered 128³, 64³ and 32³ levels; K2b on 256³ and on the 4096²
+    lift; K5b's down-leg and up-leg on 4096² and on the cornered 2048² and
+    256² levels.  Each against its batched plain version (K1's and K5's
+    tolerance; K2b bit for bit) and against K launches of the scalar
+    kernel, bit for bit member by member; the shape K1b took."""
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.models.poisson import poisson_offsets
+    from openmg_tpu_torch.ops import doublefloat as df
+    from openmg_tpu_torch.ops import fused, kernels
+
+    K = BATCH_K
+    cfg = mg.SolverConfig(**MAIN_CFG)
+    h = mg.setup(BIG, cfg, device=dev).hierarchy
+    tr = h.transfer
+    picked = ("down: zero start, 4 rb stages, restrict", "up: x + P ec, 4 rb stages",
+              "residual + restrict, no x out", "down: from x, 4 rb stages, restrict")
+    k1b = []
+    for L in h.levels[:-1]:
+        op, shape = L.A, L.grid_shape
+        kind = "const" if op.is_constant else "cornered"
+        cshape = tuple(s // 2 for s in shape)
+        n, nc = int(np.prod(shape)), int(np.prod(cshape))
+        bB = randn_card((K,) + shape, 21, dev)
+        xB = randn_card((K,) + shape, 22, dev)
+        ecB = randn_card((K,) + cshape, 23, dev)
+        modes_b = k1_modes(fused, op, tr, bB, xB, ecB)
+        modes_m = [k1_modes(fused, op, tr, bB[m], xB[m], ecB[m]) for m in range(K)]
+        for mode in picked:
+            call, has_x, outs = modes_b[mode]
+            xin = xB if has_x else None
+            run_b = functools.partial(call, fused.fused_stages_const_3d_batch, bB, xin)
+            run_b()
+            torch.cuda.synchronize()
+            took = fused.last_shape()
+
+            def run_m(m, mode=mode, has_x=has_x):
+                return modes_m[m][mode][0](fused.fused_stages_const_3d, bB[m],
+                                           xB[m] if has_x else None)
+
+            row = batch_case(
+                f"K1b {mode} {kind} {shape}", outs, run_b, run_m,
+                functools.partial(call, fused.fused_stages_const_3d_batch_plain,
+                                  bB, xin),
+                bB, K, k1_bound(mode, n, nc, len(op.offsets)), copy_bw)
+            run_m(0)
+            torch.cuda.synchronize()
+            row.update(level=f"{shape[0]}^3", kind=kind, shape=[K] + list(shape),
+                       mode=mode, shape_batch=took, shape_scalar=fused.last_shape())
+            k1b.append(row)
+        del bB, xB, ecB, modes_b, modes_m
+        torch.cuda.empty_cache()
+
+    # the coarsest level's solve: one gemv a member (what solve_many runs)
+    # against one product over the batch, which it would run only if every
+    # column kept the gemv's bits
+    from openmg_tpu_torch.ops.sparse import matvec_full
+
+    inv = h.coarse_inv
+    bc = randn_card((inv.shape[0], K), 27, dev)
+    cols = torch.stack([matvec_full(inv, bc[:, m].contiguous()) for m in range(K)], 1)
+    prod = matvec_full(inv, bc)
+    coarse = {
+        "n": int(inv.shape[0]), "K": K,
+        "columns_bit_equal_to_gemv": bool(torch.equal(cols, prod)),
+        "max_abs_diff": float((cols - prod).abs().max()),
+        "gemv_ms_K": K * device_ms([lambda: matvec_full(inv, bc[:, 0].contiguous())], 20),
+        "product_ms": device_ms([lambda: matvec_full(inv, bc)], 20),
+    }
+    del bc, cols, prod
+    offs = h.fine_hi.offsets
+    terms = tuple(df.pow2_terms(float(v)) for v in h.fine_hi.values.cpu().numpy())
+    k2b = []
+    for tag, shape, o in (("256^3", BIG, offs),
+                          ("4096^2", BIG2, poisson_offsets(2))):
+        tm = tuple(df.pow2_terms(float(v)) for v in ([4.0] + [-1.0] * 4)) \
+            if len(shape) == 2 else terms
+        # (hi, lo) pairs of float64 normals, split on the card as df_split
+        # splits on the host
+        pairs = []
+        for seed in (24, 25):
+            a = randn_card((K,) + shape, seed, dev, dtype=torch.float64)
+            hi = a.float()
+            pairs.append((hi, (a - hi.double()).float()))
+            del a
+        (xh, xl), (bh, bl) = pairs
+        e = randn_card((K,) + shape, 26, dev, scale=1e-3)
+        n = int(np.prod(shape))
+        got = kernels.df_update_residual_batch(o, tm, xh, xl, e, bh, bl, emit_norm=True)
+        torch.cuda.synchronize()
+        ref = kernels.df_update_residual_batch_plain(o, tm, xh, xl, e, bh, bl,
+                                                     emit_norm=True)
+        for name, g, r in zip(("x_hi", "x_lo", "r_hi"), got, ref):
+            if not torch.equal(g, r):
+                fail(f"K2b {tag}: {name} differs from the plain version")
+        norms = kernels.df_norms(got[3])
+        for m in range(K):
+            one = kernels.df_update_residual_const_3d(
+                o, tm, xh[m], xl[m], e[m], bh[m], bl[m], emit_norm=True)
+            for name, g, r in zip(("x_hi", "x_lo", "r_hi", "partials"), got, one):
+                if not torch.equal(g[m], r):
+                    fail(f"K2b {tag}: member {m} {name} is not bit-equal to "
+                         "the scalar launch")
+            if not torch.equal(norms[m], torch.sqrt(torch.sum(one[3]))):
+                fail(f"K2b {tag}: member {m}'s norm is not the scalar step's")
+            want = float(torch.sum(ref[2][m] * ref[2][m]))
+            if abs(float(norms[m]) ** 2 - want) > 1e-6 * want:
+                fail(f"K2b {tag}: member {m}'s partials sum to "
+                     f"{float(norms[m]) ** 2!r}, not {want!r}")
+            del one
+        del got, ref
+
+        def run_b(o=o, tm=tm, xh=xh, xl=xl, e=e, bh=bh, bl=bl):
+            return kernels.df_update_residual_batch(o, tm, xh, xl, e, bh, bl,
+                                                    emit_norm=True)
+
+        def run_m(m, o=o, tm=tm, xh=xh, xl=xl, e=e, bh=bh, bl=bl):
+            return kernels.df_update_residual_const_3d(
+                o, tm, xh[m], xl[m], e[m], bh[m], bl[m], emit_norm=True)
+
+        nbytes, flops = (K * v for v in k2_bound(n, tm, True))
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        ms = device_ms([run_b], 10)
+        scalar_ms = device_ms([functools.partial(run_m, m) for m in range(K)], 2 * K)
+        k2b.append({
+            "case": f"K2b {tag}", "level": tag, "K": K, "shape": [K] + list(shape),
+            "mode": "emit_norm", "max_abs_err": 0.0, "bit_equal_to_plain": True,
+            "bit_equal_to_scalar_per_member": True,
+            "partials": list(kernels.df_update_residual_batch(
+                o, tm, xh[:1], xl[:1], e[:1], bh[:1], bl[:1], emit_norm=True)[3].shape),
+            "ms": ms, "ms_per_member": ms / K, "scalar_ms": scalar_ms,
+            "K_times_scalar_ms": K * scalar_ms, "batch_over_scalar": ms / (K * scalar_ms),
+            "plain_ms": time_ms(lambda o=o, tm=tm, xh=xh, xl=xl, e=e, bh=bh, bl=bl:
+                                kernels.df_update_residual_batch_plain(
+                                    o, tm, xh, xl, e, bh, bl, emit_norm=True), 1, warm=0),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_copy_bw": nbytes / copy_bw * 1e3, "library_ms": None,
+        })
+        del xh, xl, bh, bl, e
+        torch.cuda.empty_cache()
+    del h
+    torch.cuda.empty_cache()
+
+    h2 = mg.setup(BIG2, cfg, device=dev).hierarchy
+    tr = h2.transfer
+    k5b = []
+    # 4096², the cornered 2048² and the cornered 256² (latency-bound) levels
+    for L in (h2.levels[0], h2.levels[1], h2.levels[min(4, h2.num_levels - 2)]):
+        op, shape = L.A, L.grid_shape
+        kind = "const" if op.is_constant else "cornered"
+        cshape = tuple(s // 2 for s in shape)
+        n, nc = int(np.prod(shape)), int(np.prod(cshape))
+        bB = randn_card((K,) + shape, 31, dev)
+        xB = randn_card((K,) + shape, 32, dev)
+        ecB = randn_card((K,) + cshape, 33, dev)
+        modes_b = k5_modes(op, tr, ecB)
+        modes_m = [k5_modes(op, tr, ecB[m]) for m in range(K)]
+        for mode in picked[:2]:
+            call, has_x, outs = modes_b[mode]
+            xin = xB if has_x else None
+
+            def run_m(m, mode=mode, has_x=has_x):
+                return modes_m[m][mode][0](kernels.fused_stages_2d, bB[m],
+                                           xB[m] if has_x else None)
+
+            row = batch_case(
+                f"K5b {mode} {kind} {shape}", outs,
+                functools.partial(call, kernels.fused_stages_2d_batch, bB, xin),
+                run_m,
+                functools.partial(call, kernels.fused_stages_2d_batch_plain, bB, xin),
+                bB, K, k5_bound(mode, n, nc, len(op.offsets)), copy_bw)
+            row.update(level=f"{shape[0]}^2", kind=kind, shape=[K] + list(shape),
+                       mode=mode)
+            k5b.append(row)
+        del bB, xB, ecB, modes_b, modes_m
+        torch.cuda.empty_cache()
+    del h2
+    torch.cuda.empty_cache()
+    emit("batch_kernels", {
+        "K": K, "K1b": k1b, "K2b": k2b, "K5b": k5b, "coarse_solve": coarse,
+        "tolerance": "K1b/K5b: 2e-6*max|ref| (x), 2e-6*max|b| (r, bc) against "
+                     "the batched plain version; every member bit-equal to the "
+                     "scalar launch; K2b bit-equal to both",
+        "ms": "device ms of one launch (batched) or of one scalar launch, the "
+              "scalar launches rotating over the members",
+    })
+    return k1b, k2b, k5b
 
 
 def residual_norm_host(b64, x64):
@@ -1283,12 +1555,21 @@ def counts():
             "K5": kernels.LAUNCHES_K5}
 
 
+def batch_counts():
+    """Launches of the batched forms (K1b, K2b, K5b: K members a launch)."""
+    from openmg_tpu_torch.ops import fused, kernels
+
+    return {"K1b": fused.LAUNCHES_BATCH, "K2b": kernels.LAUNCHES_K2_BATCH,
+            "K5b": kernels.LAUNCHES_K5_BATCH}
+
+
 def zero_counts():
     from openmg_tpu_torch.ops import bsr, ell, fused, kernels
 
     fused.LAUNCHES = kernels.LAUNCHES = 0
     kernels.LAUNCHES_K3 = kernels.LAUNCHES_K4 = kernels.LAUNCHES_K5 = 0
     ell.LAUNCHES_K6 = bsr.LAUNCHES_K7 = 0
+    fused.LAUNCHES_BATCH = kernels.LAUNCHES_K2_BATCH = kernels.LAUNCHES_K5_BATCH = 0
 
 
 def phase_solve_vary(dev, vary):
@@ -2464,7 +2745,7 @@ def phase_solve_many_sparse(dev, solvers):
     row = many_check(
         "sparse solve_many", solver, bt,
         lambda k, x64: residual_norm_host(b32[k], x64.reshape(ELL_SHAPE)),
-        lambda c: {"K6": per_cycle * c}, scalar)
+        lambda cs: {"K6": per_cycle * sum(cs)}, scalar)
     row.update(matrix=f"poisson({ELL_SHAPE})", format="ell",
                scalar_solve_ms=scalar_ms,
                batch_over_scalar=row["ms_per_rhs"] / scalar_ms)
@@ -2501,7 +2782,7 @@ def inner_cycles(cfg):
 
 
 def all_counts():
-    return {**counts(), **sparse_counts()}
+    return {**counts(), **sparse_counts(), **batch_counts()}
 
 
 def card_solve(what, solver, b, residual_host, want_launches, max_cycles=9):
@@ -2631,7 +2912,7 @@ def many_check(what, solver, bt, residual_host, want_launches, scalar):
     """``solver.solve_many`` of the card batch ``bt``: every member
     converged, its cycles and its pair bit-equal to its scalar solve
     (``scalar``: per member (x hi, x lo, cycles)), the launches
-    ``want_launches(total cycles)``, one host read before the first step
+    ``want_launches(cycles of each member)``, one host read before the first step
     and one after every step (the loop's own count and the profiler's
     count of device-to-host copies), the float64 residual of every member
     below 2e-10; then three warm batches for the time (median) and the
@@ -2654,7 +2935,7 @@ def many_check(what, solver, bt, residual_host, want_launches, scalar):
         if not (torch.equal(hi[k], x_k) and torch.equal(lo[k], lo_k)):
             fail(f"{what}: member {k} is not bit-equal to its scalar solve")
     want = {k: 0 for k in launched}
-    want.update(want_launches(sum(cycles)))
+    want.update(want_launches(cycles))
     if launched != want:
         fail(f"{what}: launches {launched}, expected {want}")
     steps = max(cycles)
@@ -2708,16 +2989,22 @@ def scalar_solves(solver, bt):
 
 
 def phase_solve_many(dev, poisson):
-    """``Solver.solve_many`` at 256³ and at BENCH_r05's (64, 64, 128), K=8
-    (seeds 1-8, each normalised), from a float32 card batch and from numpy."""
+    """``Solver.solve_many`` at 256³, at BENCH_r05's (64, 64, 128) and at
+    4096², K=8 (seeds 1-8, each normalised), from a float32 card batch and
+    from numpy: the batch runs as one stack, one launch of K1b (K5b in 2D)
+    a level visit and one of K2b an outer step for all members, and no
+    scalar K1, K2 or K5 launch."""
     import openmg_tpu_torch as mg
 
     K = 8
     out = {}
     mid = mg.setup((64, 64, 128), mg.SolverConfig(**MAIN_CFG), device=dev)
-    for tag, solver in (("256^3", poisson), ("64x64x128", mid)):
+    plane = mg.setup(BIG2, mg.SolverConfig(**MAIN_CFG), device=dev)
+    for tag, solver in (("256^3", poisson), ("64x64x128", mid),
+                        ("4096^2", plane)):
         h = solver.hierarchy
         shape = h.grid_shape
+        visit = "K1b" if len(shape) == 3 else "K5b"
         bnps = []
         for seed in range(1, K + 1):
             bnp = mg.rhs_random(shape, seed=seed)
@@ -2729,7 +3016,7 @@ def phase_solve_many(dev, poisson):
         row = many_check(
             f"solve_many {tag}", solver, bt,
             lambda k, x64: residual_norm_host(b32[k], x64),
-            lambda c: {"K1": visits * c, "K2": c}, scalar)
+            lambda cs: {visit: visits * max(cs), "K2b": max(cs)}, scalar)
         del scalar
         row.update(shape=list(shape), levels=[list(st[0]) for st in h.stats],
                    scalar_solve_ms=scalar_ms,
@@ -2759,7 +3046,7 @@ def phase_solve_many(dev, poisson):
         del xs_np, bt
         out[tag] = row
         torch.cuda.empty_cache()
-    del mid
+    del mid, plane
     torch.cuda.empty_cache()
     return out
 
@@ -2785,7 +3072,7 @@ def phase_solve_cycles_pcg(dev):
     emit("solve_cycles", {"w_256^3": p3["w"], "f_256^3": p3["f"],
                           "f_4096^2": p2["f"], "card_vs_cpu": versus})
     emit("solve_many", many)
-    return {"poisson_256^3": pcg, "poisson_4096^2": p2["pcg"]}
+    return {"poisson_256^3": pcg, "poisson_4096^2": p2["pcg"]}, many
 
 
 def phase_solve_pcg(dev, pcg, vary):
@@ -4134,11 +4421,12 @@ def main():
     smi, copy_bw = phase_env(dev)
     phase_build()
     rows, k2_rows, _ = phase_kernels(dev, copy_bw)
+    k1b_rows, k2b_rows, k5b_rows = phase_batch_kernels(dev, copy_bw)
     k1_launches, k2_launches, faced_cycles, faced_rn64 = phase_solve(dev)
     phase_solve_512(dev)
     k5_rows, _ = phase_fused2d(dev, copy_bw)
     k5_counts = phase_solve_2d(dev)
-    pcg = phase_solve_cycles_pcg(dev)
+    pcg, many = phase_solve_cycles_pcg(dev)
     # the unfaced and the diffusion hierarchies are built after the Poisson
     # solve, whose peak memory would otherwise count them
     unfaced = setup_unfaced(dev)
@@ -4196,6 +4484,11 @@ def main():
                    and r["mode"].startswith("down"))
     k5_main = next(r for r in k5_rows if r["level"] == "main 4096^2"
                    and r["mode"].startswith("down: zero start, 4 rb"))
+    # the batched forms: the down-leg at full width, K = 8; launches in the
+    # K = 8 solve_many at 256³ (K1b, K2b) and at 4096² (K5b)
+    k1b_main, k5b_main = (
+        next(r for r in rs if r["mode"].startswith("down: zero start"))
+        for rs in (k1b_rows, k5b_rows))
     print(json.dumps({"kernels": [
         entry("fused_stages_const_3d",
               "openmg_tpu_torch/csrc/fused_stages.cu",
@@ -4215,6 +4508,18 @@ def main():
               "openmg_tpu_torch/csrc/fused_stages_2d.cu",
               "openmg_tpu/ops/kernels.py:1134", k5_counts["K5"], k5_main,
               k5_rows, "K5"),
+        entry("fused_stages_const_3d_batch (K1b: K members a launch)",
+              "openmg_tpu_torch/csrc/fused_stages.cu",
+              "openmg_tpu/ops/fused.py:578",
+              many["256^3"]["launches"]["K1b"], k1b_main, k1b_rows, "K1b"),
+        entry("df_update_residual_batch (K2b: K members a launch)",
+              "openmg_tpu_torch/csrc/df_update.cu",
+              "openmg_tpu/ops/kernels.py:860",
+              many["256^3"]["launches"]["K2b"], k2b_rows[0], k2b_rows, "K2b"),
+        entry("fused_stages_2d_batch (K5b: K members a launch)",
+              "openmg_tpu_torch/csrc/fused_stages_2d.cu",
+              "openmg_tpu/ops/kernels.py:1134",
+              many["4096^2"]["launches"]["K5b"], k5b_main, k5b_rows, "K5b"),
         entry("spmv_ell (slot-offset ELL SpMV, spmv_banded at B=1)",
               "openmg_tpu_torch/csrc/spmv_banded.cu",
               "openmg_tpu/ops/ell.py:169", k6_launches, spmv_rows["K6"][0],

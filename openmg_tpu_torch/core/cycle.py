@@ -39,6 +39,17 @@ coarsest exactly and runs one V-cycle from the prolonged iterate on each
 level upward.  ``pcg_solve`` runs CG steps preconditioned by one cycle
 each; its ``A p`` is the tensor ``apply`` on the fine level and its inner
 products stay float32 tensors on the device (no host read).
+
+**A batch** ``(K, *grid)`` of right-hand sides (``Solver.solve_many``, the
+JAX package's ``vmap`` of the whole solve) runs every function here at
+once: it is a batch where the tensor has one more axis than the level's
+grid.  A visit that K1 or K5 takes is one call of its batched form (K1b,
+K5b) for the whole batch; any other visit (varying, faced and Chebyshev
+levels), the coarsest level's product, the tensor transfers of FMG and
+PCG's ``A p`` go member by member through their scalar code.  PCG's inner
+products, ``alpha`` and ``beta`` are ``(K,)`` tensors, each member's taken
+by the scalar path's own call on its rows, so every member is bit-equal to
+its scalar cycle.
 """
 
 from __future__ import annotations
@@ -61,10 +72,26 @@ from openmg_tpu_torch.ops.transfer import prolong, restrict
 __all__ = ["v_cycle", "coarse_solve", "run_cycle", "fmg_cycle", "pcg_solve"]
 
 
+def _each(fn, t, *args):
+    """``fn`` on every member of the batch ``t``, stacked: the scalar code
+    path, member by member."""
+    return torch.stack([fn(t[m], *args) for m in range(t.shape[0])])
+
+
+def _is_batch(hierarchy: Hierarchy, level: int, t) -> bool:
+    """Whether ``t`` is a batch of level ``level``'s grids: one axis more
+    than the grid (the level's dimension decides, not the tensor's)."""
+    return t.ndim == len(hierarchy.levels[level].grid_shape) + 1
+
+
 def coarse_solve(hierarchy: Hierarchy, b: torch.Tensor) -> torch.Tensor:
     """Direct solve at the coarsest level via the precomputed dense inverse:
     one matrix–vector product, left to the library as the JAX package
-    leaves it to its compiler, in full float32 (never TF32)."""
+    leaves it to its compiler, in full float32 (never TF32).  A batch takes
+    one product a member: a matrix product over the batch need not keep the
+    bits of each column's matrix–vector product."""
+    if _is_batch(hierarchy, hierarchy.num_levels - 1, b):
+        return _each(lambda bm: coarse_solve(hierarchy, bm), b)
     return matvec_full(hierarchy.coarse_inv, b.reshape(-1)).reshape(b.shape)
 
 
@@ -86,6 +113,86 @@ def _vary_leg(op, smoother, b) -> bool:
                 "the leg kernel, and plain tensor code does not run on the card"
             )
     return True
+
+
+def _down(L, b, x, x_zero, pre, smoother, omega, tr):
+    """A level visit's way down: pre-smoothing from zero or from ``x``, the
+    residual and its restriction.  Returns ``(x, bc)``.  A batch goes to
+    K1b or K5b where they take the visit, else member by member."""
+    if b.ndim == len(L.grid_shape) + 1:
+        out = None
+        if _vary_leg(L.A, smoother, b[0]):
+            pass
+        elif pre > 0:
+            out = fused.presmooth_restrict_fused(
+                smoother, L.A, b, None if x_zero else x, pre, omega, tr
+            )
+        else:
+            x0 = torch.zeros_like(b) if x is None else x
+            bc = fused.residual_restrict_fused(L.A, b, x0, tr)
+            out = None if bc is None else (x0, bc)
+        if out is not None:
+            return out
+        outs = [
+            _down(L, b[m], None if x_zero else x[m], x_zero, pre, smoother,
+                  omega, tr)
+            for m in range(b.shape[0])
+        ]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    # a red/black sweep is two passes of the leg kernel
+    per = 2 if smoother == "rbgs" else 1
+    if _vary_leg(L.A, smoother, b):
+        x, r = kernels.sweeps_vary_3d(
+            L.A.coeffs, L.A.offsets, b, None if x_zero else x, pre * per,
+            smoother, omega, emit_residual=True, inv_diag=L.inv_diag,
+        )
+        return x, restrict(r, tr)
+    if pre > 0:
+        out = fused.presmooth_restrict_fused(
+            smoother, L.A, b, None if x_zero else x, pre, omega, tr
+        )
+    else:
+        if x is None:
+            x = torch.zeros_like(b)
+        bc = fused.residual_restrict_fused(L.A, b, x, tr)
+        out = None if bc is None else (x, bc)
+    if out is None:
+        if x is None:
+            x = torch.zeros_like(b)
+        x = smooth(smoother, L.A, L.inv_diag, b, x, pre, omega)
+        out = x, restrict(residual(L.A, b, x), tr)
+    return out
+
+
+def _up(L, b, x, ec, post, smoother, omega, tr):
+    """A level visit's way up: ``x + P ec`` and the post-smoothing (post
+    == 0 is the kernel's stage-free mode: prolongation and add alone).  A
+    batch goes to K1b or K5b where they take the visit, else member by
+    member."""
+    batch = b.ndim == len(L.grid_shape) + 1
+    leg = _vary_leg(L.A, smoother, b[0] if batch else b)
+    if batch:
+        y = None if leg else fused.prolong_smooth_fused(
+            smoother, L.A, b, x, ec, post, omega, tr
+        )
+        if y is not None:
+            return y
+        return torch.stack([
+            _up(L, b[m], x[m], ec[m], post, smoother, omega, tr)
+            for m in range(b.shape[0])
+        ])
+    if leg:
+        per = 2 if smoother == "rbgs" else 1
+        x = x + prolong(ec, L.grid_shape, tr)
+        return kernels.sweeps_vary_3d(
+            L.A.coeffs, L.A.offsets, b, x, post * per, smoother, omega,
+            inv_diag=L.inv_diag,
+        )
+    y = fused.prolong_smooth_fused(smoother, L.A, b, x, ec, post, omega, tr)
+    if y is None:
+        x = x + prolong(ec, L.grid_shape, tr)
+        y = smooth(smoother, L.A, L.inv_diag, b, x, post, omega)
+    return y
 
 
 def v_cycle(
@@ -114,7 +221,8 @@ def v_cycle(
     grid, a smoother that is not a stage list, an odd dimension with a
     transfer, a 2D leg with no stages) the visit is composed from ``smooth``
     and ``residual``, which on the card launch the per-pass kernel or raise
-    (a float64 cycle does), and the tensor transfers.
+    (a float64 cycle does), and the tensor transfers.  ``b`` (and ``x``)
+    may be a batch ``(K, *grid)``: see the module's note.
     """
     if x is None and not x_zero:
         raise ValueError("x=None needs x_zero=True")
@@ -122,30 +230,7 @@ def v_cycle(
     if level == hierarchy.num_levels - 1:
         return coarse_solve(hierarchy, b)
     tr = hierarchy.transfer
-    leg = _vary_leg(L.A, smoother, b)
-    # a red/black sweep is two passes of the leg kernel
-    per = 2 if smoother == "rbgs" else 1
-    if leg:
-        x, r = kernels.sweeps_vary_3d(
-            L.A.coeffs, L.A.offsets, b, None if x_zero else x, pre * per,
-            smoother, omega, emit_residual=True, inv_diag=L.inv_diag,
-        )
-        out = x, restrict(r, tr)
-    elif pre > 0:
-        out = fused.presmooth_restrict_fused(
-            smoother, L.A, b, None if x_zero else x, pre, omega, tr
-        )
-    else:
-        if x is None:
-            x = torch.zeros_like(b)
-        bc = fused.residual_restrict_fused(L.A, b, x, tr)
-        out = None if bc is None else (x, bc)
-    if out is None:
-        if x is None:
-            x = torch.zeros_like(b)
-        x = smooth(smoother, L.A, L.inv_diag, b, x, pre, omega)
-        out = x, restrict(residual(L.A, b, x), tr)
-    x, bc = out
+    x, bc = _down(L, b, x, x_zero, pre, smoother, omega, tr)
     # µ visits; the first starts from a zero correction (declared, not
     # stored), a second from the first's.  At the level just above the
     # coarsest a second visit would re-run the exact solve on an unchanged
@@ -157,18 +242,7 @@ def v_cycle(
             hierarchy, bc, ec, level + 1, pre, post, smoother, omega, gamma,
             x_zero=(v == 0),
         )
-    # post == 0 is the kernel's stage-free mode: prolongation and add alone
-    if leg:
-        x = x + prolong(ec, L.grid_shape, tr)
-        return kernels.sweeps_vary_3d(
-            L.A.coeffs, L.A.offsets, b, x, post * per, smoother, omega,
-            inv_diag=L.inv_diag,
-        )
-    y = fused.prolong_smooth_fused(smoother, L.A, b, x, ec, post, omega, tr)
-    if y is None:
-        x = x + prolong(ec, L.grid_shape, tr)
-        y = smooth(smoother, L.A, L.inv_diag, b, x, post, omega)
-    return y
+    return _up(L, b, x, ec, post, smoother, omega, tr)
 
 
 def fmg_cycle(
@@ -182,14 +256,20 @@ def fmg_cycle(
 ):
     """One full-multigrid pass for ``A x = b`` from a zero initial guess:
     restrict ``b`` to every level, solve the coarsest exactly, then
-    prolong upward with one µ-cycle per level from that iterate."""
+    prolong upward with one µ-cycle per level from that iterate.  A batch
+    takes the tensor transfers member by member."""
     tr = hierarchy.transfer
+    batch = _is_batch(hierarchy, 0, b)
+
+    def each(fn, t, *a):
+        return _each(fn, t, *a) if batch else fn(t, *a)
+
     bs = [b]
     for _ in range(hierarchy.num_levels - 1):
-        bs.append(restrict(bs[-1], tr))
+        bs.append(each(restrict, bs[-1], tr))
     x = coarse_solve(hierarchy, bs[-1])
     for lvl in range(hierarchy.num_levels - 2, -1, -1):
-        x = prolong(x, hierarchy.levels[lvl].grid_shape, tr)
+        x = each(prolong, x, hierarchy.levels[lvl].grid_shape, tr)
         x = v_cycle(hierarchy, bs[lvl], x, lvl, pre, post, smoother, omega, gamma)
     return x
 
@@ -231,26 +311,38 @@ def pcg_solve(
     outer loop tolerates the nonlinear inner map).  ``A p`` is the tensor
     :func:`~openmg_tpu_torch.ops.stencil.apply` on the fine level; ``rz``,
     ``p·Ap``, ``alpha`` and ``beta`` are float32 0-d tensors, never read to
-    the host."""
+    the host; on a batch ``(K,)`` tensors, a member's taken by the scalar
+    call on its rows (``torch.sum`` of the member's products), and ``A p``
+    is applied member by member."""
     A = hierarchy.levels[0].A
+    batch = _is_batch(hierarchy, 0, r0)
+    lift = (-1,) + (1,) * (r0.ndim - 1)
 
     def precond(rr):
         return run_cycle(hierarchy, rr, cycle_type, pre, post, smoother, omega)
+
+    def dot(u, v):
+        if not batch:
+            return torch.sum(u * v)
+        return torch.stack([torch.sum(w) for w in u * v]).reshape(lift)
+
+    def apply(t):
+        return _each(lambda tm: stencil_apply(A, tm), t) if batch else stencil_apply(A, t)
 
     e = torch.zeros_like(r0)
     r = r0
     z = precond(r)
     p = z
-    rz = torch.sum(r * z)
+    rz = dot(r, z)
     for it in range(iters):
-        Ap = stencil_apply(A, p)
-        alpha = rz / torch.sum(p * Ap)
+        Ap = apply(p)
+        alpha = rz / dot(p, Ap)
         e = e + alpha * p
         if it == iters - 1:
             break
         r = r - alpha * Ap
         z = precond(r)
-        rz_new = torch.sum(r * z)
+        rz_new = dot(r, z)
         beta = rz_new / rz
         rz = rz_new
         p = z + beta * p

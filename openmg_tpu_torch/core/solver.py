@@ -42,6 +42,11 @@ The inner error solve of an outer step is one cycle of ``cycle_type``
 (V, W or FMG) or, with ``krylov="pcg"``, ``krylov_iters`` MG-preconditioned
 CG steps (:func:`_inner_solve`).  :meth:`Solver.solve_many` runs a batch of
 right-hand sides in lockstep, one host read of the batch's norms a step.
+Where the fine operator takes the double-float kernel, the batch is one
+``(K, *grid)`` stack (:class:`_DFExactBatch`): a step is one inner solve of
+the whole batch (one launch of the batched level-visit kernel, K1b or K5b,
+a visit) and one launch of the batched K2 (K2b), as the JAX package's
+vmapped program launches its kernels once for all members.
 
 Grids of one, two and three dimensions take the same loop; a 1D grid runs
 through the kernels on its lift to ``(1, 1, n)``, as a 2D one does on
@@ -234,6 +239,79 @@ class _DFExactStep:
         self.rn = torch.sqrt(torch.sum(pn))
 
 
+class _DFExactBatch:
+    """The outer loops of a batch of right-hand sides when the fine operator
+    is constant with dyadic taps, as one ``(n, *grid)`` stack of the
+    members still running (``members``, in order): a step is one inner
+    solve of the stack and one launch of K2b.  A member that stops is taken
+    out of the stack (:meth:`narrow`) with its pair frozen; the stack is
+    rebuilt from views of the old one, on the card, with no host copy.
+    Every member's arithmetic is its scalar :class:`_DFExactStep`'s."""
+
+    def __init__(self, offsets, terms, b_hi, b_lo, xs, inner):
+        self.offsets, self.terms, self.inner = offsets, terms, inner
+        self.b = (b_hi, b_lo)
+        K = b_hi.shape[0]
+        self.members = list(range(K))
+        self.frozen = [None] * K
+        # each member's start (its norm too) by the scalar step's own code
+        steps = [
+            _DFExactStep(offsets, terms, (b_hi[m], b_lo[m]), xs[m], inner)
+            for m in range(K)
+        ]
+        self.x = tuple(torch.stack([st.x[j] for st in steps]) for j in (0, 1))
+        self.r = torch.stack([st.r for st in steps])
+        self.rn = torch.stack([st.rn for st in steps])
+
+    def norms(self, pending):
+        """The norms of ``pending`` (the members in the stack) in one
+        device-to-host copy."""
+        if pending != self.members:
+            raise RuntimeError(f"members {pending} read, {self.members} in the batch")
+        return self.rn.cpu().tolist()
+
+    def narrow(self, keep):
+        """Keep the members ``keep`` (a subsequence of ``members``) in the
+        stack; the others are frozen with their pairs as they stand."""
+        if keep == self.members:
+            return
+        pos = {m: p for p, m in enumerate(self.members)}
+        for m in self.members:
+            if m not in keep:
+                p = pos[m]
+                self.frozen[m] = (self.x[0][p], self.x[1][p])
+        rows = [pos[m] for m in keep]
+
+        def pick(t):
+            return torch.stack([t[p] for p in rows])
+
+        self.x = (pick(self.x[0]), pick(self.x[1]))
+        self.b = (pick(self.b[0]), pick(self.b[1]))
+        self.r, self.rn = pick(self.r), pick(self.rn)
+        self.members = list(keep)
+
+    def advance(self, keep):
+        """One outer step of the members ``keep``."""
+        self.narrow(keep)
+        e = self.inner(self.r)
+        x_hi, x_lo, self.r, pn = kernels.df_update_residual_batch(
+            self.offsets, self.terms, self.x[0], self.x[1], e, self.b[0],
+            self.b[1], emit_norm=True,
+        )
+        self.x = (x_hi, x_lo)
+        self.rn = kernels.df_norms(pn)
+
+    def pairs(self):
+        """Every member's pair as it stands, stacked in member order."""
+        pos = {m: p for p, m in enumerate(self.members)}
+        got = [
+            self.frozen[m] if m not in pos
+            else (self.x[0][pos[m]], self.x[1][pos[m]])
+            for m in range(len(self.frozen))
+        ]
+        return tuple(torch.stack([g[j] for g in got]) for j in (0, 1))
+
+
 class _Step:
     """The outer loop's state for one right-hand side, in general:
     ``resid(x) -> (r, ‖r‖)`` after every update ``update(x, inner(r))``."""
@@ -247,13 +325,17 @@ class _Step:
         self.r, self.rn = self.resid(self.x)
 
 
-def lockstep(steps, limit, threshold, say=None, after=None, norms=None):
+def lockstep(steps, limit, threshold, say=None, after=None, norms=None,
+             advance=None):
     """Run the outer loops of ``steps`` (each with a 0-d tensor ``rn``, its
     residual norm, and ``advance()``) in lockstep.  Every round reads the
     norms of the members not yet done to the host in ONE copy; a member
     below ``threshold`` is done and frozen (never advanced again), as is one
     that has taken ``limit`` steps; the others advance one step each, one
-    after another.  A single member reads its one scalar.
+    after another, or with ``advance`` all in one call ``advance(nxt)``
+    (a batch; ``norms(pending)`` then reads the pending members' norms,
+    and ``steps`` only names the members).  A single
+    member reads its one scalar.
 
     Returns ``(histories, converged, step_times, reads)``: per member the
     norms before each step and after the last, whether it converged, the
@@ -265,7 +347,9 @@ def lockstep(steps, limit, threshold, say=None, after=None, norms=None):
     pending = list(range(len(steps)))
     reads = 0
     while pending:
-        if norms is not None:
+        if advance is not None:
+            vals = norms(pending)
+        elif norms is not None:
             vals = norms([steps[i].rn for i in pending])
         elif len(pending) == 1:
             vals = [float(steps[pending[0]].rn)]
@@ -281,10 +365,17 @@ def lockstep(steps, limit, threshold, say=None, after=None, norms=None):
                 converged[i] = True
             elif len(hist[i]) <= limit:
                 nxt.append(i)
-        for i in nxt:
+        if advance is not None and nxt:
             t0 = time.perf_counter()
-            steps[i].advance()
-            times[i].append(time.perf_counter() - t0)
+            advance(nxt)
+            dt = time.perf_counter() - t0
+            for i in nxt:
+                times[i].append(dt)
+        for i in nxt:
+            if advance is None:
+                t0 = time.perf_counter()
+                steps[i].advance()
+                times[i].append(time.perf_counter() - t0)
             if after is not None:
                 after(i, hist[i])
         pending = nxt
@@ -374,10 +465,11 @@ class Solver:
             krylov_iters=cfg.krylov_iters,
         )
 
-    def _step(self, b, x0):
-        """The outer loop's state for ``A x = b`` from ``x0``, and whether
-        ``b`` is device-native (a float32 tensor on the solver's device)."""
-        h = self.hierarchy
+    def _inputs(self, b, x0):
+        """``b`` and ``x0`` as the outer loop takes them: ``(b, b_np, x0_np,
+        device_native)``, where ``device_native`` says that ``b`` is a
+        float32 tensor on the solver's device (then ``b_np`` is None) and
+        the others are float64 numpy grids (``x0_np`` None without x0)."""
         shape = self.grid_shape
         dev = self.device
         device_native = isinstance(b, torch.Tensor) and b.dtype == torch.float32
@@ -397,13 +489,28 @@ class Solver:
             None if x0 is None
             else np.asarray(x0, dtype=np.float64).reshape(shape)
         )
+        return b, b_np, x0_np, device_native
+
+    def _df_inputs(self, b, x0):
+        """The double-float loop's ``(b_hi, b_lo)``, ``x`` (a pair, or None
+        for a zero start) and whether ``b`` is device-native."""
+        b, b_np, x0_np, device_native = self._inputs(b, x0)
+        if device_native:
+            b_hi = b.reshape(self.grid_shape).contiguous()
+            b_lo = torch.zeros_like(b_hi)
+        else:
+            b_hi, b_lo = df_split(b_np, self.device)
+        x = None if x0_np is None else df_split(x0_np, self.device)
+        return (b_hi, b_lo), x, device_native
+
+    def _step(self, b, x0):
+        """The outer loop's state for ``A x = b`` from ``x0``, and whether
+        ``b`` is device-native (a float32 tensor on the solver's device)."""
+        h = self.hierarchy
+        shape = self.grid_shape
+        dev = self.device
         if self.residual_mode == "doublefloat":
-            if device_native:
-                b_hi = b.reshape(shape).contiguous()
-                b_lo = torch.zeros_like(b_hi)
-            else:
-                b_hi, b_lo = df_split(b_np, dev)
-            x = None if x0_np is None else df_split(x0_np, dev)
+            (b_hi, b_lo), x, device_native = self._df_inputs(b, x0)
             if self._exact_terms is not None:
                 step = _DFExactStep(
                     h.fine_hi.offsets, self._exact_terms, (b_hi, b_lo), x,
@@ -420,6 +527,7 @@ class Solver:
                 return r_pair[0], rn  # the cycle takes the hi part
 
             return _Step(x, resid, df_add_f32, self._inner), device_native
+        b, b_np, x0_np, device_native = self._inputs(b, x0)
         rd = self.residual_mode
         if device_native:
             b_r = b.reshape(shape).to(rd).contiguous()
@@ -522,8 +630,12 @@ class Solver:
         ``bs``: ``(K, *grid)`` (or a sequence of grid arrays); ``x0s``
         likewise, or None.  Every round advances each member that has not
         converged by one outer step and reads the K norms to the host in
-        one copy; a converged member is frozen.  The members go through the
-        kernels one after another, so each is bit-equal to its scalar
+        one copy; a converged member is frozen.  Where the fine operator
+        takes the double-float kernel (K2) the members run as one stack
+        (:class:`_DFExactBatch`): a visit that K1 or K5 takes is one launch
+        of its batched form for the whole stack, the outer update one launch
+        of K2b.  Elsewhere the members go through the kernels one after
+        another.  Either way each member is bit-equal to its scalar
         :meth:`solve`.
 
         Returns ``(xs, info)``: ``xs`` stacked like :meth:`solve` returns
@@ -547,11 +659,25 @@ class Solver:
             raise ValueError(f"{len(x0s)} initial guesses for {K} right-hand sides")
         limit = cfg.cycles if cfg.cycles > 0 else 10_000
         t_start = time.perf_counter()
-        steps = [self._step(b, x0)[0] for b, x0 in zip(members, x0s)]
-        histories, converged, _, reads = lockstep(
-            steps, limit, float(cfg.threshold),
-            lambda i, k, v: self._say(i, k, v, batch=True),
-        )
+        say = lambda i, k, v: self._say(i, k, v, batch=True)  # noqa: E731
+        if self._exact_terms is not None:
+            ins = [self._df_inputs(b, x0) for b, x0 in zip(members, x0s)]
+            batch = _DFExactBatch(
+                self.hierarchy.fine_hi.offsets, self._exact_terms,
+                torch.stack([i[0][0] for i in ins]),
+                torch.stack([i[0][1] for i in ins]), [i[1] for i in ins],
+                self._inner,
+            )
+            histories, converged, _, reads = lockstep(
+                list(range(K)), limit, float(cfg.threshold), say,
+                norms=batch.norms, advance=batch.advance,
+            )
+            pairs = batch.pairs()
+        else:
+            steps = [self._step(b, x0)[0] for b, x0 in zip(members, x0s)]
+            histories, converged, _, reads = lockstep(
+                steps, limit, float(cfg.threshold), say,
+            )
         info = {
             "batch": K,
             "cycles": [len(h) - 1 for h in histories],
@@ -566,13 +692,12 @@ class Solver:
             if device_native:
                 return xs, info
             return xs.detach().cpu().numpy().astype(np.float64), info
+        if self._exact_terms is None:
+            pairs = tuple(torch.stack([s.x[j] for s in steps]) for j in (0, 1))
         if device_native:
-            info["x_df"] = (
-                torch.stack([s.x[0] for s in steps]),
-                torch.stack([s.x[1] for s in steps]),
-            )
-            return info["x_df"][0], info
-        return np.stack([df_merge(s.x) for s in steps]), info
+            info["x_df"] = pairs
+            return pairs[0], info
+        return df_merge(pairs), info
 
     def _say(self, i, k, rnorm, batch=False):
         if self.config.verbose:

@@ -41,6 +41,14 @@
 //     a function of the grid's shape alone) and layout are this kernel's
 //     own.
 //
+// The batched form (the TPU kernel under jax.vmap, whose grid gains a
+// leading batch axis): nb members of one shape stacked along a leading
+// axis, one launch for all of them.  The member is the outer part of
+// blockIdx.z, above the z-chunks; each member is tiled and chunked as a
+// launch on it alone would be, so its outputs and its partials (a block of
+// omg_df_num_partials entries at member * pstride) are that launch's, bit
+// for bit.  The batch takes no halos.
+//
 // The halo form (a rank's z-slab of a row-partitioned grid; the TPU
 // kernel's halos= argument): the (ny, nx) planes of x_hi, x_lo and e
 // received from the ranks below and above stand for planes -1 and nz.  The
@@ -246,7 +254,7 @@ __global__ void __launch_bounds__(THREADS) df_update_residual_kernel(
     const float* __restrict__ bl, float* __restrict__ oxh,
     float* __restrict__ oxl, float* __restrict__ orh,
     float* __restrict__ partials, const DfHalo hl, int nz, int ny, int nx,
-    int zc)
+    int zc, int pstride)
 {
     __shared__ float wh[3 * SP];
     __shared__ float wl[3 * SP];
@@ -254,8 +262,16 @@ __global__ void __launch_bounds__(THREADS) df_update_residual_kernel(
 
     const int tid = threadIdx.x;
     const int lx = tid % TX, ly = tid / TX;
+    // the member (batched form) and its z-chunk
+    const int nzc = (nz + zc - 1) / zc;
+    const int mb = blockIdx.z / nzc, zb = blockIdx.z - mb * nzc;
+    {
+        const size_t mo = (size_t)mb * nz * ny * nx;
+        xh += mo; xl += mo; e += mo; bh += mo; bl += mo;
+        oxh += mo; oxl += mo; orh += mo;
+    }
     const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
-    const int z0 = blockIdx.z * zc, z1 = min(z0 + zc, nz);
+    const int z0 = zb * zc, z1 = min(z0 + zc, nz);
     const int gx = x0 + lx, gy = y0 + ly;
     const bool own = gx < nx && gy < ny;
     const bool vec_ok = (nx & 3) == 0 &&
@@ -361,8 +377,8 @@ __global__ void __launch_bounds__(THREADS) df_update_residual_kernel(
         if (tid == 0) {
             float t = 0.0f;
             for (int w = 0; w < THREADS / 32; ++w) t += wsum[w];
-            partials[((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
-                     blockIdx.x] = t;
+            partials[(size_t)mb * pstride +
+                     ((size_t)zb * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = t;
         }
     }
 }
@@ -401,10 +417,11 @@ template <int SH>
 void launch(dim3 grid, cudaStream_t stream, const DfStencil& st,
             const float* xh, const float* xl, const float* e, const float* bh,
             const float* bl, float* oxh, float* oxl, float* orh,
-            float* partials, const DfHalo& hl, int nz, int ny, int nx, int zc)
+            float* partials, const DfHalo& hl, int nz, int ny, int nx, int zc,
+            int pstride)
 {
     df_update_residual_kernel<SH><<<grid, THREADS, 0, stream>>>(
-        st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, hl, nz, ny, nx, zc);
+        st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, hl, nz, ny, nx, zc, pstride);
 }
 
 }  // namespace
@@ -419,24 +436,28 @@ extern "C" int omg_df_num_partials(int nz, int ny, int nx)
 
 // Launches the outer step on `stream`.  offs (K*3 ints), nterms (K ints)
 // and terms (K*3 floats, tap k's terms at [3k, 3k + nterms[k])) are host
-// pointers; everything else is a device pointer to (nz, ny, nx) float32,
-// except partials: (omg_df_num_partials,) float32, or null for no norm.
+// pointers; everything else is a device pointer to (nb, nz, ny, nx)
+// float32, except partials: nb blocks of omg_df_num_partials floats,
+// pstride apart (>= omg_df_num_partials), or null for no norm.
 // Outputs must not alias inputs (neighbours read the old x).  lh, ll, le /
 // uh, ul, ue: the halo form's received (ny, nx) planes of x_hi, x_lo, e below
-// and above the slab, or all null.  Returns 0, a CUDA error code, or -1 for
-// arguments the kernel does not take.
+// and above the slab, or all null (always with nb > 1).  Returns 0, a CUDA
+// error code, or -1 for arguments the kernel does not take.
 extern "C" int omg_df_update_residual(
     const int* offs, const int* nterms, const float* terms, int K,
     const float* xh, const float* xl, const float* e, const float* bh,
     const float* bl, float* oxh, float* oxl, float* orh, float* partials,
     const float* lh, const float* ll, const float* le, const float* uh,
-    const float* ul, const float* ue, int nz, int ny, int nx, void* stream_ptr)
+    const float* ul, const float* ue, int nz, int ny, int nx, int nb,
+    int pstride, void* stream_ptr)
 {
-    if (K < 1 || K > MAXK || nz < 1 || ny < 1 || nx < 1) return -1;
+    if (K < 1 || K > MAXK || nz < 1 || ny < 1 || nx < 1 || nb < 1) return -1;
     const DfHalo hl = {lh, ll, le, uh, ul, ue};
     if ((lh == nullptr) != (ll == nullptr) || (lh == nullptr) != (le == nullptr) ||
         (uh == nullptr) != (ul == nullptr) || (uh == nullptr) != (ue == nullptr))
         return -1;
+    if (nb > 1 && (lh != nullptr || uh != nullptr)) return -1;
+    if (partials != nullptr && pstride < omg_df_num_partials(nz, ny, nx)) return -1;
     DfStencil st;
     st.K = K;
     for (int k = 0; k < MAXK; ++k) {
@@ -457,12 +478,14 @@ extern "C" int omg_df_update_residual(
             st.terms[k * MAXT + j] = terms[k * MAXT + j];
     }
     const int zc = z_chunk(nz, ny, nx);
-    dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (nz + zc - 1) / zc);
+    const long zblocks = (long)((nz + zc - 1) / zc) * nb;
+    if (zblocks > 65535) return -1;
+    dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, (unsigned)zblocks);
     cudaStream_t stream = (cudaStream_t)stream_ptr;
     switch (shape_of(st)) {
-    case 7: launch<7>(grid, stream, st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, hl, nz, ny, nx, zc); break;
-    case 5: launch<5>(grid, stream, st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, hl, nz, ny, nx, zc); break;
-    default: launch<0>(grid, stream, st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, hl, nz, ny, nx, zc); break;
+    case 7: launch<7>(grid, stream, st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, hl, nz, ny, nx, zc, pstride); break;
+    case 5: launch<5>(grid, stream, st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, hl, nz, ny, nx, zc, pstride); break;
+    default: launch<0>(grid, stream, st, xh, xl, e, bh, bl, oxh, oxl, orh, partials, hl, nz, ny, nx, zc, pstride); break;
     }
     return (int)cudaGetLastError();
 }

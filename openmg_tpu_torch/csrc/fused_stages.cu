@@ -126,6 +126,26 @@
 // the wrapper drops them from the region table of the others.  The
 // resident shape declines halos (its tiles hold no halo along z).
 //
+// THE BATCHED FORM (the TPU kernel under jax.vmap, whose grid gains a
+// leading batch axis): nb members of one level stacked along a leading axis
+// (b, x, x_out and a fine r_out nz*ny*nx floats apart, ec and a coarse
+// r_out an eighth of that), one launch for all of them, with one region
+// table, transfer weights and stage plan.  The member is the outer part of
+// blockIdx.z, above the z-chunks (or tiles), and the kernel moves its
+// pointers to the member's grids; nothing else changes.
+//   * The resident shape takes the batch where one member's tiles fit on
+//     the card at once, in rounds inside the one cooperative launch: as
+//     many members a round as fit together (a divisor of nb), every block
+//     passing the round's grid-wide barriers.  Elsewhere the batch marches,
+//     all members in one grid.  (Marching eight members of the cornered
+//     128^3 level, which fit only one at a time, took 1.7-2.0x the time of
+//     eight resident launches on an H100; in rounds, 0.80-0.96x.)
+//   * A point's value does not depend on the tiling or the shape that
+//     computed it (a tile recomputes its halo with the same arithmetic, and
+//     the two shapes share their per-word body; the halo form's marching
+//     slabs equal the resident whole grid's rows bit for bit), so every
+//     member equals a launch on it alone.  The batch takes no halos.
+//
 // Cornered levels (both shapes): the tap of point i for offset k is one row
 // of an at most 8-row table, chosen by which of i's coordinates are 0.
 // Interior cells use the interior taps; the few cells on a low face whose
@@ -186,6 +206,8 @@ struct Plan {
     int hlo, hhi, clo, chi;
     int zmin, zmax, czmin, czmax;
     int halo;
+    int nb;                 // members of a batch (1: one grid)
+    int group, rounds;      // resident shape: members a round, rounds (nb = group * rounds)
 };
 
 // Plane z of a grid of (n, plane) floats: its own, or of the received slab
@@ -198,6 +220,19 @@ __device__ __forceinline__ const float* plane_ptr(
     if (z >= n) return hi + (size_t)(z - n) * plane;
     return g + (size_t)z * plane;
 }
+
+// Where member mb's grids of a batch start: fine grids nz*ny*nx floats
+// apart, coarse ones (ec, a restricted residual) an eighth of that.
+#define OMG_MEMBER_GRIDS(mb)                                                  \
+    do {                                                                      \
+        const size_t mf_ = (size_t)(mb) * nz * ny * nx;                       \
+        const size_t mc_ = (size_t)(mb) * (nz >> 1) * (ny >> 1) * (nx >> 1);  \
+        b += mf_;                                                             \
+        if (xin != nullptr) xin += mf_;                                       \
+        if (ec != nullptr) ec += mc_;                                         \
+        if (x_out != nullptr) x_out += mf_;                                   \
+        if (r_out != nullptr) r_out += pl.emit == 2 ? mc_ : mf_;              \
+    } while (0)
 
 // Floats of dynamic shared memory a launch takes: the rings and the coarse
 // ec planes.
@@ -578,7 +613,11 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
     const int fy0 = blockIdx.y * TYO, fx0 = blockIdx.x * pl.TXO;
     tl.gy0 = fy0 - D;
     tl.gx0 = fx0 - H;
-    tl.z0 = blockIdx.z * pl.ZC;
+    // the member (batched form) and its z-chunk
+    const int nzc = (nz + pl.ZC - 1) / pl.ZC;
+    const int mb = blockIdx.z / nzc;
+    OMG_MEMBER_GRIDS(mb);
+    tl.z0 = (blockIdx.z - mb * nzc) * pl.ZC;
     tl.z1 = min(tl.z0 + pl.ZC, nz);
     const int zlo = tl.z0 - D;
     const int T0 = (tl.z1 - tl.z0) + 2 * D;    // planes loaded
@@ -1131,7 +1170,9 @@ __global__ void __launch_bounds__(RT, 2) resident_visit_kernel(
 
     const int tid = threadIdx.x, tz = pl.ZC;
     const int w = tid % RW, r = tid / RW;
-    const int z0 = blockIdx.z * tz, y0 = blockIdx.y * RY, x0 = blockIdx.x * 64;
+    const int nzc = (nz + tz - 1) / tz;
+    const int mb = blockIdx.z / nzc;   // the block's member within a round's group
+    const int z0 = (blockIdx.z - mb * nzc) * tz, y0 = blockIdx.y * RY, x0 = blockIdx.x * 64;
     const int gy = y0 + r, gx = x0 + 4 * w;
     const int S_ = pl.n_stages;
     float* S = smem;                              // the tile
@@ -1178,139 +1219,161 @@ __global__ void __launch_bounds__(RT, 2) resident_visit_kernel(
         }
     };
 
-    const float* cur = xin;   // the iterate as it stands
-    for (int s = 0; s < S_; ++s) {
-        stage_in(pl, S, T, E, cur, s == 0 ? ec : nullptr, b, tz, z0, y0, x0, nz, ny, nx, 1);
-        __syncthreads();
-        const bool rb = pl.kind[s] == MODE_RB;
-        const float par = pl.par[s];
-        for (int p = 0; p < tz; ++p) {
-            const int gz = z0 + p;
-            float bv[4], v[4];
-            b_of(p, bv);
-            if (rb)
-                tile_word<MODE_RB, SH>(pl, S, p, r, w, gz, gy, gx, fix0, fix1, bv,
-                                       taps, treg, imask, inv_d, par, v);
-            else
-                tile_word<MODE_JACOBI, SH>(pl, S, p, r, w, gz, gy, gx, fix0, fix1,
-                                           bv, taps, treg, imask, inv_d, par, v);
-            *reinterpret_cast<float4*>(T + (p * RY + r) * 64 + 4 * w) =
-                make_float4(v[0], v[1], v[2], v[3]);
-        }
-        // x_out is the iterate from the second stage on: every block must
-        // have read it before any block writes
-        if (s > 0) grid.sync();
-        store_words(x_out);
-        cur = x_out;
-        if (s + 1 < S_ || pl.emit != 0) grid.sync();
-    }
-    if (S_ == 0 && pl.has_ec) {
-        // the stage-free x + P ec
-        stage_in(pl, S, T, E, cur, ec, nullptr, tz, z0, y0, x0, nz, ny, nx, 1);
-        __syncthreads();
-        for (int p = 0; p < tz; ++p) {
-            const float4 t = *reinterpret_cast<const float4*>(
-                S + ((p + 2) * RSY + (r + 2)) * RSX + 4 + 4 * w);
-            *reinterpret_cast<float4*>(T + (p * RY + r) * 64 + 4 * w) = t;
-        }
-        store_words(x_out);
-        cur = x_out;
-        if (pl.emit != 0) grid.sync();
-    }
-    if (pl.emit == 1) {
-        stage_in(pl, S, T, E, cur, nullptr, b, tz, z0, y0, x0, nz, ny, nx, 1);
-        __syncthreads();
-        for (int p = 0; p < tz; ++p) {
-            const int gz = z0 + p;
-            float bv[4], v[4];
-            b_of(p, bv);
-            tile_word<MODE_RESIDUAL, SH>(pl, S, p, r, w, gz, gy, gx, fix0, fix1, bv,
-                                         taps, treg, imask, inv_d, 0.0f, v);
-            *reinterpret_cast<float4*>(T + (p * RY + r) * 64 + 4 * w) =
-                make_float4(v[0], v[1], v[2], v[3]);
-        }
-        store_words(r_out);
-    } else if (pl.emit == 2) {
-        // the fine residual on planes z0 - 1 .. z0 + tz - 1, rows y0 - 1 ..
-        // y0 + 15, columns x0 - 1 .. x0 + 63 (zero outside the domain) into
-        // R: (gz, gy, gx) at R[((gz - z0 + 1) * RRY + gy - y0 + 1) * RSX +
-        // gx - x0 + 4].  Words a lane, 16 lanes a row; a half-warp past the
-        // end computes a word of the other half again and keeps nothing.
-        stage_in(pl, S, T, E, cur, nullptr, nullptr, tz, z0, y0, x0, nz, ny, nx, 0);
-        __syncthreads();
-        float* R = T;
-        const int units = (tz + 1) * RRY * RW;
-        for (int u0 = tid; u0 < ((units + 31) & ~31); u0 += RT) {
-            const int u = u0 < units ? u0 : u0 - 16;
-            const int row = u / RW, uw = u - row * RW;
-            const int p = row / RRY - 1, ur = row % RRY - 1;
-            const int gz = z0 + p, uy = y0 + ur, ux = x0 + 4 * uw;
-            const bool rowin = gz >= 0 && gz < nz && uy >= 0 && uy < ny;
-            float bv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, v[4];
-            const float* q = b + ((size_t)(rowin ? gz : 0) * ny + (rowin ? uy : 0)) * nx + ux;
-            if (rowin && pl.vec4 && ux < nx) {
-                const float4 t = __ldg(reinterpret_cast<const float4*>(q));
-                bv[0] = t.x; bv[1] = t.y; bv[2] = t.z; bv[3] = t.w;
-            } else if (rowin) {
-                for (int j = 0; j < 4; ++j)
-                    if (ux + j < nx) bv[j] = __ldg(q + j);
+    // The batch in rounds: round r takes members r * group + mb, one visit
+    // of every member of the round's group (one round where the whole
+    // batch's tiles fit).  Every block passes the same grid-wide barriers in
+    // a round, and the members of two rounds share no grid, so a round needs
+    // no barrier of its own.
+    const float* const b_in = b;
+    const float* const x_in = xin;
+    const float* const ec_in = ec;
+    float* const xo_in = x_out;
+    float* const ro_in = r_out;
+    for (int round = 0; round < pl.rounds; ++round) {
+        b = b_in;
+        xin = x_in;
+        ec = ec_in;
+        x_out = xo_in;
+        r_out = ro_in;
+        OMG_MEMBER_GRIDS(round * pl.group + mb);
+        if (round > 0) __syncthreads();   // the last round's tile buffers are read
+        const float* cur = xin;   // the iterate as it stands
+        for (int s = 0; s < S_; ++s) {
+            stage_in(pl, S, T, E, cur, s == 0 ? ec : nullptr, b, tz, z0, y0, x0, nz, ny, nx, 1);
+            __syncthreads();
+            const bool rb = pl.kind[s] == MODE_RB;
+            const float par = pl.par[s];
+            for (int p = 0; p < tz; ++p) {
+                const int gz = z0 + p;
+                float bv[4], v[4];
+                b_of(p, bv);
+                if (rb)
+                    tile_word<MODE_RB, SH>(pl, S, p, r, w, gz, gy, gx, fix0, fix1, bv,
+                                           taps, treg, imask, inv_d, par, v);
+                else
+                    tile_word<MODE_JACOBI, SH>(pl, S, p, r, w, gz, gy, gx, fix0, fix1,
+                                               bv, taps, treg, imask, inv_d, par, v);
+                *reinterpret_cast<float4*>(T + (p * RY + r) * 64 + 4 * w) =
+                    make_float4(v[0], v[1], v[2], v[3]);
             }
-            unsigned f0, f1;
-            word_fix(uy, ux, ny, nx, imask, f0, f1);
-            tile_word<MODE_RESIDUAL, SH>(pl, S, p, ur, uw, gz, uy, ux, f0, f1, bv,
-                                         taps, treg, imask, inv_d, 0.0f, v);
-            if (u0 < units) {
-                float* d = R + ((p + 1) * RRY + ur + 1) * RSX + 4 + 4 * uw;
-                for (int j = 0; j < 4; ++j) d[j] = rowin && ux + j < nx ? v[j] : 0.0f;
-            }
+            // x_out is the iterate from the second stage on: every block must
+            // have read it before any block writes
+            if (s > 0) grid.sync();
+            store_words(x_out);
+            cur = x_out;
+            if (s + 1 < S_ || pl.emit != 0) grid.sync();
         }
-        // the column x0 - 1, cell by cell
-        for (int i = tid; i < (tz + 1) * RRY; i += RT) {
-            const int p = i / RRY - 1, ur = i % RRY - 1;
-            const int gz = z0 + p, uy = y0 + ur, ux = x0 - 1;
-            float v = 0.0f;
-            if (gz >= 0 && gz < nz && uy >= 0 && uy < ny && ux >= 0) {
-                const float* p0 = S + (p + 2) * RSY * RSX;
-                const int m = (gz == 0 ? 1 : 0) | (uy == 0 ? 2 : 0) | (ux == 0 ? 4 : 0);
-                v = cell_value<MODE_RESIDUAL, RSX>(
-                    pl, p0 - RSY * RSX, p0, p0 + RSY * RSX, taps, imask,
-                    (ur + 2) * RSX + 3, m, __ldg(b + ((size_t)gz * ny + uy) * nx + ux),
-                    inv_d, 0.0f);
+        if (S_ == 0 && pl.has_ec) {
+            // the stage-free x + P ec
+            stage_in(pl, S, T, E, cur, ec, nullptr, tz, z0, y0, x0, nz, ny, nx, 1);
+            __syncthreads();
+            for (int p = 0; p < tz; ++p) {
+                const float4 t = *reinterpret_cast<const float4*>(
+                    S + ((p + 2) * RSY + (r + 2)) * RSX + 4 + 4 * w);
+                *reinterpret_cast<float4*>(T + (p * RY + r) * 64 + 4 * w) = t;
             }
-            R[((p + 1) * RRY + ur + 1) * RSX + 3] = v;
+            store_words(x_out);
+            cur = x_out;
+            if (pl.emit != 0) grid.sync();
         }
-        __syncthreads();
-        // the block's coarse points: fine index 2c + t sits at R index
-        // 2 lc + t + 1 on each axis
-        const int ncz = nz >> 1, ncy = ny >> 1, ncx = nx >> 1;
-        for (int i = tid; i < (tz / 2) * (RY / 2) * 32; i += RT) {
-            const int lz = i / ((RY / 2) * 32), ly = (i / 32) % (RY / 2), lx = i % 32;
-            const int cz = z0 / 2 + lz, cy = y0 / 2 + ly, cx = x0 / 2 + lx;
-            if (cz >= ncz || cy >= ncy || cx >= ncx) continue;
-            float ax = 0.0f;
-#pragma unroll
-            for (int tx = 0; tx < 3; ++tx) {
-                float ay = 0.0f;
-#pragma unroll
-                for (int ty = 0; ty < 3; ++ty) {
-                    float az = 0.0f;
-#pragma unroll
-                    for (int tq = 0; tq < 3; ++tq)
-                        az += pl.rw[tq] * R[((2 * lz + tq) * RRY + 2 * ly + ty) * RSX +
-                                            3 + 2 * lx + tx];
-                    ay += pl.rw[ty] * az;
+        if (pl.emit == 1) {
+            stage_in(pl, S, T, E, cur, nullptr, b, tz, z0, y0, x0, nz, ny, nx, 1);
+            __syncthreads();
+            for (int p = 0; p < tz; ++p) {
+                const int gz = z0 + p;
+                float bv[4], v[4];
+                b_of(p, bv);
+                tile_word<MODE_RESIDUAL, SH>(pl, S, p, r, w, gz, gy, gx, fix0, fix1, bv,
+                                             taps, treg, imask, inv_d, 0.0f, v);
+                *reinterpret_cast<float4*>(T + (p * RY + r) * 64 + 4 * w) =
+                    make_float4(v[0], v[1], v[2], v[3]);
+            }
+            store_words(r_out);
+        } else if (pl.emit == 2) {
+            // the fine residual on planes z0 - 1 .. z0 + tz - 1, rows y0 - 1 ..
+            // y0 + 15, columns x0 - 1 .. x0 + 63 (zero outside the domain) into
+            // R: (gz, gy, gx) at R[((gz - z0 + 1) * RRY + gy - y0 + 1) * RSX +
+            // gx - x0 + 4].  Words a lane, 16 lanes a row; a half-warp past the
+            // end computes a word of the other half again and keeps nothing.
+            stage_in(pl, S, T, E, cur, nullptr, nullptr, tz, z0, y0, x0, nz, ny, nx, 0);
+            __syncthreads();
+            float* R = T;
+            const int units = (tz + 1) * RRY * RW;
+            for (int u0 = tid; u0 < ((units + 31) & ~31); u0 += RT) {
+                const int u = u0 < units ? u0 : u0 - 16;
+                const int row = u / RW, uw = u - row * RW;
+                const int p = row / RRY - 1, ur = row % RRY - 1;
+                const int gz = z0 + p, uy = y0 + ur, ux = x0 + 4 * uw;
+                const bool rowin = gz >= 0 && gz < nz && uy >= 0 && uy < ny;
+                float bv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, v[4];
+                const float* q = b + ((size_t)(rowin ? gz : 0) * ny + (rowin ? uy : 0)) * nx + ux;
+                if (rowin && pl.vec4 && ux < nx) {
+                    const float4 t = __ldg(reinterpret_cast<const float4*>(q));
+                    bv[0] = t.x; bv[1] = t.y; bv[2] = t.z; bv[3] = t.w;
+                } else if (rowin) {
+                    for (int j = 0; j < 4; ++j)
+                        if (ux + j < nx) bv[j] = __ldg(q + j);
                 }
-                ax += pl.rw[tx] * ay;
+                unsigned f0, f1;
+                word_fix(uy, ux, ny, nx, imask, f0, f1);
+                tile_word<MODE_RESIDUAL, SH>(pl, S, p, ur, uw, gz, uy, ux, f0, f1, bv,
+                                             taps, treg, imask, inv_d, 0.0f, v);
+                if (u0 < units) {
+                    float* d = R + ((p + 1) * RRY + ur + 1) * RSX + 4 + 4 * uw;
+                    for (int j = 0; j < 4; ++j) d[j] = rowin && ux + j < nx ? v[j] : 0.0f;
+                }
             }
-            r_out[((size_t)cz * ncy + cy) * ncx + cx] = ax;
+            // the column x0 - 1, cell by cell
+            for (int i = tid; i < (tz + 1) * RRY; i += RT) {
+                const int p = i / RRY - 1, ur = i % RRY - 1;
+                const int gz = z0 + p, uy = y0 + ur, ux = x0 - 1;
+                float v = 0.0f;
+                if (gz >= 0 && gz < nz && uy >= 0 && uy < ny && ux >= 0) {
+                    const float* p0 = S + (p + 2) * RSY * RSX;
+                    const int m = (gz == 0 ? 1 : 0) | (uy == 0 ? 2 : 0) | (ux == 0 ? 4 : 0);
+                    v = cell_value<MODE_RESIDUAL, RSX>(
+                        pl, p0 - RSY * RSX, p0, p0 + RSY * RSX, taps, imask,
+                        (ur + 2) * RSX + 3, m, __ldg(b + ((size_t)gz * ny + uy) * nx + ux),
+                        inv_d, 0.0f);
+                }
+                R[((p + 1) * RRY + ur + 1) * RSX + 3] = v;
+            }
+            __syncthreads();
+            // the block's coarse points: fine index 2c + t sits at R index
+            // 2 lc + t + 1 on each axis
+            const int ncz = nz >> 1, ncy = ny >> 1, ncx = nx >> 1;
+            for (int i = tid; i < (tz / 2) * (RY / 2) * 32; i += RT) {
+                const int lz = i / ((RY / 2) * 32), ly = (i / 32) % (RY / 2), lx = i % 32;
+                const int cz = z0 / 2 + lz, cy = y0 / 2 + ly, cx = x0 / 2 + lx;
+                if (cz >= ncz || cy >= ncy || cx >= ncx) continue;
+                float ax = 0.0f;
+    #pragma unroll
+                for (int tx = 0; tx < 3; ++tx) {
+                    float ay = 0.0f;
+    #pragma unroll
+                    for (int ty = 0; ty < 3; ++ty) {
+                        float az = 0.0f;
+    #pragma unroll
+                        for (int tq = 0; tq < 3; ++tq)
+                            az += pl.rw[tq] * R[((2 * lz + tq) * RRY + 2 * ly + ty) * RSX +
+                                                3 + 2 * lx + tx];
+                        ay += pl.rw[ty] * az;
+                    }
+                    ax += pl.rw[tx] * ay;
+                }
+                r_out[((size_t)cz * ncy + cy) * ncx + cx] = ax;
+            }
         }
     }
 }
 
-// The resident launch, where the level's tiles fit on the card at once:
-// with the fewest planes a tile (1, 2, 4 or 8) for which they do, the most
-// blocks.  Returns NO_FIT where they do not fit (no CUDA error has its
-// value), else what the launch returned.
+// The resident launch, where one member's tiles fit on the card at once:
+// with the fewest planes a tile (1, 2, 4 or 8) that takes the batch in the
+// fewest rounds (a round: as many members as fit at once, a divisor of nb,
+// so every block has a member in every round), the most blocks.  One
+// grid's visit is one round at the fewest planes that fit, as before
+// batches.  Returns NO_FIT where one member's tiles do not fit (no CUDA
+// error has its value), else what the launch returned.
 constexpr int NO_FIT = -2;
 
 template <int SH>
@@ -1320,10 +1383,12 @@ int launch_resident(Plan pl, cudaStream_t stream, const float* values,
                     int ny, int nx, int nsm)
 {
     const long tiles_yx = (long)((nx + 63) / 64) * ((ny + RY - 1) / RY);
+    int best_tz = 0, best_group = 0, best_rounds = 0;
+    size_t best_smem = 0;
     // a restriction forms the coarse points over a block's own planes:
     // an even number of them
     for (int tz = pl.emit == 2 ? 2 : 1; tz <= RZC; tz *= 2) {
-        const long blocks = tiles_yx * ((nz + tz - 1) / tz);
+        const long blocks = tiles_yx * ((nz + tz - 1) / tz);   // a member's
         if (blocks > 8L * nsm) continue;   // at most 2048 / RT blocks an SM
         const size_t smem = resident_floats(tz, pl.emit, pl.has_ec) * sizeof(float);
         cudaError_t e = cudaFuncSetAttribute(
@@ -1334,14 +1399,30 @@ int launch_resident(Plan pl, cudaStream_t stream, const float* values,
             e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                 &per_sm, resident_visit_kernel<SH>, RT, smem);
         if (e != cudaSuccess) return (int)e;
-        if (blocks > (long)per_sm * nsm) continue;
-        pl.ZC = tz;
-        dim3 grid((nx + 63) / 64, (ny + RY - 1) / RY, (nz + tz - 1) / tz);
-        void* args[] = {&pl, &values, &table, &b, &x, &ec, &x_out, &r_out, &nz, &ny, &nx};
-        return (int)cudaLaunchCooperativeKernel((const void*)resident_visit_kernel<SH>,
-                                                grid, dim3(RT), args, smem, stream);
+        const long slots = (long)(per_sm < 8 ? per_sm : 8) * nsm;
+        if (blocks > slots) continue;
+        int group = 1;
+        for (int g = pl.nb; g > 1; --g)
+            if (pl.nb % g == 0 && g * blocks <= slots) {
+                group = g;
+                break;
+            }
+        const int rounds = pl.nb / group;
+        if (best_tz == 0 || rounds < best_rounds) {
+            best_tz = tz;
+            best_group = group;
+            best_rounds = rounds;
+            best_smem = smem;
+        }
     }
-    return NO_FIT;
+    if (best_tz == 0) return NO_FIT;
+    pl.ZC = best_tz;
+    pl.group = best_group;
+    pl.rounds = best_rounds;
+    dim3 grid((nx + 63) / 64, (ny + RY - 1) / RY, ((nz + best_tz - 1) / best_tz) * best_group);
+    void* args[] = {&pl, &values, &table, &b, &x, &ec, &x_out, &r_out, &nz, &ny, &nx};
+    return (int)cudaLaunchCooperativeKernel((const void*)resident_visit_kernel<SH>,
+                                            grid, dim3(RT), args, best_smem, stream);
 }
 
 // The marching launch with a tile of TY rows: ZC, the planes a block owns,
@@ -1370,19 +1451,23 @@ int launch_march(Plan pl, cudaStream_t stream, const float* values,
     const long slots = (long)nsm * per_sm;
     long best = -1;
     for (int zc = 2; zc < nz + 2; zc += 2) {
-        const long blocks = tiles * ((nz + zc - 1) / zc);
+        const long blocks = tiles * ((nz + zc - 1) / zc) * pl.nb;
         const long cost = ((blocks + slots - 1) / slots) * (zc + 4 * pl.D);
         if (best < 0 || cost < best) {
             best = cost;
             pl.ZC = zc;
         }
     }
-    dim3 grid((nx + pl.TXO - 1) / pl.TXO, (ny + TY - 1) / TY,
-              (nz + pl.ZC - 1) / pl.ZC);
+    const long zblocks = (long)((nz + pl.ZC - 1) / pl.ZC) * pl.nb;
+    if (zblocks > 65535) return -1;
+    dim3 grid((nx + pl.TXO - 1) / pl.TXO, (ny + TY - 1) / TY, (unsigned)zblocks);
     visit_kernel<SH, TY><<<grid, THREADS, smem, stream>>>(
         pl, values, table, b, x, ec, x_out, r_out, nz, ny, nx);
     return (int)cudaGetLastError();
 }
+
+// The shape the last launch took: 1 resident, 0 marching, -1 none yet.
+int g_last_shape = -1;
 
 // The resident launch where it fits; else the marching one with the
 // tallest tile (32, 24 or 16 rows owned) whose rings fit in shared memory.
@@ -1399,8 +1484,10 @@ int launch(Plan& pl, cudaStream_t stream, const float* values,
     if (!pl.halo) {
         const int rc = launch_resident<SH>(pl, stream, values, table, b, x, ec, x_out,
                                            r_out, nz, ny, nx, nsm);
+        g_last_shape = 1;
         if (rc != NO_FIT) return rc;
     }
+    g_last_shape = 0;
     const int tys[3] = {32, 24, 16};
     for (int ty : tys) {
         Plan t = pl;
@@ -1438,6 +1525,9 @@ int shape_of(const int* offs, int K)
 // with a restriction.  The wrapper splits deeper visits.
 extern "C" int omg_fused_max_depth() { return MAX_DEPTH; }
 
+// The shape of the last launch on this process: 1 resident, 0 marching.
+extern "C" int omg_fused_last_shape() { return g_last_shape; }
+
 // Runs the whole level visit on `stream` in one launch.  Returns 0, a CUDA
 // error code, or -1 for arguments the kernel does not take.
 //
@@ -1456,6 +1546,9 @@ extern "C" int omg_fused_max_depth() { return MAX_DEPTH; }
 //     planes; null without ec), with open_lo / open_hi: is there a rank
 //     below / above.  hlo, hhi >= D; clo >= (D + 1) / 2, chi >= D / 2 + 1.
 //     All null and 0 for a whole grid.
+//   nb: members of a batch stacked along a leading axis (every grid
+//     pointer then holds nb grids, one after another); 1 for one grid.  A
+//     batch takes no halos.
 extern "C" int omg_fused_stages(
     const float* values, const float* table, const int* offs, int K,
     const int* rowmap, const float* b, const float* x, const float* ec,
@@ -1463,9 +1556,9 @@ extern "C" int omg_fused_stages(
     const int* kinds, const float* pars, int emit_residual, const float* rw,
     const float* pw, const float* b_lo, const float* b_hi, const float* x_lo,
     const float* x_hi, const float* ec_lo, const float* ec_hi, int open_lo,
-    int open_hi, int hlo, int hhi, int clo, int chi, void* stream_ptr)
+    int open_hi, int hlo, int hhi, int clo, int chi, int nb, void* stream_ptr)
 {
-    if (K < 1 || K > MAXK || nz < 1 || ny < 1 || nx < 1) return -1;
+    if (K < 1 || K > MAXK || nz < 1 || ny < 1 || nx < 1 || nb < 1) return -1;
     if (emit_residual < 0 || emit_residual > 2) return -1;
     if (emit_residual != 0 && r_out == nullptr) return -1;
     if ((ec != nullptr || emit_residual == 2) && ((nz | ny | nx) & 1)) return -1;
@@ -1524,6 +1617,10 @@ extern "C" int omg_fused_stages(
         pl.pw[t] = pw[t];
     }
     pl.halo = open_lo || open_hi || b_lo != nullptr;
+    pl.nb = nb;
+    pl.group = nb;
+    pl.rounds = 1;
+    if (nb > 1 && pl.halo) return -1;
     pl.b_lo = b_lo; pl.b_hi = b_hi; pl.x_lo = x_lo; pl.x_hi = x_hi;
     pl.ec_lo = ec_lo; pl.ec_hi = ec_hi;
     pl.hlo = hlo; pl.hhi = hhi; pl.clo = clo; pl.chi = chi;

@@ -65,6 +65,13 @@
 //     comes from the wrapper (ops/kernels.py::fused2d_plan) and is checked
 //     here.
 //
+// The batched form (the TPU kernel under jax.vmap, whose grid gains a
+// leading batch axis): `members` planes of one level stacked along a leading
+// axis, one launch for all of them with one table, plan and stage list.
+// The member is blockIdx.y; its warps march its plane as a launch on it
+// alone would (the same plan), so each member's outputs are that launch's,
+// bit for bit.
+//
 // Rounding: taps are summed in the order of the offsets (the diagonal
 // skipped in a red/black stage); interior points multiply by the reciprocal
 // of the interior diagonal, region points divide by their own diagonal, as
@@ -114,6 +121,7 @@ struct Plan {
     int vec;                // rows and pointers allow 16-byte accesses
     int emit;               // 1: store the residual; 2: restrict it
     float rw[3], pw[3];     // transfer weights of taps -1, 0, +1
+    int members;            // planes of a batch, one a blockIdx.y (1: one plane)
 };
 
 // neighbour at position p of a 3x3 neighbourhood, p known at run time only
@@ -450,6 +458,17 @@ march2d_kernel(
 
     const int wid = blockIdx.x * WARPS + (tid >> 5);
     if (wid >= pl.strips * pl.chunks) return;
+    if (blockIdx.y > 0) {
+        // member blockIdx.y of a batch: planes ny*nx floats apart, coarse
+        // ones (ec, a restricted residual) a quarter of that
+        const size_t mf = (size_t)blockIdx.y * ny * nx;
+        const size_t mc = (size_t)blockIdx.y * (ny >> 1) * (nx >> 1);
+        b += mf;
+        x_out += mf;
+        if (xin != nullptr) xin += mf;
+        if (ec != nullptr) ec += mc;
+        if (r_out != nullptr) r_out += pl.emit == 2 ? mc : mf;
+    }
     const int strip = wid % pl.strips, chunk = wid / pl.strips;
     Ctx cx;
     cx.lane = tid & 31;
@@ -563,7 +582,7 @@ int launch(const Plan& pl, cudaStream_t stream, const float* values,
 {
     const long long warps = (long long)pl.strips * pl.chunks;
     const int blocks = (int)((warps + WARPS - 1) / WARPS);
-    march2d_kernel<ORD, S, RES><<<blocks, WARPS * 32, 0, stream>>>(
+    march2d_kernel<ORD, S, RES><<<dim3(blocks, pl.members), WARPS * 32, 0, stream>>>(
         pl, values, table, b, x, ec, x_out, r_out, ny, nx);
     return (int)cudaGetLastError();
 }
@@ -630,14 +649,17 @@ extern "C" int omg_fused2d_strip() { return W; }
 //     of a strip of W columns that owns ow = W - 2 hp of them; hp a multiple
 //     of 4 and at least the depth (+1 with a prolongation); strips * ow >=
 //     nx, chunks * rows >= ny, rows even.
+//   members: planes of a batch stacked along a leading axis (every grid
+//     pointer then holds that many planes, one after another); 1 for one.
 extern "C" int omg_fused_stages_2d(
     const float* values, const float* table, const int* offs, int K,
     const int* rowmap, const float* b, const float* x, const float* ec,
     float* x_out, float* r_out, int ny, int nx, int n_stages,
     const int* kinds, const float* pars, int emit, const float* rw,
-    const float* pw, const int* plan, void* stream_ptr)
+    const float* pw, const int* plan, int members, void* stream_ptr)
 {
     if (K < 1 || K > MAXK || ny < 1 || nx < 1 || x_out == nullptr) return -1;
+    if (members < 1 || members > 65535) return -1;
     if (emit < 0 || emit > 2 || (emit != 0 && r_out == nullptr)) return -1;
     if ((ec != nullptr || emit == 2) && ((ny | nx) & 1)) return -1;
     const int H = n_stages + (emit >= 1 ? 1 : 0) + (emit == 2 ? 1 : 0);
@@ -687,6 +709,7 @@ extern "C" int omg_fused_stages_2d(
                            | (emit == 1 ? (uintptr_t)r_out : 0);
     pl.vec = (nx % V == 0) && (ptrs & 15) == 0;
     pl.emit = emit;
+    pl.members = members;
     cudaStream_t st = (cudaStream_t)stream_ptr;
     if (same_order(pl, Order<1>::pos, Order<1>::K))
         return by_emit<1>(emit, n_stages, pl, st, values, table, b, x, ec, x_out,

@@ -37,6 +37,14 @@ cornered level's axis-0 regions lie on the first rank only
 version on the slab extended by the received planes and slices it.
 Halo launches count apart, in ``LAUNCHES_HALO``.
 
+**The batched form** (K1b, the JAX package's kernel under ``jax.vmap``):
+:func:`fused_stages_const_3d_batch` takes K members of one level stacked
+along a leading axis and runs a visit of all of them in one launch (one
+operator, stage list and transfer), each member bit-equal to the scalar
+launch on it; its plain version :func:`fused_stages_const_3d_batch_plain`
+is the scalar plain version member by member.  Batch launches count apart,
+in ``LAUNCHES_BATCH``; :func:`last_shape` says which shape the C side took.
+
 The entry points (:func:`smooth_fused`, :func:`presmooth_residual_fused`,
 :func:`presmooth_restrict_fused`, :func:`residual_restrict_fused`,
 :func:`prolong_smooth_fused`) keep the JAX package's signatures.  A 2D
@@ -46,7 +54,9 @@ the visit in one call of :func:`openmg_tpu_torch.ops.kernels.fused_stages_2d`
 kernels truly do not take: not 2D or 3D, not float32, a stencil of radius
 > 1, a smoother that is not a list of stages, an odd dimension with a
 transfer, and in 2D a visit with no stages or a stage-free residual with
-restriction (as in the JAX package).  The JAX package's fit models, lane
+restriction (as in the JAX package).  Each also takes a batch ``(K,
+*grid)`` of the operator's grids (K1b or K5b), decided by the operator's
+dimension.  The JAX package's fit models, lane
 rules and 2D plane-size gate describe its own hardware's memory and are not
 copied.
 """
@@ -63,6 +73,9 @@ from openmg_tpu_torch.ops.transfer import prolong, restrict
 __all__ = [
     "LAUNCHES",
     "LAUNCHES_HALO",
+    "LAUNCHES_BATCH",
+    "fused_stages_const_3d_batch",
+    "fused_stages_const_3d_batch_plain",
     "gate_corner",
     "halo_depth",
     "MAX_DEPTH",
@@ -81,6 +94,8 @@ __all__ = [
 LAUNCHES = 0
 # ... of its halo form (a rank's slab with received planes)
 LAUNCHES_HALO = 0
+# ... of its batched form (K members of one level a launch)
+LAUNCHES_BATCH = 0
 # the deepest visit one launch of csrc/fused_stages.cu takes (stages, +1
 # with a residual, +1 more with a restriction); its MAX_DEPTH
 MAX_DEPTH = 6
@@ -357,7 +372,7 @@ def _kernel():
             p, p,                 # rw, pw
             p, p, p, p, p, p,     # halo slabs: b lo/hi, x lo/hi, ec lo/hi
             i, i, i, i, i, i,     # open_lo, open_hi, planes of b/x lo, hi, ec lo, hi
-            p,                    # stream
+            i, p,                 # members of a batch, stream
         ]
         fn.restype = i
         depth = lib.omg_fused_max_depth
@@ -369,6 +384,16 @@ def _kernel():
             )
         _fn = fn
     return _fn
+
+
+def last_shape() -> str:
+    """The shape the last launch of ``csrc/fused_stages.cu`` took:
+    ``"resident"`` or ``"marching"`` (the C side chooses by the fit)."""
+    from openmg_tpu_torch import _build
+
+    fn = _build.load().omg_fused_last_shape
+    fn.restype = ctypes.c_int
+    return {1: "resident", 0: "marching"}.get(fn(), "none")
 
 
 def _check(name, t, shape, device):
@@ -384,10 +409,12 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _transfer_weights(shape, device, restrict_transfer, ec, prolong_transfer):
+def _transfer_weights(shape, device, restrict_transfer, ec, prolong_transfer,
+                      lead=()):
     """The kernels' ``(rw, pw)``: weights of taps −1, 0, +1 of the
     restriction and of the prolongation (zeros for one not asked for),
-    after checking what the in-kernel transfers take."""
+    after checking what the in-kernel transfers take.  ``shape`` is the
+    grid's; ``lead`` the batch's leading axis, ``(K,)``, or ``()``."""
     rw = pw = (0.0, 0.0, 0.0)
     if restrict_transfer is not None:
         rw = _axis_weights(restrict_transfer.r_taps)
@@ -395,7 +422,7 @@ def _transfer_weights(shape, device, restrict_transfer, ec, prolong_transfer):
         if prolong_transfer is None:
             raise ValueError("ec needs prolong_transfer")
         pw = _axis_weights(prolong_transfer.p_taps)
-        _check("ec", ec, tuple(s // 2 for s in shape), device)
+        _check("ec", ec, tuple(lead) + tuple(s // 2 for s in shape), device)
     if rw is None or pw is None:
         raise ValueError("the kernel takes transfer taps of radius 1 only")
     if (restrict_transfer is not None or ec is not None) and any(
@@ -407,16 +434,20 @@ def _transfer_weights(shape, device, restrict_transfer, ec, prolong_transfer):
 
 def _fused_stages_cuda(
     values, offsets, b, x, stages, emit_residual, corner, restrict_transfer,
-    ec, prolong_transfer, emit_x, halos=None,
+    ec, prolong_transfer, emit_x, halos=None, batch=False,
 ):
     """One launch of ``csrc/fused_stages.cu``: a visit of depth at most
-    ``MAX_DEPTH``."""
-    global LAUNCHES, LAUNCHES_HALO
+    ``MAX_DEPTH`` on a 3D grid, or with ``batch`` on a ``(K, nz, ny, nx)``
+    stack of them."""
+    global LAUNCHES, LAUNCHES_HALO, LAUNCHES_BATCH
     dev = b.device
-    if b.ndim != 3:
-        raise ValueError(f"b must be 3D, got shape {tuple(b.shape)}")
+    if b.ndim != 3 + int(batch):
+        raise ValueError(f"b must be {3 + int(batch)}D, got shape {tuple(b.shape)}")
+    if batch and halos is not None:
+        raise ValueError("a batch takes no halos")
     shape = tuple(b.shape)
-    nz, ny, nx = shape
+    lead = shape[:1] if batch else ()
+    nz, ny, nx = shape[-3:]
     K = len(offsets)
     _check("b", b, None, dev)
     _check("values", values, (K,), dev)
@@ -428,7 +459,8 @@ def _fused_stages_cuda(
     if corner:
         table = corner[1]
         _check("region table", table, (len(corner[0]), K), dev)
-    rw, pw = _transfer_weights(shape, dev, restrict_transfer, ec, prolong_transfer)
+    rw, pw = _transfer_weights(shape[-3:], dev, restrict_transfer, ec,
+                               prolong_transfer, lead)
     n = len(stages)
     depth = n + int(bool(emit_residual)) + int(restrict_transfer is not None)
     if depth > MAX_DEPTH:
@@ -446,7 +478,7 @@ def _fused_stages_cuda(
     mode, r_out = 0, None
     if emit_residual:
         if restrict_transfer is not None:
-            cshape = tuple(s // 2 for s in shape)
+            cshape = lead + tuple(s // 2 for s in shape[-3:])
             mode, r_out = 2, torch.empty(cshape, dtype=b.dtype, device=dev)
         else:
             mode, r_out = 1, torch.empty_like(b)
@@ -496,11 +528,13 @@ def _fused_stages_cuda(
             ptr(b), ptr(x), ptr(ec),
             ptr(x_out) if writes_x else None, ptr(r_out),
             nz, ny, nx, n, kinds_c, pars_c, mode, rw_c, pw_c, *slabs, *flags,
-            stream,
+            shape[0] if batch else 1, stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_fused_stages failed with code {rc}")
-    if halos is None:
+    if batch:
+        LAUNCHES_BATCH += 1
+    elif halos is None:
         LAUNCHES += 1
     else:
         LAUNCHES_HALO += 1
@@ -564,6 +598,18 @@ def fused_stages_const_3d(
             values, offsets, b, x, stages, emit_residual, corner,
             restrict_transfer, ec, prolong_transfer, emit_x, halos,
         )
+    _visit_ok(stages, emit_residual, restrict_transfer, ec, emit_x)
+    if b.device.type == "cpu":
+        one = fused_stages_const_3d_plain
+    elif b.device.type == "cuda":
+        one = _fused_stages_cuda
+    else:
+        raise ValueError(f"unsupported device {b.device}")
+    return _chunked(one, values, offsets, b, x, stages, emit_residual, corner,
+                    restrict_transfer, ec, prolong_transfer, emit_x)
+
+
+def _visit_ok(stages, emit_residual, restrict_transfer, ec, emit_x):
     if not emit_x and not (emit_residual and not stages):
         raise ValueError(
             "emit_x=False only applies to stage-free residual(+restrict) calls"
@@ -572,12 +618,12 @@ def fused_stages_const_3d(
         raise ValueError("restrict_transfer needs emit_residual")
     if not stages and not emit_residual and ec is None:
         raise ValueError("nothing to do: no stages, no ec, no residual")
-    if b.device.type == "cpu":
-        one = fused_stages_const_3d_plain
-    elif b.device.type == "cuda":
-        one = _fused_stages_cuda
-    else:
-        raise ValueError(f"unsupported device {b.device}")
+
+
+def _chunked(one, values, offsets, b, x, stages, emit_residual, corner,
+             restrict_transfer, ec, prolong_transfer, emit_x):
+    """A visit through ``one`` (a launch or a plain call) in the chunks of
+    :func:`depth_chunks`."""
     extra = int(bool(emit_residual)) + int(restrict_transfer is not None)
     chunks = depth_chunks(stages, extra, MAX_DEPTH)
     for i, chunk in enumerate(chunks):
@@ -591,19 +637,108 @@ def fused_stages_const_3d(
     return out
 
 
+def _batch_operands(offsets, tensors, what):
+    """The grid dimension of a batch (from the operator's offsets, never
+    from the tensors alone) after checking that every tensor is a
+    ``(K, *grid)`` stack of one shape."""
+    nd = len(offsets[0])
+    shape = tuple(tensors[0].shape)
+    if len(shape) != nd + 1 or shape[0] < 1:
+        raise ValueError(
+            f"{what}: a batch of {nd}D grids is (K, *grid), got shape {shape}"
+        )
+    for t in tensors:
+        if not isinstance(t, torch.Tensor) or tuple(t.shape) != shape:
+            got = tuple(t.shape) if isinstance(t, torch.Tensor) else type(t)
+            raise ValueError(f"{what}: operand of shape {got}, expected {shape}")
+    return nd
+
+
+def fused_stages_const_3d_batch_plain(
+    values, offsets, b, x, stages, emit_residual: bool = False,
+    corner=None, restrict_transfer=None, ec=None, prolong_transfer=None,
+    emit_x: bool = True,
+):
+    """Plain version of :func:`fused_stages_const_3d_batch`: the scalar
+    plain version on each member (in the same chunks), stacked."""
+    offsets = tuple(tuple(int(o) for o in off) for off in offsets)
+    stages = _norm_stages(stages)
+    if _batch_operands(offsets, (b,) if x is None else (b, x), "K1b") != 3:
+        raise ValueError("K1b takes a batch of 3D grids")
+    _visit_ok(stages, emit_residual, restrict_transfer, ec, emit_x)
+    outs = [
+        _chunked(fused_stages_const_3d_plain, values, offsets, b[m],
+                 None if x is None else x[m], stages, emit_residual, corner,
+                 restrict_transfer, None if ec is None else ec[m],
+                 prolong_transfer, emit_x)
+        for m in range(b.shape[0])
+    ]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack([o[j] for o in outs]) for j in range(len(outs[0])))
+    return torch.stack(outs)
+
+
+def fused_stages_const_3d_batch(
+    values, offsets, b, x, stages, emit_residual: bool = False,
+    corner=None, restrict_transfer=None, ec=None, prolong_transfer=None,
+    emit_x: bool = True,
+):
+    """K1b: :func:`fused_stages_const_3d` on K members of one level at
+    once: ``b`` and ``x`` ``(K, nz, ny, nx)``, ``ec`` ``(K, nz/2, ny/2,
+    nx/2)``, the outputs stacked likewise; one operator, stage list and
+    transfer for all.  On a CUDA tensor one launch a chunk for the whole
+    batch (every visit of a V(2,2) cycle is one), each member bit-equal to
+    the scalar launch on it; on a CPU tensor the plain version.  No halos."""
+    if b.device.type == "cpu":
+        return fused_stages_const_3d_batch_plain(
+            values, offsets, b, x, stages, emit_residual, corner,
+            restrict_transfer, ec, prolong_transfer, emit_x,
+        )
+    if b.device.type != "cuda":
+        raise ValueError(f"unsupported device {b.device}")
+    offsets = tuple(tuple(int(o) for o in off) for off in offsets)
+    stages = _norm_stages(stages)
+    if _batch_operands(offsets, (b,) if x is None else (b, x), "K1b") != 3:
+        raise ValueError("K1b takes a batch of 3D grids")
+    _visit_ok(stages, emit_residual, restrict_transfer, ec, emit_x)
+
+    def one(*a):
+        return _fused_stages_cuda(*a, batch=True)
+
+    return _chunked(one, values, offsets, b, x, stages, emit_residual, corner,
+                    restrict_transfer, ec, prolong_transfer, emit_x)
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 
 
+def _batched(op, b) -> bool:
+    """Whether ``b`` is a batch ``(K, *grid)`` of ``op``'s grids, decided by
+    the operator's dimension and never by the tensor's alone: a batch of 2D
+    planes has the shape of a 3D grid."""
+    return b.ndim == op.ndim + 1
+
+
 def _stencil_ok(op, b) -> bool:
+    """Whether K1 (or K1b, for a batch) takes ``op`` on ``b``."""
     return (
         (op.is_constant or isinstance(op, CorneredOperator))
         and b.dtype == torch.float32
-        and b.ndim == 3
+        and op.ndim == 3
+        and b.ndim in (3, 4)
         and len(op.offsets) <= 27
         and all(abs(o) <= 1 for off in op.offsets for o in off)
     )
+
+
+def _visit_3d(op, b, halos=None, **kw):
+    """The 3D visit function for ``b``: K1b's for a batch, else K1's (with
+    ``halos``, a rank's slab)."""
+    if _batched(op, b):
+        return lambda *a: fused_stages_const_3d_batch(*a, **kw)
+    return lambda *a: fused_stages_const_3d(*a, halos=halos, **kw)
 
 
 def _corner_info(op):
@@ -631,22 +766,25 @@ def _fused2d(name, op, b, x, iterations: int, omega: float,
     the optional residual, restriction and prolongation.  Returns None when
     there are no stages or the kernel does not take the case: not float32,
     not a constant or cornered radius-1 2D operator, an odd dimension with a
-    transfer.  Planes of any size are taken (the kernel tiles them)."""
+    transfer.  Planes of any size are taken (the kernel tiles them).  A
+    batch ``(K, ny, nx)`` goes to K5b in one call."""
     from openmg_tpu_torch.ops import kernels
 
     stages = stages_for(name, iterations, omega)
     if stages is None or not stages:
         return None
-    if b.ndim != 2 or op.ndim != 2 or b.dtype != torch.float32:
+    batch = _batched(op, b)
+    if op.ndim != 2 or b.ndim != 2 + batch or b.dtype != torch.float32:
         return None
     if not (op.is_constant or isinstance(op, CorneredOperator)):
         return None
     if any(abs(o) > 1 for off in op.offsets for o in off):
         return None
     for tr in (restrict_transfer, prolong_transfer):
-        if tr is not None and not _transfer_ok(b.shape, tr):
+        if tr is not None and not _transfer_ok(b.shape[batch:], tr):
             return None
-    return kernels.fused_stages_2d(
+    visit = kernels.fused_stages_2d_batch if batch else kernels.fused_stages_2d
+    return visit(
         op.values, op.offsets, b, x, stages, corner=_corner_info(op),
         emit_residual=emit_residual, restrict_transfer=restrict_transfer,
         ec=ec, prolong_transfer=prolong_transfer,
@@ -655,28 +793,31 @@ def _fused2d(name, op, b, x, iterations: int, omega: float,
 
 def smooth_fused(name, op, b, x, iterations: int, omega: float):
     """All stages of ``iterations`` sweeps on an existing iterate.  Returns
-    the smoothed ``x`` or None when the kernel does not take the case."""
-    if b.ndim == 2:
+    the smoothed ``x`` or None when the kernel does not take the case.
+
+    Every entry point takes a batch ``(K, *grid)`` of ``op``'s grids too
+    (``x``, ``ec`` and the outputs stacked likewise): one call of K1b or
+    K5b for the whole batch."""
+    if op.ndim == 2:
         return _fused2d(name, op, b, x, iterations, omega, False)
     stages = stages_for(name, iterations, omega)
     if stages is None or not stages or not _stencil_ok(op, b):
         return None
-    return fused_stages_const_3d(
-        op.values, op.offsets, b, x, stages, corner=_corner_info(op)
+    return _visit_3d(op, b, corner=_corner_info(op))(
+        op.values, op.offsets, b, x, stages
     )
 
 
 def presmooth_residual_fused(name, op, b, iterations: int, omega: float):
     """Zero-initial-guess pre-smoothing with the level residual: returns
     ``(x, r)`` reading only ``b``, or None when unsupported."""
-    if b.ndim == 2:
+    if op.ndim == 2:
         return _fused2d(name, op, b, None, iterations, omega, True)
     stages = stages_for(name, iterations, omega)
     if stages is None or not stages or not _stencil_ok(op, b):
         return None
-    return fused_stages_const_3d(
-        op.values, op.offsets, b, None, stages, emit_residual=True,
-        corner=_corner_info(op),
+    return _visit_3d(op, b, emit_residual=True, corner=_corner_info(op))(
+        op.values, op.offsets, b, None, stages
     )
 
 
@@ -687,7 +828,7 @@ def presmooth_restrict_fused(name, op, b, x, iterations: int, omega: float,
     when unsupported.  ``x=None`` is the zero-start path (reads only
     ``b``).  The fine residual is never stored.  ``halos``: a rank's slab
     (:func:`fused_stages_const_3d`)."""
-    if b.ndim == 2 and halos is None:
+    if op.ndim == 2 and halos is None:
         return _fused2d(name, op, b, x, iterations, omega, True,
                         restrict_transfer=transfer)
     stages = stages_for(name, iterations, omega)
@@ -695,13 +836,13 @@ def presmooth_restrict_fused(name, op, b, x, iterations: int, omega: float,
         stages is None
         or not stages
         or not _stencil_ok(op, b)
-        or not _transfer_ok(b.shape, transfer)
+        or not _transfer_ok(b.shape[-3:], transfer)
     ):
         return None
-    return fused_stages_const_3d(
-        op.values, op.offsets, b, x, stages, emit_residual=True,
-        corner=_corner_info(op), restrict_transfer=transfer, halos=halos,
-    )
+    return _visit_3d(
+        op, b, halos, emit_residual=True, corner=_corner_info(op),
+        restrict_transfer=transfer,
+    )(op.values, op.offsets, b, x, stages)
 
 
 def residual_restrict_fused(op, b, x, transfer, halos=None):
@@ -709,13 +850,12 @@ def residual_restrict_fused(op, b, x, transfer, halos=None):
     ``bc = R (b − A x)`` without storing the fine residual or rewriting
     ``x``.  Returns ``bc`` or None when unsupported (every 2D grid, as in
     the JAX package).  ``halos``: a rank's slab."""
-    if not _stencil_ok(op, b) or not _transfer_ok(b.shape, transfer):
+    if not _stencil_ok(op, b) or not _transfer_ok(b.shape[-3:], transfer):
         return None
-    return fused_stages_const_3d(
-        op.values, op.offsets, b, x, (), emit_residual=True,
-        corner=_corner_info(op), restrict_transfer=transfer, emit_x=False,
-        halos=halos,
-    )
+    return _visit_3d(
+        op, b, halos, emit_residual=True, corner=_corner_info(op),
+        restrict_transfer=transfer, emit_x=False,
+    )(op.values, op.offsets, b, x, ())
 
 
 def prolong_smooth_fused(name, op, b, x, ec, iterations: int, omega: float,
@@ -725,17 +865,16 @@ def prolong_smooth_fused(name, op, b, x, ec, iterations: int, omega: float,
     unsupported.  ``iterations=0`` is the prolongation and add alone (3D
     only: a 2D visit with no stages returns None, as in the JAX package).
     ``halos``: a rank's slab."""
-    if b.ndim == 2 and halos is None:
+    if op.ndim == 2 and halos is None:
         return _fused2d(name, op, b, x, iterations, omega, False,
                         ec=ec, prolong_transfer=transfer)
     stages = stages_for(name, iterations, omega)
     if (
         stages is None
         or not _stencil_ok(op, b)
-        or not _transfer_ok(b.shape, transfer)
+        or not _transfer_ok(b.shape[-3:], transfer)
     ):
         return None
-    return fused_stages_const_3d(
-        op.values, op.offsets, b, x, stages, corner=_corner_info(op),
-        ec=ec, prolong_transfer=transfer, halos=halos,
-    )
+    return _visit_3d(
+        op, b, halos, corner=_corner_info(op), ec=ec, prolong_transfer=transfer,
+    )(op.values, op.offsets, b, x, stages)

@@ -55,6 +55,17 @@ K3/K4/K5 within a few ulp (the compiler contracts multiply-adds).
 count launched kernels: one per pass for K3 and the per-pass K4, one per
 leg (or chunk of one) for :func:`sweeps_vary_3d`, one per visit for K5.
 
+**The batched forms** (the JAX module's kernels under ``jax.vmap``, whose
+grids gain a leading batch axis): :func:`df_update_residual_batch` (K2b)
+and :func:`fused_stages_2d_batch` (K5b) take K members of one grid stacked
+along a leading axis and run them in one launch; each member's outputs
+equal the scalar launch's on it bit for bit.  Their plain versions
+(:func:`df_update_residual_batch_plain`, :func:`fused_stages_2d_batch_plain`)
+are the scalar plain versions member by member.  They count apart:
+``LAUNCHES_K2_BATCH``, ``LAUNCHES_K5_BATCH``.  K2b's partials are ``(K,
+P)``, a row a member laid out as the scalar launch's; :func:`df_norms`
+reduces each row with the scalar path's own call.
+
 **The halo forms** (the row-partitioned tier,
 :mod:`openmg_tpu_torch.parallel.fast`): :func:`halo_half_sweep_const_3d`
 (K3), :func:`halo_half_sweep_vary_3d` (K4) and
@@ -76,7 +87,9 @@ import ctypes
 import torch
 
 from openmg_tpu_torch.ops.doublefloat import df_add_f32, two_sum
-from openmg_tpu_torch.ops.fused import depth_chunks
+from openmg_tpu_torch.ops.fused import (
+    _batch_operands, _norm_stages, _visit_ok, depth_chunks,
+)
 from openmg_tpu_torch.ops.stencil import diag_index, kernel_taps_ok, shift
 
 __all__ = [
@@ -87,6 +100,13 @@ __all__ = [
     "LAUNCHES_K2_HALO",
     "LAUNCHES_K3_HALO",
     "LAUNCHES_K4_HALO",
+    "LAUNCHES_K2_BATCH",
+    "LAUNCHES_K5_BATCH",
+    "df_norms",
+    "df_update_residual_batch",
+    "df_update_residual_batch_plain",
+    "fused_stages_2d_batch",
+    "fused_stages_2d_batch_plain",
     "halo_half_sweep_const_3d",
     "halo_half_sweep_vary_3d",
     "MAX_DEPTH_2D",
@@ -126,6 +146,9 @@ LAUNCHES_K5 = 0
 LAUNCHES_K2_HALO = 0
 LAUNCHES_K3_HALO = 0
 LAUNCHES_K4_HALO = 0
+# launches of the batched forms (K members of one grid a launch): K2, K5
+LAUNCHES_K2_BATCH = 0
+LAUNCHES_K5_BATCH = 0
 
 
 def df_update_residual_const_3d_plain(
@@ -198,7 +221,7 @@ def _kernel():
         lib = _build.load()
         p, i = ctypes.c_void_p, ctypes.c_int
         fn = lib.omg_df_update_residual
-        fn.argtypes = [p, p, p, i] + [p] * 9 + [p] * 6 + [i, i, i, p]
+        fn.argtypes = [p, p, p, i] + [p] * 9 + [p] * 6 + [i, i, i, i, i, p]
         fn.restype = i
         npart = lib.omg_df_num_partials
         npart.argtypes = [i, i, i]
@@ -208,12 +231,17 @@ def _kernel():
 
 
 def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm,
-                             halos=None):
-    global LAUNCHES, LAUNCHES_K2_HALO
+                             halos=None, batch=False):
+    """One launch of ``csrc/df_update.cu``: a 3D grid, or with ``batch`` a
+    ``(K, nz, ny, nx)`` stack of them (partials ``(K, P)``)."""
+    global LAUNCHES, LAUNCHES_K2_HALO, LAUNCHES_K2_BATCH
     dev = x_hi.device
-    if x_hi.ndim != 3:
-        raise ValueError(f"the kernel takes 3D grids, got shape {tuple(x_hi.shape)}")
+    if x_hi.ndim != 3 + int(batch):
+        what = "(K, nz, ny, nx) batches" if batch else "3D grids"
+        raise ValueError(f"the kernel takes {what}, got shape {tuple(x_hi.shape)}")
     shape = tuple(x_hi.shape)
+    if batch and (halos is not None or shape[0] < 1):
+        raise ValueError("a batch of at least one member, and no halos")
     for name, t in (("x_hi", x_hi), ("x_lo", x_lo), ("e", e),
                     ("b_hi", b_hi), ("b_lo", b_lo)):
         if not isinstance(t, torch.Tensor):
@@ -242,11 +270,12 @@ def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_nor
         raise ValueError("every tap needs at most 3 power-of-two terms")
 
     fn, npart = _kernel()
-    nz, ny, nx = shape
+    nz, ny, nx = shape[-3:]
+    nb = shape[0] if batch else 1
     oxh = torch.empty_like(x_hi)
     oxl = torch.empty_like(x_hi)
     orh = torch.empty_like(x_hi)
-    partials = None
+    partials, pstride = None, 0
     if emit_norm:
         n_part = npart(nz, ny, nx)
         if n_part != df_num_partials(nz, ny, nx):
@@ -254,7 +283,11 @@ def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_nor
                 f"csrc/df_update.cu writes {n_part} partials for {shape}, "
                 f"the wrapper expects {df_num_partials(nz, ny, nx)}"
             )
-        partials = torch.empty(n_part, dtype=torch.float32, device=dev)
+        # a member's row starts 128-byte aligned, as a fresh (P,) tensor
+        # does, so each row's sum takes the scalar path's reduction
+        pstride = -(-n_part // 32) * 32 if batch else n_part
+        rows = torch.empty((nb, pstride), dtype=torch.float32, device=dev)
+        partials = rows[:, :n_part] if batch else rows[0]
     offs_c = (ctypes.c_int * (3 * K))(*[o for off in offsets for o in off])
     nterms_c = (ctypes.c_int * K)(*[len(t) for t in terms])
     flat = []
@@ -269,11 +302,13 @@ def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_nor
             b_hi.data_ptr(), b_lo.data_ptr(),
             oxh.data_ptr(), oxl.data_ptr(), orh.data_ptr(),
             None if partials is None else partials.data_ptr(),
-            *planes, nz, ny, nx, stream,
+            *planes, nz, ny, nx, nb, pstride, stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_df_update_residual failed with code {rc}")
-    if halos is None:
+    if batch:
+        LAUNCHES_K2_BATCH += 1
+    elif halos is None:
         LAUNCHES += 1
     else:
         LAUNCHES_K2_HALO += 1
@@ -327,6 +362,60 @@ def df_update_residual_const_3d(
     return _df_update_residual_cuda(
         offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm, halos
     )
+
+
+def df_update_residual_batch_plain(offsets, terms, x_hi, x_lo, e, b_hi, b_lo,
+                                   emit_norm: bool = False):
+    """Plain version of :func:`df_update_residual_batch`: the scalar plain
+    version on each member (on its 3D lift), stacked; partials ``(K, nz)``."""
+    nd = _batch_operands(offsets, (x_hi, x_lo, e, b_hi, b_lo), "K2b")
+    offs3 = _lift(offsets) if nd < 3 else offsets
+    outs = [
+        df_update_residual_const_3d_plain(
+            offs3, terms, *(_up(t[m]) for t in (x_hi, x_lo, e, b_hi, b_lo)),
+            emit_norm=emit_norm,
+        )
+        for m in range(x_hi.shape[0])
+    ]
+    stacked = [torch.stack([o[j] for o in outs]) for j in range(len(outs[0]))]
+    return tuple(a.reshape(x_hi.shape) for a in stacked[:3]) + tuple(stacked[3:])
+
+
+def df_update_residual_batch(offsets, terms, x_hi, x_lo, e, b_hi, b_lo,
+                             emit_norm: bool = False):
+    """K2b: :func:`df_update_residual_const_3d` on K right-hand sides of
+    one grid at once, every operand ``(K, *grid)`` (a grid of 1, 2 or 3
+    dimensions, by the offsets).  Returns ``(x_hi', x_lo', r_hi)`` stacked
+    and, with ``emit_norm``, partials ``(K, P)`` whose row k sums to member
+    k's ‖r_hi‖² (:func:`df_norms`).  On a CUDA tensor one launch for the
+    batch, each member bit-equal to the scalar launch; on a CPU tensor the
+    plain version."""
+    offsets = tuple(tuple(int(o) for o in off) for off in offsets)
+    terms = tuple(tuple(t) for t in terms)
+    nd = _batch_operands(offsets, (x_hi, x_lo, e, b_hi, b_lo), "K2b")
+    if x_hi.device.type == "cpu":
+        return df_update_residual_batch_plain(
+            offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm
+        )
+    if x_hi.device.type != "cuda":
+        raise ValueError(f"unsupported device {x_hi.device}")
+    K = x_hi.shape[0]
+    lift = (K,) + (1,) * (3 - nd) + tuple(x_hi.shape[1:])
+    out = _df_update_residual_cuda(
+        _lift(offsets) if nd < 3 else offsets, terms,
+        *(t.reshape(lift) for t in (x_hi, x_lo, e, b_hi, b_lo)),
+        emit_norm, batch=True,
+    )
+    return tuple(a.reshape(x_hi.shape) for a in out[:3]) + tuple(out[3:])
+
+
+def df_norms(partials):
+    """Each member's ‖r_hi‖₂ from K2b's ``(K, P)`` partials, a ``(K,)``
+    tensor: every row summed by the call the scalar step makes on its
+    ``(P,)`` partials (``torch.sum``), so a member's norm has the bits of
+    its scalar solve's (one reduction over the batch need not add in that
+    order)."""
+    return torch.sqrt(torch.stack([torch.sum(row) for row in partials]))
 
 
 # ---------------------------------------------------------------------------
@@ -1103,7 +1192,7 @@ def _fused2d_kernel():
             p, p, p, i, p,        # values, table, offs, K, rowmap
             p, p, p, p, p,        # b, x, ec, x_out, r_out
             i, i, i, p, p, i,     # ny, nx, n_stages, kinds, pars, emit
-            p, p, p, p,           # rw, pw, plan, stream
+            p, p, p, i, p,        # rw, pw, plan, members, stream
         ]
         fn.restype = i
         depth, strip = lib.omg_fused2d_max_depth, lib.omg_fused2d_strip
@@ -1119,16 +1208,20 @@ def _fused2d_kernel():
 
 
 def _fused2d_cuda(values, offsets, b, x, stages, *, corner, emit_residual,
-                  restrict_transfer, ec, prolong_transfer):
-    """One launch of ``csrc/fused_stages_2d.cu``."""
-    global LAUNCHES_K5
+                  restrict_transfer, ec, prolong_transfer, batch=False):
+    """One launch of ``csrc/fused_stages_2d.cu``: a plane, or with
+    ``batch`` a ``(K, ny, nx)`` stack of them."""
+    global LAUNCHES_K5, LAUNCHES_K5_BATCH
     from openmg_tpu_torch.ops.fused import (
         _KIND_CODE, _check, _row_map, _transfer_weights,
     )
 
     dev = b.device
     shape = tuple(b.shape)
-    ny, nx = shape
+    if len(shape) != 2 + int(batch):
+        raise ValueError(f"b has shape {shape}")
+    lead = shape[:1] if batch else ()
+    ny, nx = shape[-2:]
     K = len(offsets)
     if K > 9 or any(len(off) != 2 or abs(o) > 1 for off in offsets for o in off):
         raise ValueError("the kernel takes 2D radius-1 stencils of at most 9 taps")
@@ -1140,8 +1233,9 @@ def _fused2d_cuda(values, offsets, b, x, stages, *, corner, emit_residual,
     if corner:
         table = corner[1]
         _check("region table", table, (len(corner[0]), K), dev)
-    rw, pw = _transfer_weights(shape, dev, restrict_transfer, ec, prolong_transfer)
-    cshape = (ny // 2, nx // 2)
+    rw, pw = _transfer_weights(shape[-2:], dev, restrict_transfer, ec,
+                               prolong_transfer, lead)
+    cshape = lead + (ny // 2, nx // 2)
 
     x_out = torch.empty_like(b)
     emit, r_out = 0, None
@@ -1168,11 +1262,14 @@ def _fused2d_cuda(values, offsets, b, x, stages, *, corner, emit_residual,
             ptr(b), ptr(x), ptr(ec), ptr(x_out), ptr(r_out),
             ny, nx, n, kinds_c, pars_c, emit,
             (ctypes.c_float * 3)(*rw), (ctypes.c_float * 3)(*pw),
-            (ctypes.c_int * 5)(*plan), stream,
+            (ctypes.c_int * 5)(*plan), shape[0] if batch else 1, stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_fused_stages_2d failed with code {rc}")
-    LAUNCHES_K5 += 1
+    if batch:
+        LAUNCHES_K5_BATCH += 1
+    else:
+        LAUNCHES_K5 += 1
     return (x_out, r_out) if emit_residual else x_out
 
 
@@ -1207,16 +1304,21 @@ def fused_stages_2d(
     stages = _norm_stages(stages)
     if b.ndim != 2:
         raise ValueError(f"b must be 2D, got shape {tuple(b.shape)}")
-    if restrict_transfer is not None and not emit_residual:
-        raise ValueError("restrict_transfer needs emit_residual")
-    if not stages and not emit_residual and ec is None:
-        raise ValueError("nothing to do: no stages, no ec, no residual")
+    _visit_ok(stages, emit_residual, restrict_transfer, ec, True)
     if b.device.type == "cpu":
         one = fused_stages_2d_plain
     elif b.device.type == "cuda":
         one = _fused2d_cuda
     else:
         raise ValueError(f"unsupported device {b.device}")
+    return _chunked_2d(one, values, offsets, b, x, stages, corner, emit_residual,
+                       restrict_transfer, ec, prolong_transfer)
+
+
+def _chunked_2d(one, values, offsets, b, x, stages, corner, emit_residual,
+                restrict_transfer, ec, prolong_transfer):
+    """A visit through ``one`` (a launch or a plain call) in chunks of at
+    most ``MAX_DEPTH_2D``."""
     extra = int(emit_residual) + int(restrict_transfer is not None)
     chunks = depth_chunks(stages, extra, MAX_DEPTH_2D)
     for i, chunk in enumerate(chunks):
@@ -1229,3 +1331,53 @@ def fused_stages_2d(
         )
         x = out
     return out
+
+
+def fused_stages_2d_batch_plain(
+    values, offsets, b, x, stages, *, corner=None, emit_residual=False,
+    restrict_transfer=None, ec=None, prolong_transfer=None,
+):
+    """Plain version of :func:`fused_stages_2d_batch`: the scalar plain
+    version on each member (in the same chunks), stacked."""
+    offsets = _norm_offsets(offsets)
+    stages = _norm_stages(stages)
+    _batch_operands(offsets, (b,) if x is None else (b, x), "K5b")
+    _visit_ok(stages, emit_residual, restrict_transfer, ec, True)
+    outs = [
+        _chunked_2d(fused_stages_2d_plain, values, offsets, b[m],
+                    None if x is None else x[m], stages, corner, emit_residual,
+                    restrict_transfer, None if ec is None else ec[m],
+                    prolong_transfer)
+        for m in range(b.shape[0])
+    ]
+    if emit_residual:
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    return torch.stack(outs)
+
+
+def fused_stages_2d_batch(
+    values, offsets, b, x, stages, *, corner=None, emit_residual=False,
+    restrict_transfer=None, ec=None, prolong_transfer=None,
+):
+    """K5b: :func:`fused_stages_2d` on K planes of one level at once, ``b``
+    and ``x`` ``(K, ny, nx)``, ``ec`` ``(K, ny/2, nx/2)``; outputs stacked
+    likewise.  On a CUDA tensor one launch a chunk for the whole batch
+    (every visit of a V-cycle up to V(3,3) is one), each member bit-equal
+    to the scalar launch on it; on a CPU tensor the plain version."""
+    if b.device.type == "cpu":
+        return fused_stages_2d_batch_plain(
+            values, offsets, b, x, stages, corner=corner,
+            emit_residual=emit_residual, restrict_transfer=restrict_transfer,
+            ec=ec, prolong_transfer=prolong_transfer,
+        )
+    if b.device.type != "cuda":
+        raise ValueError(f"unsupported device {b.device}")
+    offsets = _norm_offsets(offsets)
+    stages = _norm_stages(stages)
+    _batch_operands(offsets, (b,) if x is None else (b, x), "K5b")
+    _visit_ok(stages, emit_residual, restrict_transfer, ec, True)
+    return _chunked_2d(
+        lambda *a, **kw: _fused2d_cuda(*a, batch=True, **kw), values, offsets,
+        b, x, stages, corner, emit_residual, restrict_transfer, ec,
+        prolong_transfer,
+    )
