@@ -153,6 +153,28 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                two launches of K1 or K5, one K2 launch an outer step), and
                the (32, 32, 64) solve with W, FMG and PCG(2) on the card
                against the CPU;
+8a. ``batch_kernels_k3k4`` (after ``sweeps``) K3b and K4b at K = 8 on
+               the hierarchies of ``sweeps``: K3b's Jacobi, colour-1 and
+               residual passes on the constant 256³ and the cornered 128³
+               Poisson levels (``F.conv3d`` with batch K beside the
+               residual as a yardstick), K4b's down-leg and up-leg on the
+               256³ (7 taps) and 128³ (27 taps) diffusion levels and one
+               K4b residual pass on 256³; each as ``batch_kernels`` holds
+               its cases, the bound the coefficient grids once and K × the
+               members' fields;
+8b. ``solve_many_stack`` (after ``batch_kernels_k3k4``) ``solve_many`` at
+               K = 8 where the batch needs K3b or K4b: the 256³ diffusion
+               solve (K4b legs), the 256³ Poisson solve with
+               ``faced=False`` (K1b, K2b, K4b), with Chebyshev (K3b, K2b)
+               and with a float32 outer residual (K1b, K3b), and (64, 64,
+               128) on faced levels (K1b, K2b, K3b); the checks of
+               ``solve_many``, no scalar launch of any kernel;
+10a. ``batch_kernels_k6k7`` (after ``spmv``) K6b on the 1024² ELL levels 0
+               (k 5) and 1 (k 9), K7b on the 64³ B=4 levels 0 (kb 7) and
+               1 (kb 27), K = 8: bit for bit against the batched plain
+               version and against K scalar launches, device ms on
+               rotating operand copies beside K scalar launches and
+               ``torch.sparse.mm`` with an ``(n, K)`` block;
 13. ``solve_many`` ``Solver.solve_many`` at 256³, at (64, 64, 128) and
                at 4096², K=8 (seeds 1-8): one K1b (K5b in 2D) launch a
                level visit and one K2b launch an outer step for the whole
@@ -188,7 +210,9 @@ card, and fails (non-zero exit, no result line) if any phase fails:
                cycle count (diffusion: K4 legs; Poisson: K1 and K2 on the
                constant fine level, K4 legs on the varying ones);
 15. ``solve_many_sparse`` ``AlgebraicSolver.solve_many`` on the 1024² ELL
-               hierarchy, K=4, with the checks of ``solve_many``;
+               and the 64³ B=4 BSR hierarchies, K=4, with the checks of
+               ``solve_many``: one K6b or K7b launch a product of the stack,
+               no scalar K6 or K7;
 14c. ``halo_kernels`` (after ``setup_device``) the halo forms of K1–K4 on
                the 256³ hierarchy cut into 4 z-slabs, each slab's planes
                cut from its neighbours (zeros at the domain edges): K3 in
@@ -246,7 +270,7 @@ same order of summation, but nvcc fuses multiply-adds and the region rows
 divide where the plain version divides too — a few ulp.  K2
 (``df_update_residual_const_3d``): ``x_hi'``, ``x_lo'``, ``r_hi`` equal bit
 for bit; the partial sums' total within 1e-6 relative of ``sum(r_hi²)``.
-The batched forms K1b, K2b, K5b take their scalar kernel's tolerance
+The batched forms K1b–K7b take their scalar kernel's tolerance
 against their batched plain versions, and are held bit for bit, member by
 member, against the scalar kernel's launch on that member (K2b's partial
 row and the norm ``kernels.df_norms`` makes of it too).
@@ -322,7 +346,15 @@ def medium(shape):
     return 0.5 + np.random.default_rng(12).random(shape)
 
 
+_CLOCK = [time.perf_counter()]
+
+
 def emit(phase, obj):
+    """Print a phase's line, with ``wall_s``: the seconds since the last
+    line (the phase and the set-up before it), for the script's budget."""
+    now = time.perf_counter()
+    obj = {**obj, "wall_s": now - _CLOCK[0]} if isinstance(obj, dict) else obj
+    _CLOCK[0] = now
     print(f"{phase} {json.dumps(obj)}", flush=True)
 
 
@@ -743,13 +775,14 @@ def tup(t):
 
 
 def batch_case(what, outs, run_b, run_m, run_plain, b, K, bound, copy_bw,
-               reps=10):
+               reps=10, bound_batch=None):
     """One batched launch (``run_b()``) held against its batched plain
     version with the scalar kernel's tolerance, and member by member
     against the scalar kernel's launch on that member (``run_m(m)``) bit
     for bit.  Device ms of the batched launch beside K scalar launches
-    (rotating over the members) and K × the scalar bound (``bound``: the
-    scalar call's (bytes, flops))."""
+    (rotating over the members) and the batched bound: K × the scalar
+    call's (bytes, flops) ``bound``, or ``bound_batch`` where the operator's
+    data is read once for the batch."""
     got = tup(run_b())
     torch.cuda.synchronize()
     ref = tup(run_plain())
@@ -765,7 +798,7 @@ def batch_case(what, outs, run_b, run_m, run_plain, b, K, bound, copy_bw,
                      f"the scalar launch (max {err:.3e})")
         del one
     del got
-    nbytes, flops = (K * v for v in bound)
+    nbytes, flops = bound_batch or (K * v for v in bound)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     ms = device_ms([run_b], reps)
@@ -1494,6 +1527,144 @@ def phase_sweeps(dev, copy_bw, h_vary, h_unfaced):
         "timed_launches": reps,
         "leg_depth": kernels.LEG_DEPTH,
     })
+    return rows, h_big
+
+
+def conv_batch_ms(op, xB, reps=10):
+    """Device ms of ``A x`` for the K members of ``xB`` as one library call
+    (``F.conv3d`` with batch K, cuDNN in full float32) for a constant
+    operator, and its result: the yardstick beside K3b's residual; the port
+    never calls it."""
+    w = torch.zeros((1, 1, 3, 3, 3), dtype=torch.float32, device=xB.device)
+    for k, off in enumerate(op.offsets):
+        w[(0, 0) + tuple(o + 1 for o in off)] = op.values[k]
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        xn = xB[:, None]
+        got = F.conv3d(xn, w, padding=1)[:, 0]
+        ms = device_ms([lambda: F.conv3d(xn, w, padding=1)], reps)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    return ms, got
+
+
+def phase_batch_sweeps(dev, copy_bw, h_big, h_vary):
+    """The batched K3 and K4 (``batch_kernels`` for K3b and K4b) at K = 8
+    on the hierarchies of ``sweeps``: K3b's Jacobi, colour and residual
+    passes on the constant 256³ and the cornered 128³ Poisson levels (with
+    ``F.conv3d`` of batch K beside the residual as a yardstick), K4b's
+    down-leg (4 red/black passes from zero and the residual) and up-leg (4
+    from x) on the 256³ (7 taps) and 128³ (27 taps) diffusion levels, and
+    one K4b pass (the residual) on 256³.  Each against its batched plain
+    version with the scalar kernel's tolerance and member by member
+    against the scalar launches bit for bit; device ms beside K scalar
+    launches and the batched bound (the coefficient grids once, K × the
+    member's fields)."""
+    from openmg_tpu_torch.ops import fused, kernels
+    from openmg_tpu_torch.ops.stencil import apply
+
+    K = BATCH_K
+    rows = {"K3b": [], "K4b": []}
+    for L in h_big.levels[:2]:
+        op, shape = L.A, L.grid_shape
+        n = int(np.prod(shape))
+        kind = "const" if op.is_constant else "cornered"
+        corner = fused._corner_info(op)
+        bB = randn_card((K,) + shape, 41, dev)
+        xB = randn_card((K,) + shape, 42, dev)
+        for mode_name, mode, color in (SWEEP_MODES[0], SWEEP_MODES[2], SWEEP_MODES[3]):
+            w = OMEGA if mode == "jacobi" else 0.0
+            args = (op.offsets, bB, xB, mode, w, color, corner)
+
+            def run_m(m, mode=mode, w=w, color=color):
+                return kernels._half_sweep(op.values, bB[m], xB[m], offsets=op.offsets,
+                                           mode=mode, omega=w, color=color,
+                                           corner=corner)
+
+            row = batch_case(
+                f"K3b {mode_name} {kind} {shape}",
+                ("r",) if mode == "residual" else ("x",),
+                functools.partial(kernels.half_sweep_batch, op.values, *args), run_m,
+                functools.partial(kernels.half_sweep_batch_plain, op.values, *args),
+                bB, K, sweep_bound(n, op.offsets, False, mode)[:2], copy_bw)
+            if kind == "const" and mode == "residual":
+                lib_ms, ax = conv_batch_ms(op, xB)
+                lib_err = float((ax - apply(op, xB)).abs().max())
+                if lib_err > 2e-6 * float(xB.abs().max()) * 12:
+                    fail(f"conv3d batch yardstick disagrees: {lib_err:.3e}")
+                row.update(library_ms=lib_ms, library="F.conv3d 3x3x3 with batch "
+                           "K, zero padding, TF32 off (computes A x only)")
+                del ax
+            row.update(level=f"{shape[0]}^3", kind=kind, shape=[K] + list(shape),
+                       mode=mode_name)
+            rows["K3b"].append(row)
+        del bB, xB
+        torch.cuda.empty_cache()
+    for L in h_vary.levels[:2]:
+        op, inv, shape = L.A, L.inv_diag, L.grid_shape
+        n, T = int(np.prod(shape)), len(op.offsets)
+        bB = randn_card((K,) + shape, 43, dev)
+        xB = randn_card((K,) + shape, 44, dev)
+        cases = [(name, fx, p, m, r) for name, fx, p, m, r in LEG_MODES[:2]]
+        if shape[0] == BIG[0]:
+            cases.append(("residual, one pass", True, 0, "residual", True))
+        for mode_name, from_x, passes, mode, res in cases:
+            xin = xB if from_x else None
+            if mode == "residual":
+                run_b = functools.partial(kernels.half_sweep_vary_batch, op.coeffs,
+                                          op.offsets, bB, xB, "residual")
+                plain = functools.partial(kernels.half_sweep_vary_batch_plain,
+                                          op.coeffs, op.offsets, bB, xB, "residual")
+
+                def run_m(m):
+                    return kernels._half_sweep_vary(op.coeffs, bB[m], xB[m],
+                                                    offsets=op.offsets, mode="residual",
+                                                    omega=0.0, color=0)
+
+                nbytes, flops, _ = sweep_bound(n, op.offsets, True, "residual")
+                outs, launches = ("r",), 1
+                fields = 4 * n * 3
+            else:
+                leg = (op.coeffs, op.offsets, bB, xin, passes, mode, OMEGA, res, inv)
+                run_b = functools.partial(kernels.sweeps_vary_batch, *leg)
+                plain = functools.partial(kernels.sweeps_vary_batch_plain, *leg)
+
+                def run_m(m, from_x=from_x, passes=passes, mode=mode, res=res):
+                    return kernels.sweeps_vary_3d(
+                        op.coeffs, op.offsets, bB[m], xB[m] if from_x else None,
+                        passes, mode, OMEGA, res, inv)
+
+                nbytes, flops = leg_bound(n, T, from_x, passes, mode, res)
+                outs = ("x", "r") if res else ("x",)
+                launches = len(kernels.leg_chunks(passes, res,
+                                                  kernels.leg_depth(T, n)))
+                fields = nbytes - 4 * n * T
+            before = kernels.LAUNCHES_K4_BATCH
+            run_b()
+            torch.cuda.synchronize()
+            if kernels.LAUNCHES_K4_BATCH - before != launches:
+                fail(f"K4b {mode_name} {shape}: "
+                     f"{kernels.LAUNCHES_K4_BATCH - before} launches, not {launches}")
+            row = batch_case(
+                f"K4b {mode_name} {shape} {T} taps", outs, run_b, run_m, plain, bB, K,
+                (nbytes, flops), copy_bw,
+                bound_batch=(4 * n * T + K * fields, K * flops))
+            row.update(level=f"{shape[0]}^3", kind="varying", taps=T,
+                       shape=[K] + list(shape), mode=mode_name,
+                       launches_per_call=launches)
+            rows["K4b"].append(row)
+        del bB, xB
+        torch.cuda.empty_cache()
+    emit("batch_kernels_k3k4", {
+        "K": K, **rows,
+        "tolerance": "2e-6*max|ref| (x), 2e-6*max|b| (r) against the batched "
+                     "plain version; every member bit-equal to the scalar launch",
+        "bound": "K3b: K x the scalar pass; K4b: the coefficient grids once "
+                 "and K x the member's fields",
+        "ms": "device ms of one batched call (a leg: its launches) or of one "
+              "scalar call, the scalar calls rotating over the members",
+    })
     return rows
 
 
@@ -1556,11 +1727,13 @@ def counts():
 
 
 def batch_counts():
-    """Launches of the batched forms (K1b, K2b, K5b: K members a launch)."""
-    from openmg_tpu_torch.ops import fused, kernels
+    """Launches of the batched forms (K1b-K7b: K members a launch)."""
+    from openmg_tpu_torch.ops import bsr, ell, fused, kernels
 
     return {"K1b": fused.LAUNCHES_BATCH, "K2b": kernels.LAUNCHES_K2_BATCH,
-            "K5b": kernels.LAUNCHES_K5_BATCH}
+            "K3b": kernels.LAUNCHES_K3_BATCH, "K4b": kernels.LAUNCHES_K4_BATCH,
+            "K5b": kernels.LAUNCHES_K5_BATCH, "K6b": ell.LAUNCHES_K6_BATCH,
+            "K7b": bsr.LAUNCHES_K7_BATCH}
 
 
 def zero_counts():
@@ -1570,6 +1743,8 @@ def zero_counts():
     kernels.LAUNCHES_K3 = kernels.LAUNCHES_K4 = kernels.LAUNCHES_K5 = 0
     ell.LAUNCHES_K6 = bsr.LAUNCHES_K7 = 0
     fused.LAUNCHES_BATCH = kernels.LAUNCHES_K2_BATCH = kernels.LAUNCHES_K5_BATCH = 0
+    kernels.LAUNCHES_K3_BATCH = kernels.LAUNCHES_K4_BATCH = 0
+    ell.LAUNCHES_K6_BATCH = bsr.LAUNCHES_K7_BATCH = 0
 
 
 def phase_solve_vary(dev, vary):
@@ -2432,6 +2607,99 @@ def phase_spmv(dev, copy_bw, solvers):
     return rows
 
 
+def phase_batch_spmv(dev, copy_bw, solvers):
+    """The batched K6 and K7 (``batch_kernels`` for K6b and K7b) at K = 8
+    on the sparse solves' levels: K6b on the 1024² ELL level 0 (k 5) and
+    level 1 (k 9), K7b on the 64³ B=4 level 0 (kb 7) and level 1 (kb 27).
+    Each against its batched plain version (bit for bit by design, failing
+    only beyond K6's and K7's tolerance) and member by member against the
+    scalar launches bit for bit; device ms on operands cut beforehand
+    (rotating copies, as ``spmv`` times K6 and K7) beside K scalar launches,
+    ``torch.sparse.mm`` of the true nonzeros with an ``(n, K)`` block as a
+    yardstick the port never calls, and the batched bound (the matrix
+    once, K × x and y)."""
+    from openmg_tpu_torch.ops import bsr, ell
+
+    K = BATCH_K
+    he, hb = solvers["ell"].hierarchy, solvers["bsr"].hierarchy
+    cases = [("K6b", f"{ELL_SHAPE[0] >> i}^2 level {i} (k {L.A.k})", L.A)
+             for i, L in enumerate(he.levels[:2])]
+    cases += [("K7b", f"{BSR_SHAPE[0] >> i}^3 B=4 level {i} (kb {L.A.kb})", L.A)
+              for i, L in enumerate(hb.levels[:2])]
+    rows = {"K6b": [], "K7b": []}
+    for kernel, case, M in cases:
+        n = M.shape[0]
+        if kernel == "K6b":
+            batched, scalar = ell.spmv_ell_batch, ell.spmv_ell
+
+            def plain(Mc, X):
+                return ell.spmv_banded_batch_plain(Mc.data, Mc.slot_offsets, X)
+        else:
+            batched, scalar = bsr.spmv_bsr_batch, bsr.spmv_bsr
+            plain = bsr.spmv_banded_batch_plain
+        X = randn_card((K, n), 45, dev)
+        got, ref = batched(M, X), plain(M, X)
+        torch.cuda.synchronize()
+        terms = plain(dataclasses.replace(M, data=M.data.abs()), X.abs())
+        scale = float(terms.max())
+        del terms
+        err = float((got - ref).abs().max())
+        if got.shape != ref.shape or not err <= SPARSE_TOL * scale:
+            fail(f"{kernel} {case}: err {err:.3e} > {SPARSE_TOL * scale:.3e}")
+        for m in range(K):
+            if not torch.equal(got[m], scalar(M, X[m])):
+                fail(f"{kernel} {case}: member {m} is not bit-equal to the "
+                     "scalar launch")
+        A = library_csr(M)
+        lib = torch.sparse.mm(A, X.t().contiguous()).t()
+        lib_err = float((lib - ref).abs().max())
+        if not lib_err <= 1e-5 * scale:
+            fail(f"{kernel} {case}: torch.sparse.mm differs by {lib_err:.3e}")
+        es = M.data.element_size()
+        nbytes = (M.data.numel() + 2 * K * n) * es
+        flops = 2 * K * M.data.numel()
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        ops = [(M, X, A)] + [
+            (Mc, X.clone(), library_csr(Mc)) for Mc in (
+                dataclasses.replace(M, data=M.data.clone())
+                for _ in range(operand_copies(nbytes) - 1))
+        ]
+        ms = device_ms([functools.partial(batched, Mc, Xc) for Mc, Xc, _ in ops])
+        scalar_ms = device_ms([functools.partial(scalar, ops[m % len(ops)][0],
+                                                 ops[m % len(ops)][1][m])
+                               for m in range(K)], 2 * K)
+        rows[kernel].append({
+            "case": case, "K": K, "shape": [K, n], "mode": case,
+            "bit_equal_to_plain": bool(torch.equal(got, ref)),
+            "bit_equal_to_scalar_per_member": True, "max_abs_err": err,
+            "tolerance": SPARSE_TOL * scale, "library_max_abs_err": lib_err,
+            "ms": ms, "ms_per_member": ms / K, "scalar_ms": scalar_ms,
+            "K_times_scalar_ms": K * scalar_ms,
+            "batch_over_scalar": ms / (K * scalar_ms),
+            "plain_ms": device_ms([functools.partial(plain, Mc, Xc)
+                                   for Mc, Xc, _ in ops], 3),
+            "library_ms": device_ms([functools.partial(torch.sparse.mm, Ac,
+                                                       Xc.t().contiguous())
+                                     for _, Xc, Ac in ops]),
+            "library": "torch.sparse.mm(CSR of the true nonzeros, (n, K) block)",
+            "operand_copies": len(ops),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms_copy_bw": nbytes / copy_bw * 1e3, "bytes": nbytes,
+            "flops": flops,
+        })
+        del got, ref, lib, A, ops, X
+        torch.cuda.empty_cache()
+    emit("batch_kernels_k6k7", {
+        "K": K, **rows,
+        "tolerance": f"bit-equal, or {SPARSE_TOL}*max_i sum|terms|; every member "
+                     "bit-equal to the scalar launch",
+        "bound": "the matrix once, K x (x read and y written)",
+    })
+    return rows
+
+
 def sparse_phases(solver, b, info):
     """A sparse solve's parts, each timed alone (``time_ms``, five calls,
     each between events after a synchronize): the
@@ -2726,31 +2994,48 @@ def phase_solve_sparse(dev, solvers):
 
 
 def phase_solve_many_sparse(dev, solvers):
-    """``AlgebraicSolver.solve_many`` on the 1024² ELL hierarchy, K=4 (seeds
-    1-4, each normalised), from a float32 card batch: the checks of
-    ``solve_many``."""
-    solver = solvers["ell"]
-    n = solver.n
+    """``AlgebraicSolver.solve_many`` at K=4 (seeds 1-4, each normalised),
+    from a float32 card batch, with the checks of ``solve_many``: on the
+    1024² ELL hierarchy (one K6b launch a product of the stack: 1 + 4 ·
+    colours a visited level a step) and on the 64³ coupled-diffusion BSR
+    hierarchy (B = 4; one K7b launch a product: five a visited level a
+    step; its transfers, explicit ELL matrices of four unknowns a node, go
+    member by member as tensor code).  No scalar K6 or K7 launch."""
     K = 4
-    bnps = []
-    for seed in range(1, K + 1):
-        bnp = np.random.default_rng(seed).standard_normal(n)
-        bnps.append(bnp / np.linalg.norm(bnp))
-    bt = torch.from_numpy(np.stack(bnps).astype(np.float32)).to(dev)
-    b32 = [bnp.astype(np.float32).astype(np.float64).reshape(ELL_SHAPE)
-           for bnp in bnps]
-    scalar, scalar_ms = scalar_solves(solver, bt)
-    colors = tuple(lv.num_colors for lv in solver.hierarchy.levels)
-    per_cycle = sum(1 + 4 * c for c in colors[:-1])
-    row = many_check(
-        "sparse solve_many", solver, bt,
-        lambda k, x64: residual_norm_host(b32[k], x64.reshape(ELL_SHAPE)),
-        lambda cs: {"K6": per_cycle * sum(cs)}, scalar)
-    row.update(matrix=f"poisson({ELL_SHAPE})", format="ell",
-               scalar_solve_ms=scalar_ms,
-               batch_over_scalar=row["ms_per_rhs"] / scalar_ms)
-    emit("solve_many_sparse", row)
-    return row
+    out = {}
+    for fmt in ("ell", "bsr"):
+        solver = solvers[fmt]
+        n = solver.n
+        bnps = []
+        for seed in range(1, K + 1):
+            bnp = np.random.default_rng(seed).standard_normal(n)
+            bnps.append(bnp / np.linalg.norm(bnp))
+        bt = torch.from_numpy(np.stack(bnps).astype(np.float32)).to(dev)
+        b32 = [bnp.astype(np.float32).astype(np.float64) for bnp in bnps]
+        scalar, scalar_ms = scalar_solves(solver, bt)
+        levels = solver.hierarchy.levels
+        if fmt == "ell":
+            per_step = sum(1 + 4 * lv.num_colors for lv in levels[:-1])
+            want = lambda cs, p=per_step: {"K6b": p * max(cs)}  # noqa: E731
+            resid = lambda k, x64: residual_norm_host(  # noqa: E731
+                b32[k].reshape(ELL_SHAPE), x64.reshape(ELL_SHAPE))
+            matrix = f"poisson({ELL_SHAPE})"
+        else:
+            A = solvers["bsr_matrix"]
+            per_step = 5 * (len(levels) - 1)
+            want = lambda cs, p=per_step: {"K7b": p * max(cs)}  # noqa: E731
+            resid = lambda k, x64, A=A: float(  # noqa: E731
+                np.linalg.norm(b32[k] - A @ x64))
+            matrix = f"coupled_diffusion({BSR_SHAPE}, 4)"
+        row = many_check(f"sparse solve_many {fmt}", solver, bt, resid, want, scalar)
+        row.update(matrix=matrix, format=fmt, scalar_solve_ms=scalar_ms,
+                   launches_per_step=per_step,
+                   batch_over_scalar=row["ms_per_rhs"] / scalar_ms)
+        out[fmt] = row
+        del bt, scalar
+        torch.cuda.empty_cache()
+    emit("solve_many_sparse", out)
+    return out
 
 # ---------------------------------------------------------------------------
 # W and FMG cycles, MG-preconditioned CG, batched solves
@@ -2908,31 +3193,36 @@ def count_d2h(fn):
     return n, out
 
 
-def many_check(what, solver, bt, residual_host, want_launches, scalar):
+def many_check(what, solver, bt, residual_host, want_launches, scalar,
+               members=None, threshold=1e-10, residual_bound=2e-10):
     """``solver.solve_many`` of the card batch ``bt``: every member
-    converged, its cycles and its pair bit-equal to its scalar solve
-    (``scalar``: per member (x hi, x lo, cycles)), the launches
+    converged below ``threshold``, its cycles and its iterate (the pair, in
+    the double-float mode) bit-equal to its scalar solve (``scalar``: per
+    member (x hi, x lo or None, cycles)), the launches
     ``want_launches(cycles of each member)``, one host read before the first step
-    and one after every step (the loop's own count and the profiler's
-    count of device-to-host copies), the float64 residual of every member
-    below 2e-10; then three warm batches for the time (median) and the
-    peak memory."""
+    and one after every step (the loop's own count, in this run and in a
+    second one under the profiler, which sees no more device-to-host copies
+    than that), the float64 residual of the members
+    ``members`` (all when None) below ``residual_bound`` (None: reported,
+    not held); then three warm batches for the time (median) and the peak
+    memory."""
     K = bt.shape[0]
     zero_counts()
     xs, info = solver.solve_many(bt)
     torch.cuda.synchronize()
     launched = all_counts()
     cycles = info["cycles"]
-    if not all(info["converged"]) or max(info["final_norm"]) >= 1e-10:
+    if not all(info["converged"]) or max(info["final_norm"]) >= threshold:
         fail(f"{what}: {info['final_norm']} after {cycles} cycles")
     if cycles != [c for _, _, c in scalar]:
         fail(f"{what}: cycles {cycles}, the scalar solves "
              f"{[c for _, _, c in scalar]}")
-    hi, lo = info["x_df"]
+    hi, lo = info.get("x_df", (xs, None))
     if xs is not hi or tuple(hi.shape[:1]) != (K,):
         fail(f"{what}: the batch is not delivered as the stacked hi parts")
     for k, (x_k, lo_k, _) in enumerate(scalar):
-        if not (torch.equal(hi[k], x_k) and torch.equal(lo[k], lo_k)):
+        if not (torch.equal(hi[k], x_k)
+                and (lo is None or torch.equal(lo[k], lo_k))):
             fail(f"{what}: member {k} is not bit-equal to its scalar solve")
     want = {k: 0 for k in launched}
     want.update(want_launches(cycles))
@@ -2942,28 +3232,37 @@ def many_check(what, solver, bt, residual_host, want_launches, scalar):
     if info["host_reads"] != steps + 1:
         fail(f"{what}: {info['host_reads']} host reads for {steps} steps")
     rn64 = []
-    for k in range(K):
-        x64 = (hi[k].cpu().numpy().astype(np.float64)
-               + lo[k].cpu().numpy().astype(np.float64))
+    for k in range(K) if members is None else members:
+        x64 = hi[k].cpu().numpy().astype(np.float64)
+        if lo is not None:
+            x64 += lo[k].cpu().numpy().astype(np.float64)
         rn64.append(residual_host(k, x64))
-    if not max(rn64) < 2e-10:
+        del x64
+    if residual_bound is not None and not max(rn64) < residual_bound:
         fail(f"{what}: float64 residuals {rn64}")
-    del xs, hi, lo, info["x_df"]
-    copies, (_, info_p) = count_d2h(lambda: solver.solve_many(bt))
-    del info_p["x_df"]
-    if copies != info["host_reads"]:
+    del xs, hi, lo
+    info.pop("x_df", None)
+    # the profiler loses a record in some calls (it has counted 7 of the 8
+    # reads of the 256³ batch in one run and all 8 in others), never adds
+    # one: the loop's own count is held exact, the profiler's as a ceiling
+    copies, again = count_d2h(lambda: solver.solve_many(bt)[1])
+    again.pop("x_df", None)
+    if again["host_reads"] != steps + 1 or copies > again["host_reads"]:
         fail(f"{what}: {copies} device-to-host copies, the loop made "
-             f"{info['host_reads']} reads")
+             f"{again['host_reads']} reads for {steps} steps")
     torch.cuda.reset_peak_memory_stats()
     warm = []
     for _ in range(3):
         _, info2 = solver.solve_many(bt)
-        del info2["x_df"]
+        info2.pop("x_df", None)
         warm.append(info2["solve_time_s"] * 1e3)
     peak = torch.cuda.max_memory_allocated()
     return {
         "K": K, "cycles": cycles, "final_norm": info["final_norm"],
-        "residual_float64_host": rn64, "bit_equal_to_scalar": True,
+        "residual_float64_host": rn64,
+        "residual_float64_host_members": list(range(K)) if members is None
+        else list(members),
+        "bit_equal_to_scalar": True,
         "launches": {k: v for k, v in launched.items() if v},
         "host_reads": info["host_reads"], "steps": steps,
         "host_reads_per_step": info["host_reads"] / (steps + 1),
@@ -2977,12 +3276,12 @@ def many_check(what, solver, bt, residual_host, want_launches, scalar):
 
 
 def scalar_solves(solver, bt):
-    """Each member of the card batch solved alone: (x hi, x lo, cycles),
-    and the median of three warm solves of member 0 (ms)."""
+    """Each member of the card batch solved alone: (x hi, x lo or None,
+    cycles), and the median of three warm solves of member 0 (ms)."""
     out = []
     for k in range(bt.shape[0]):
         x, info = solver.solve(bt[k].clone())
-        out.append((x, info["x_df"][1], info["cycles"]))
+        out.append((x, info.get("x_df", (None, None))[1], info["cycles"]))
     b0 = bt[0].clone()
     warm = [solver.solve(b0)[1]["solve_time_s"] * 1e3 for _ in range(3)]
     return out, statistics.median(warm)
@@ -3048,6 +3347,110 @@ def phase_solve_many(dev, poisson):
         torch.cuda.empty_cache()
     del mid, plane
     torch.cuda.empty_cache()
+    return out
+
+
+FACED_MANY = (64, 64, 128)  # solve_many_stack's faced grid (BENCH_r05's)
+
+
+def faced_hierarchy(dev, shape, cfg):
+    """The hierarchy of ``setup(shape, cfg)`` with its cornered levels as
+    ``FacedStencilOperator``s (``faced_ops`` of the ``faced=False`` form, as
+    the ``faced`` phase builds them), and how many there are."""
+    import openmg_tpu_torch as mg
+    from openmg_tpu_torch.core.hierarchy import Level
+
+    h = mg.setup(shape, cfg, device=dev).hierarchy
+    ops = faced_ops(mg.setup(shape, cfg, faced=False, device=dev).hierarchy)
+    levels = list(h.levels)
+    for i, op in ops.items():
+        levels[i] = Level(A=op, inv_diag=1.0 / op.values[0])
+    return dataclasses.replace(h, levels=tuple(levels)), len(ops)
+
+
+def phase_solve_many_stack(dev, vary, unfaced, h_big):
+    """``Solver.solve_many`` at K = 8 (seeds 1-8, each normalised, a float32
+    card batch) where the batch needs K3b and K4b, each held as
+    ``solve_many`` holds its batches (``many_check``): the 256³ diffusion
+    solve (K4b legs, the general double-float step on the stack), the 256³
+    Poisson solve on the ``faced=False`` hierarchy (K1b and K2b on the fine
+    level, K4b legs below), the 256³ Poisson solve with Chebyshev smoothing
+    (a K3b residual launch a Chebyshev iteration and a visit's residual)
+    and with a float32 outer residual (K1b visits, one K3b launch a
+    residual), and the (64, 64, 128) solve on faced levels (K3b passes and
+    tensor face rows).  The hierarchies are the earlier phases'; no scalar
+    K1-K7 launch anywhere.  The float64 host residual of the 256³ members
+    is computed for the first and the last member."""
+    import openmg_tpu_torch as mg
+
+    K = BATCH_K
+    main = mg.SolverConfig(**MAIN_CFG)
+    cheb = mg.SolverConfig(**CHEB_CFG)
+    f32 = mg.SolverConfig(**{**MAIN_CFG, "residual_dtype": "float32",
+                             "threshold": F32_THRESHOLD})
+    h_faced, n_faced = faced_hierarchy(dev, FACED_MANY, main)
+    vsolver, offsets, coeffs = vary[0], vary[1], vary[2]
+    per = 2 if main.smoother == "rbgs" else 1
+    k3_faced = per * (main.pre_iterations + main.post_iterations) + 1
+
+    def rhs(shape):
+        bnps = []
+        for seed in range(1, K + 1):
+            bnp = mg.rhs_random(shape, seed=seed)
+            bnps.append(bnp / np.linalg.norm(bnp.ravel()))
+        return bnps
+
+    def poisson_resid(b32):
+        return lambda k, x64: residual_norm_host(b32[k], x64)
+
+    cases = [
+        ("256^3 diffusion", vsolver,
+         lambda h: lambda cs: {"K4b": legs_per_cycle(main, h) * max(cs)},
+         "stencil", {}),
+        ("256^3 Poisson faced=False", unfaced[0],
+         lambda h: lambda cs: {"K1b": 2 * max(cs), "K2b": max(cs),
+                               "K4b": legs_per_cycle(main, h) * max(cs)},
+         "poisson", {}),
+        ("256^3 Poisson chebyshev", mg.Solver(h_big, cheb),
+         lambda h: lambda cs: {"K3b": cheb_launches(cheb, h, "K3b")(max(cs))["K3b"],
+                               "K2b": max(cs)},
+         "poisson", {}),
+        ("256^3 Poisson float32 residual", mg.Solver(h_big, f32),
+         lambda h: lambda cs: {"K1b": 2 * (h.num_levels - 1) * max(cs),
+                               "K3b": max(cs) + 1},
+         "poisson", dict(threshold=F32_THRESHOLD, residual_bound=None)),
+        ("x".join(map(str, FACED_MANY)) + " faced", mg.Solver(h_faced, main),
+         lambda h: lambda cs: {"K1b": 2 * max(cs), "K2b": max(cs),
+                               "K3b": k3_faced * n_faced * max(cs)},
+         "poisson", {}),
+    ]
+    out = {}
+    for tag, solver, want, kind, kw in cases:
+        h = solver.hierarchy
+        shape = h.grid_shape
+        bnps = rhs(shape)
+        bt = torch.from_numpy(np.stack(bnps).astype(np.float32)).to(dev)
+        b32 = [bnp.astype(np.float32).astype(np.float64) for bnp in bnps]
+        del bnps
+        if kind == "stencil":
+            resid = lambda k, x64: residual_norm_host_stencil(  # noqa: E731
+                offsets, coeffs, b32[k], x64)
+        else:
+            resid = poisson_resid(b32)
+        scalar, scalar_ms = scalar_solves(solver, bt)
+        big = shape == BIG
+        row = many_check(f"solve_many {tag}", solver, bt, resid, want(h), scalar,
+                         members=(0, K - 1) if big else None, **kw)
+        del scalar, bt, b32
+        row.update(shape=list(shape), levels=[type(L.A).__name__ for L in h.levels],
+                   residual_mode=solver.residual_mode if isinstance(
+                       solver.residual_mode, str) else str(solver.residual_mode),
+                   smoother=solver.config.smoother, scalar_solve_ms=scalar_ms,
+                   batch_over_scalar=row["ms_per_rhs"] / scalar_ms)
+        out[tag] = row
+        torch.cuda.empty_cache()
+    del h_faced
+    emit("solve_many_stack", out)
     return out
 
 
@@ -4434,9 +4837,11 @@ def main():
     paths = {"faced 256^3": phase_faced(dev, unfaced, faced_cycles),
              "1D baseline config 1": phase_solve_1d(dev)}
     vary = setup_vary(dev)
-    sweeps = phase_sweeps(dev, copy_bw, vary[0].hierarchy,
-                          unfaced[0].hierarchy)
-    del unfaced
+    sweeps, h_big = phase_sweeps(dev, copy_bw, vary[0].hierarchy,
+                                 unfaced[0].hierarchy)
+    k34b_rows = phase_batch_sweeps(dev, copy_bw, h_big, vary[0].hierarchy)
+    many_stack = phase_solve_many_stack(dev, vary, unfaced, h_big)
+    del unfaced, h_big
     vary_counts, f32_counts = phase_solve_vary(dev, vary)
     phase_solve_pcg(dev, pcg, vary)
     paths.update({f"chebyshev {k}": v
@@ -4448,8 +4853,9 @@ def main():
     torch.cuda.empty_cache()
     solvers = setup_sparse_solvers(dev)
     spmv_rows = phase_spmv(dev, copy_bw, solvers)
+    k67b_rows = phase_batch_spmv(dev, copy_bw, solvers)
     k7_launches, k6_launches = phase_solve_sparse(dev, solvers)
-    phase_solve_many_sparse(dev, solvers)
+    many_sparse = phase_solve_many_sparse(dev, solvers)
     k6h_rows = phase_k6h(dev, copy_bw, solvers["ell"].hierarchy)
     sparse_refs = sparse_dist_refs(dev, solvers)
     del solvers
@@ -4489,6 +4895,14 @@ def main():
     k1b_main, k5b_main = (
         next(r for r in rs if r["mode"].startswith("down: zero start"))
         for rs in (k1b_rows, k5b_rows))
+    # K3b: the 256³ residual (the float32 outer residual's and Chebyshev's
+    # launch); K4b: the 256³ diffusion down-leg; K6b, K7b: level 0 of the
+    # 1024² ELL and 64³ BSR hierarchies; launches in the K = 8 Chebyshev
+    # and diffusion solve_many, and the K = 4 sparse ones
+    k3b_main = next(r for r in k34b_rows["K3b"] if r["level"] == f"{BIG[0]}^3"
+                    and r["mode"] == "residual")
+    k4b_main = next(r for r in k34b_rows["K4b"] if r["level"] == f"{BIG[0]}^3"
+                    and r["mode"].startswith("down"))
     print(json.dumps({"kernels": [
         entry("fused_stages_const_3d",
               "openmg_tpu_torch/csrc/fused_stages.cu",
@@ -4520,6 +4934,24 @@ def main():
               "openmg_tpu_torch/csrc/fused_stages_2d.cu",
               "openmg_tpu/ops/kernels.py:1134",
               many["4096^2"]["launches"]["K5b"], k5b_main, k5b_rows, "K5b"),
+        entry("half_sweep_batch (K3b: K members a launch)",
+              "openmg_tpu_torch/csrc/half_sweep.cu",
+              "openmg_tpu/ops/kernels.py:344",
+              many_stack["256^3 Poisson chebyshev"]["launches"]["K3b"], k3b_main,
+              k34b_rows["K3b"], "K3b"),
+        entry("sweeps_vary_batch (K4b: K members a leg)",
+              "openmg_tpu_torch/csrc/vary_leg.cu",
+              "openmg_tpu/ops/kernels.py:612",
+              many_stack["256^3 diffusion"]["launches"]["K4b"], k4b_main,
+              k34b_rows["K4b"], "K4b"),
+        entry("spmv_ell_batch (K6b: K vectors a launch)",
+              "openmg_tpu_torch/csrc/spmv_banded.cu",
+              "openmg_tpu/ops/ell.py:169", many_sparse["ell"]["launches"]["K6b"],
+              k67b_rows["K6b"][0], k67b_rows["K6b"], "K6b"),
+        entry("spmv_bsr_batch (K7b: K vectors a launch)",
+              "openmg_tpu_torch/csrc/spmv_banded.cu",
+              "openmg_tpu/ops/bsr.py:114", many_sparse["bsr"]["launches"]["K7b"],
+              k67b_rows["K7b"][0], k67b_rows["K7b"], "K7b"),
         entry("spmv_ell (slot-offset ELL SpMV, spmv_banded at B=1)",
               "openmg_tpu_torch/csrc/spmv_banded.cu",
               "openmg_tpu/ops/ell.py:169", k6_launches, spmv_rows["K6"][0],

@@ -30,7 +30,15 @@ The outer loop is the stencil engine's
 residual and one scalar read of ‖r‖ a step.  The inner solve is a V, W or
 FMG cycle, or ``krylov_iters`` MG-preconditioned CG steps whose ``A p`` is
 the fine level's SpMV.  ``solve_many`` runs a batch of right-hand sides in
-lockstep, one host read of the batch's norms a step.
+lockstep, one host read of the batch's norms a step, as one ``(K, n)``
+stack (the stencil engine's :class:`~openmg_tpu_torch.core.solver._Batch`):
+every function of the cycle takes the stack, a banded level's SpMV is one
+launch of K6b or K7b for it, the transfers and the smoothers' updates are
+tensor code on it, and :func:`~openmg_tpu_torch.ops.sparse.spmv` runs the
+other formats' products member by member (see its module).  The coarsest
+level's product, the inner products of CG and the norms are taken member
+by member by the scalar calls, so each member is bit-equal to its scalar
+solve.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ import numpy as np
 import torch
 
 from openmg_tpu_torch.core.config import SolverConfig
-from openmg_tpu_torch.core.solver import _Step, lockstep
+from openmg_tpu_torch.core.solver import _Batch, _norm, _norms, _Step, lockstep
 from openmg_tpu_torch.ops.doublefloat import df_add_f32, df_merge, df_split, df_sub
 from openmg_tpu_torch.ops.sparse import (
     ELLMatrix,
@@ -399,11 +407,13 @@ def _smooth_sparse(level: SparseLevel, b, x, iterations: int, smoother, omega):
 def _restrict_level(hierarchy: SparseHierarchy, level: int, r):
     """``R r`` at ``level``: the separable grid ops on a factor-2 scalar level
     pair, the SpMV with the explicit ELL matrix otherwise (the same values:
-    the matrices are built from the same taps)."""
+    the matrices are built from the same taps).  ``r`` may be a batch
+    ``(K, n)``."""
     geom = hierarchy.geom_transfer(level)
     if geom is not None:
         fs, cs, transfer = geom
-        return restrict(r.reshape(fs), transfer).reshape(-1)
+        lead = tuple(r.shape[:-1])
+        return restrict(r.reshape(lead + fs), transfer, len(fs)).reshape(lead + (-1,))
     return spmv(hierarchy.levels[level].R, r)
 
 
@@ -413,8 +423,18 @@ def _prolong_level(hierarchy: SparseHierarchy, level: int, ec):
     geom = hierarchy.geom_transfer(level)
     if geom is not None:
         fs, cs, transfer = geom
-        return prolong(ec.reshape(cs), fs, transfer).reshape(-1)
+        lead = tuple(ec.shape[:-1])
+        return prolong(ec.reshape(lead + cs), fs, transfer).reshape(lead + (-1,))
     return spmv(hierarchy.levels[level].P, ec)
+
+
+def _coarse(hierarchy: SparseHierarchy, b):
+    """The coarsest level's solve: one product with the dense inverse, one
+    a member for a batch ``(K, n)`` (a product over the batch need not keep
+    the bits of each column's)."""
+    if b.ndim == 2:
+        return torch.stack([_coarse(hierarchy, bm) for bm in b])
+    return matvec_full(hierarchy.coarse_inv, b)
 
 
 def sparse_v_cycle(
@@ -428,10 +448,11 @@ def sparse_v_cycle(
     omega: float = 2.0 / 3.0,
     gamma: int = 1,
 ):
-    """One µ-cycle on flat vectors (``gamma=1``: V, 2: W)."""
+    """One µ-cycle on flat vectors, or a batch ``(K, n)`` of them
+    (``gamma=1``: V, 2: W)."""
     L = hierarchy.levels[level]
     if level == hierarchy.num_levels - 1:
-        return matvec_full(hierarchy.coarse_inv, b)
+        return _coarse(hierarchy, b)
     x = _smooth_sparse(L, b, x, pre, smoother, omega)
     r = b - spmv(L.A, x)
     bc = _restrict_level(hierarchy, level, r)
@@ -460,7 +481,7 @@ def sparse_fmg_cycle(
     bs = [b]
     for lvl in range(hierarchy.num_levels - 1):
         bs.append(_restrict_level(hierarchy, lvl, bs[-1]))
-    x = matvec_full(hierarchy.coarse_inv, bs[-1])
+    x = _coarse(hierarchy, bs[-1])
     for lvl in range(hierarchy.num_levels - 2, -1, -1):
         x = _prolong_level(hierarchy, lvl, x)
         x = sparse_v_cycle(hierarchy, bs[lvl], x, lvl, pre, post, smoother, omega)
@@ -484,7 +505,9 @@ def _sparse_pcg(hierarchy, r0, *, iters, pre, post, smoother, cycle_type, omega)
     """``iters`` MG-preconditioned CG steps on ``A e = r0`` from zero (the
     general-sparse twin of :func:`openmg_tpu_torch.core.cycle.pcg_solve`):
     one SpMV of the fine level operator (K6 or K7 where it is banded) and
-    one cycle a step; the inner products stay 0-d tensors on the device."""
+    one cycle a step; the inner products stay 0-d tensors on the device
+    (``(K, 1)`` on a batch ``(K, n)``, each member's by the scalar call on
+    its rows)."""
     A0 = hierarchy.levels[0].A
     r32 = r0.to(hierarchy.levels[0].inv_diag.dtype)
 
@@ -494,20 +517,25 @@ def _sparse_pcg(hierarchy, r0, *, iters, pre, post, smoother, cycle_type, omega)
             cycle_type=cycle_type, omega=omega,
         )
 
+    def dot(u, v):
+        if u.ndim == 1:
+            return torch.sum(u * v)
+        return torch.stack([torch.sum(w) for w in u * v]).reshape(-1, 1)
+
     e = torch.zeros_like(r32)
     r = r32
     z = precond(r)
     p = z
-    rz = torch.sum(r * z)
+    rz = dot(r, z)
     for it in range(iters):
         Ap = spmv(A0, p)
-        alpha = rz / torch.sum(p * Ap)
+        alpha = rz / dot(p, Ap)
         e = e + alpha * p
         if it == iters - 1:
             break
         r = r - alpha * Ap
         z = precond(r)
-        rz_new = torch.sum(r * z)
+        rz_new = dot(r, z)
         beta = rz_new / rz
         rz = rz_new
         p = z + beta * p
@@ -530,15 +558,15 @@ def _sparse_error(
     )
 
 
-def _sparse_residual_df(fine_hi, fine_lo, b_df, x_df):
+def _sparse_residual_df(fine_hi, fine_lo, b_df, x_df, norm=_norm):
     ax = spmv_df(fine_hi, fine_lo, x_df[0], x_df[1])
     r = df_sub(b_df, ax)
-    return r, torch.sqrt(torch.sum(r[0] * r[0]))
+    return r, norm(r[0])
 
 
-def _sparse_residual(fine_hi, b, x):
+def _sparse_residual(fine_hi, b, x, norm=_norm):
     r = b - spmv(fine_hi, x)
-    return r, torch.sqrt(torch.sum(r * r))
+    return r, norm(r)
 
 
 # ---------------------------------------------------------------------------
@@ -576,6 +604,45 @@ class AlgebraicSolver:
         """The outer loop's state for ``A x = b`` from ``x0``, and whether
         ``b`` is device-native (a float32 tensor; double-float mode only)."""
         h = self.hierarchy
+        b_dev, x, device_native = self._inputs(b, x0)
+        if self.df:
+            def resid(xx):
+                r_pair, rn = _sparse_residual_df(h.fine_hi, h.fine_lo, b_dev, xx)
+                return r_pair[0], rn
+
+            return _Step(x, resid, df_add_f32, self._cycle), device_native
+        step = _Step(
+            x, lambda xx: _sparse_residual(h.fine_hi, b_dev, xx),
+            lambda xx, e: xx + e.to(xx.dtype), self._cycle,
+        )
+        return step, device_native
+
+    def _batch(self, members, x0s):
+        """The outer loops of ``members`` from ``x0s`` as one ``(K, n)``
+        :class:`~openmg_tpu_torch.core.solver._Batch`."""
+        h = self.hierarchy
+        ins = [self._inputs(b, x0) for b, x0 in zip(members, x0s)]
+        if self.df:
+            b = tuple(torch.stack([i[0][j] for i in ins]) for j in (0, 1))
+            x = tuple(torch.stack([i[1][j] for i in ins]) for j in (0, 1))
+
+            def resid(xx, bb):
+                r_pair, rn = _sparse_residual_df(h.fine_hi, h.fine_lo, bb, xx, _norms)
+                return r_pair[0], rn
+
+            return _Batch.general(x, b, resid, df_add_f32, self._cycle)
+        b = (torch.stack([i[0] for i in ins]),)
+        x = (torch.stack([i[1] for i in ins]),)
+        return _Batch.general(
+            x, b, lambda xx, bb: _sparse_residual(h.fine_hi, bb[0], xx[0], _norms),
+            lambda xx, e: (xx[0] + e.to(xx[0].dtype),), self._cycle,
+        )
+
+    def _inputs(self, b, x0):
+        """``b`` and ``x0`` as the outer loop takes them on the solver's
+        device (a double-float pair each, or the residual dtype's arrays; x
+        zero without ``x0``), and whether ``b`` is device-native."""
+        h = self.hierarchy
         dev = self.device
         device_native = (
             self.df and isinstance(b, torch.Tensor) and b.dtype == torch.float32
@@ -603,17 +670,7 @@ class AlgebraicSolver:
                 rd = h.fine_hi.dtype
                 b_dev = torch.from_numpy(b_np).to(device=dev, dtype=rd)
                 x = torch.from_numpy(x0_np).to(device=dev, dtype=rd)
-        if self.df:
-            def resid(xx):
-                r_pair, rn = _sparse_residual_df(h.fine_hi, h.fine_lo, b_dev, xx)
-                return r_pair[0], rn
-
-            return _Step(x, resid, df_add_f32, self._cycle), device_native
-        step = _Step(
-            x, lambda xx: _sparse_residual(h.fine_hi, b_dev, xx),
-            lambda xx, e: xx + e.to(xx.dtype), self._cycle,
-        )
-        return step, device_native
+        return b_dev, x, device_native
 
     def _info(self, solve_time):
         h = self.hierarchy
@@ -676,7 +733,8 @@ class AlgebraicSolver:
         return x_out, info
 
     def solve_many(self, bs, x0s=None):
-        """A batch of right-hand sides in lockstep (the contract of
+        """A batch of right-hand sides in lockstep, as one ``(K, n)`` stack
+        (the contract of
         :meth:`openmg_tpu_torch.core.solver.Solver.solve_many`: one host
         read of the batch's norms a step, a converged member frozen, each
         member bit-equal to its scalar :meth:`solve`).  Host/numpy input
@@ -698,10 +756,11 @@ class AlgebraicSolver:
             raise ValueError(f"{len(x0s)} initial guesses for {K} right-hand sides")
         limit = cfg.cycles if cfg.cycles > 0 else 10_000
         t_start = time.perf_counter()
-        steps = [self._step(b, x0)[0] for b, x0 in zip(members, x0s)]
+        batch = self._batch(members, x0s)
         histories, converged, _, reads = lockstep(
-            steps, limit, float(cfg.threshold),
+            list(range(K)), limit, float(cfg.threshold),
             lambda i, k, v: self._say(i, k, v, batch=True),
+            norms=batch.norms, advance=batch.advance,
         )
         info = {
             "batch": K,
@@ -712,16 +771,13 @@ class AlgebraicSolver:
             **self._info(time.perf_counter() - t_start),
             "host_reads": reads,
         }
+        xs = batch.iterates()
         if device_native:
-            info["x_df"] = (
-                torch.stack([s.x[0] for s in steps]),
-                torch.stack([s.x[1] for s in steps]),
-            )
-            return info["x_df"][0], info
+            info["x_df"] = xs
+            return xs[0], info
         if self.df:
-            return np.stack([df_merge(s.x) for s in steps]), info
-        xs = torch.stack([s.x for s in steps])
-        return xs.detach().cpu().numpy().astype(np.float64), info
+            return df_merge(xs), info
+        return xs[0].detach().cpu().numpy().astype(np.float64), info
 
 
 def _host(a) -> np.ndarray:

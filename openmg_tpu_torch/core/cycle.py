@@ -43,10 +43,13 @@ products stay float32 tensors on the device (no host read).
 **A batch** ``(K, *grid)`` of right-hand sides (``Solver.solve_many``, the
 JAX package's ``vmap`` of the whole solve) runs every function here at
 once: it is a batch where the tensor has one more axis than the level's
-grid.  A visit that K1 or K5 takes is one call of its batched form (K1b,
-K5b) for the whole batch; any other visit (varying, faced and Chebyshev
-levels), the coarsest level's product, the tensor transfers of FMG and
-PCG's ``A p`` go member by member through their scalar code.  PCG's inner
+grid.  Every visit runs the batch as one stack through the code the scalar
+visit runs, each kernel in its batched form: K1b or K5b where the fused
+kernel takes the visit, K4b's legs on a varying level, K3b or K4b passes
+on a composed (Chebyshev, faced, 1D) one; the transfers, FMG's included,
+and PCG's ``A p`` are tensor code on the stack.  Only the coarsest level's
+product goes member by member: a matrix product over the batch need not
+keep the bits of each column's matrix–vector product.  PCG's inner
 products, ``alpha`` and ``beta`` are ``(K,)`` tensors, each member's taken
 by the scalar path's own call on its rows, so every member is bit-equal to
 its scalar cycle.
@@ -72,12 +75,6 @@ from openmg_tpu_torch.ops.transfer import prolong, restrict
 __all__ = ["v_cycle", "coarse_solve", "run_cycle", "fmg_cycle", "pcg_solve"]
 
 
-def _each(fn, t, *args):
-    """``fn`` on every member of the batch ``t``, stacked: the scalar code
-    path, member by member."""
-    return torch.stack([fn(t[m], *args) for m in range(t.shape[0])])
-
-
 def _is_batch(hierarchy: Hierarchy, level: int, t) -> bool:
     """Whether ``t`` is a batch of level ``level``'s grids: one axis more
     than the grid (the level's dimension decides, not the tensor's)."""
@@ -91,7 +88,7 @@ def coarse_solve(hierarchy: Hierarchy, b: torch.Tensor) -> torch.Tensor:
     one product a member: a matrix product over the batch need not keep the
     bits of each column's matrix–vector product."""
     if _is_batch(hierarchy, hierarchy.num_levels - 1, b):
-        return _each(lambda bm: coarse_solve(hierarchy, bm), b)
+        return torch.stack([coarse_solve(hierarchy, bm) for bm in b])
     return matvec_full(hierarchy.coarse_inv, b.reshape(-1)).reshape(b.shape)
 
 
@@ -115,38 +112,27 @@ def _vary_leg(op, smoother, b) -> bool:
     return True
 
 
+def _legs(b, L):
+    """K4's leg function for ``b``: the batched form for a batch of
+    ``L``'s grids, else the scalar one."""
+    if b.ndim == len(L.grid_shape) + 1:
+        return kernels.sweeps_vary_batch
+    return kernels.sweeps_vary_3d
+
+
 def _down(L, b, x, x_zero, pre, smoother, omega, tr):
     """A level visit's way down: pre-smoothing from zero or from ``x``, the
-    residual and its restriction.  Returns ``(x, bc)``.  A batch goes to
-    K1b or K5b where they take the visit, else member by member."""
-    if b.ndim == len(L.grid_shape) + 1:
-        out = None
-        if _vary_leg(L.A, smoother, b[0]):
-            pass
-        elif pre > 0:
-            out = fused.presmooth_restrict_fused(
-                smoother, L.A, b, None if x_zero else x, pre, omega, tr
-            )
-        else:
-            x0 = torch.zeros_like(b) if x is None else x
-            bc = fused.residual_restrict_fused(L.A, b, x0, tr)
-            out = None if bc is None else (x0, bc)
-        if out is not None:
-            return out
-        outs = [
-            _down(L, b[m], None if x_zero else x[m], x_zero, pre, smoother,
-                  omega, tr)
-            for m in range(b.shape[0])
-        ]
-        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    residual and its restriction.  Returns ``(x, bc)``.  A batch takes the
+    same path in the kernels' batched forms."""
+    nd = len(L.grid_shape)
     # a red/black sweep is two passes of the leg kernel
     per = 2 if smoother == "rbgs" else 1
     if _vary_leg(L.A, smoother, b):
-        x, r = kernels.sweeps_vary_3d(
+        x, r = _legs(b, L)(
             L.A.coeffs, L.A.offsets, b, None if x_zero else x, pre * per,
             smoother, omega, emit_residual=True, inv_diag=L.inv_diag,
         )
-        return x, restrict(r, tr)
+        return x, restrict(r, tr, nd)
     if pre > 0:
         out = fused.presmooth_restrict_fused(
             smoother, L.A, b, None if x_zero else x, pre, omega, tr
@@ -160,31 +146,18 @@ def _down(L, b, x, x_zero, pre, smoother, omega, tr):
         if x is None:
             x = torch.zeros_like(b)
         x = smooth(smoother, L.A, L.inv_diag, b, x, pre, omega)
-        out = x, restrict(residual(L.A, b, x), tr)
+        out = x, restrict(residual(L.A, b, x), tr, nd)
     return out
 
 
 def _up(L, b, x, ec, post, smoother, omega, tr):
     """A level visit's way up: ``x + P ec`` and the post-smoothing (post
     == 0 is the kernel's stage-free mode: prolongation and add alone).  A
-    batch goes to K1b or K5b where they take the visit, else member by
-    member."""
-    batch = b.ndim == len(L.grid_shape) + 1
-    leg = _vary_leg(L.A, smoother, b[0] if batch else b)
-    if batch:
-        y = None if leg else fused.prolong_smooth_fused(
-            smoother, L.A, b, x, ec, post, omega, tr
-        )
-        if y is not None:
-            return y
-        return torch.stack([
-            _up(L, b[m], x[m], ec[m], post, smoother, omega, tr)
-            for m in range(b.shape[0])
-        ])
-    if leg:
+    batch takes the same path in the kernels' batched forms."""
+    if _vary_leg(L.A, smoother, b):
         per = 2 if smoother == "rbgs" else 1
         x = x + prolong(ec, L.grid_shape, tr)
-        return kernels.sweeps_vary_3d(
+        return _legs(b, L)(
             L.A.coeffs, L.A.offsets, b, x, post * per, smoother, omega,
             inv_diag=L.inv_diag,
         )
@@ -256,20 +229,15 @@ def fmg_cycle(
 ):
     """One full-multigrid pass for ``A x = b`` from a zero initial guess:
     restrict ``b`` to every level, solve the coarsest exactly, then
-    prolong upward with one µ-cycle per level from that iterate.  A batch
-    takes the tensor transfers member by member."""
+    prolong upward with one µ-cycle per level from that iterate."""
     tr = hierarchy.transfer
-    batch = _is_batch(hierarchy, 0, b)
-
-    def each(fn, t, *a):
-        return _each(fn, t, *a) if batch else fn(t, *a)
-
+    nd = len(hierarchy.levels[0].grid_shape)
     bs = [b]
     for _ in range(hierarchy.num_levels - 1):
-        bs.append(each(restrict, bs[-1], tr))
+        bs.append(restrict(bs[-1], tr, nd))
     x = coarse_solve(hierarchy, bs[-1])
     for lvl in range(hierarchy.num_levels - 2, -1, -1):
-        x = each(prolong, x, hierarchy.levels[lvl].grid_shape, tr)
+        x = prolong(x, hierarchy.levels[lvl].grid_shape, tr)
         x = v_cycle(hierarchy, bs[lvl], x, lvl, pre, post, smoother, omega, gamma)
     return x
 
@@ -313,7 +281,7 @@ def pcg_solve(
     ``p·Ap``, ``alpha`` and ``beta`` are float32 0-d tensors, never read to
     the host; on a batch ``(K,)`` tensors, a member's taken by the scalar
     call on its rows (``torch.sum`` of the member's products), and ``A p``
-    is applied member by member."""
+    is tensor code on the stack."""
     A = hierarchy.levels[0].A
     batch = _is_batch(hierarchy, 0, r0)
     lift = (-1,) + (1,) * (r0.ndim - 1)
@@ -326,8 +294,6 @@ def pcg_solve(
             return torch.sum(u * v)
         return torch.stack([torch.sum(w) for w in u * v]).reshape(lift)
 
-    def apply(t):
-        return _each(lambda tm: stencil_apply(A, tm), t) if batch else stencil_apply(A, t)
 
     e = torch.zeros_like(r0)
     r = r0
@@ -335,7 +301,7 @@ def pcg_solve(
     p = z
     rz = dot(r, z)
     for it in range(iters):
-        Ap = apply(p)
+        Ap = stencil_apply(A, p)
         alpha = rz / dot(p, Ap)
         e = e + alpha * p
         if it == iters - 1:

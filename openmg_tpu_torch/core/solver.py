@@ -42,11 +42,14 @@ The inner error solve of an outer step is one cycle of ``cycle_type``
 (V, W or FMG) or, with ``krylov="pcg"``, ``krylov_iters`` MG-preconditioned
 CG steps (:func:`_inner_solve`).  :meth:`Solver.solve_many` runs a batch of
 right-hand sides in lockstep, one host read of the batch's norms a step.
-Where the fine operator takes the double-float kernel, the batch is one
-``(K, *grid)`` stack (:class:`_DFExactBatch`): a step is one inner solve of
-the whole batch (one launch of the batched level-visit kernel, K1b or K5b,
-a visit) and one launch of the batched K2 (K2b), as the JAX package's
-vmapped program launches its kernels once for all members.
+The batch is one ``(K, *grid)`` stack (:class:`_Batch`) in every residual
+mode: a step is one inner solve of the whole stack (each kernel in its
+batched form: K1b or K5b a constant visit, K4b a varying leg, K3b or K4b a
+composed pass) and one batched update and residual (K2b where the fine
+operator takes the double-float kernel; the general double-float residual
+and the float64 one in tensor code on the stack; the float32 one one K3b or
+K4b launch), as the JAX package's vmapped program launches its kernels
+once for all members.
 
 Grids of one, two and three dimensions take the same loop; a 1D grid runs
 through the kernels on its lift to ``(1, 1, n)``, as a 2D one does on
@@ -158,43 +161,56 @@ def exact_residual_terms(hierarchy: Hierarchy):
     return terms
 
 
-def _residual_norm_df_exact(offsets, terms, b_df, x_df):
+def _norm(t):
+    """‖t‖₂, a 0-d tensor on ``t``'s device."""
+    return torch.sqrt(torch.sum(t * t))
+
+
+def _norms(t):
+    """Each member's ‖t_m‖₂ of a batch ``(K, ...)``, a ``(K,)`` tensor:
+    every member's sum by the scalar :func:`_norm`'s call on its rows (one
+    reduction over the batch need not add in that order)."""
+    return torch.sqrt(torch.stack([torch.sum(row) for row in t * t]))
+
+
+def _residual_norm_df_exact(offsets, terms, b_df, x_df, norm=_norm):
     """Double-float residual ``b − A x`` for a constant operator with dyadic
     taps, and ‖r_hi‖₂, in plain tensor code (it runs once per solve, for a
-    caller's nonzero ``x0``; the per-cycle residual is the kernel's)."""
+    caller's nonzero ``x0``; the per-cycle residual is the kernel's).  On a
+    batch pass ``norm=_norms``."""
     acc = b_df
     for off, tp in zip(offsets, terms):
         xh = shift(x_df[0], off)
         xl = shift(x_df[1], off)
         for p in tp:
             acc = df_sub(acc, (float(p) * xh, float(p) * xl))
-    rn = torch.sqrt(torch.sum(acc[0] * acc[0]))
-    return acc, rn
+    return acc, norm(acc[0])
 
 
-def _residual_norm_df(A_hi, A_lo, b_df, x_df):
+def _residual_norm_df(A_hi, A_lo, b_df, x_df, norm=_norm):
     """Double-float residual ``r = b − A x`` with compensated accumulation
     and Dekker products, all float32 tensor code.  Works for varying and
-    constant operators (0-d coefficients broadcast)."""
+    constant operators (0-d coefficients broadcast), and on a batch
+    (``norm=_norms``)."""
     acc = b_df
     for k, off in enumerate(A_hi.offsets):
         xs = (shift(x_df[0], off), shift(x_df[1], off))
         term = df_mul((A_hi.coeff(k), A_lo.coeff(k)), xs)
         acc = df_sub(acc, term)
-    rn = torch.sqrt(torch.sum(acc[0] * acc[0]))
-    return acc, rn
+    return acc, norm(acc[0])
 
 
-def _residual_norm(fine_hi, b, x):
+def _residual_norm(fine_hi, b, x, norm=_norm):
     """Residual and its norm in the plain residual dtype.  float32 goes
     through :func:`openmg_tpu_torch.ops.stencil.residual` (on the card: one
-    launch of the per-pass kernel); float64 is ``b − apply(A, x)`` in tensor
-    code on any device and never reaches a float32 kernel."""
+    launch of the per-pass kernel, K3b/K4b on a batch); float64 is ``b −
+    apply(A, x)`` in tensor code on any device and never reaches a float32
+    kernel."""
     if x.dtype == torch.float32:
         r = stencil_residual(fine_hi, b, x)
     else:
         r = b - stencil_apply(fine_hi, x)
-    return r, torch.sqrt(torch.sum(r * r))
+    return r, norm(r)
 
 
 def _inner_solve(
@@ -239,29 +255,33 @@ class _DFExactStep:
         self.rn = torch.sqrt(torch.sum(pn))
 
 
-class _DFExactBatch:
-    """The outer loops of a batch of right-hand sides when the fine operator
-    is constant with dyadic taps, as one ``(n, *grid)`` stack of the
-    members still running (``members``, in order): a step is one inner
-    solve of the stack and one launch of K2b.  A member that stops is taken
-    out of the stack (:meth:`narrow`) with its pair frozen; the stack is
-    rebuilt from views of the old one, on the card, with no host copy.
-    Every member's arithmetic is its scalar :class:`_DFExactStep`'s."""
+class _Batch:
+    """The outer loops of a batch of right-hand sides as one ``(n, *grid)``
+    stack of the members still running (``members``, in order), in any
+    residual mode.  The iterate ``x`` and the right-hand side ``b`` are
+    tuples of stacks (a double-float pair, or one array); a step is one
+    inner solve of the stack and ``step(x, b, e) -> (x, r, rn)``, the
+    mode's batched update and residual, ``rn`` the ``(n,)`` norms.  A member
+    that stops is taken out of the stack (:meth:`narrow`) with its iterate
+    frozen; the stack is rebuilt from views of the old one, on the card,
+    with no host copy.  Every member's arithmetic is its scalar step's."""
 
-    def __init__(self, offsets, terms, b_hi, b_lo, xs, inner):
-        self.offsets, self.terms, self.inner = offsets, terms, inner
-        self.b = (b_hi, b_lo)
-        K = b_hi.shape[0]
+    def __init__(self, x, b, r, rn, step, inner):
+        self.x, self.b, self.r, self.rn = x, b, r, rn
+        self.step, self.inner = step, inner
+        K = r.shape[0]
         self.members = list(range(K))
         self.frozen = [None] * K
-        # each member's start (its norm too) by the scalar step's own code
-        steps = [
-            _DFExactStep(offsets, terms, (b_hi[m], b_lo[m]), xs[m], inner)
-            for m in range(K)
-        ]
-        self.x = tuple(torch.stack([st.x[j] for st in steps]) for j in (0, 1))
-        self.r = torch.stack([st.r for st in steps])
-        self.rn = torch.stack([st.rn for st in steps])
+
+    @classmethod
+    def general(cls, x, b, resid, update, inner):
+        """A batch whose step is ``update(x, e)`` then ``resid(x, b) -> (r,
+        rn)``, started from ``resid`` of ``x``."""
+        def step(xx, bb, e):
+            xx = update(xx, e)
+            return (xx, *resid(xx, bb))
+
+        return cls(x, b, *resid(x, b), step, inner)
 
     def norms(self, pending):
         """The norms of ``pending`` (the members in the stack) in one
@@ -272,44 +292,37 @@ class _DFExactBatch:
 
     def narrow(self, keep):
         """Keep the members ``keep`` (a subsequence of ``members``) in the
-        stack; the others are frozen with their pairs as they stand."""
+        stack; the others are frozen with their iterates as they stand."""
         if keep == self.members:
             return
         pos = {m: p for p, m in enumerate(self.members)}
         for m in self.members:
             if m not in keep:
-                p = pos[m]
-                self.frozen[m] = (self.x[0][p], self.x[1][p])
+                self.frozen[m] = tuple(t[pos[m]] for t in self.x)
         rows = [pos[m] for m in keep]
 
         def pick(t):
             return torch.stack([t[p] for p in rows])
 
-        self.x = (pick(self.x[0]), pick(self.x[1]))
-        self.b = (pick(self.b[0]), pick(self.b[1]))
+        self.x = tuple(pick(t) for t in self.x)
+        self.b = tuple(pick(t) for t in self.b)
         self.r, self.rn = pick(self.r), pick(self.rn)
         self.members = list(keep)
 
     def advance(self, keep):
         """One outer step of the members ``keep``."""
         self.narrow(keep)
-        e = self.inner(self.r)
-        x_hi, x_lo, self.r, pn = kernels.df_update_residual_batch(
-            self.offsets, self.terms, self.x[0], self.x[1], e, self.b[0],
-            self.b[1], emit_norm=True,
-        )
-        self.x = (x_hi, x_lo)
-        self.rn = kernels.df_norms(pn)
+        self.x, self.r, self.rn = self.step(self.x, self.b, self.inner(self.r))
 
-    def pairs(self):
-        """Every member's pair as it stands, stacked in member order."""
+    def iterates(self):
+        """Every member's iterate as it stands, stacked in member order: a
+        tuple like ``x``."""
         pos = {m: p for p, m in enumerate(self.members)}
         got = [
-            self.frozen[m] if m not in pos
-            else (self.x[0][pos[m]], self.x[1][pos[m]])
+            self.frozen[m] if m not in pos else tuple(t[pos[m]] for t in self.x)
             for m in range(len(self.frozen))
         ]
-        return tuple(torch.stack([g[j] for g in got]) for j in (0, 1))
+        return tuple(torch.stack([g[j] for g in got]) for j in range(len(self.x)))
 
 
 class _Step:
@@ -507,8 +520,6 @@ class Solver:
         """The outer loop's state for ``A x = b`` from ``x0``, and whether
         ``b`` is device-native (a float32 tensor on the solver's device)."""
         h = self.hierarchy
-        shape = self.grid_shape
-        dev = self.device
         if self.residual_mode == "doublefloat":
             (b_hi, b_lo), x, device_native = self._df_inputs(b, x0)
             if self._exact_terms is not None:
@@ -527,21 +538,76 @@ class Solver:
                 return r_pair[0], rn  # the cycle takes the hi part
 
             return _Step(x, resid, df_add_f32, self._inner), device_native
+        b_r, x, device_native = self._plain_inputs(b, x0)
+        rd = self.residual_mode
+        step = _Step(
+            x, lambda xx: _residual_norm(h.fine_hi, b_r, xx),
+            lambda xx, e: xx + e.to(rd), self._inner,
+        )
+        return step, device_native
+
+    def _plain_inputs(self, b, x0):
+        """The plain residual modes' ``b`` and ``x`` (zero without ``x0``)
+        in the residual dtype on the solver's device, and whether ``b`` is
+        device-native."""
         b, b_np, x0_np, device_native = self._inputs(b, x0)
         rd = self.residual_mode
+        dev = self.device
         if device_native:
-            b_r = b.reshape(shape).to(rd).contiguous()
+            b_r = b.reshape(self.grid_shape).to(rd).contiguous()
         else:
             b_r = torch.from_numpy(b_np).to(device=dev, dtype=rd)
         if x0_np is None:
             x = torch.zeros_like(b_r)
         else:
             x = torch.from_numpy(x0_np).to(device=dev, dtype=rd)
-        step = _Step(
-            x, lambda xx: _residual_norm(h.fine_hi, b_r, xx),
-            lambda xx, e: xx + e.to(rd), self._inner,
+        return b_r, x, device_native
+
+    def _batch(self, members, x0s):
+        """The outer loops of ``members`` from ``x0s`` as one :class:`_Batch`
+        in the solver's residual mode."""
+        h = self.hierarchy
+        K = len(members)
+        if self.residual_mode != "doublefloat":
+            ins = [self._plain_inputs(b, x0) for b, x0 in zip(members, x0s)]
+            x = (torch.stack([i[1] for i in ins]),)
+            b = (torch.stack([i[0] for i in ins]),)
+            rd = self.residual_mode
+            return _Batch.general(
+                x, b, lambda xx, bb: _residual_norm(h.fine_hi, bb[0], xx[0], _norms),
+                lambda xx, e: (xx[0] + e.to(rd),), self._inner,
+            )
+        ins = [self._df_inputs(b, x0) for b, x0 in zip(members, x0s)]
+        b = tuple(torch.stack([i[0][j] for i in ins]) for j in (0, 1))
+        zero = torch.zeros_like(b[0][0])
+        x = tuple(
+            torch.stack([zero if i[1] is None else i[1][j] for i in ins])
+            for j in (0, 1)
         )
-        return step, device_native
+        if self._exact_terms is None:
+            def resid(xx, bb):
+                r_pair, rn = _residual_norm_df(h.fine_hi, h.fine_hi_lo, bb, xx,
+                                               _norms)
+                return r_pair[0], rn  # the cycle takes the hi part
+
+            return _Batch.general(x, b, resid, df_add_f32, self._inner)
+        offs, terms = h.fine_hi.offsets, self._exact_terms
+        # the start, as each member's scalar step makes it: b itself from a
+        # zero iterate, the exact residual in tensor code from an x0
+        r, rn = b[0], _norms(b[0])
+        given = [i[1] is not None for i in ins]
+        if any(given):
+            r_pair, rn_x = _residual_norm_df_exact(offs, terms, b, x, _norms)
+            r = torch.stack([r_pair[0][m] if given[m] else r[m] for m in range(K)])
+            rn = torch.stack([rn_x[m] if given[m] else rn[m] for m in range(K)])
+
+        def step(xx, bb, e):
+            x_hi, x_lo, r_hi, pn = kernels.df_update_residual_batch(
+                offs, terms, xx[0], xx[1], e, bb[0], bb[1], emit_norm=True,
+            )
+            return (x_hi, x_lo), r_hi, kernels.df_norms(pn)
+
+        return _Batch(x, b, r, rn, step, self._inner)
 
     def _info(self, solve_time):
         h = self.hierarchy
@@ -630,13 +696,10 @@ class Solver:
         ``bs``: ``(K, *grid)`` (or a sequence of grid arrays); ``x0s``
         likewise, or None.  Every round advances each member that has not
         converged by one outer step and reads the K norms to the host in
-        one copy; a converged member is frozen.  Where the fine operator
-        takes the double-float kernel (K2) the members run as one stack
-        (:class:`_DFExactBatch`): a visit that K1 or K5 takes is one launch
-        of its batched form for the whole stack, the outer update one launch
-        of K2b.  Elsewhere the members go through the kernels one after
-        another.  Either way each member is bit-equal to its scalar
-        :meth:`solve`.
+        one copy; a converged member is frozen.  The members run as one
+        stack (:class:`_Batch`) in every residual mode: each kernel of a
+        step is one launch of its batched form for the whole stack, and
+        each member is bit-equal to its scalar :meth:`solve`.
 
         Returns ``(xs, info)``: ``xs`` stacked like :meth:`solve` returns
         (a float32 tensor batch on the solver's device gives the float32
@@ -659,25 +722,12 @@ class Solver:
             raise ValueError(f"{len(x0s)} initial guesses for {K} right-hand sides")
         limit = cfg.cycles if cfg.cycles > 0 else 10_000
         t_start = time.perf_counter()
-        say = lambda i, k, v: self._say(i, k, v, batch=True)  # noqa: E731
-        if self._exact_terms is not None:
-            ins = [self._df_inputs(b, x0) for b, x0 in zip(members, x0s)]
-            batch = _DFExactBatch(
-                self.hierarchy.fine_hi.offsets, self._exact_terms,
-                torch.stack([i[0][0] for i in ins]),
-                torch.stack([i[0][1] for i in ins]), [i[1] for i in ins],
-                self._inner,
-            )
-            histories, converged, _, reads = lockstep(
-                list(range(K)), limit, float(cfg.threshold), say,
-                norms=batch.norms, advance=batch.advance,
-            )
-            pairs = batch.pairs()
-        else:
-            steps = [self._step(b, x0)[0] for b, x0 in zip(members, x0s)]
-            histories, converged, _, reads = lockstep(
-                steps, limit, float(cfg.threshold), say,
-            )
+        batch = self._batch(members, x0s)
+        histories, converged, _, reads = lockstep(
+            list(range(K)), limit, float(cfg.threshold),
+            lambda i, k, v: self._say(i, k, v, batch=True),
+            norms=batch.norms, advance=batch.advance,
+        )
         info = {
             "batch": K,
             "cycles": [len(h) - 1 for h in histories],
@@ -687,17 +737,15 @@ class Solver:
             **self._info(time.perf_counter() - t_start),
             "host_reads": reads,
         }
+        xs = batch.iterates()
         if self.residual_mode != "doublefloat":
-            xs = torch.stack([s.x for s in steps])
             if device_native:
-                return xs, info
-            return xs.detach().cpu().numpy().astype(np.float64), info
-        if self._exact_terms is None:
-            pairs = tuple(torch.stack([s.x[j] for s in steps]) for j in (0, 1))
+                return xs[0], info
+            return xs[0].detach().cpu().numpy().astype(np.float64), info
         if device_native:
-            info["x_df"] = pairs
-            return pairs[0], info
-        return df_merge(pairs), info
+            info["x_df"] = xs
+            return xs[0], info
+        return df_merge(xs), info
 
     def _say(self, i, k, rnorm, batch=False):
         if self.config.verbose:

@@ -59,6 +59,17 @@
 //   * The tap count is a compile-time constant for 7 and 27 taps; any other
 //     count up to 27 takes a generic instantiation.
 //
+// The batched form (K3b, K4b's single pass: the TPU kernels under jax.vmap,
+// whose grids gain a leading batch axis): nb members of one grid stacked
+// along a leading axis, (nb, nz, ny, nx) for b, x and out, one launch for
+// all of them; the operator (taps, region table, coefficient grids) is
+// shared.  const_pass_kernel takes the member from blockIdx.y (the outer
+// part of the grid, as in fused_stages.cu), each member tiled by the scalar
+// launch's plan; vary_pass_kernel takes it as the fastest part of
+// blockIdx.x, so the nb blocks of one tile run together and read that
+// tile's coefficients through L2 once.  A member's arithmetic is the scalar
+// launch's on it, bit for bit.  No halos with a batch.
+//
 // The halo form (a rank's z-slab of a row-partitioned grid, replacing the
 // TPU kernels halo_half_sweep_const_3d / halo_half_sweep_vary_3d of
 // openmg_tpu/ops/kernels.py): two more pointers, the (ny, nx) planes
@@ -363,6 +374,11 @@ __global__ void __launch_bounds__(CTHREADS, 2) const_pass_kernel(
     const float* __restrict__ upper, float* __restrict__ out, int nz, int ny,
     int nx, float omega, int color, int zc, int tiles_x, int tiles_y, int vec)
 {
+    // member blockIdx.y of a batch: its own b, x and out
+    const size_t mo = (size_t)blockIdx.y * nz * ny * nx;
+    b += mo;
+    x += mo;
+    out += mo;
     __shared__ __align__(16) float ring[RING * PLANE];
     // taps[m][k]: tap of offset k for a point whose zero-coordinate mask is
     // m (bit 0: z == 0, bit 1: y == 0, bit 2: x == 0)
@@ -452,12 +468,12 @@ int launch_const(int mode, const Sweep& st, const float* values,
                  const float* table, const float* b, const float* x,
                  const float* lower, const float* upper, float* out,
                  int nz, int ny, int nx, float omega, int color, int zc, int vec,
-                 cudaStream_t s)
+                 int nb, cudaStream_t s)
 {
     const int tiles_x = (nx + CX - 1) / CX, tiles_y = (ny + CY - 1) / CY;
     const long long blocks = (long long)tiles_x * tiles_y * ((nz + zc - 1) / zc);
-    if (blocks > 0x7fffffffLL) return -2;
-    const dim3 grid((unsigned)blocks);
+    if (blocks > 0x7fffffffLL || nb > 65535) return -2;
+    const dim3 grid((unsigned)blocks, (unsigned)nb);
     switch (mode) {
     case MODE_JACOBI:
         const_pass_kernel<PAT, MODE_JACOBI><<<grid, CTHREADS, 0, s>>>(
@@ -498,15 +514,21 @@ __global__ void __launch_bounds__(BX * BY) vary_pass_kernel(
     const float* __restrict__ b, const float* __restrict__ x,
     const float* __restrict__ lower, const float* __restrict__ upper,
     float* __restrict__ out, int nz, int ny, int nx, float omega, int color,
-    int vec)
+    int vec, int nb)
 {
     constexpr int KN = KT > 0 ? KT : MAXK;
-    const int gx = (blockIdx.x * BX + threadIdx.x) * 2;
+    // the member is the fastest part of blockIdx.x: the nb blocks of a tile
+    // are neighbours in the launch order and share its coefficients in L2
+    const int member = blockIdx.x % nb;
+    const int gx = ((blockIdx.x / nb) * BX + threadIdx.x) * 2;
     const int gy = blockIdx.y * BY + threadIdx.y;
     const int gz = blockIdx.z;
     if (gx >= nx || gy >= ny) return;
 
     const size_t n = (size_t)nz * ny * nx;
+    b += member * n;
+    x += member * n;
+    out += member * n;
     const size_t c = ((size_t)gz * ny + gy) * nx + gx;
     const bool two = gx + 1 < nx;
     // which points of the pair get a sum: in a red/black pass only the one
@@ -573,39 +595,40 @@ template <int MODE>
 void launch_vary_by_taps(
     const Sweep& st, const float* coef, const float* b, const float* x,
     const float* lower, const float* upper, float* out, int nz, int ny, int nx,
-    float omega, int color, int vec, cudaStream_t s)
+    float omega, int color, int vec, int nb, cudaStream_t s)
 {
     const dim3 block(BX, BY, 1);
-    const dim3 grid((nx + 2 * BX - 1) / (2 * BX), (ny + BY - 1) / BY, nz);
+    const dim3 grid((nx + 2 * BX - 1) / (2 * BX) * nb, (ny + BY - 1) / BY, nz);
     if (st.K == 7)
         vary_pass_kernel<MODE, 7><<<grid, block, 0, s>>>(
-            st, coef, b, x, lower, upper, out, nz, ny, nx, omega, color, vec);
+            st, coef, b, x, lower, upper, out, nz, ny, nx, omega, color, vec, nb);
     else if (st.K == 27)
         vary_pass_kernel<MODE, 27><<<grid, block, 0, s>>>(
-            st, coef, b, x, lower, upper, out, nz, ny, nx, omega, color, vec);
+            st, coef, b, x, lower, upper, out, nz, ny, nx, omega, color, vec, nb);
     else
         vary_pass_kernel<MODE, 0><<<grid, block, 0, s>>>(
-            st, coef, b, x, lower, upper, out, nz, ny, nx, omega, color, vec);
+            st, coef, b, x, lower, upper, out, nz, ny, nx, omega, color, vec, nb);
 }
 
 int launch_vary(int mode, const Sweep& st, const float* coef, const float* b,
                 const float* x, const float* lower, const float* upper, float* out,
-                int nz, int ny, int nx, float omega, int color, int vec,
+                int nz, int ny, int nx, float omega, int color, int vec, int nb,
                 cudaStream_t s)
 {
     if (nz > 65535 || (ny + BY - 1) / BY > 65535) return -2;
+    if ((long long)((nx + 2 * BX - 1) / (2 * BX)) * nb > 0x7fffffffLL) return -2;
     switch (mode) {
     case MODE_JACOBI:
         launch_vary_by_taps<MODE_JACOBI>(st, coef, b, x, lower, upper, out, nz, ny, nx, omega,
-                                         color, vec, s);
+                                         color, vec, nb, s);
         return 0;
     case MODE_RB:
         launch_vary_by_taps<MODE_RB>(st, coef, b, x, lower, upper, out, nz, ny, nx, omega,
-                                     color, vec, s);
+                                     color, vec, nb, s);
         return 0;
     case MODE_RESIDUAL:
         launch_vary_by_taps<MODE_RESIDUAL>(st, coef, b, x, lower, upper, out, nz, ny, nx, omega,
-                                           color, vec, s);
+                                           color, vec, nb, s);
         return 0;
     }
     return -2;
@@ -622,13 +645,15 @@ extern "C" int omg_half_sweep_tile(int axis) { return axis == 0 ? CX : CY; }
 // (the halo form), or null (the Dirichlet zero).
 // vary != 0: coef is (K, nz, ny, nx) and table/rowmap/zc are not read;
 // otherwise a block marches zc planes of a tile (ops/kernels.py::sweep_plan).
-// Returns 0, a negative code of its own (-1: stencil not taken, -2: bad mode
-// or grid, -3: out aliases an input) or the CUDA error of the launch.
+// nb: members of a batch (b, x and out (nb, nz, ny, nx); 1 for one grid),
+// no halos with nb > 1.
+// Returns 0, a negative code of its own (-1: stencil not taken, -2: bad mode,
+// grid or batch, -3: out aliases an input) or the CUDA error of the launch.
 extern "C" int omg_half_sweep(
     const float* coef, const float* table, const int* offs, int K,
     const int* rowmap, int vary, int mode, float omega, int color,
     const float* b, const float* x, const float* lower, const float* upper,
-    float* out, int nz, int ny, int nx, int zc, void* stream)
+    float* out, int nz, int ny, int nx, int zc, int nb, void* stream)
 {
     if (K < 1 || K > MAXK) return -1;
     Sweep st;
@@ -656,6 +681,7 @@ extern "C" int omg_half_sweep(
         st.corner |= st.rowmap[m] >= 0;
     }
     if (nz < 1 || ny < 1 || nx < 1 || mode < 0 || mode > 2) return -2;
+    if (nb < 1 || (nb > 1 && (lower != nullptr || upper != nullptr))) return -2;
     if (out == x || out == b || out == lower || out == upper) return -3;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     int rc;
@@ -664,18 +690,18 @@ extern "C" int omg_half_sweep(
             && ((((uintptr_t)b) | ((uintptr_t)x) | ((uintptr_t)out)
                  | ((uintptr_t)coef)) & 7) == 0;
         rc = launch_vary(mode, st, coef, b, x, lower, upper, out, nz, ny, nx, omega,
-                         color, vec, s);
+                         color, vec, nb, s);
     } else {
         if (zc < 1) return -2;
         const int vec = (nx % 4 == 0)
             && ((((uintptr_t)b) | ((uintptr_t)x) | ((uintptr_t)out)
                  | ((uintptr_t)lower) | ((uintptr_t)upper)) & 15) == 0;
         const float* table_ = table;
-        rc = is_pat<1>(st) ? launch_const<1>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, s)
-           : is_pat<2>(st) ? launch_const<2>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, s)
-           : is_pat<3>(st) ? launch_const<3>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, s)
-           : is_pat<4>(st) ? launch_const<4>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, s)
-           : launch_const<0>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, s);
+        rc = is_pat<1>(st) ? launch_const<1>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, nb, s)
+           : is_pat<2>(st) ? launch_const<2>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, nb, s)
+           : is_pat<3>(st) ? launch_const<3>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, nb, s)
+           : is_pat<4>(st) ? launch_const<4>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, nb, s)
+           : launch_const<0>(mode, st, coef, table_, b, x, lower, upper, out, nz, ny, nx, omega, color, zc, vec, nb, s);
     }
     if (rc != 0) return rc;
     return static_cast<int>(cudaGetLastError());

@@ -59,6 +59,15 @@
 //     lane split and tree) and, for B = 1, the slot order of
 //     openmg_tpu_torch/ops/ell.py::spmv_banded_plain, so the kernel equals
 //     each bit for bit.
+//
+// The batched form (K6b at B = 1, K7b at B > 1: the TPU kernels under
+// jax.vmap, whose grids gain a leading batch axis): nb vectors x, y (nb, n)
+// through one matrix in one launch.  A thread reads each term's data
+// element once and applies it to up to MB = 8 members' x (blockIdx.y picks
+// the group of members), so the matrix, most of the bytes, crosses device
+// memory once a group instead of once a member.  Each member's sum takes
+// the scalar order (the same terms, lanes and tree), so it equals the
+// scalar launch on that member bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,35 +95,46 @@ struct Halo {
     long long H;
 };
 
-// Term t = j*kb + s of row r (block row I).  HALO (B = 1 only): x is the
-// slab's m = nbr rows and row J of [lo | x | hi] is read where it lies, so
-// the caller never concatenates them; the slot offsets are at most H.
-template <typename T, bool HALO>
-__device__ __forceinline__ T term(
-    const T* __restrict__ data, const int* offs, const T* __restrict__ x,
-    const Halo<T>& halo, int t, int kb, int B, long long I, long long r,
-    long long nbr, long long n)
+// Term t = j*kb + s of row r (block row I) for the first mc of MB
+// members: v[m] = data * x_m[(I + d_s)*B + j], the data element read once.
+// HALO (B = 1, MB = 1 only): x is the slab's m = nbr rows and row J of
+// [lo | x | hi] is read where it lies, so the caller never concatenates
+// them; the slot offsets are at most H.
+template <typename T, bool HALO, int MB>
+__device__ __forceinline__ void term(
+    T (&v)[MB], const T* __restrict__ data, const int* offs,
+    const T* __restrict__ x, const Halo<T>& halo, int t, int kb, int B,
+    long long I, long long r, long long nbr, long long n, int mc)
 {
     const int j = t / kb;
     const int s = t - j * kb;
     const long long J = I + offs[s];
-    T xv;
-    if constexpr (HALO)
-        xv = J < 0 ? __ldg(halo.lo + halo.H + J)
-           : J < nbr ? __ldg(x + J) : __ldg(halo.hi + (J - nbr));
-    else
-        xv = (J >= 0 && J < nbr) ? __ldg(x + J * B + j) : T(0);
-    return mul_rn(__ldg(data + ((long long)s * B + j) * n + r), xv);
+    const T d = __ldg(data + ((long long)s * B + j) * n + r);
+    if constexpr (HALO) {
+        const T xv = J < 0 ? __ldg(halo.lo + halo.H + J)
+                   : J < nbr ? __ldg(x + J) : __ldg(halo.hi + (J - nbr));
+        v[0] = mul_rn(d, xv);
+    } else {
+        const bool in = J >= 0 && J < nbr;
+#pragma unroll
+        for (int m = 0; m < MB; ++m) {
+            const T xv = (in && m < mc) ? __ldg(x + (long long)m * n + J * B + j)
+                                        : T(0);
+            v[m] = mul_rn(d, xv);
+        }
+    }
 }
 
 // BC, KC > 0: the block size and slot count at compile time; 0: at run
 // time.  G lanes a row.  HALO: a rank's slab with its received rows (K6h).
-template <typename T, int BC, int KC, int G, bool HALO>
+// MB: members a thread (1: one vector; 8: a batch, members blockIdx.y * MB
+// on, nb in all).
+template <typename T, int BC, int KC, int G, bool HALO, int MB>
 __global__ void __launch_bounds__(THREADS) spmv_banded_kernel(
     const T* __restrict__ data, const __grid_constant__ Slots slots,
     const int* __restrict__ offs_dev, int k_run, int b_run,
     const T* __restrict__ x, const __grid_constant__ Halo<T> halo,
-    T* __restrict__ y, long long n)
+    T* __restrict__ y, long long n, int nb)
 {
     extern __shared__ int offs[];
     const int B = BC > 0 ? BC : b_run;
@@ -123,6 +143,10 @@ __global__ void __launch_bounds__(THREADS) spmv_banded_kernel(
         offs[i] = kb <= MAX_SLOTS ? slots.d[i] : offs_dev[i];
     __syncthreads();
 
+    const int m0 = blockIdx.y * MB;
+    const int mc = min(MB, nb - m0);
+    x += (long long)m0 * n;
+    y += (long long)m0 * n;
     const long long nbr = n / B;
     const int nt = B * kb;
     const int g = G > 1 ? (int)(threadIdx.x & (G - 1)) : 0;
@@ -132,34 +156,59 @@ __global__ void __launch_bounds__(THREADS) spmv_banded_kernel(
     // shuffles) as a whole
     for (long long r = gt / G, rw = (gt & ~31LL) / G; rw < n;
          r += step, rw += step) {
-        T acc = T(0);
+        T acc[MB];
+#pragma unroll
+        for (int m = 0; m < MB; ++m) acc[m] = T(0);
         if (r < n) {
             const long long I = r / B;
             // lane g's terms t = g, g + G, ...: the first exists (G <= kb*B)
-            acc = term<T, HALO>(data, offs, x, halo, g, kb, B, I, r, nbr, n);
+            term<T, HALO, MB>(acc, data, offs, x, halo, g, kb, B, I, r, nbr, n, mc);
             // the terms a lane takes at most, where that is known
             constexpr int NT = BC > 0 && KC > 0 ? (BC * KC + G - 1) / G : 0;
-            if constexpr (NT > 0 && NT <= 32) {
+            if constexpr (MB == 1 && NT > 0 && NT <= 32) {
 #pragma unroll
                 for (int i = 1; i < NT; ++i) {
                     const int t = i * G + g;
-                    if (t < nt)
-                        acc = add_rn(acc, term<T, HALO>(data, offs, x, halo, t,
-                                                        kb, B, I, r, nbr, n));
+                    if (t < nt) {
+                        T v[1];
+                        term<T, HALO, 1>(v, data, offs, x, halo, t, kb, B, I, r,
+                                         nbr, n, mc);
+                        acc[0] = add_rn(acc[0], v[0]);
+                    }
                 }
-            } else {
+            } else if constexpr (MB == 1) {
                 // unrolled by 8: the loads of eight terms go out together
                 // without a register for every term of a long row
 #pragma unroll 8
-                for (int t = g + G; t < nt; t += G)
-                    acc = add_rn(acc, term<T, HALO>(data, offs, x, halo, t,
-                                                    kb, B, I, r, nbr, n));
+                for (int t = g + G; t < nt; t += G) {
+                    T v[1];
+                    term<T, HALO, 1>(v, data, offs, x, halo, t, kb, B, I, r, nbr,
+                                     n, mc);
+                    acc[0] = add_rn(acc[0], v[0]);
+                }
+            } else {
+                // MB members a term: unrolled by 2 (16 loads in flight)
+#pragma unroll 2
+                for (int t = g + G; t < nt; t += G) {
+                    T v[MB];
+                    term<T, HALO, MB>(v, data, offs, x, halo, t, kb, B, I, r, nbr,
+                                      n, mc);
+#pragma unroll
+                    for (int m = 0; m < MB; ++m) acc[m] = add_rn(acc[m], v[m]);
+                }
             }
         }
 #pragma unroll
-        for (int o = 1; o < G; o <<= 1)
-            acc = add_rn(acc, __shfl_xor_sync(0xffffffffu, acc, o));
-        if (r < n && g == 0) y[r] = acc;
+        for (int o = 1; o < G; o <<= 1) {
+#pragma unroll
+            for (int m = 0; m < MB; ++m)
+                acc[m] = add_rn(acc[m], __shfl_xor_sync(0xffffffffu, acc[m], o));
+        }
+        if (r < n && g == 0) {
+#pragma unroll
+            for (int m = 0; m < MB; ++m)
+                if (m < mc) y[(long long)m * n + r] = acc[m];
+        }
     }
 }
 
@@ -171,84 +220,95 @@ int blocks_for(long long threads)
 }
 
 // HALO: the m = n rows of a rank's slab with the rows it received (K6h,
-// B = 1, G = 1); else halo is unused.
+// B = 1, G = 1); else halo is unused.  nb > 1: a batch, MB = 8 members a
+// thread, ceil(nb / 8) groups on blockIdx.y.
 template <typename T, int BC, int KC, int G, bool HALO = false>
 void go(const T* data, const Slots& sl, const int* offs, int k, int B,
-        const T* x, T* y, long long n, cudaStream_t st,
+        const T* x, T* y, long long n, int nb, cudaStream_t st,
         const Halo<T>& halo = Halo<T>{nullptr, nullptr, 0})
 {
-    spmv_banded_kernel<T, BC, KC, G, HALO>
+    if constexpr (!HALO) {
+        if (nb > 1) {
+            constexpr int MB = 8;
+            const dim3 grid(blocks_for(n * G), (nb + MB - 1) / MB);
+            spmv_banded_kernel<T, BC, KC, G, false, MB>
+                <<<grid, THREADS, k * sizeof(int), st>>>(
+                    data, sl, offs, k, B, x, halo, y, n, nb);
+            return;
+        }
+    }
+    spmv_banded_kernel<T, BC, KC, G, HALO, 1>
         <<<blocks_for(n * G), THREADS, k * sizeof(int), st>>>(
-            data, sl, offs, k, B, x, halo, y, n);
+            data, sl, offs, k, B, x, halo, y, n, 1);
 }
 
 // A slot-offset ELL matrix (B = 1, one lane a row), whole (K6) or a rank's
 // slab (K6h): the common float32 slot counts at compile time.
 template <typename T, bool HALO>
 void ell(const T* data, const Slots& sl, const int* offs, int k, const T* x,
-         T* y, long long n, cudaStream_t st, const Halo<T>& halo)
+         T* y, long long n, int nb, cudaStream_t st, const Halo<T>& halo)
 {
     if constexpr (sizeof(T) == 4) {
         switch (k) {
-        case 5: go<T, 1, 5, 1, HALO>(data, sl, offs, k, 1, x, y, n, st, halo); return;
-        case 7: go<T, 1, 7, 1, HALO>(data, sl, offs, k, 1, x, y, n, st, halo); return;
-        case 9: go<T, 1, 9, 1, HALO>(data, sl, offs, k, 1, x, y, n, st, halo); return;
+        case 5: go<T, 1, 5, 1, HALO>(data, sl, offs, k, 1, x, y, n, nb, st, halo); return;
+        case 7: go<T, 1, 7, 1, HALO>(data, sl, offs, k, 1, x, y, n, nb, st, halo); return;
+        case 9: go<T, 1, 9, 1, HALO>(data, sl, offs, k, 1, x, y, n, nb, st, halo); return;
         default: break;
         }
     }
-    go<T, 1, 0, 1, HALO>(data, sl, offs, k, 1, x, y, n, st, halo);
+    go<T, 1, 0, 1, HALO>(data, sl, offs, k, 1, x, y, n, nb, st, halo);
 }
 
 template <typename T, int BC, int G>
 void by_slots(const T* data, const Slots& sl, const int* offs, int k, int B,
-              const T* x, T* y, long long n, cudaStream_t st)
+              const T* x, T* y, long long n, int nb, cudaStream_t st)
 {
     switch (k) {
-    case 7: go<T, BC, 7, G>(data, sl, offs, k, B, x, y, n, st); break;
-    case 27: go<T, BC, 27, G>(data, sl, offs, k, B, x, y, n, st); break;
-    default: go<T, BC, 0, G>(data, sl, offs, k, B, x, y, n, st); break;
+    case 7: go<T, BC, 7, G>(data, sl, offs, k, B, x, y, n, nb, st); break;
+    case 27: go<T, BC, 27, G>(data, sl, offs, k, B, x, y, n, nb, st); break;
+    default: go<T, BC, 0, G>(data, sl, offs, k, B, x, y, n, nb, st); break;
     }
 }
 
 template <int G>
 void bsr_f32(const float* data, const Slots& sl, const int* offs, int k,
-             int B, const float* x, float* y, long long n, cudaStream_t st)
+             int B, const float* x, float* y, long long n, int nb, cudaStream_t st)
 {
     switch (B) {
-    case 2: by_slots<float, 2, G>(data, sl, offs, k, B, x, y, n, st); break;
-    case 3: by_slots<float, 3, G>(data, sl, offs, k, B, x, y, n, st); break;
-    case 4: by_slots<float, 4, G>(data, sl, offs, k, B, x, y, n, st); break;
-    case 8: by_slots<float, 8, G>(data, sl, offs, k, B, x, y, n, st); break;
-    default: go<float, 0, 0, G>(data, sl, offs, k, B, x, y, n, st); break;
+    case 2: by_slots<float, 2, G>(data, sl, offs, k, B, x, y, n, nb, st); break;
+    case 3: by_slots<float, 3, G>(data, sl, offs, k, B, x, y, n, nb, st); break;
+    case 4: by_slots<float, 4, G>(data, sl, offs, k, B, x, y, n, nb, st); break;
+    case 8: by_slots<float, 8, G>(data, sl, offs, k, B, x, y, n, nb, st); break;
+    default: go<float, 0, 0, G>(data, sl, offs, k, B, x, y, n, nb, st); break;
     }
 }
 
 void launch_f32(const float* data, const Slots& sl, const int* offs, int k,
-                int B, int G, const float* x, float* y, long long n,
+                int B, int G, const float* x, float* y, long long n, int nb,
                 cudaStream_t st)
 {
     if (B == 1) {  // ELL: one lane a row
-        ell<float, false>(data, sl, offs, k, x, y, n, st,
+        ell<float, false>(data, sl, offs, k, x, y, n, nb, st,
                           Halo<float>{nullptr, nullptr, 0});
         return;
     }
     switch (G) {
-    case 1: bsr_f32<1>(data, sl, offs, k, B, x, y, n, st); break;
-    case 2: bsr_f32<2>(data, sl, offs, k, B, x, y, n, st); break;
-    case 4: bsr_f32<4>(data, sl, offs, k, B, x, y, n, st); break;
-    default: bsr_f32<8>(data, sl, offs, k, B, x, y, n, st); break;
+    case 1: bsr_f32<1>(data, sl, offs, k, B, x, y, n, nb, st); break;
+    case 2: bsr_f32<2>(data, sl, offs, k, B, x, y, n, nb, st); break;
+    case 4: bsr_f32<4>(data, sl, offs, k, B, x, y, n, nb, st); break;
+    default: bsr_f32<8>(data, sl, offs, k, B, x, y, n, nb, st); break;
     }
 }
 
 void launch_f64(const double* data, const Slots& sl, const int* offs, int k,
-                int B, int G, const double* x, double* y, long long n,
+                int B, int G, const double* x, double* y, long long n, int nb,
                 cudaStream_t st)
 {
     switch (G) {
-    case 1: go<double, 0, 0, 1>(data, sl, offs, k, B, x, y, n, st); break;
-    case 2: go<double, 0, 0, 2>(data, sl, offs, k, B, x, y, n, st); break;
-    case 4: go<double, 0, 0, 4>(data, sl, offs, k, B, x, y, n, st); break;
-    default: go<double, 0, 0, 8>(data, sl, offs, k, B, x, y, n, st); break;
+    case 1: go<double, 0, 0, 1>(data, sl, offs, k, B, x, y, n, nb, st); break;
+    case 2: go<double, 0, 0, 2>(data, sl, offs, k, B, x, y, n, nb, st); break;
+    case 4: go<double, 0, 0, 4>(data, sl, offs, k, B, x, y, n, nb, st); break;
+    default: go<double, 0, 0, 8>(data, sl, offs, k, B, x, y, n, nb, st); break;
     }
 }
 
@@ -258,14 +318,16 @@ void launch_f64(const double* data, const Slots& sl, const int* offs, int k,
 // float32); offs_host (k,) the int32 block offsets on the host (passed by
 // value up to MAX_SLOTS), offs_dev the same on the device (read beyond);
 // lanes: G, 1, 2, 4 or 8, at most k*B, and 1 for B = 1.  An ELL matrix is
-// B = 1.  Returns 0, or a negative code for arguments the kernel does not
-// take, or the CUDA error of the launch.
+// B = 1.  members: nb vectors (x, y (nb, n)) through the matrix, 1 for one.
+// Returns 0, or a negative code for arguments the kernel does not take, or
+// the CUDA error of the launch.
 extern "C" int omg_spmv_banded(
     const void* data, const int* offs_host, const int* offs_dev, int k,
-    int B, int lanes, const void* x, void* y, long long n, int is_double,
-    void* stream)
+    int B, int lanes, const void* x, void* y, long long n, int members,
+    int is_double, void* stream)
 {
     if (k < 1 || B < 1 || n < 1 || n % B) return -1;
+    if (members < 1 || (members + 7) / 8 > 65535) return -2;
     if (!(lanes == 1 || lanes == 2 || lanes == 4 || lanes == 8)
         || lanes > k * B || (B == 1 && lanes != 1))
         return -2;
@@ -275,10 +337,10 @@ extern "C" int omg_spmv_banded(
     cudaStream_t st = (cudaStream_t)stream;
     if (is_double)
         launch_f64((const double*)data, sl, offs_dev, k, B, lanes,
-                   (const double*)x, (double*)y, n, st);
+                   (const double*)x, (double*)y, n, members, st);
     else
         launch_f32((const float*)data, sl, offs_dev, k, B, lanes,
-                   (const float*)x, (float*)y, n, st);
+                   (const float*)x, (float*)y, n, members, st);
     return (int)cudaGetLastError();
 }
 
@@ -310,10 +372,10 @@ extern "C" int omg_spmv_banded_halo(
     if (is_double)
         ell<double, true>(
             (const double*)data, sl, offs_dev, k, (const double*)x, (double*)y,
-            m, st, Halo<double>{(const double*)lo, (const double*)hi, H});
+            m, 1, st, Halo<double>{(const double*)lo, (const double*)hi, H});
     else
         ell<float, true>(
             (const float*)data, sl, offs_dev, k, (const float*)x, (float*)y,
-            m, st, Halo<float>{(const float*)lo, (const float*)hi, H});
+            m, 1, st, Halo<float>{(const float*)lo, (const float*)hi, H});
     return (int)cudaGetLastError();
 }

@@ -82,6 +82,19 @@
 //   * Out-of-grid cells are zero at every level (the Dirichlet zero), and
 //     no address outside an array is ever formed into a load.
 //
+// The batched form (K4b: the TPU kernel under jax.vmap, whose grid gains a
+// leading batch axis): nmem members of one grid, b, x_in, x_out and r_out
+// (nmem, nz, ny, nx), one launch for all; the coefficient grids and 1/diag
+// are shared.  The member is the fastest part of blockIdx.x, so the nmem
+// blocks of one tile are neighbours in the launch order and read the
+// tile's coefficient planes, most of a leg's bytes, through L2 once
+// instead of once a member.  A member's cells are computed as in the
+// scalar launch (the same instance, the same order; a cell's value does
+// not depend on the tiling or the chunk), so each member equals the scalar
+// launch on it bit for bit.  The batch changes no fit: FY and the ring
+// depend on the operator and the depth alone, and only the chunk count ZC
+// sees the nmem-fold grid.
+//
 // Rounding: the sum runs in the order of the offsets list (the diagonal is
 // skipped in a red/black pass) and the update multiplies by 1/diag, as the
 // plain PyTorch loop of passes does; nvcc may contract a*b+c into a fused
@@ -427,18 +440,25 @@ __global__ void __launch_bounds__(MAX_ROWS * WPR) vary_leg_kernel(
     const __grid_constant__ Leg L, const float* __restrict__ coef,
     const float* __restrict__ inv_d, const float* __restrict__ b,
     const float* __restrict__ x_in, float* __restrict__ x_out,
-    float* __restrict__ r_out, int nz, int ny, int nx)
+    float* __restrict__ r_out, int nz, int ny, int nx, int nmem)
 {
     // the iterate's rings [ring][4 slots][FY rows][WPR words], then with CR
     // the coefficient ring [2S slots][K + 2 grids][threads]
     extern __shared__ float4 smem[];
+    // member blockIdx.x % nmem of a batch: its own b, x and outputs
+    const int member = blockIdx.x % nmem;
+    const size_t mo = (size_t)member * nz * ny * nx;
+    b += mo;
+    if (x_in) x_in += mo;
+    if (x_out) x_out += mo;
+    if (r_out) r_out += mo;
     Tile T;
     T.row = threadIdx.x / WPR;
     T.w = threadIdx.x % WPR;
     T.tid = threadIdx.x;
     T.nthr = blockDim.x;
     T.plane4 = L.FY * WPR;  // float4s a plane
-    const int gx = blockIdx.x * OX - HX + 4 * T.w;  // the word's first cell
+    const int gx = (blockIdx.x / nmem) * OX - HX + 4 * T.w;  // the word's first cell
     T.gy = blockIdx.y * L.OY - S + T.row;
     T.z0 = blockIdx.z * L.ZC;
     T.zc = min(L.ZC, nz - T.z0);
@@ -504,7 +524,7 @@ size_t row_words(int S, bool zero, bool cr, int K)
 template <class OPT, int MODE, bool VEC, int S, bool CR>
 int launch(Leg L, const float* coef, const float* inv, const float* b,
            const float* x_in, float* x_out, float* r_out, int nz, int ny,
-           int nx, cudaStream_t st)
+           int nx, int nmem, cudaStream_t st)
 {
     const auto kern = vary_leg_kernel<OPT, MODE, VEC, S, CR>;
     // read once per kernel and process (the port drives one card)
@@ -539,7 +559,7 @@ int launch(Leg L, const float* coef, const float* inv, const float* b,
     if (per_sm < 1) return -4;
     // chunks of z: the count with the fewest steps a block walks, times the
     // waves of blocks over the SMs
-    const long tiles = (long)((nx + OX - 1) / OX) * ((ny + L.OY - 1) / L.OY);
+    const long tiles = (long)((nx + OX - 1) / OX) * ((ny + L.OY - 1) / L.OY) * nmem;
     const long slots = (long)nsm * per_sm;
     long best = -1;
     for (int zc = 1; zc <= nz; ++zc) {
@@ -550,42 +570,42 @@ int launch(Leg L, const float* coef, const float* inv, const float* b,
             L.ZC = zc;
         }
     }
-    const dim3 blocks((nx + OX - 1) / OX, (ny + L.OY - 1) / L.OY,
+    const dim3 blocks((nx + OX - 1) / OX * nmem, (ny + L.OY - 1) / L.OY,
                       (nz + L.ZC - 1) / L.ZC);
     kern<<<blocks, L.FY * WPR, smem, st>>>(L, coef, inv, b, x_in, x_out, r_out,
-                                          nz, ny, nx);
+                                          nz, ny, nx, nmem);
     return (int)cudaGetLastError();
 }
 
 template <class OPT, int MODE, bool VEC>
 int launch_depth(const Leg& L, int S, bool ring, const float* coef,
                  const float* inv, const float* b, const float* x_in,
-                 float* x_out, float* r_out, int nz, int ny, int nx,
+                 float* x_out, float* r_out, int nz, int ny, int nx, int nmem,
                  cudaStream_t st)
 {
     if (S == 3)
-        return launch<OPT, MODE, VEC, 3, false>(L, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, st);
+        return launch<OPT, MODE, VEC, 3, false>(L, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, nmem, st);
     if constexpr (OPT::K <= RING_MAXK && VEC) {
         if (ring)
-            return launch<OPT, MODE, VEC, 2, true>(L, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, st);
+            return launch<OPT, MODE, VEC, 2, true>(L, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, nmem, st);
     }
-    return launch<OPT, MODE, VEC, 2, false>(L, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, st);
+    return launch<OPT, MODE, VEC, 2, false>(L, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, nmem, st);
 }
 
 template <class OPT>
 int launch_mode(const Leg& L, int S, bool ring, bool vec, int mode,
                 const float* coef, const float* inv, const float* b,
                 const float* x_in, float* x_out, float* r_out, int nz, int ny,
-                int nx, cudaStream_t st)
+                int nx, int nmem, cudaStream_t st)
 {
     if (mode == MODE_RB) {
         if (vec)
-            return launch_depth<OPT, MODE_RB, true>(L, S, ring, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, st);
-        return launch_depth<OPT, MODE_RB, false>(L, S, ring, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, st);
+            return launch_depth<OPT, MODE_RB, true>(L, S, ring, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, nmem, st);
+        return launch_depth<OPT, MODE_RB, false>(L, S, ring, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, nmem, st);
     }
     if (vec)
-        return launch_depth<OPT, MODE_JACOBI, true>(L, S, ring, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, st);
-    return launch_depth<OPT, MODE_JACOBI, false>(L, S, ring, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, st);
+        return launch_depth<OPT, MODE_JACOBI, true>(L, S, ring, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, nmem, st);
+    return launch_depth<OPT, MODE_JACOBI, false>(L, S, ring, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, nmem, st);
 }
 
 template <class OPT>
@@ -608,14 +628,16 @@ bool same_offsets(const Leg& L)
 // red/black (colour of the first pass color0, alternating).  ring: read
 // the coefficients from the shared-memory ring (depth 2, at most
 // RING_MAXK taps; on grids read cell by cell the launch goes without it).
-// Returns 0, a negative code of its own (-1:
-// stencil not taken, -2: bad depth, mode, ring or grid, -3: an output
-// aliases an input, -4: no tile fits) or the CUDA error of the launch.
+// nmem: members of a batch (b, x_in, x_out and r_out (nmem, nz, ny, nx); 1 for
+// one grid).  Returns 0, a negative code of its own (-1:
+// stencil not taken, -2: bad depth, mode, ring, grid or batch, -3: an
+// output aliases an input, -4: no tile fits) or the CUDA error of the
+// launch.
 extern "C" int omg_vary_leg(
     const float* coef, const float* inv, const int* offs, int K, const float* b,
     const float* x_in, float* x_out, float* r_out, int nz, int ny, int nx,
     int passes, int mode, float omega, int color0, int residual, int ring,
-    void* stream)
+    int nmem, void* stream)
 {
     if (K < 1 || K > MAXK) return -1;
     Leg L;
@@ -639,6 +661,7 @@ extern "C" int omg_vary_leg(
         return -2;
     if (ring && (S != 2 || K > RING_MAXK)) return -2;
     if (nz < 1 || ny < 1 || nx < 1 || nz > 65535) return -2;
+    if (nmem < 1 || (long long)((nx + OX - 1) / OX) * nmem > 0x7fffffffLL) return -2;
     if ((passes >= 1 && x_out == nullptr) || (residual && r_out == nullptr))
         return -2;
     if (x_out != nullptr && (x_out == x_in || x_out == b)) return -3;
@@ -651,8 +674,8 @@ extern "C" int omg_vary_leg(
              | ((uintptr_t)x_out) | ((uintptr_t)r_out)) & 15) == 0;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (same_offsets<Std7>(L))
-        return launch_mode<Std7>(L, S, ring, vec, mode, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, st);
+        return launch_mode<Std7>(L, S, ring, vec, mode, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, nmem, st);
     if (same_offsets<Std27>(L))
-        return launch_mode<Std27>(L, S, ring, vec, mode, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, st);
-    return launch_mode<Generic>(L, S, ring, vec, mode, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, st);
+        return launch_mode<Std27>(L, S, ring, vec, mode, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, nmem, st);
+    return launch_mode<Generic>(L, S, ring, vec, mode, coef, inv, b, x_in, x_out, r_out, nz, ny, nx, nmem, st);
 }

@@ -16,6 +16,14 @@ inner) over :func:`lane_group` lanes, lane ``g`` summing ``t ≡ g`` in
 order, and add the lanes' partial sums by a pairwise tree, so the two
 agree bit for bit.  ``LAUNCHES_K7`` counts the launches.
 
+K7b (:func:`spmv_bsr_batch`, the JAX module's kernel under ``jax.vmap``)
+runs ``(K, n)`` vectors through one matrix in one launch of the same
+kernel: each data element read once for up to eight members, each
+member's lanes and tree those of the scalar launch, so it equals that
+launch bit for bit; its plain version :func:`spmv_banded_batch_plain` is
+the scalar plain version member by member.  ``LAUNCHES_K7_BATCH`` counts
+its launches.
+
 The JAX package's tile-height and ``128 % B`` rules (``pick_tile_rows``)
 and its in-register block replicas (``_block_replica``) are that
 hardware's and are not copied; block size 3 takes the kernel too.
@@ -27,10 +35,20 @@ import torch
 
 from openmg_tpu_torch.ops.ell import spmv_banded_cuda
 
-__all__ = ["LAUNCHES_K7", "lane_group", "supports", "spmv_banded_plain", "spmv_bsr"]
+__all__ = [
+    "LAUNCHES_K7",
+    "LAUNCHES_K7_BATCH",
+    "lane_group",
+    "supports",
+    "spmv_banded_plain",
+    "spmv_bsr",
+    "spmv_banded_batch_plain",
+    "spmv_bsr_batch",
+]
 
-# launches of the blocked-band BSR kernel (K7)
+# launches of the blocked-band BSR kernel (K7) and of its batched form (K7b)
 LAUNCHES_K7 = 0
+LAUNCHES_K7_BATCH = 0
 
 # the threads a launch should have before a row's terms are shared by more
 # lanes, and the most lanes a row: on an H100 (132 SMs) these give the
@@ -119,4 +137,36 @@ def spmv_bsr(M, x):
         lanes=lane_group(M.shape[0], len(M.slot_offsets), B),
     )
     LAUNCHES_K7 += 1
+    return y
+
+
+def spmv_banded_batch_plain(M, x):
+    """Plain version of K7b: :func:`spmv_banded_plain` on each row of the
+    ``(K, n)`` ``x``, stacked."""
+    return torch.stack([spmv_banded_plain(M, x[m]) for m in range(x.shape[0])])
+
+
+def spmv_bsr_batch(M, x):
+    """K7b: row k of the result is ``M x[k]`` for a blocked-band BSR matrix
+    and ``(K, n)`` vectors, by the device of ``x``: one launch of the CUDA
+    kernel for all K on the card (the scalar launch's lane group), each row
+    bit-equal to :func:`spmv_bsr` of it; the plain version on the CPU."""
+    global LAUNCHES_K7_BATCH
+    if not supports(M):
+        raise ValueError(
+            "spmv_bsr_batch takes a square floating blocked-band BSR matrix "
+            "with square blocks"
+        )
+    if x.ndim != 2:
+        raise ValueError(f"spmv_bsr_batch: x has shape {tuple(x.shape)}, not (K, n)")
+    if x.device.type == "cpu":
+        return spmv_banded_batch_plain(M, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    B = M.blocksize[0]
+    y = spmv_banded_cuda(
+        "spmv_bsr_batch", M.data, M.slot_offsets, B, x,
+        lanes=lane_group(M.shape[0], len(M.slot_offsets), B), batch=True,
+    )
+    LAUNCHES_K7_BATCH += 1
     return y

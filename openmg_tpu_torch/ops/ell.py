@@ -15,6 +15,13 @@ launches.  The kernel is the blocked-band BSR kernel (K7,
 :mod:`openmg_tpu_torch.ops.bsr`) at block size 1, and
 :func:`spmv_banded_cuda` is the one launch of both.
 
+K6b (:func:`spmv_ell_batch`, the JAX module's kernel under ``jax.vmap``)
+is its batched form: ``(K, n)`` vectors through one matrix in one launch,
+the matrix read once for up to eight members, each member's sum in the
+scalar slot order, so it equals the scalar launch bit for bit; its plain
+version :func:`spmv_banded_batch_plain` is the scalar plain version member
+by member.  ``LAUNCHES_K6_BATCH`` counts its launches.
+
 K6h (:func:`spmv_banded_halo`) is its halo form on a rank's slab of rows
 of the distributed sparse engine (:mod:`openmg_tpu_torch.parallel.
 sparse_dist`): the same sum over the slab's ``m`` rows with ``x`` extended
@@ -36,10 +43,13 @@ import torch
 
 __all__ = [
     "LAUNCHES_K6",
+    "LAUNCHES_K6_BATCH",
     "detect_slot_offsets",
     "supports",
     "spmv_banded_plain",
     "spmv_ell",
+    "spmv_banded_batch_plain",
+    "spmv_ell_batch",
     "offsets_tensor",
     "check_operands",
     "spmv_banded_cuda",
@@ -49,9 +59,11 @@ __all__ = [
     "spmv_banded_halo",
 ]
 
-# launches of the slot-offset ELL kernel (K6) and of its halo form (K6h)
+# launches of the slot-offset ELL kernel (K6), of its halo form (K6h) and
+# of its batched form (K6b: K vectors a launch)
 LAUNCHES_K6 = 0
 LAUNCHES_K6H = 0
+LAUNCHES_K6_BATCH = 0
 
 
 def detect_slot_offsets(data, cols):
@@ -112,8 +124,9 @@ def _kernel():
 
         fn = _build.load().omg_spmv_banded
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # data, offs (host), offs (device), k, B, lanes, x, y, n, dbl, stream
-        fn.argtypes = [p, p, p, i, i, i, p, p, ll, i, p]
+        # data, offs (host), offs (device), k, B, lanes, x, y, n, members,
+        # dbl, stream
+        fn.argtypes = [p, p, p, i, i, i, p, p, ll, i, i, p]
         fn.restype = i
         _fn = fn
     return _fn
@@ -154,10 +167,10 @@ def offsets_tensor(offsets, device) -> torch.Tensor:
     return t
 
 
-def check_operands(what, data, x, kernel_rows):
+def check_operands(what, data, x, kernel_rows, batch=False):
     """Raise unless ``data`` and ``x`` are what the kernels take: one CUDA
     device, float32 or float64 alike, contiguous, and ``x`` of length
-    ``kernel_rows``."""
+    ``kernel_rows`` (with ``batch``, ``x`` ``(K, kernel_rows)``)."""
     if data.dtype not in (torch.float32, torch.float64) or x.dtype != data.dtype:
         raise ValueError(
             f"{what} takes float32 or float64 operands of one type, got "
@@ -167,22 +180,23 @@ def check_operands(what, data, x, kernel_rows):
         raise ValueError(f"{what}: operands on {data.device} and {x.device}")
     if not (data.is_contiguous() and x.is_contiguous()):
         raise ValueError(f"{what} takes contiguous operands")
-    if x.ndim != 1 or x.shape[0] != kernel_rows:
-        raise ValueError(
-            f"{what}: x has shape {tuple(x.shape)}, expected ({kernel_rows},)"
-        )
+    if x.ndim != 1 + int(batch) or x.shape[-1] != kernel_rows or x.shape[0] < 1:
+        want = f"(K, {kernel_rows})" if batch else f"({kernel_rows},)"
+        raise ValueError(f"{what}: x has shape {tuple(x.shape)}, expected {want}")
 
 
-def spmv_banded_cuda(what, data, slot_offsets, B, x, lanes=1):
+def spmv_banded_cuda(what, data, slot_offsets, B, x, lanes=1, batch=False):
     """One launch of ``csrc/spmv_banded.cu`` on CUDA tensors:
     ``y[I·B + i] = Σ_j Σ_s data[s, j, I·B + i] · x[(I + d_s)·B + j]`` for
     ``data`` of shape ``(k, B, n)``, or ``(k, n)`` when ``B`` is 1 (ELL),
     a row's terms split over ``lanes`` lanes (see
-    :func:`openmg_tpu_torch.ops.bsr.lane_group`; 1 for ELL).  Raises on
-    operands the kernel does not take or a failed launch."""
-    n = x.shape[0] if x.ndim == 1 else -1
+    :func:`openmg_tpu_torch.ops.bsr.lane_group`; 1 for ELL); with
+    ``batch``, ``x`` and ``y`` ``(K, n)``, one launch for all K.  Raises on
+    operands the kernel does not take, an output that would alias ``x``, or
+    a failed launch."""
+    n = x.shape[-1] if x.ndim == 1 + int(batch) else data.shape[-1]
     k = len(slot_offsets)
-    check_operands(what, data, x, n)
+    check_operands(what, data, x, n, batch)
     want = (k, n) if B == 1 and data.ndim == 2 else (k, B, n)
     if B < 1 or n % B or tuple(data.shape) != want:
         raise ValueError(
@@ -197,7 +211,8 @@ def spmv_banded_cuda(what, data, slot_offsets, B, x, lanes=1):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _kernel()(
             data.data_ptr(), host, offs.data_ptr(), k, B, lanes, x.data_ptr(),
-            y.data_ptr(), n, int(x.dtype == torch.float64), stream,
+            y.data_ptr(), n, x.shape[0] if batch else 1,
+            int(x.dtype == torch.float64), stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_spmv_banded failed with code {rc}")
@@ -219,6 +234,35 @@ def spmv_ell(M, x):
         raise ValueError(f"unsupported device {x.device}")
     y = spmv_banded_cuda("spmv_ell", M.data, M.slot_offsets, 1, x)
     LAUNCHES_K6 += 1
+    return y
+
+
+def spmv_banded_batch_plain(data, slot_offsets, x):
+    """Plain version of K6b: :func:`spmv_banded_plain` on each row of the
+    ``(K, n)`` ``x``, stacked."""
+    return torch.stack([spmv_banded_plain(data, slot_offsets, x[m])
+                        for m in range(x.shape[0])])
+
+
+def spmv_ell_batch(M, x):
+    """K6b: ``Y = X Mᵀ``, row k of ``y`` ``M x[k]``, for a slot-offset ELL
+    matrix and ``(K, n)`` vectors, by the device of ``x``: one launch of the
+    CUDA kernel for all K on the card, each row bit-equal to
+    :func:`spmv_ell` of it; the plain version on the CPU."""
+    global LAUNCHES_K6_BATCH
+    if not supports(M):
+        raise ValueError(
+            "spmv_ell_batch takes a square floating ELL matrix with slot_offsets"
+        )
+    if x.ndim != 2:
+        raise ValueError(f"spmv_ell_batch: x has shape {tuple(x.shape)}, not (K, n)")
+    if x.device.type == "cpu":
+        return spmv_banded_batch_plain(M.data, M.slot_offsets, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    y = spmv_banded_cuda("spmv_ell_batch", M.data, M.slot_offsets, 1, x,
+                         batch=True)
+    LAUNCHES_K6_BATCH += 1
     return y
 
 

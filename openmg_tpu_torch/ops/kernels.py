@@ -56,13 +56,16 @@ count launched kernels: one per pass for K3 and the per-pass K4, one per
 leg (or chunk of one) for :func:`sweeps_vary_3d`, one per visit for K5.
 
 **The batched forms** (the JAX module's kernels under ``jax.vmap``, whose
-grids gain a leading batch axis): :func:`df_update_residual_batch` (K2b)
-and :func:`fused_stages_2d_batch` (K5b) take K members of one grid stacked
-along a leading axis and run them in one launch; each member's outputs
-equal the scalar launch's on it bit for bit.  Their plain versions
-(:func:`df_update_residual_batch_plain`, :func:`fused_stages_2d_batch_plain`)
-are the scalar plain versions member by member.  They count apart:
-``LAUNCHES_K2_BATCH``, ``LAUNCHES_K5_BATCH``.  K2b's partials are ``(K,
+grids gain a leading batch axis): :func:`df_update_residual_batch` (K2b),
+:func:`half_sweep_batch` (K3b), :func:`half_sweep_vary_batch` and
+:func:`sweeps_vary_batch` (K4b: a pass, a leg) and
+:func:`fused_stages_2d_batch` (K5b) take K members of one grid stacked
+along a leading axis, the operator shared, and run them in one launch
+(a leg: in the scalar leg's launches); each member's outputs equal the
+scalar launch's on it bit for bit.  Their plain versions (the same names
+with ``_plain``) are the scalar plain versions member by member.  They
+count apart: ``LAUNCHES_K2_BATCH``, ``LAUNCHES_K3_BATCH``,
+``LAUNCHES_K4_BATCH``, ``LAUNCHES_K5_BATCH``.  K2b's partials are ``(K,
 P)``, a row a member laid out as the scalar launch's; :func:`df_norms`
 reduces each row with the scalar path's own call.
 
@@ -101,7 +104,15 @@ __all__ = [
     "LAUNCHES_K3_HALO",
     "LAUNCHES_K4_HALO",
     "LAUNCHES_K2_BATCH",
+    "LAUNCHES_K3_BATCH",
+    "LAUNCHES_K4_BATCH",
     "LAUNCHES_K5_BATCH",
+    "half_sweep_batch",
+    "half_sweep_batch_plain",
+    "half_sweep_vary_batch",
+    "half_sweep_vary_batch_plain",
+    "sweeps_vary_batch",
+    "sweeps_vary_batch_plain",
     "df_norms",
     "df_update_residual_batch",
     "df_update_residual_batch_plain",
@@ -146,8 +157,11 @@ LAUNCHES_K5 = 0
 LAUNCHES_K2_HALO = 0
 LAUNCHES_K3_HALO = 0
 LAUNCHES_K4_HALO = 0
-# launches of the batched forms (K members of one grid a launch): K2, K5
+# launches of the batched forms (K members of one grid a launch): K2, K3,
+# K4 (single passes and legs), K5
 LAUNCHES_K2_BATCH = 0
+LAUNCHES_K3_BATCH = 0
+LAUNCHES_K4_BATCH = 0
 LAUNCHES_K5_BATCH = 0
 
 
@@ -595,7 +609,7 @@ def _sweep_kernel():
             p, p, p, i, p,      # coef, table, offs, K, rowmap
             i, i, f, i,         # vary, mode, omega, color
             p, p, p, p, p,      # b, x, lower, upper, out
-            i, i, i, i, p,      # nz, ny, nx, zc, stream
+            i, i, i, i, i, p,   # nz, ny, nx, zc, members, stream
         ]
         fn.restype = i
         tile = _build.load().omg_half_sweep_tile
@@ -610,26 +624,33 @@ def _sweep_kernel():
 
 
 def _half_sweep_cuda(coef, offsets, b, x, mode, omega, color, vary, corner,
-                     halos=None):
+                     halos=None, batch=False):
     """Launch one pass of ``csrc/half_sweep.cu``; returns the new array.
-    ``halos``: the ``(lower, upper)`` planes a halo form reads."""
+    ``halos``: the ``(lower, upper)`` planes a halo form reads.  ``batch``:
+    ``b`` and ``x`` are ``(K, nz, ny, nx)`` stacks, one launch for all
+    members (K3b, K4b), the operator shared."""
     global LAUNCHES_K3, LAUNCHES_K4, LAUNCHES_K3_HALO, LAUNCHES_K4_HALO
+    global LAUNCHES_K3_BATCH, LAUNCHES_K4_BATCH
     from openmg_tpu_torch.ops.fused import _check, _row_map
 
     if mode not in _MODE_CODE:
         raise ValueError(f"unknown mode {mode!r}; choose jacobi|rbgs|residual")
     dev = x.device
-    if x.ndim != 3 or any(len(off) != 3 for off in offsets):
+    if x.ndim != 3 + int(batch) or any(len(off) != 3 for off in offsets):
+        what = "(K, nz, ny, nx) batches" if batch else "3D grids"
         raise ValueError(
-            f"the kernel takes 3D grids and taps, got shape {tuple(x.shape)}"
+            f"the kernel takes {what} and 3D taps, got shape {tuple(x.shape)}"
         )
-    shape = tuple(x.shape)
+    if batch and (halos is not None or x.shape[0] < 1):
+        raise ValueError("a batch of at least one member, and no halos")
+    full = tuple(x.shape)
+    shape = full[-3:]
     K = len(offsets)
     why = kernel_taps_ok(offsets)
     if why is not None:
         raise ValueError(f"the kernel does not take {why}")
-    _check("x", x, shape, dev)
-    _check("b", b, shape, dev)
+    _check("x", x, full, dev)
+    _check("b", b, full, dev)
     table = None
     if vary:
         _check("coeffs", coef, (K,) + shape, dev)
@@ -657,11 +678,17 @@ def _half_sweep_cuda(coef, offsets, b, x, mode, omega, color, vary, corner,
             float(omega), int(color), b.data_ptr(), x.data_ptr(),
             None if lower is None else lower.data_ptr(),
             None if upper is None else upper.data_ptr(),
-            out.data_ptr(), shape[0], shape[1], shape[2], zc, stream,
+            out.data_ptr(), shape[0], shape[1], shape[2], zc,
+            full[0] if batch else 1, stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_half_sweep failed with code {rc}")
-    if halos is not None:
+    if batch:
+        if vary:
+            LAUNCHES_K4_BATCH += 1
+        else:
+            LAUNCHES_K3_BATCH += 1
+    elif halos is not None:
         if vary:
             LAUNCHES_K4_HALO += 1
         else:
@@ -1005,7 +1032,7 @@ def _leg_kernel():
             p, p, p, p,         # b, x_in, x_out, r_out
             i, i, i,            # nz, ny, nx
             i, i, f, i, i,      # passes, mode, omega, color0, residual
-            i, p,               # ring, stream
+            i, i, p,            # ring, members, stream
         ]
         fn.restype = i
         _leg_fn = fn
@@ -1013,29 +1040,34 @@ def _leg_kernel():
 
 
 def _vary_leg_cuda(coeffs, offsets, b, x, passes, mode, omega, emit_residual,
-                   color0, inv_diag=None):
+                   color0, inv_diag=None, batch=False):
     """One launch of ``csrc/vary_leg.cu``: ``passes`` passes (colours from
     ``color0``) and the residual, 2 or 3 levels; returns ``x`` or
-    ``(x, r)``."""
-    global LAUNCHES_K4
+    ``(x, r)``.  ``batch``: ``b`` and ``x`` are ``(K, nz, ny, nx)`` stacks,
+    one launch for all members (K4b), the coefficients shared."""
+    global LAUNCHES_K4, LAUNCHES_K4_BATCH
     from openmg_tpu_torch.ops.fused import _check
 
     if mode not in ("jacobi", "rbgs"):
         raise ValueError(f"unknown mode {mode!r}; choose jacobi|rbgs")
     dev = b.device
-    if b.ndim != 3 or any(len(off) != 3 for off in offsets):
+    if b.ndim != 3 + int(batch) or any(len(off) != 3 for off in offsets):
+        what = "(K, nz, ny, nx) batches" if batch else "3D grids"
         raise ValueError(
-            f"the kernel takes 3D grids and taps, got shape {tuple(b.shape)}"
+            f"the kernel takes {what} and 3D taps, got shape {tuple(b.shape)}"
         )
-    shape = tuple(b.shape)
+    if batch and b.shape[0] < 1:
+        raise ValueError("a batch of at least one member")
+    full = tuple(b.shape)
+    shape = full[-3:]
     K = len(offsets)
     why = kernel_taps_ok(offsets)
     if why is not None:
         raise ValueError(f"the kernel does not take {why}")
-    _check("b", b, shape, dev)
+    _check("b", b, full, dev)
     _check("coeffs", coeffs, (K,) + shape, dev)
     if x is not None:
-        _check("x", x, shape, dev)
+        _check("x", x, full, dev)
     if inv_diag is not None:
         _check("inv_diag", inv_diag, shape, dev)
     x_out = torch.empty_like(b) if passes else None
@@ -1051,11 +1083,15 @@ def _vary_leg_cuda(coeffs, offsets, b, x, passes, mode, omega, emit_residual,
             None if r_out is None else r_out.data_ptr(),
             shape[0], shape[1], shape[2], int(passes),
             _MODE_CODE[mode], float(omega), int(color0), int(emit_residual),
-            int(leg_ring(K, passes + int(emit_residual), mode)), stream,
+            int(leg_ring(K, passes + int(emit_residual), mode)),
+            full[0] if batch else 1, stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_vary_leg failed with code {rc}")
-    LAUNCHES_K4 += 1
+    if batch:
+        LAUNCHES_K4_BATCH += 1
+    else:
+        LAUNCHES_K4 += 1
     if x_out is None:
         x_out = torch.zeros_like(b) if x is None else x
     return (x_out, r_out) if emit_residual else x_out
@@ -1107,6 +1143,153 @@ def sweeps_vary_3d(coeffs, offsets, b, x, passes: int, mode="rbgs",
             out = (y, out) if res else out
         x = out[0] if res else out
     return out
+
+
+# ---------------------------------------------------------------------------
+# the batched forms of K3 and K4 (K members of one grid a launch)
+# ---------------------------------------------------------------------------
+
+
+def _lift_batch(offsets, nd, *grids):
+    """Offsets of an ``nd``-dimensional operator on its 3D lift, and
+    ``(K, *grid)`` stacks as ``(K, nz, ny, nx)`` (views where they can be;
+    None passes through)."""
+    if nd == 3:
+        return offsets, grids
+    ups = tuple(
+        None if g is None
+        else g.reshape(g.shape[:1] + (1,) * (3 - nd) + tuple(g.shape[1:]))
+        for g in grids
+    )
+    return _lift(offsets), ups
+
+
+def half_sweep_batch_plain(values, offsets, b, x, mode, omega=0.0, color=0,
+                           corner=None):
+    """Plain version of :func:`half_sweep_batch`: :func:`half_sweep_plain`
+    on each member's 3D lift, stacked."""
+    offsets = _norm_offsets(offsets)
+    nd = _batch_operands(offsets, (b, x), "K3b")
+    offs3, (bb, xx) = _lift_batch(offsets, nd, b, x)
+    corner3 = _lift_corner(corner, nd) if nd < 3 else corner
+    return torch.stack([
+        half_sweep_plain(values, offs3, bb[m], xx[m], mode, omega, color, corner3)
+        for m in range(x.shape[0])
+    ]).reshape(x.shape)
+
+
+def half_sweep_batch(values, offsets, b, x, mode, omega=0.0, color=0,
+                     corner=None):
+    """K3b: one constant-tap (with ``corner=``, cornered) pass in ``mode``
+    jacobi|rbgs|residual on K members of one grid at once, ``b`` and ``x``
+    ``(K, *grid)`` (a grid of 1, 2 or 3 dimensions, by the offsets; the
+    operator shared).  On a CUDA tensor one launch for the batch, each
+    member bit-equal to the scalar launch on it; on a CPU tensor the plain
+    version."""
+    offsets = _norm_offsets(offsets)
+    nd = _batch_operands(offsets, (b, x), "K3b")
+    if x.device.type == "cpu":
+        return half_sweep_batch_plain(values, offsets, b, x, mode, omega, color,
+                                      corner)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    offs3, (bb, xx) = _lift_batch(offsets, nd, b, x)
+    corner3 = _lift_corner(corner, nd) if nd < 3 else corner
+    out = _half_sweep_cuda(values, offs3, bb.contiguous(), xx.contiguous(), mode,
+                           omega, color, False, corner3, batch=True)
+    return out.reshape(x.shape)
+
+
+def half_sweep_vary_batch_plain(coeffs, offsets, b, x, mode, omega=0.0, color=0):
+    """Plain version of :func:`half_sweep_vary_batch`:
+    :func:`half_sweep_vary_plain` on each member's 3D lift, stacked."""
+    offsets = _norm_offsets(offsets)
+    nd = _batch_operands(offsets, (b, x), "K4b")
+    offs3, (bb, xx) = _lift_batch(offsets, nd, b, x)
+    cc = _up_coeffs(coeffs, bb[0])
+    return torch.stack([
+        half_sweep_vary_plain(cc, offs3, bb[m], xx[m], mode, omega, color)
+        for m in range(x.shape[0])
+    ]).reshape(x.shape)
+
+
+def half_sweep_vary_batch(coeffs, offsets, b, x, mode, omega=0.0, color=0):
+    """K4b's single pass: :func:`half_sweep_vary_batch_plain`'s pass on K
+    members of one grid at once, ``b`` and ``x`` ``(K, *grid)``, the
+    coefficient grids ``(T, *grid)`` shared.  On a CUDA tensor one launch of
+    ``csrc/half_sweep.cu``'s varying pass for the batch, each member
+    bit-equal to the scalar launch; on a CPU tensor the plain version."""
+    offsets = _norm_offsets(offsets)
+    nd = _batch_operands(offsets, (b, x), "K4b")
+    if x.device.type == "cpu":
+        return half_sweep_vary_batch_plain(coeffs, offsets, b, x, mode, omega,
+                                           color)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    offs3, (bb, xx) = _lift_batch(offsets, nd, b, x)
+    out = _half_sweep_cuda(_up_coeffs(coeffs, bb[0]), offs3, bb.contiguous(),
+                           xx.contiguous(), mode, omega, color, True, None,
+                           batch=True)
+    return out.reshape(x.shape)
+
+
+def sweeps_vary_batch_plain(coeffs, offsets, b, x, passes, mode="rbgs",
+                            omega=2.0 / 3.0, emit_residual=False, inv_diag=None):
+    """Plain version of :func:`sweeps_vary_batch`: :func:`sweeps_vary_plain`
+    on each member, stacked."""
+    offsets = _norm_offsets(offsets)
+    _batch_operands(offsets, (b,) if x is None else (b, x), "K4b")
+    outs = [
+        sweeps_vary_plain(coeffs, offsets, b[m], None if x is None else x[m],
+                          passes, mode, omega, emit_residual, inv_diag)
+        for m in range(b.shape[0])
+    ]
+    if emit_residual:
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+    return torch.stack(outs)
+
+
+def sweeps_vary_batch(coeffs, offsets, b, x, passes: int, mode="rbgs",
+                      omega=2.0 / 3.0, emit_residual=False, inv_diag=None):
+    """K4b: the leg of :func:`sweeps_vary_3d` on K members of one grid at
+    once, ``b`` and ``x`` ``(K, *grid)`` (``x`` None: a zero start), the
+    coefficient grids and ``inv_diag`` shared; returns ``x`` or ``(x, r)``
+    stacked.  On the card the leg takes the scalar leg's launches
+    (:func:`leg_chunks` at :func:`leg_depth` of one member's points, the
+    ring by :func:`leg_ring`: a batch changes neither fit, see
+    ``csrc/vary_leg.cu``), each one launch for the whole batch, so every
+    member is bit-equal to its scalar leg; on a CPU tensor the plain
+    version, member by member."""
+    offsets = _norm_offsets(offsets)
+    nd = _batch_operands(offsets, (b,) if x is None else (b, x), "K4b")
+    if b.device.type == "cpu":
+        return sweeps_vary_batch_plain(coeffs, offsets, b, x, passes, mode, omega,
+                                       emit_residual, inv_diag)
+    if b.device.type != "cuda":
+        raise ValueError(f"unsupported device {b.device}")
+    if passes == 0 and not emit_residual:
+        return torch.zeros_like(b) if x is None else x
+    shape = b.shape
+    offs3, (bb, xx) = _lift_batch(offsets, nd, b, x)
+    bb = bb.contiguous()
+    xx = None if xx is None else xx.contiguous()
+    cc = _up_coeffs(coeffs, bb[0])
+    inv = None if inv_diag is None else _up(inv_diag)
+    cap = leg_depth(len(offsets), bb[0].numel())
+    for start, n, res in leg_chunks(passes, emit_residual, cap):
+        if n + res > 1:
+            out = _vary_leg_cuda(cc, offs3, bb, xx, n, mode, omega, res, start & 1,
+                                 inv, batch=True)
+        else:
+            y = torch.zeros_like(bb) if xx is None else xx
+            m = "residual" if res else mode
+            out = _half_sweep_cuda(cc, offs3, bb, y, m, omega, start & 1, True,
+                                   None, batch=True)
+            out = (y, out) if res else out
+        xx = out[0] if res else out
+    if emit_residual:
+        return out[0].reshape(shape), out[1].reshape(shape)
+    return out.reshape(shape)
 
 
 # ---------------------------------------------------------------------------

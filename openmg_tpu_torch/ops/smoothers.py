@@ -35,6 +35,12 @@ Chebyshev on the card is one per-pass residual launch (K3, or K4 on a
 varying level) an iteration; its λmax and full inverse diagonal are
 computed once per operator and kept as device tensors, never read to the
 host.
+
+Every smoother takes a batch ``(K, *grid)`` of ``op``'s grids too
+(``solve_many``): the tensor code runs on the stack, the kernels in their
+batched forms (K1b/K5b where the fused kernel takes the sweeps, else K3b
+or K4b passes; a Chebyshev iteration is one K3b or K4b residual launch for
+the stack), and λmax and 1/diag stay one per operator.
 """
 
 from __future__ import annotations
@@ -113,7 +119,7 @@ def jacobi(op, inv_diag, b, x, iterations: int, omega: float = 2.0 / 3.0):
 def rbgs(op, inv_diag, b, x, iterations: int):
     """Red–black Gauss–Seidel sweeps (two half-sweeps each)."""
     d = diag_full(op)
-    mask = red_mask(x.shape, x.device)
+    mask = red_mask(x.shape[x.ndim - op.ndim:], x.device)
     for _ in range(iterations):
         for m in (mask, ~mask):
             xn = x + residual(op, b, x) / d
@@ -219,15 +225,17 @@ def _faced_fix_half_sweep(op, b, x_old, x_new, mode, omega, color):
     (every point of a half-sweep reads the old values, so all faces are
     fixed from the same state; where faces meet they agree)."""
 
+    lead = x_old.ndim - op.ndim
+
     def plane(fi):
         a = op.face_axes[fi]
         invd = op.face_inv_diag(fi)
-        b_f = b.select(a, 0)
-        x_f = x_old.select(a, 0)
+        b_f = b.select(lead + a, 0)
+        x_f = x_old.select(lead + a, 0)
         if mode == "jacobi":
             return x_f + omega * invd * (b_f - face_apply(op, fi, x_old))
         xn = invd * (b_f - face_apply(op, fi, x_old, exclude_diag=True))
-        red = red_mask(x_f.shape, x_f.device)
+        red = red_mask(x_f.shape[lead:], x_f.device)
         return torch.where(red if color == 0 else ~red, xn, x_f)
 
     return _fix_faces(op, x_new, plane)
@@ -240,16 +248,37 @@ def _smooth_faced(name, op, b, x, iterations, omega):
     inwards, so there is none."""
     from openmg_tpu_torch.ops import kernels
 
+    batch = x.ndim == op.ndim + 1  # a batch: K3b passes on the stack
     for _ in range(iterations):
         if name == "jacobi":
-            xn = kernels.jacobi_const_3d(op.values, op.offsets, b, x, 1, omega)
+            if batch:
+                xn = kernels.half_sweep_batch(op.values, op.offsets, b, x,
+                                              "jacobi", omega)
+            else:
+                xn = kernels.jacobi_const_3d(op.values, op.offsets, b, x, 1, omega)
             x = _faced_fix_half_sweep(op, b, x, xn, "jacobi", omega, 0)
+            continue
+        for color in (0, 1):
+            if batch:
+                xn = kernels.half_sweep_batch(op.values, op.offsets, b, x, "rbgs",
+                                              0.0, color)
+            else:
+                xn = kernels.rbgs_half_sweep_const_3d(op.values, op.offsets, b, x,
+                                                      color)
+            x = _faced_fix_half_sweep(op, b, x, xn, "rb", omega, color)
+    return x
+
+
+def _batch_passes(one, name, b, x, iterations, omega):
+    """``iterations`` Jacobi or red/black sweeps of a batch, one batched
+    pass (``one(b, x, mode, omega, color)``: K3b or K4b) a Jacobi sweep or
+    a colour, as the scalar entry points launch them."""
+    for _ in range(iterations):
+        if name == "jacobi":
+            x = one(b, x, "jacobi", omega, 0)
         else:
             for color in (0, 1):
-                xn = kernels.rbgs_half_sweep_const_3d(
-                    op.values, op.offsets, b, x, color
-                )
-                x = _faced_fix_half_sweep(op, b, x, xn, "rb", omega, color)
+                x = one(b, x, "rbgs", 0.0, color)
     return x
 
 
@@ -269,17 +298,30 @@ def _smooth_kernel(name, op, inv_diag, b, x, iterations, omega):
         return _chebyshev_level(op, inv_diag, b, x, iterations)
     if isinstance(op, FacedStencilOperator):
         return _smooth_faced(name, op, b, x, iterations, omega)
+    batch = x.ndim == op.ndim + 1
     if isinstance(op, CorneredOperator) or op.is_constant:
         y = fused.smooth_fused(name, op, b, x, iterations, omega)
         if y is not None:
             return y
         corner = fused._corner_info(op)
+        if batch:
+            return _batch_passes(
+                lambda bb, xx, m, w, c: kernels.half_sweep_batch(
+                    op.values, op.offsets, bb, xx, m, w, c, corner),
+                name, b, x, iterations, omega,
+            )
         if name == "jacobi":
             return kernels.jacobi_const_3d(
                 op.values, op.offsets, b, x, iterations, omega, corner=corner
             )
         return kernels.rbgs_const_3d(
             op.values, op.offsets, b, x, iterations, corner=corner
+        )
+    if batch:
+        return _batch_passes(
+            lambda bb, xx, m, w, c: kernels.half_sweep_vary_batch(
+                op.coeffs, op.offsets, bb, xx, m, w, c),
+            name, b, x, iterations, omega,
         )
     if name == "jacobi":
         return kernels.jacobi_vary_3d(op.coeffs, op.offsets, b, x, iterations, omega)

@@ -26,6 +26,17 @@ the dense product.  :func:`spmv_df`, the double-float product of the outer
 residual, is tensor code built on the Dekker products of
 :mod:`openmg_tpu_torch.ops.doublefloat`.
 
+**A batch** ``(K, n)`` of vectors (``AlgebraicSolver.solve_many``): a
+banded ELL level takes K6b and a banded BSR level K7b, one launch for the
+batch, each member bit-equal to the scalar launch.  :func:`spmv_df` runs on
+the stack: its products and sums are elementwise, so each member keeps the
+scalar bits.  The other products go member by member through the scalar
+code: the irregular ELL's and the CSR's reductions (``torch.sum`` over the
+slots, ``index_add_``, which takes atomics on the card), the general BSR's
+``einsum`` and the dense product are calls whose order of summation the
+library may choose by the operands' shape, so a product over the batch need
+not keep each member's bits.
+
 Builders take ``device``: CUDA when None, and they raise when there is no
 CUDA device (the package's device rule).
 """
@@ -462,9 +473,12 @@ def matvec_full(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv(M, x: torch.Tensor) -> torch.Tensor:
-    """``y = M x`` for any container; ``x`` flat ``(ncols,)``.
+    """``y = M x`` for any container; ``x`` flat ``(ncols,)``, or a batch
+    ``(K, ncols)`` (row k of the result ``M x[k]``; see the module's note).
 
     Pad entries contribute exactly 0 (zero data at valid coordinates)."""
+    if x.ndim == 2:
+        return _spmv_batch(M, x)
     if isinstance(M, ELLMatrix):
         from openmg_tpu_torch.ops import ell as _ell
 
@@ -489,10 +503,26 @@ def spmv(M, x: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"not a sparse container: {type(M)}")
 
 
+def _spmv_batch(M, x: torch.Tensor) -> torch.Tensor:
+    """:func:`spmv` of a batch ``(K, ncols)``: K6b or K7b for a banded
+    level, else the scalar product member by member."""
+    if isinstance(M, ELLMatrix):
+        from openmg_tpu_torch.ops import ell as _ell
+
+        if _ell.supports(M) and x.dtype == M.dtype:
+            return _ell.spmv_ell_batch(M, x)
+    if isinstance(M, BSRMatrix) and M.slot_offsets is not None:
+        from openmg_tpu_torch.ops import bsr as _bsr
+
+        return _bsr.spmv_bsr_batch(M, x)
+    return torch.stack([spmv(M, x[m]) for m in range(x.shape[0])])
+
+
 def _shift_zero(v: torch.Tensor, d: int, H: int) -> torch.Tensor:
     """``w[i] = v[i + d]`` with zeros outside, through a vector padded by
-    ``H ≥ |d|`` on both sides."""
-    return v[H + d: H + d + v.shape[0] - 2 * H]
+    ``H ≥ |d|`` on both sides (the last axis; a batch's leading one is
+    kept)."""
+    return v[..., H + d: H + d + v.shape[-1] - 2 * H]
 
 
 def spmv_df(M_hi, M_lo, x_hi, x_lo):
@@ -504,7 +534,9 @@ def spmv_df(M_hi, M_lo, x_hi, x_lo):
     compensated products and sums of :mod:`openmg_tpu_torch.ops.doublefloat`
     in slot order; a banded matrix reads shifted slices of the zero-padded
     vectors, any other gathers its columns.  The values are the same either
-    way.  Eager tensor code: never ``torch.compile`` it (``a*b − p`` must
+    way.  ``x_hi``/``x_lo`` may be a batch ``(K, n)``: every operation is
+    elementwise, so each member has the bits of its scalar call.  Eager
+    tensor code: never ``torch.compile`` it (``a*b − p`` must
     not be contracted).
     """
     from openmg_tpu_torch.ops.doublefloat import df_add, df_mul
@@ -523,7 +555,7 @@ def spmv_df(M_hi, M_lo, x_hi, x_lo):
         return acc
     for j in range(M_hi.k):
         c = M_hi.cols[j]
-        term = df_mul((M_hi.data[j], M_lo.data[j]), (x_hi[c], x_lo[c]))
+        term = df_mul((M_hi.data[j], M_lo.data[j]), (x_hi[..., c], x_lo[..., c]))
         acc = term if acc is None else df_add(acc, term)
     return acc
 

@@ -20,6 +20,14 @@ per-point coefficient grids; a cornered 1D or 2D operator lifts its region
 table too); a faced operator takes the constant pass on the whole grid and
 then its face planes in tensor code, as in the JAX package; any other case
 on the card raises.
+
+**A batch** ``(K, *grid)`` of grids (``solve_many``): ``shift``, ``apply``,
+``face_apply`` and ``residual`` take one where the tensor has one axis more
+than the operator's grid (the operator's dimension decides, never the
+tensor's alone).  The tensor code runs on the whole stack, elementwise, so
+each member has the bits of the scalar call on it; on the card
+``residual`` is one launch of the batched per-pass kernel (K3b, K4b) for
+the stack.
 """
 
 from __future__ import annotations
@@ -379,23 +387,31 @@ def diag_index(offsets) -> int:
 
 
 def shift(x: torch.Tensor, off) -> torch.Tensor:
-    """``z[i] = x[i + off]`` with zeros outside the domain (static offset)."""
+    """``z[i] = x[i + off]`` with zeros outside the domain (static offset),
+    on the last ``len(off)`` axes: leading axes (a batch) are kept."""
     if all(o == 0 for o in off):
         return x
     pad = []
     for o in reversed(tuple(off)):  # F.pad lists the last dim first
         pad += [max(0, -o), max(0, o)]
     xp = F.pad(x, pad)
-    idx = tuple(slice(max(0, o), max(0, o) + n) for o, n in zip(off, x.shape))
-    return xp[idx]
+    grid = x.shape[x.ndim - len(off):]
+    idx = tuple(slice(max(0, o), max(0, o) + n) for o, n in zip(off, grid))
+    return xp[(Ellipsis,) + idx]
 
 
-def _region_rows(x, R, index=0):
-    """Rows with ``i_b == index_b`` for each ``b ∈ R`` (size-1 kept dims)."""
+def _lead(op, x) -> int:
+    """Leading axes of ``x`` before ``op``'s grid: 1 for a batch, else 0."""
+    return x.ndim - op.ndim
+
+
+def _region_rows(x, R, index=0, lead=0):
+    """Rows with ``i_b == index_b`` for each ``b ∈ R`` (size-1 kept dims);
+    grid axis ``b`` is axis ``lead + b`` of ``x``."""
     out = x
     for b in R:
         ib = index[b] if isinstance(index, dict) else index
-        out = out.narrow(b, ib, 1)
+        out = out.narrow(lead + b, ib, 1)
     return out
 
 
@@ -403,24 +419,25 @@ def _region_apply(op: CorneredOperator, tbl, r: int, R, x, exclude_diag=False):
     """Exact ``(A x)`` (or ``(A − D) x``) restricted to the region rows of
     ``R``; taps are the 0-d ``tbl[r, k]`` entries."""
     di = diag_index(op.offsets)
+    lead = _lead(op, x)
     acc = None
     for k, off in enumerate(op.offsets):
         if exclude_diag and k == di:
             continue
         if any(off[b] < 0 for b in R):
             continue  # neighbour at i_b = −1 is outside the domain
-        src = _region_rows(x, R, index={b: off[b] for b in R})
+        src = _region_rows(x, R, index={b: off[b] for b in R}, lead=lead)
         rest = tuple(0 if b in R else o for b, o in enumerate(off))
         term = tbl[r, k] * shift(src, rest)
         acc = term if acc is None else acc + term
     return acc
 
 
-def _write_region(arr, R, block):
+def _write_region(arr, R, block, lead=0):
     """Write ``block`` (size-1 dims on axes in R) into the index-0 rows of
     ``arr`` in place; ``arr`` must be a fresh tensor owned by the caller."""
-    idx = tuple(
-        slice(0, 1) if b in R else slice(None) for b in range(arr.ndim)
+    idx = (slice(None),) * lead + tuple(
+        slice(0, 1) if b in R else slice(None) for b in range(arr.ndim - lead)
     )
     arr[idx] = block
     return arr
@@ -445,6 +462,7 @@ def face_apply(
     every tap's shifted plane as a view, and sums ``fc[k] · plane_k`` over
     the taps in one product and one reduction: a few launches a face, not a
     few a tap (the face rows are tensor code on the card too)."""
+    lead = _lead(op, x)
     a = op.face_axes[face_index]
     di = diag_index(op.offsets)
     if exclude_diag:
@@ -455,28 +473,37 @@ def face_apply(
         ]))
     else:
         fc = op.face_coeffs[face_index]
-    nb = min(2, x.shape[a])
-    planes = x.narrow(a, 0, nb).movedim(a, 0)
-    pad = [1, 1] * (x.ndim - 1) + [1, 2 - nb]  # F.pad lists the last dim first
-    P = F.pad(planes, pad)  # planes −1, 0, 1 along a; a zero rim elsewhere
-    rest_shape = planes.shape[1:]
+    nb = min(2, x.shape[lead + a])
+    # planes −1, 0, 1 along a first (then the batch axis, if any), a zero
+    # rim on the other grid axes; every tap's shifted plane a view
+    planes = x.narrow(lead + a, 0, nb).movedim(lead + a, 0)
+    pad = [1, 1] * (op.ndim - 1) + [0, 0] * lead + [1, 2 - nb]
+    P = F.pad(planes, pad)  # F.pad lists the last dim first
+    rest_shape = planes.shape[1 + lead:]
     views = []
     for off in op.offsets:
         rest = [o for i, o in enumerate(off) if i != a]
-        idx = (off[a] + 1,) + tuple(
+        idx = (off[a] + 1,) + (slice(None),) * lead + tuple(
             slice(1 + o, 1 + o + n) for o, n in zip(rest, rest_shape)
         )
         views.append(P[idx])
-    return torch.sum(fc * torch.stack(views), dim=0)
+    if not lead:
+        return torch.sum(fc * torch.stack(views), dim=0)
+    # a batch: the products of every member in one ``(K, taps, *plane)``
+    # tensor, then each member's sum by the scalar call on its contiguous
+    # block (one reduction over the batch need not add in the scalar order)
+    prod = fc * torch.stack(views, dim=1)
+    return torch.stack([torch.sum(p, dim=0) for p in prod])
 
 
 def _fix_faces(op: FacedStencilOperator, y, planes_of):
     """Write ``planes_of(fi)`` into the low face ``face_axes[fi]`` of ``y``
-    (a fresh tensor owned by the caller), every plane computed before any is
-    written."""
+    (a fresh tensor owned by the caller, or a batch of them), every plane
+    computed before any is written."""
+    lead = _lead(op, y)
     planes = [planes_of(fi) for fi in range(len(op.face_axes))]
     for a, p in zip(op.face_axes, planes):
-        y.select(a, 0).copy_(p)
+        y.select(lead + a, 0).copy_(p)
     return y
 
 
@@ -486,7 +513,7 @@ def apply(op, x: torch.Tensor) -> torch.Tensor:
         y = apply(op.const_op, x)
         tbl = op.table
         for r, R in enumerate(op.regions):
-            y = _write_region(y, R, _region_apply(op, tbl, r, R, x))
+            y = _write_region(y, R, _region_apply(op, tbl, r, R, x), _lead(op, x))
         return y
     if isinstance(op, FacedStencilOperator):
         return _fix_faces(
@@ -513,12 +540,13 @@ def kernel_taps_ok(offsets):
 
 
 def kernel_operands_ok(op, x: torch.Tensor):
-    """None if the per-pass kernel takes ``op`` on ``x``, else the reason it
-    does not (used where a CUDA tensor must reach a kernel or raise)."""
+    """None if the per-pass kernel (or its batched form, for a batch
+    ``(K, *grid)``) takes ``op`` on ``x``, else the reason it does not (used
+    where a CUDA tensor must reach a kernel or raise)."""
     if x.dtype != torch.float32 or op.dtype != torch.float32:
         return f"{x.dtype} operands with a {op.dtype} operator (float32 only)"
-    if x.ndim not in (1, 2, 3) or op.ndim != x.ndim:
-        return f"a {x.ndim}D grid with a {op.ndim}D operator (1D to 3D only)"
+    if op.ndim not in (1, 2, 3) or _lead(op, x) not in (0, 1):
+        return f"a {x.ndim}D tensor with a {op.ndim}D operator (1D to 3D only)"
     return kernel_taps_ok(op.offsets)
 
 
@@ -532,22 +560,27 @@ def _residual_kernel(op, b, x):
             f"residual on {b.device}: {why} is not taken by the per-pass "
             "kernel, and plain tensor code does not run on the card"
         )
-    if isinstance(op, CorneredOperator):
-        return kernels.residual_const_3d(
-            op.values, op.offsets, b, x, corner=(op.regions, op.table)
-        )
-    if op.is_constant:
-        return kernels.residual_const_3d(op.values, op.offsets, b, x)
+    corner = (op.regions, op.table) if isinstance(op, CorneredOperator) else None
+    if _lead(op, x):
+        if corner is not None or op.is_constant:
+            return kernels.half_sweep_batch(op.values, op.offsets, b, x,
+                                            "residual", corner=corner)
+        return kernels.half_sweep_vary_batch(op.coeffs, op.offsets, b, x,
+                                             "residual")
+    if corner is not None or op.is_constant:
+        return kernels.residual_const_3d(op.values, op.offsets, b, x,
+                                         corner=corner)
     return kernels.residual_vary_3d(op.coeffs, op.offsets, b, x)
 
 
 def residual(op, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``r = b − A x``: plain tensor code for CPU tensors, the per-pass
     kernel for any other device (see the module docstring)."""
+    lead = _lead(op, b)
     if isinstance(op, FacedStencilOperator):
         return _fix_faces(
             op, residual(op.const_op, b, x),
-            lambda fi: b.select(op.face_axes[fi], 0) - face_apply(op, fi, x),
+            lambda fi: b.select(lead + op.face_axes[fi], 0) - face_apply(op, fi, x),
         )
     if not _on_cpu(b):
         return _residual_kernel(op, b, x)
@@ -555,7 +588,7 @@ def residual(op, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         r = b - apply(op.const_op, x)
         tbl = op.table
         for ri, R in enumerate(op.regions):
-            rr = _region_rows(b, R) - _region_apply(op, tbl, ri, R, x)
-            r = _write_region(r, R, rr)
+            rr = _region_rows(b, R, lead=lead) - _region_apply(op, tbl, ri, R, x)
+            r = _write_region(r, R, rr, lead)
         return r
     return b - apply(op, x)

@@ -17,6 +17,11 @@ Out-of-domain taps are zero-filled (no boundary renormalisation), the
 Dirichlet-consistent choice that keeps R = c·Pᵀ exact.  Dims of size 1 are
 never coarsened.
 
+A batch ``(K, *grid)`` (``solve_many``) keeps its leading axis, which is
+never coarsened: ``restrict`` is told the grid's dimension, ``prolong``
+reads it from ``fine_shape``.  The transfers are elementwise, so each
+member has the bits of the scalar call on it.
+
 Only the strided-slice form is ported: on grid-shaped tensors the products
 are parity slices and interleaves.  (The JAX package's tap-matrix matmul
 form exists for its own hardware's layout rules and is not copied.)  On
@@ -130,11 +135,15 @@ def _prolong_axis(u, axis: int, taps):
     return stacked.reshape(new_shape)
 
 
-def restrict(v: torch.Tensor, transfer: Transfer = AGGREGATE) -> torch.Tensor:
-    """``R v`` (fine → coarse), separably over all coarsenable axes."""
+def restrict(v: torch.Tensor, transfer: Transfer = AGGREGATE,
+             ndim: int | None = None) -> torch.Tensor:
+    """``R v`` (fine → coarse), separably over all coarsenable axes.
+    ``ndim``: the grid's dimension, when ``v`` is a batch ``(K, *grid)``
+    (its leading axis is kept); None: ``v`` is one grid."""
+    lead = 0 if ndim is None else v.ndim - ndim
     out = v
-    for a in _coarsened_axes(v.shape):
-        out = _restrict_axis(out, a, transfer.r_taps)
+    for a in _coarsened_axes(v.shape[lead:]):
+        out = _restrict_axis(out, lead + a, transfer.r_taps)
     return out
 
 
@@ -144,15 +153,18 @@ def prolong(u: torch.Tensor, fine_shape, transfer: Transfer = AGGREGATE):
     ``fine_shape`` identifies which axes were coarsened (those with
     ``fine == 2 * coarse``); a coarse dim of 1 that came from a fine dim of
     2 must still be expanded, so the fine shape cannot be inferred from
-    ``u`` alone.
+    ``u`` alone.  A ``u`` with more axes than ``fine_shape`` is a batch:
+    its leading axes are kept.
     """
-    axes = [a for a, (f, c) in enumerate(zip(fine_shape, u.shape)) if f == 2 * c]
-    for a, (f, c) in enumerate(zip(fine_shape, u.shape)):
+    lead = u.ndim - len(fine_shape)
+    grid = u.shape[lead:]
+    axes = [a for a, (f, c) in enumerate(zip(fine_shape, grid)) if f == 2 * c]
+    for a, (f, c) in enumerate(zip(fine_shape, grid)):
         if a not in axes and f != c:
             raise ValueError(
                 f"incompatible shapes {tuple(u.shape)} -> {tuple(fine_shape)}"
             )
     out = u
     for a in axes:
-        out = _prolong_axis(out, a, transfer.p_taps)
+        out = _prolong_axis(out, lead + a, transfer.p_taps)
     return out
