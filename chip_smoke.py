@@ -1530,11 +1530,12 @@ def phase_sweeps(dev, copy_bw, h_vary, h_unfaced):
     return rows, h_big
 
 
-def conv_batch_ms(op, xB, reps=10):
+def conv_batch_ms(op, xB, reps=10, padding=1):
     """Device ms of ``A x`` for the K members of ``xB`` as one library call
     (``F.conv3d`` with batch K, cuDNN in full float32) for a constant
-    operator, and its result: the yardstick beside K3b's residual; the port
-    never calls it."""
+    operator, and its result: the yardstick beside K3b's residual (and,
+    ``padding=(0, 1, 1)`` over slabs extended by their planes, K3h's and
+    K3hb's); the port never calls it."""
     w = torch.zeros((1, 1, 3, 3, 3), dtype=torch.float32, device=xB.device)
     for k, off in enumerate(op.offsets):
         w[(0, 0) + tuple(o + 1 for o in off)] = op.values[k]
@@ -1542,8 +1543,8 @@ def conv_batch_ms(op, xB, reps=10):
     torch.backends.cudnn.allow_tf32 = False
     try:
         xn = xB[:, None]
-        got = F.conv3d(xn, w, padding=1)[:, 0]
-        ms = device_ms([lambda: F.conv3d(xn, w, padding=1)], reps)
+        got = F.conv3d(xn, w, padding=padding)[:, 0]
+        ms = device_ms([lambda: F.conv3d(xn, w, padding=padding)], reps)
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     return ms, got
@@ -4029,7 +4030,7 @@ def phase_setup_device(dev, vary):
 HALO_SLABS = 4  # halo_kernels: 256³ (and 128³) cut into this many z-slabs
 # solve_dist: ranks on the one card, each its own process
 DIST_RANKS = (2, 4)
-DIST_TIMEOUT_S = 240
+DIST_TIMEOUT_S = 360
 DIFFUSION_DIST = (128, 128, 128)
 
 
@@ -4305,8 +4306,218 @@ def phase_halo_kernels(dev, copy_bw, h_vary):
     launched = halo_counts()
     if not all(launched.values()):
         fail(f"halo_kernels: launches {launched}")
-    emit("halo_kernels", {"slabs": P, "rows": rows, "launches": launched})
+    # the scalar K3h's yardstick: A x of its slab and planes by F.conv3d
+    k3h = next(r for r in rows["K3"] if r["level"] == "256^3 constant"
+               and r["mode"] == "residual")
+    k3h.update(library_conv3d(h.levels[0].A, 1, dev))
+    rows.update(halo_batch_rows(dev, copy_bw, h, h_vary))
+    emit("halo_kernels", {"slabs": P, "rows": rows, "launches": launched,
+                          "launches_batch": halo_batch_counts(),
+                          "batch_K": BATCH_K, "wall_s_batch": rows.pop("wall_s")})
     del h
+    torch.cuda.empty_cache()
+    return rows
+
+
+def halo_batch_counts():
+    """Launches of the halo forms on a batch (K1hb-K4hb, K6hb)."""
+    from openmg_tpu_torch.ops import ell, fused, kernels
+
+    return {"K1hb": fused.LAUNCHES_HALO_BATCH, "K2hb": kernels.LAUNCHES_K2_HALO_BATCH,
+            "K3hb": kernels.LAUNCHES_K3_HALO_BATCH,
+            "K4hb": kernels.LAUNCHES_K4_HALO_BATCH, "K6hb": ell.LAUNCHES_K6H_BATCH}
+
+
+def zero_halo_batch_counts():
+    from openmg_tpu_torch.ops import ell, fused, kernels
+
+    fused.LAUNCHES_HALO_BATCH = kernels.LAUNCHES_K2_HALO_BATCH = 0
+    kernels.LAUNCHES_K3_HALO_BATCH = kernels.LAUNCHES_K4_HALO_BATCH = 0
+    ell.LAUNCHES_K6H_BATCH = 0
+
+
+def library_conv3d(op, K, dev, reps=10):
+    """The yardstick beside a halo residual pass of the constant operator
+    ``op`` on an inner slab of ``BIG`` / ``HALO_SLABS`` (K members: batch K):
+    ``A x`` of the slab by one ``F.conv3d`` over the slab extended by its
+    two planes (made beforehand), zero padding on y and x, TF32 off.  Its
+    device ms, its result held against the tensor ``apply``; the port never
+    calls it."""
+    from openmg_tpu_torch.ops.stencil import apply
+
+    shape = (BIG[0] // HALO_SLABS,) + BIG[1:]
+    xe = randn_card((K, shape[0] + 2) + shape[1:], 60 + K, dev)
+    ms, got = conv_batch_ms(op, xe, reps, padding=(0, 1, 1))
+    want = torch.stack([apply(op, xe[m])[1:-1] for m in range(K)])
+    err = float((got - want).abs().max())
+    if err > 2e-6 * float(xe.abs().max()) * 12:
+        fail(f"conv3d halo yardstick (K {K}) disagrees: {err:.3e}")
+    return {"library_ms": ms, "library": f"F.conv3d 3x3x3 with batch {K} over the slab "
+            "and its two planes, zero padding on y and x, TF32 off (computes A x only)"}
+
+
+def halo_batch_rows(dev, copy_bw, h, h_vary):
+    """K1hb, K2hb, K3hb and K4hb at K = ``BATCH_K`` on an inner slab of 256³
+    / ``HALO_SLABS`` (K1hb and K3hb on the cornered 128³ one too), every
+    member with its own received planes (drawn on the card): each held
+    against its batched plain version at the scalar halo form's tolerance
+    (K2hb's outputs bit for bit) and member by member against K launches of
+    the scalar halo form bit for bit; device ms beside the K scalar
+    launches' and the batched bound (K × the scalar slab's bytes, the
+    coefficient grids once for K4hb).  K3hb's residual has ``F.conv3d``
+    with batch K over the slabs and their planes as a yardstick."""
+    from openmg_tpu_torch.core.solver import exact_residual_terms
+    from openmg_tpu_torch.ops import fused, kernels
+
+    t0 = time.perf_counter()
+    K, P = BATCH_K, HALO_SLABS
+    tr = h.transfer
+    rb4 = fused.stages_for("rbgs", 2, OMEGA)
+    rows = {"K1hb": [], "K2hb": [], "K3hb": [], "K4hb": []}
+    zero_halo_batch_counts()
+    zero_halo_counts()
+    for tag, L in (("256^3 constant", h.levels[0]), ("128^3 cornered", h.levels[1])):
+        op = L.A
+        slab = (L.grid_shape[0] // P,) + tuple(L.grid_shape[1:])
+        plane = slab[1:]
+        n = int(np.prod(slab))
+        cslab = tuple(v // 2 for v in slab)
+        nc = int(np.prod(cslab))
+        corner = fused._corner_info(op)
+        gated = fused.gate_corner(corner, 1)
+        V, O = op.values, op.offsets
+        b, x = randn_card((K,) + slab, 70, dev), randn_card((K,) + slab, 71, dev)
+        lo, hi = randn_card((K, 1) + plane, 72, dev), randn_card((K, 1) + plane, 73, dev)
+        for mode, kmode, color in SWEEP_MODES:
+            args = (O, b, x, kmode, OMEGA, color, lo, hi)
+            nb, fl, _ = sweep_bound(n, O, False, kmode)
+            row = batch_case(
+                f"K3hb {mode} {tag}", ("r",) if kmode == "residual" else ("x",),
+                functools.partial(kernels.halo_half_sweep_batch, V, *args,
+                                  corner=corner, open_lo=1),
+                lambda m, kmode=kmode, color=color: kernels.halo_half_sweep_const_3d(
+                    V, O, b[m], x[m], kmode, OMEGA, color, lo[m], hi[m], corner=corner,
+                    open_lo=1),
+                functools.partial(kernels.halo_half_sweep_batch_plain, V, *args, gated),
+                b, K, (nb + 8 * int(np.prod(plane)), fl), copy_bw)
+            if tag.startswith("256") and kmode == "residual":
+                row.update(library_conv3d(op, K, dev))
+            row.update(level=tag, mode=mode, shape=[K, *slab])
+            rows["K3hb"].append(row)
+        k1 = {
+            "down: zero start, 4 rb stages, restrict": (
+                dict(stages=rb4, emit_residual=True, restrict_transfer=tr), False, False),
+            "up: x + P ec, 4 rb stages": (dict(stages=rb4, prolong_transfer=tr), True, True),
+            "residual + restrict, no x out": (
+                dict(stages=(), emit_residual=True, restrict_transfer=tr, emit_x=False),
+                True, False),
+        }
+        ec = randn_card((K,) + cslab, 74, dev)
+        for mode, (kw, has_x, use_ec) in k1.items():
+            D = fused.halo_depth(len(kw["stages"]), kw.get("emit_residual", False),
+                                 "restrict_transfer" in kw, use_ec)
+            halos = ((1, 1), (randn_card((K, D) + plane, 75, dev),
+                              randn_card((K, D) + plane, 76, dev)),
+                     (randn_card((K, D) + plane, 77, dev),
+                      randn_card((K, D) + plane, 78, dev)) if has_x else None,
+                     (randn_card((K, D // 2) + cslab[1:], 79, dev),
+                      randn_card((K, D // 2 + 1) + cslab[1:], 80, dev)) if use_ec else None)
+            bkw = dict(kw, ec=ec) if use_ec else kw
+            xx = x if has_x else None
+
+            def run_m(m, kw=kw, halos=halos, xx=xx, use_ec=use_ec):
+                mh = (halos[0],) + tuple(None if p is None else (p[0][m], p[1][m])
+                                         for p in halos[1:])
+                mkw = dict(kw, ec=ec[m]) if use_ec else kw
+                return fused.fused_stages_const_3d(
+                    V, O, b[m], None if xx is None else xx[m], corner=corner, halos=mh,
+                    **mkw)
+
+            outs = (("r",) if not kw.get("emit_x", True)
+                    else ("x", "r") if kw.get("emit_residual") else ("x",))
+            nb, fl = k1_bound(mode, n, nc, len(O))
+            halo_bytes = 4 * int(np.prod(plane)) * 2 * D * (2 if has_x else 1)
+            row = batch_case(
+                f"K1hb {mode} {tag}", outs,
+                functools.partial(fused.fused_stages_const_3d_batch, V, O, b, xx,
+                                  corner=corner, halos=halos, **bkw),
+                run_m,
+                functools.partial(fused.fused_stages_const_3d_batch_plain, V, O, b, xx,
+                                  corner=gated, halos=halos, **bkw),
+                b, K, (nb + halo_bytes, fl), copy_bw)
+            row.update(level=tag, mode=mode, depth=D, shape=[K, *slab])
+            rows["K1hb"].append(row)
+            del halos
+        del b, x, lo, hi, ec
+        torch.cuda.empty_cache()
+    # K2hb on 256³ / P
+    L0 = h.levels[0]
+    slab = (BIG[0] // P,) + BIG[1:]
+    plane = slab[1:]
+    n = int(np.prod(slab))
+    terms = exact_residual_terms(h)
+    arrs = [randn_card((K,) + slab, 81 + j, dev, sc)
+            for j, sc in enumerate((1.0, 1e-8, 1e-3, 1.0, 1e-8))]
+    halos = tuple((randn_card((K, 1) + plane, 86 + j, dev, sc),
+                   randn_card((K, 1) + plane, 89 + j, dev, sc))
+                  for j, sc in enumerate((1.0, 1e-8, 1e-3)))
+    O = L0.A.offsets
+
+    def k2b():
+        return kernels.df_update_residual_batch(O, terms, *arrs, emit_norm=True,
+                                                halos=halos)
+
+    got = k2b()
+    ref = kernels.df_update_residual_batch_plain(O, terms, *arrs, True, halos)
+    for j, name in enumerate(("x_hi", "x_lo", "r_hi")):
+        if not torch.equal(got[j], ref[j]):
+            fail(f"K2hb {name}: not bit-equal to the batched plain version")
+    for m in range(K):
+        pn, pw = float(got[3][m].double().sum()), float(ref[3][m].double().sum())
+        if abs(pn - pw) > 1e-6 * pw:
+            fail(f"K2hb member {m}: ‖r‖² {pn} against the plain version's {pw}")
+    del got, ref
+    nb, fl = k2_bound(n, terms, True)
+    row = batch_case(
+        "K2hb 256^3 constant", ("x_hi", "x_lo", "r_hi"), lambda: k2b()[:3],
+        lambda m: kernels.df_update_residual_const_3d(
+            O, terms, *[a[m] for a in arrs], emit_norm=True,
+            halos=tuple((p[0][m], p[1][m]) for p in halos))[:3],
+        lambda: kernels.df_update_residual_batch_plain(O, terms, *arrs, True, halos)[:3],
+        arrs[3], K, (nb + 24 * int(np.prod(plane)), fl), copy_bw)
+    row.update(level="256^3 constant", mode="emit_norm", shape=[K, *slab],
+               bit_equal_to_plain=True)
+    rows["K2hb"].append(row)
+    del arrs, halos
+    # K4hb: a pass on the 256³ diffusion slab, its coefficient grids shared
+    Lv = h_vary.levels[0]
+    op = Lv.A
+    slab = (Lv.grid_shape[0] // P,) + tuple(Lv.grid_shape[1:])
+    plane = slab[1:]
+    n = int(np.prod(slab))
+    cs = op.coeffs[:, slab[0]:2 * slab[0]].contiguous()
+    b, x = randn_card((K,) + slab, 92, dev), randn_card((K,) + slab, 93, dev)
+    lo, hi = randn_card((K, 1) + plane, 94, dev), randn_card((K, 1) + plane, 95, dev)
+    for mode, kmode, color in (("rb colour 0", "rbgs", 0), ("residual", "residual", 0)):
+        args = (cs, op.offsets, b, x, kmode, OMEGA, color, lo, hi)
+        full = sweep_bound(n, op.offsets, True, kmode)
+        own = sweep_bound(n, op.offsets, False, kmode)
+        per = own[0] + 8 * int(np.prod(plane))
+        row = batch_case(
+            f"K4hb {mode}", ("r",) if kmode == "residual" else ("x",),
+            functools.partial(kernels.halo_half_sweep_vary_batch, *args),
+            lambda m, kmode=kmode, color=color: kernels.halo_half_sweep_vary_3d(
+                cs, op.offsets, b[m], x[m], kmode, OMEGA, color, lo[m], hi[m]),
+            functools.partial(kernels.halo_half_sweep_vary_batch_plain, *args),
+            b, K, (per, full[1]), copy_bw,
+            bound_batch=(K * per + full[0] - own[0], K * full[1]))
+        row.update(level="256^3 diffusion", mode=mode, shape=[K, *slab])
+        rows["K4hb"].append(row)
+    del b, x, lo, hi, cs
+    launched = halo_batch_counts()
+    if not all(launched[k] for k in ("K1hb", "K2hb", "K3hb", "K4hb")):
+        fail(f"halo_kernels (batch): launches {launched}")
+    rows["wall_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     return rows
 
@@ -4446,14 +4657,126 @@ def dist_rank(argv):
             hi, lo = info["x_df"]
             x64 = hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64)
             np.save(f"{out}_{case['name']}.npy", x64)
+        del x, x1, info, info1
+        if case.get("many"):
+            res["many"] = many_in_rank(solver, case, sparse, dev, sync, rank,
+                                       f"{out}_{case['name']}_many.npy")
+        if rank == 0:
             results.append(res)
-        del solver, x, x1, b
+        del solver, b
         torch.cuda.empty_cache()
     if rank == 0:
         with open(out + ".json", "w") as f:
             json.dump(results, f)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
+
+
+def all_launch_counts():
+    """Every launch counter of the port: scalar, batched, halo and halo on
+    a batch."""
+    return {**counts(), **batch_counts(), **halo_counts(), **sparse_halo_counts(),
+            **halo_batch_counts()}
+
+
+def zero_all_counts():
+    from openmg_tpu_torch.ops import ell
+
+    zero_counts()
+    zero_halo_counts()
+    zero_halo_batch_counts()
+    ell.LAUNCHES_K6H = 0
+
+
+# a scalar launch counter and its form on a batch
+BATCH_TWIN = {"K1": "K1b", "K2": "K2b", "K3": "K3b", "K4": "K4b", "K5": "K5b",
+              "K6": "K6b", "K7": "K7b", "K1_halo": "K1hb", "K2_halo": "K2hb",
+              "K3_halo": "K3hb", "K4_halo": "K4hb", "K6_halo": "K6hb"}
+
+
+def many_rhs(solver, case, sparse, dev, K):
+    """The float32 card batch of ``solve_many_dist``: seeds 1 … K, each
+    normalised (``main_rhs`` / ``sparse_rhs``, the scalar cases' own)."""
+    if sparse:
+        return torch.stack([sparse_rhs(solver.n, sd, dev) for sd in range(1, K + 1)])
+    return torch.stack([main_rhs(tuple(case["shape"]), dev, sd) for sd in range(1, K + 1)])
+
+
+def many_in_rank(solver, case, sparse, dev, sync, rank, path):
+    """``solve_many_dist`` in a rank of ``solve_dist``, on that case's
+    solver: the scalar solve of each of the K members, then
+    ``solve_many`` of the K as one card batch.  Every member must have
+    converged with its scalar solve's norm history and iterate pair bit for
+    bit, the batch one host read a step, the exchanges of the longest
+    member's scalar solve, the bytes sent, staged and gathered of all its
+    members', and launches of the kernels' forms on a batch only (each
+    scalar form the scalar solves launched has its batched twin launched).
+    Rank 0 writes the members' merged iterates to ``path``."""
+    K = case["many"]
+    bt = many_rhs(solver, case, sparse, dev, K)
+    sync()
+    scalars = []
+    for m in range(K):
+        zero_all_counts()
+        solver.comm.reset_stats()
+        torch.distributed.barrier()
+        _, im = solver.solve(bt[m])
+        sync()
+        scalars.append({"pair": im["x_df"], "hist": im["residual_norms"],
+                        "ms": im["solve_time_s"] * 1e3, "stats": dict(solver.comm.stats),
+                        "launched": all_launch_counts()})
+    zero_all_counts()
+    solver.comm.reset_stats()
+    torch.distributed.barrier()
+    _, info = solver.solve_many(bt)
+    sync()
+    launched = all_launch_counts()
+    stats = dict(solver.comm.stats)
+    bad = []
+    for m, sc in enumerate(scalars):
+        pair = tuple(t[m] for t in info["x_df"])
+        if not (torch.equal(pair[0], sc["pair"][0]) and torch.equal(pair[1], sc["pair"][1])):
+            bad.append(f"member {m}: iterate not bit-equal to its scalar solve")
+        if info["residual_norms"][m] != sc["hist"]:
+            bad.append(f"member {m}: norms {info['residual_norms'][m]} against {sc['hist']}")
+    if not all(info["converged"]):
+        bad.append(f"converged {info['converged']}")
+    steps = max(info["cycles"])
+    if info["host_reads"] != steps + 1:
+        bad.append(f"{info['host_reads']} host reads for {steps} steps")
+    if stats["exchanges"] != max(sc["stats"]["exchanges"] for sc in scalars):
+        bad.append(f"exchanges {stats['exchanges']} against the scalar solves' "
+                   f"{[sc['stats']['exchanges'] for sc in scalars]}")
+    sums = {k: sum(sc["stats"][k] for sc in scalars)
+            for k in ("bytes_sent", "staged_bytes", "gathered_bytes")}
+    if any(stats[k] != v for k, v in sums.items()):
+        bad.append(f"bytes {stats} against the members' sums {sums}")
+    scalar_kinds = {k for sc in scalars for k, v in sc["launched"].items()
+                    if v and k in BATCH_TWIN}
+    if any(launched[k] for k in BATCH_TWIN):
+        bad.append(f"scalar launches in the batch: {launched}")
+    if any(not launched[BATCH_TWIN[k]] for k in scalar_kinds):
+        bad.append(f"the batch launched {launched}, the scalar solves {sorted(scalar_kinds)}")
+    if rank == 0:
+        hi, lo = info["x_df"]
+        np.save(path, hi.cpu().numpy().astype(np.float64) + lo.cpu().numpy().astype(np.float64))
+    scalar_ms = [sc["ms"] for sc in scalars]
+    return {
+        "K": K, "cycles": info["cycles"], "converged": info["converged"],
+        "final_norm": info["final_norm"], "host_reads": info["host_reads"],
+        "bit_equal_to_scalar_solves": not bad, "faults": bad,
+        "exchanges_per_step": stats["exchanges"] / max(steps, 1),
+        "scalar_exchanges_per_step": [sc["stats"]["exchanges"] / max(len(sc["hist"]) - 1, 1)
+                                      for sc in scalars],
+        "comm_stats": stats, "members_comm_stats_sums": sums,
+        "launches_rank0": {k: v for k, v in launched.items() if v},
+        "scalar_launches_rank0": {k: sum(sc["launched"][k] for sc in scalars)
+                                  for k in sorted(scalar_kinds)},
+        "ms": info["solve_time_s"] * 1e3, "ms_per_rhs": info["solve_time_s"] * 1e3 / K,
+        "scalar_ms": scalar_ms, "scalar_ms_mean": sum(scalar_ms) / K,
+        "ms_is": "warm, on one card shared by the ranks: not a scaling figure",
+        "x_path": path,
+    }
 
 
 def spawn_ranks(world, backend, cases, tmp, device="cuda:0"):
@@ -4556,6 +4879,14 @@ def sparse_dist_refs(dev, solvers):
         out[name] = {"x": merged_pair(info), "cycles": info["cycles"],
                      "K6_per_cycle": ell.LAUNCHES_K6 / info["cycles"],
                      "converged": info["converged"]}
+    # solve_many_dist's ELL members: the single-device solve_many of seeds 1 … K
+    K = MANY_DIST["ell_v_P2"]
+    bt = torch.stack([sparse_rhs(h.n, sd, dev) for sd in range(1, K + 1)])
+    _, info = mg.AlgebraicSolver(h, mg.SolverConfig(**ELL_DIST_CFG)).solve_many(bt)
+    torch.cuda.synchronize()
+    if not all(info["converged"]):
+        fail("solve_sparse_dist: the single-device ELL solve_many did not converge")
+    out["many"] = {"x": merged_pair(info), "cycles": info["cycles"]}
     A = sparse_matrix("irregular", (IRREGULAR_N,))
     t0 = time.perf_counter()
     solver = mg.setup_sparse(A, (IRREGULAR_N,), mg.SolverConfig(**IRREGULAR_CFG), device=dev)
@@ -4578,10 +4909,12 @@ def phase_k6h(dev, copy_bw, h_ell, P=HALO_SLABS, reps=20):
     the plain version and the whole-vector K6's rows (bit for bit by design;
     failing beyond K6's tolerance); device ms of an inner block (each call
     on another copy of its operands) beside the whole vector's / P, the
-    block's bound and the plain version's time."""
+    block's bound, the plain version's time and ``torch.mv`` of the block's
+    rows (``block_library``).  On each level's inner block K6hb at K =
+    ``BATCH_K`` too (``k6hb_row``).  Returns the K6h and the K6hb rows."""
     from openmg_tpu_torch.ops import ell
 
-    rows = []
+    rows, rows_b = [], []
     for tag, lv in (("1024^2 level 0", 0), ("512^2 level 1 (k 9)", 1)):
         M = h_ell.levels[lv].A
         offs = M.slot_offsets
@@ -4641,13 +4974,109 @@ def phase_k6h(dev, copy_bw, h_ell, P=HALO_SLABS, reps=20):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_ms_copy_bw": nbytes / copy_bw * 1e3, "bytes": nbytes, "flops": flops,
-            "library_ms": None,
+            **block_library(d1, offs, H, x1[None], lo1[None], hi1[None], scale),
         })
         if ell.LAUNCHES_K6H == before:
             fail("K6h: the timed calls launched nothing")
-        del blocks, ops, wops, whole, terms
+        del ops, wops, whole, terms
+        rows_b.append(k6hb_row(tag, M, blocks[1], dev, copy_bw, scale))
+        del blocks
     torch.cuda.empty_cache()
-    return rows
+    return rows, rows_b
+
+
+def block_csr(data, offs, H):
+    """A row block's true nonzeros as a ``torch.sparse`` CSR matrix of ``m``
+    rows against ``[lo; x; hi]`` (``m + 2H`` columns): the library
+    yardstick's operand."""
+    k, m = data.shape
+    r = torch.arange(m, device=data.device)
+    live = [data[j] != 0 for j in range(k)]
+    rows = torch.cat([r[lv] for lv in live])
+    cols = torch.cat([(r + int(d) + H)[lv] for d, lv in zip(offs, live)])
+    vals = torch.cat([data[j][lv] for j, lv in enumerate(live)])
+    A = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (m, m + 2 * H))
+    return A.coalesce().to_sparse_csr()
+
+
+def block_library(data, offs, H, X, lo, hi, scale, reps=20):
+    """The library call beside K6h (one member, ``torch.mv``) and K6hb (K
+    members, ``torch.sparse.mm`` with an ``(m + 2H, K)`` block): the block's
+    rows against ``[lo; x; hi]`` (made beforehand), its device ms, held
+    against K6h's plain version; the port never calls it."""
+    from openmg_tpu_torch.ops import ell
+
+    A = block_csr(data, offs, H)
+    xe = torch.cat([lo, X, hi], dim=1)
+    K = X.shape[0]
+    ref = torch.stack([ell.spmv_banded_halo_plain(data, offs, X[m], lo[m], hi[m])
+                       for m in range(K)])
+    if K == 1:
+        v = xe[0].contiguous()
+        got = torch.mv(A, v)[None]
+        ms = device_ms([lambda: torch.mv(A, v)], reps)
+        what = "torch.mv(CSR of the block's true nonzeros, [lo; x; hi])"
+    else:
+        xt = xe.t().contiguous()
+        got = torch.sparse.mm(A, xt).t()
+        ms = device_ms([lambda: torch.sparse.mm(A, xt)], reps)
+        what = "torch.sparse.mm(CSR of the block's true nonzeros, (m + 2H, K) block)"
+    err = float((got - ref).abs().max())
+    if not err <= 1e-5 * scale:
+        fail(f"{what}: differs from the plain version by {err:.3e}")
+    return {"library_ms": ms, "library": what, "library_max_abs_err": err}
+
+
+def k6hb_row(tag, M, block, dev, copy_bw, scale, reps=20):
+    """K6hb at K = ``BATCH_K`` on the inner block ``block`` of ``phase_k6h``
+    (its slot planes; each member's x and received rows drawn on the card):
+    against its batched plain version and member by member against K6h, bit
+    for bit; device ms on rotating copies beside K launches of K6h, the
+    batched bound (the slot planes once, K × (x, the 2H rows, y)) and
+    ``torch.sparse.mm`` of the block's rows."""
+    from openmg_tpu_torch.ops import ell
+
+    K = BATCH_K
+    d = block[0]
+    offs, H, m, k = M.slot_offsets, ell.band_halo(M.slot_offsets), d.shape[1], d.shape[0]
+    X = randn_card((K, m), 47, dev)
+    lo, hi = randn_card((K, H), 48, dev), randn_card((K, H), 49, dev)
+    got = ell.spmv_banded_halo_batch(d, offs, X, lo, hi)
+    ref = ell.spmv_banded_halo_batch_plain(d, offs, X, lo, hi)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if got.shape != (K, m) or not err <= SPARSE_TOL * scale:
+        fail(f"K6hb {tag}: err {err:.3e} > {SPARSE_TOL * scale:.3e}")
+    for i in range(K):
+        if not torch.equal(got[i], ell.spmv_banded_halo(d, offs, X[i], lo[i], hi[i])):
+            fail(f"K6hb {tag}: member {i} is not bit-equal to K6h")
+    es = X.element_size()
+    nbytes = (k * m + K * (2 * m + 2 * H)) * es
+    flops = 2 * K * k * m
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    ops = [(d, X, lo, hi)] + [tuple(t.clone() for t in (d, X, lo, hi))
+                              for _ in range(operand_copies(nbytes) - 1)]
+    ms = device_ms([functools.partial(ell.spmv_banded_halo_batch, dc, offs, Xc, lc, hc)
+                    for dc, Xc, lc, hc in ops], reps)
+    scalar_ms = device_ms([functools.partial(ell.spmv_banded_halo, ops[i % len(ops)][0],
+                                             offs, *(t[i] for t in ops[i % len(ops)][1:]))
+                           for i in range(K)], 2 * K)
+    row = {
+        "level": tag, "mode": f"inner block of {HALO_SLABS}", "K": K, "shape": [K, m],
+        "k": k, "H": H, "bit_equal_to_plain": bool(torch.equal(got, ref)),
+        "bit_equal_to_scalar_per_member": True, "max_abs_err": err,
+        "tolerance": SPARSE_TOL * scale, "ms": ms, "ms_per_member": ms / K,
+        "scalar_ms": scalar_ms, "K_times_scalar_ms": K * scalar_ms,
+        "batch_over_scalar": ms / (K * scalar_ms),
+        "plain_ms": time_ms(lambda: ell.spmv_banded_halo_batch_plain(d, offs, X, lo, hi),
+                            3, warm=1),
+        "operand_copies": len(ops), "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms_copy_bw": nbytes / copy_bw * 1e3, "bytes": nbytes, "flops": flops,
+        **block_library(d, offs, H, X, lo, hi, scale),
+    }
+    del got, ref, ops
+    return row
 
 
 def phase_solve_dist(dev, copy_bw, sparse_refs, k6h_rows):
@@ -4657,21 +5086,27 @@ def phase_solve_dist(dev, copy_bw, sparse_refs, k6h_rows):
     NCCL solve with every level partitioned (zero halos), each against the
     single-device solve on the card (``solve_dist``); in the same spawns the
     distributed sparse solves (``solve_sparse_dist``).  Every solve's
-    ``Comm.stats`` must equal its communication model's."""
+    ``Comm.stats`` must equal its communication model's.  After their
+    scalar solves the ranks of the cases in ``MANY_DIST`` run
+    ``solve_many`` of K right-hand sides on the same solvers
+    (``solve_many_dist``: ``many_in_rank``, ``many_dist_check``)."""
     import tempfile
 
     import openmg_tpu_torch as mg
 
-    # the single-device solutions to hold the ranks' against
+    # the single-device solutions to hold the ranks' against (and, for
+    # solve_many_dist, the single-device solve_many of seeds 1 … K)
     b = main_rhs(BIG, dev)
     single = mg.setup(BIG, mg.SolverConfig(**MAIN_CFG), device=dev)
     _, info = single.solve(b)
     x_single = merged_pair(info)
     single_cycles = info["cycles"]
+    many_refs = {"v": single_many(single, BIG, MANY_DIST["v_P1_nccl_forced"], dev)}
     pcg = mg.setup(BIG, mg.SolverConfig(**MAIN_CFG, krylov="pcg", krylov_iters=2),
                    device=dev)
     _, info = pcg.solve(b)
     x_pcg = merged_pair(info)
+    many_refs["pcg"] = single_many(pcg, BIG, MANY_DIST["pcg2_mesh2x2"], dev)
     del single, pcg, b, info
     bd = main_rhs(DIFFUSION_DIST, dev)
     dsolver = mg.setup(mg.diffusion_stencil(medium(DIFFUSION_DIST)),
@@ -4679,6 +5114,9 @@ def phase_solve_dist(dev, copy_bw, sparse_refs, k6h_rows):
     _, info = dsolver.solve(bd)
     x_diff = merged_pair(info)
     diff_cycles = info["cycles"]
+    many_refs["diffusion"] = single_many(dsolver, DIFFUSION_DIST,
+                                         MANY_DIST["diffusion_P2"], dev)
+    many_refs["ell"] = sparse_refs["many"]
     del dsolver, bd, info
     torch.cuda.empty_cache()
 
@@ -4701,13 +5139,18 @@ def phase_solve_dist(dev, copy_bw, sparse_refs, k6h_rows):
             dict(ell_case, name="ell_pcg2_mesh2x2", config=ell_pcg,
                  mesh={"mesh_shape": [2, 2]})],
     }
-    nccl = [dict(v_case, name="v_P1_nccl_forced", mesh=forced),
-            dict(ell_case, name="ell_v_P1_nccl_forced", mesh=forced),
+    for cases in plans.values():
+        for c in cases:
+            c["many"] = MANY_DIST.get(c["name"])
+    nccl = [dict(v_case, name="v_P1_nccl_forced", mesh=forced,
+                 many=MANY_DIST["v_P1_nccl_forced"]),
+            dict(ell_case, name="ell_v_P1_nccl_forced", mesh=forced,
+                 many=MANY_DIST["ell_v_P1_nccl_forced"]),
             dict(problem="sparse", matrix="irregular", shape=[IRREGULAR_N],
                  config=IRREGULAR_CFG, seed=IRREGULAR_SEED,
                  name="irregular_P1_nccl_forced", mesh=forced)]
     ell_bound = 2e-10 / sparse_refs["ell_lambda_min"]
-    out, sparse_out = {}, {}
+    out, sparse_out, many_out = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         runs = [(P, "gloo", plans[P]) for P in DIST_RANKS]
         runs.append((1, "nccl", nccl))
@@ -4716,6 +5159,9 @@ def phase_solve_dist(dev, copy_bw, sparse_refs, k6h_rows):
             for res in spawn_ranks(world, backend, cases, tmp):
                 xd = np.load(res.pop("x_path"))
                 name = res["name"]
+                if res.get("many"):
+                    many_out[name] = many_dist_check(name, res.pop("many"), many_refs,
+                                                     bound, ell_bound)
                 launched = res["launches_rank0"]
                 if not res["model_matches_comm_stats"]:
                     fail(f"solve_dist {name}: Comm.stats {res['comm_stats']}, the model "
@@ -4766,12 +5212,59 @@ def phase_solve_dist(dev, copy_bw, sparse_refs, k6h_rows):
             / (ms_cycle * 1e-3 * copy_bw),
         }
     emit("solve_dist", out)
-    emit("solve_sparse_dist", {"k6h": k6h_rows, "solves": sparse_out,
+    emit("solve_many_dist", {
+        "cases": many_out, "seconds_in_ranks": {
+            name: (r["ms"] + sum(r["scalar_ms"])) / 1e3 for name, r in many_out.items()},
+        "checks": "every member converged, bit-equal (pair and norms) to its scalar "
+                  "distributed solve on the same ranks, within 2e-10/lambda_min of the "
+                  "single-device solve_many member; one host read a step; the longest "
+                  "member's exchanges; the members' bytes; batched launches only"})
+    emit("solve_sparse_dist", {**k6h_rows, "solves": sparse_out,
                                "model_calibration": calibration,
                                "single_device": {k: {kk: vv for kk, vv in v.items() if kk != "x"}
                                                  for k, v in sparse_refs.items()
                                                  if isinstance(v, dict)}})
-    return out, sparse_out
+    return out, sparse_out, many_out
+
+
+# solve_many_dist: the members of each case's batch (seeds 1 … K)
+MANY_DIST = {"v_P2": 4, "pcg2_mesh2x2": 4, "diffusion_P2": 4, "v_P1_nccl_forced": 8,
+             "ell_v_P2": 4, "ell_v_P1_nccl_forced": 4}
+
+
+def single_many(solver, shape, K, dev):
+    """The single-device ``solve_many`` on the card of seeds 1 … K
+    (``main_rhs``): each member's merged iterate (float64 numpy) and
+    cycles."""
+    bt = torch.stack([main_rhs(shape, dev, sd) for sd in range(1, K + 1)])
+    _, info = solver.solve_many(bt)
+    torch.cuda.synchronize()
+    if not all(info["converged"]):
+        fail(f"solve_many_dist: the single-device solve_many of {shape} did not converge")
+    return {"x": merged_pair(info), "cycles": info["cycles"]}
+
+
+def many_dist_check(name, res, refs, bound, ell_bound):
+    """A case of ``solve_many_dist`` (``many_in_rank``'s record): its
+    faults, and every member within 2e-10/λ_min of the single-device
+    ``solve_many`` member on the card (the single-device and the
+    distributed cycles reach 1e-10 by other sums)."""
+    if res["faults"]:
+        fail(f"solve_many_dist {name}: {res['faults']}")
+    kind = ("ell" if name.startswith("ell") else "pcg" if name.startswith("pcg")
+            else "diffusion" if name.startswith("diffusion") else "v")
+    ref = refs[kind]
+    xs = np.load(res.pop("x_path"))
+    lim = ell_bound if kind == "ell" else bound
+    diffs = []
+    for m in range(res["K"]):
+        diffs.append(float(np.linalg.norm((xs[m] - ref["x"][m]).ravel())))
+        if kind != "diffusion" and not diffs[-1] <= lim:
+            fail(f"solve_many_dist {name} member {m}: ‖x_dist − x_single‖ = "
+                 f"{diffs[-1]:.3e} > {lim:.3e}")
+    res.update(norm_x_dist_minus_x_single=diffs, single_device_cycles=ref["cycles"][:res["K"]],
+               bound_2e_10_over_lambda_min=None if kind == "diffusion" else lim)
+    return res
 
 
 def sparse_check(name, res, xd, refs, ell_bound):
@@ -4856,11 +5349,12 @@ def main():
     k67b_rows = phase_batch_spmv(dev, copy_bw, solvers)
     k7_launches, k6_launches = phase_solve_sparse(dev, solvers)
     many_sparse = phase_solve_many_sparse(dev, solvers)
-    k6h_rows = phase_k6h(dev, copy_bw, solvers["ell"].hierarchy)
+    k6h_rows, k6hb_rows = phase_k6h(dev, copy_bw, solvers["ell"].hierarchy)
     sparse_refs = sparse_dist_refs(dev, solvers)
     del solvers
     torch.cuda.empty_cache()
-    dist_runs, sparse_dist_runs = phase_solve_dist(dev, copy_bw, sparse_refs, k6h_rows)
+    dist_runs, sparse_dist_runs, many_dist = phase_solve_dist(
+        dev, copy_bw, sparse_refs, {"k6h": k6h_rows, "k6hb": k6hb_rows})
     del sparse_refs
 
     def entry(name, source, replaces, launches, main_row, all_rows, key):
@@ -4993,6 +5487,36 @@ def main():
               "openmg_tpu/parallel/sparse_dist.py:167",
               sparse_dist_runs["ell_v_P2"]["launches_rank0"]["K6_halo"],
               k6h_rows[0], k6h_rows, "K6_halo"),
+        # the halo forms on a batch: K = 8 on an inner slab of 256³ / 4 (the
+        # 1024² ELL level 0's inner block for K6hb); launches on rank 0 of
+        # the two-rank K = 4 solve_many (the diffusion one for K4hb's)
+        entry("fused_stages_const_3d_batch (halos=, K1hb: K members of a slab)",
+              "openmg_tpu_torch/csrc/fused_stages.cu",
+              "openmg_tpu/ops/fused.py:578",
+              many_dist["v_P2"]["launches_rank0"]["K1hb"],
+              halo_rows["K1hb"][0], halo_rows["K1hb"], "K1hb"),
+        entry("df_update_residual_batch (halos=, K2hb: K members of a slab)",
+              "openmg_tpu_torch/csrc/df_update.cu",
+              "openmg_tpu/ops/kernels.py:860",
+              many_dist["v_P2"]["launches_rank0"]["K2hb"],
+              halo_rows["K2hb"][0], halo_rows["K2hb"], "K2hb"),
+        entry("halo_half_sweep_batch (K3hb: K members of a slab)",
+              "openmg_tpu_torch/csrc/half_sweep.cu",
+              "openmg_tpu/ops/kernels.py:502",
+              many_dist["v_P2"]["launches_rank0"]["K3hb"],
+              next(r for r in halo_rows["K3hb"] if r["mode"] == "residual"),
+              halo_rows["K3hb"], "K3hb"),
+        entry("halo_half_sweep_vary_batch (K4hb: K members of a slab)",
+              "openmg_tpu_torch/csrc/half_sweep.cu",
+              "openmg_tpu/ops/kernels.py:678",
+              many_dist["diffusion_P2"]["launches_rank0"]["K4hb"],
+              next(r for r in halo_rows["K4hb"] if r["mode"] == "residual"),
+              halo_rows["K4hb"], "K4hb"),
+        entry("spmv_banded_halo_batch (K6hb: K members of a rank's rows)",
+              "openmg_tpu_torch/csrc/spmv_banded.cu",
+              "openmg_tpu/parallel/sparse_dist.py:167",
+              many_dist["ell_v_P2"]["launches_rank0"]["K6hb"],
+              k6hb_rows[0], k6hb_rows, "K6hb"),
     ]}), flush=True)
     emit("total", {"seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

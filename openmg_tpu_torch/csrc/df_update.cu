@@ -47,7 +47,8 @@
 // blockIdx.z, above the z-chunks; each member is tiled and chunked as a
 // launch on it alone would be, so its outputs and its partials (a block of
 // omg_df_num_partials entries at member * pstride) are that launch's, bit
-// for bit.  The batch takes no halos.
+// for bit.  With halos (K2hb) each member has its own received planes,
+// stacked like its grids: (nb, ny, nx) for each of the six.
 //
 // The halo form (a rank's z-slab of a row-partitioned grid; the TPU
 // kernel's halos= argument): the (ny, nx) planes of x_hi, x_lo and e
@@ -253,7 +254,7 @@ __global__ void __launch_bounds__(THREADS) df_update_residual_kernel(
     const float* __restrict__ e, const float* __restrict__ bh,
     const float* __restrict__ bl, float* __restrict__ oxh,
     float* __restrict__ oxl, float* __restrict__ orh,
-    float* __restrict__ partials, const DfHalo hl, int nz, int ny, int nx,
+    float* __restrict__ partials, const DfHalo hb, int nz, int ny, int nx,
     int zc, int pstride)
 {
     __shared__ float wh[3 * SP];
@@ -269,6 +270,13 @@ __global__ void __launch_bounds__(THREADS) df_update_residual_kernel(
         const size_t mo = (size_t)mb * nz * ny * nx;
         xh += mo; xl += mo; e += mo; bh += mo; bl += mo;
         oxh += mo; oxl += mo; orh += mo;
+    }
+    // the member's received planes (K2hb: a plane of (ny, nx) a member)
+    DfHalo hl = hb;
+    {
+        const size_t po = (size_t)mb * ny * nx;
+        if (hl.lh != nullptr) { hl.lh += po; hl.ll += po; hl.le += po; }
+        if (hl.uh != nullptr) { hl.uh += po; hl.ul += po; hl.ue += po; }
     }
     const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
     const int z0 = zb * zc, z1 = min(z0 + zc, nz);
@@ -441,7 +449,7 @@ extern "C" int omg_df_num_partials(int nz, int ny, int nx)
 // pstride apart (>= omg_df_num_partials), or null for no norm.
 // Outputs must not alias inputs (neighbours read the old x).  lh, ll, le /
 // uh, ul, ue: the halo form's received (ny, nx) planes of x_hi, x_lo, e below
-// and above the slab, or all null (always with nb > 1).  Returns 0, a CUDA
+// and above the slab, (nb, ny, nx) each on a batch, or all null.  Returns 0, a CUDA
 // error code, or -1 for arguments the kernel does not take.
 extern "C" int omg_df_update_residual(
     const int* offs, const int* nterms, const float* terms, int K,
@@ -456,7 +464,6 @@ extern "C" int omg_df_update_residual(
     if ((lh == nullptr) != (ll == nullptr) || (lh == nullptr) != (le == nullptr) ||
         (uh == nullptr) != (ul == nullptr) || (uh == nullptr) != (ue == nullptr))
         return -1;
-    if (nb > 1 && (lh != nullptr || uh != nullptr)) return -1;
     if (partials != nullptr && pstride < omg_df_num_partials(nz, ny, nx)) return -1;
     DfStencil st;
     st.K = K;

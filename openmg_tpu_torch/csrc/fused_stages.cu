@@ -124,7 +124,12 @@
 // planes are written.  So a slab's output is the whole grid's rows, with no
 // epilogue.  A cornered level's axis-0 regions lie on the first rank only:
 // the wrapper drops them from the region table of the others.  The
-// resident shape declines halos (its tiles hold no halo along z).
+// resident shape declines halos (its tiles hold no halo along z).  On a
+// batch (K1hb) every member has its own received slabs, stacked like its
+// grids: b's and x's hlo (hhi) planes of (ny, nx) a member, ec's clo (chi)
+// coarse planes a member; the kernel moves those pointers to the member's
+// slabs with its grids (a member's slab pointer steps by its own depth,
+// never by nz).
 //
 // THE BATCHED FORM (the TPU kernel under jax.vmap, whose grid gains a
 // leading batch axis): nb members of one level stacked along a leading axis
@@ -144,7 +149,8 @@
 //     computed it (a tile recomputes its halo with the same arithmetic, and
 //     the two shapes share their per-word body; the halo form's marching
 //     slabs equal the resident whole grid's rows bit for bit), so every
-//     member equals a launch on it alone.  The batch takes no halos.
+//     member equals a launch on it alone.  With halos (K1hb) the batch
+//     marches, as the halo form does.
 //
 // Cornered levels (both shapes): the tap of point i for offset k is one row
 // of an at most 8-row table, chosen by which of i's coordinates are 0.
@@ -219,6 +225,14 @@ __device__ __forceinline__ const float* plane_ptr(
     if (z < 0) return lo + (size_t)(below + z) * plane;
     if (z >= n) return hi + (size_t)(z - n) * plane;
     return g + (size_t)z * plane;
+}
+
+// Member mb's received slab of a batch: `planes` planes of `plane` floats a
+// member (null stays null).
+__device__ __forceinline__ const float* member_slab(
+    const float* p, int mb, int planes, size_t plane)
+{
+    return p == nullptr ? nullptr : p + (size_t)mb * planes * plane;
 }
 
 // Where member mb's grids of a batch start: fine grids nz*ny*nx floats
@@ -617,6 +631,15 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
     const int nzc = (nz + pl.ZC - 1) / pl.ZC;
     const int mb = blockIdx.z / nzc;
     OMG_MEMBER_GRIDS(mb);
+    // the member's received slabs (K1hb): hlo / hhi fine planes and clo /
+    // chi coarse planes a member
+    const size_t fpl = (size_t)ny * nx, cpl = (size_t)(ny >> 1) * (nx >> 1);
+    const float* b_lo = member_slab(pl.b_lo, mb, pl.hlo, fpl);
+    const float* b_hi = member_slab(pl.b_hi, mb, pl.hhi, fpl);
+    const float* x_lo = member_slab(pl.x_lo, mb, pl.hlo, fpl);
+    const float* x_hi = member_slab(pl.x_hi, mb, pl.hhi, fpl);
+    const float* ec_lo = member_slab(pl.ec_lo, mb, pl.clo, cpl);
+    const float* ec_hi = member_slab(pl.ec_hi, mb, pl.chi, cpl);
     tl.z0 = (blockIdx.z - mb * nzc) * pl.ZC;
     tl.z1 = min(tl.z0 + pl.ZC, nz);
     const int zlo = tl.z0 - D;
@@ -675,7 +698,7 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
         float* dx = ring0 + (s % X) * PL;   // once a step: not in a level
         // the plane's x: the slab's own, or a received one
         const float* xp = pl.has_x && inz
-            ? plane_ptr(xin, pl.x_lo, pl.x_hi, pl.hlo, gz, nz, fplane) : xin;
+            ? plane_ptr(xin, x_lo, x_hi, pl.hlo, gz, nz, fplane) : xin;
         if (pl.has_x || (pl.has_ec && !inz)) {
             for (int w4 = tid; w4 < PY * C4; w4 += THREADS) {
                 const int r = w4 / C4, c = 4 * (w4 % C4);
@@ -707,7 +730,7 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
             for (int c = c_first; fresh && c <= (gz + 1) >> 1; ++c) {
                 float* dc = cring + ((c - czlo) % 3) * (pl.CPY * CPX);
                 const bool incz = c >= pl.czmin && c < pl.czmax;
-                const float* ep = incz ? plane_ptr(ec, pl.ec_lo, pl.ec_hi, pl.clo, c, ncz,
+                const float* ep = incz ? plane_ptr(ec, ec_lo, ec_hi, pl.clo, c, ncz,
                                                    (size_t)ncy * ncx)
                                        : ec;
                 for (int i = tid; i < pl.CPY * CPX; i += THREADS) {
@@ -738,7 +761,7 @@ __global__ void __launch_bounds__(C4 * (TY + 2 * MAX_DEPTH), 1) visit_kernel(
         const int pr = s - 2 * L + d0, gz = zlo + pr;
         if (pr < L || pr > T0 - 1 - L || gz < pl.zmin || gz >= pl.zmax || !wd.iny)
             return v;
-        const float* p = plane_ptr(b, pl.b_lo, pl.b_hi, pl.hlo, gz, nz, fplane) + wd.g;
+        const float* p = plane_ptr(b, b_lo, b_hi, pl.hlo, gz, nz, fplane) + wd.g;
         if (pl.vec) {
             if (wd.xin & 1u) {
                 const float2 lo = __ldg(reinterpret_cast<const float2*>(p));
@@ -1547,8 +1570,8 @@ extern "C" int omg_fused_last_shape() { return g_last_shape; }
 //     below / above.  hlo, hhi >= D; clo >= (D + 1) / 2, chi >= D / 2 + 1.
 //     All null and 0 for a whole grid.
 //   nb: members of a batch stacked along a leading axis (every grid
-//     pointer then holds nb grids, one after another); 1 for one grid.  A
-//     batch takes no halos.
+//     pointer then holds nb grids, one after another, and every halo
+//     pointer nb slabs of its depth: K1hb); 1 for one grid.
 extern "C" int omg_fused_stages(
     const float* values, const float* table, const int* offs, int K,
     const int* rowmap, const float* b, const float* x, const float* ec,
@@ -1620,7 +1643,6 @@ extern "C" int omg_fused_stages(
     pl.nb = nb;
     pl.group = nb;
     pl.rounds = 1;
-    if (nb > 1 && pl.halo) return -1;
     pl.b_lo = b_lo; pl.b_hi = b_hi; pl.x_lo = x_lo; pl.x_hi = x_hi;
     pl.ec_lo = ec_lo; pl.ec_hi = ec_hi;
     pl.hlo = hlo; pl.hhi = hhi; pl.clo = clo; pl.chi = chi;

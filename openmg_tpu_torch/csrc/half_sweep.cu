@@ -68,7 +68,9 @@
 // launch's plan; vary_pass_kernel takes it as the fastest part of
 // blockIdx.x, so the nb blocks of one tile run together and read that
 // tile's coefficients through L2 once.  A member's arithmetic is the scalar
-// launch's on it, bit for bit.  No halos with a batch.
+// launch's on it, bit for bit.  With halos (K3hb, K4hb) each member has
+// its own received planes, (nb, ny, nx) below and above, moved to the
+// member's with its grids.
 //
 // The halo form (a rank's z-slab of a row-partitioned grid, replacing the
 // TPU kernels halo_half_sweep_const_3d / halo_half_sweep_vary_3d of
@@ -374,11 +376,14 @@ __global__ void __launch_bounds__(CTHREADS, 2) const_pass_kernel(
     const float* __restrict__ upper, float* __restrict__ out, int nz, int ny,
     int nx, float omega, int color, int zc, int tiles_x, int tiles_y, int vec)
 {
-    // member blockIdx.y of a batch: its own b, x and out
+    // member blockIdx.y of a batch: its own b, x and out, and received
+    // planes
     const size_t mo = (size_t)blockIdx.y * nz * ny * nx;
     b += mo;
     x += mo;
     out += mo;
+    if (lower != nullptr) lower += (size_t)blockIdx.y * ny * nx;
+    if (upper != nullptr) upper += (size_t)blockIdx.y * ny * nx;
     __shared__ __align__(16) float ring[RING * PLANE];
     // taps[m][k]: tap of offset k for a point whose zero-coordinate mask is
     // m (bit 0: z == 0, bit 1: y == 0, bit 2: x == 0)
@@ -529,6 +534,8 @@ __global__ void __launch_bounds__(BX * BY) vary_pass_kernel(
     b += member * n;
     x += member * n;
     out += member * n;
+    if (lower != nullptr) lower += (size_t)member * ny * nx;
+    if (upper != nullptr) upper += (size_t)member * ny * nx;
     const size_t c = ((size_t)gz * ny + gy) * nx + gx;
     const bool two = gx + 1 < nx;
     // which points of the pair get a sum: in a red/black pass only the one
@@ -645,8 +652,8 @@ extern "C" int omg_half_sweep_tile(int axis) { return axis == 0 ? CX : CY; }
 // (the halo form), or null (the Dirichlet zero).
 // vary != 0: coef is (K, nz, ny, nx) and table/rowmap/zc are not read;
 // otherwise a block marches zc planes of a tile (ops/kernels.py::sweep_plan).
-// nb: members of a batch (b, x and out (nb, nz, ny, nx); 1 for one grid),
-// no halos with nb > 1.
+// nb: members of a batch (b, x and out (nb, nz, ny, nx), lower and upper
+// (nb, ny, nx); 1 for one grid).
 // Returns 0, a negative code of its own (-1: stencil not taken, -2: bad mode,
 // grid or batch, -3: out aliases an input) or the CUDA error of the launch.
 extern "C" int omg_half_sweep(
@@ -681,7 +688,7 @@ extern "C" int omg_half_sweep(
         st.corner |= st.rowmap[m] >= 0;
     }
     if (nz < 1 || ny < 1 || nx < 1 || mode < 0 || mode > 2) return -2;
-    if (nb < 1 || (nb > 1 && (lower != nullptr || upper != nullptr))) return -2;
+    if (nb < 1) return -2;
     if (out == x || out == b || out == lower || out == upper) return -3;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     int rc;

@@ -13,7 +13,9 @@
 //
 // The halo form K6h (omg_spmv_banded_halo, at the end) runs the same body
 // at B = 1 on a rank's slab of rows, reading the H rows received from each
-// neighbour where they lie (term()'s source selector).
+// neighbour where they lie (term()'s source selector); on a batch (K6hb)
+// with the batched form's MB members a thread, each member's received rows
+// its own.
 //
 // Replaces openmg_tpu/ops/ell.py::spmv_ell (body _dia_kernel), which streams
 // data and a three-tile window of x and forms each shift with sublane slices
@@ -97,9 +99,9 @@ struct Halo {
 
 // Term t = j*kb + s of row r (block row I) for the first mc of MB
 // members: v[m] = data * x_m[(I + d_s)*B + j], the data element read once.
-// HALO (B = 1, MB = 1 only): x is the slab's m = nbr rows and row J of
-// [lo | x | hi] is read where it lies, so the caller never concatenates
-// them; the slot offsets are at most H.
+// HALO (B = 1): x is the slab's m = nbr rows and row J of [lo | x | hi] is
+// read where it lies, so the caller never concatenates them (member m's lo
+// and hi H rows apart); the slot offsets are at most H.
 template <typename T, bool HALO, int MB>
 __device__ __forceinline__ void term(
     T (&v)[MB], const T* __restrict__ data, const int* offs,
@@ -111,9 +113,15 @@ __device__ __forceinline__ void term(
     const long long J = I + offs[s];
     const T d = __ldg(data + ((long long)s * B + j) * n + r);
     if constexpr (HALO) {
-        const T xv = J < 0 ? __ldg(halo.lo + halo.H + J)
-                   : J < nbr ? __ldg(x + J) : __ldg(halo.hi + (J - nbr));
-        v[0] = mul_rn(d, xv);
+#pragma unroll
+        for (int m = 0; m < MB; ++m) {
+            const long long h = (long long)m * halo.H;
+            const T xv = m >= mc ? T(0)
+                       : J < 0 ? __ldg(halo.lo + h + halo.H + J)
+                       : J < nbr ? __ldg(x + (long long)m * n + J)
+                                 : __ldg(halo.hi + h + (J - nbr));
+            v[m] = mul_rn(d, xv);
+        }
     } else {
         const bool in = J >= 0 && J < nbr;
 #pragma unroll
@@ -126,14 +134,14 @@ __device__ __forceinline__ void term(
 }
 
 // BC, KC > 0: the block size and slot count at compile time; 0: at run
-// time.  G lanes a row.  HALO: a rank's slab with its received rows (K6h).
-// MB: members a thread (1: one vector; 8: a batch, members blockIdx.y * MB
-// on, nb in all).
+// time.  G lanes a row.  HALO: a rank's slab with its received rows (K6h,
+// K6hb).  MB: members a thread (1: one vector; 8: a batch, members
+// blockIdx.y * MB on, nb in all).
 template <typename T, int BC, int KC, int G, bool HALO, int MB>
 __global__ void __launch_bounds__(THREADS) spmv_banded_kernel(
     const T* __restrict__ data, const __grid_constant__ Slots slots,
     const int* __restrict__ offs_dev, int k_run, int b_run,
-    const T* __restrict__ x, const __grid_constant__ Halo<T> halo,
+    const T* __restrict__ x, const __grid_constant__ Halo<T> halos,
     T* __restrict__ y, long long n, int nb)
 {
     extern __shared__ int offs[];
@@ -147,6 +155,11 @@ __global__ void __launch_bounds__(THREADS) spmv_banded_kernel(
     const int mc = min(MB, nb - m0);
     x += (long long)m0 * n;
     y += (long long)m0 * n;
+    // the group's received rows: H a member
+    const Halo<T> halo = HALO && m0 > 0
+        ? Halo<T>{halos.lo + (long long)m0 * halos.H, halos.hi + (long long)m0 * halos.H,
+                  halos.H}
+        : halos;
     const long long nbr = n / B;
     const int nt = B * kb;
     const int g = G > 1 ? (int)(threadIdx.x & (G - 1)) : 0;
@@ -221,21 +234,19 @@ int blocks_for(long long threads)
 
 // HALO: the m = n rows of a rank's slab with the rows it received (K6h,
 // B = 1, G = 1); else halo is unused.  nb > 1: a batch, MB = 8 members a
-// thread, ceil(nb / 8) groups on blockIdx.y.
+// thread, ceil(nb / 8) groups on blockIdx.y (with HALO, K6hb).
 template <typename T, int BC, int KC, int G, bool HALO = false>
 void go(const T* data, const Slots& sl, const int* offs, int k, int B,
         const T* x, T* y, long long n, int nb, cudaStream_t st,
         const Halo<T>& halo = Halo<T>{nullptr, nullptr, 0})
 {
-    if constexpr (!HALO) {
-        if (nb > 1) {
-            constexpr int MB = 8;
-            const dim3 grid(blocks_for(n * G), (nb + MB - 1) / MB);
-            spmv_banded_kernel<T, BC, KC, G, false, MB>
-                <<<grid, THREADS, k * sizeof(int), st>>>(
-                    data, sl, offs, k, B, x, halo, y, n, nb);
-            return;
-        }
+    if (nb > 1) {
+        constexpr int MB = 8;
+        const dim3 grid(blocks_for(n * G), (nb + MB - 1) / MB);
+        spmv_banded_kernel<T, BC, KC, G, HALO, MB>
+            <<<grid, THREADS, k * sizeof(int), st>>>(
+                data, sl, offs, k, B, x, halo, y, n, nb);
+        return;
     }
     spmv_banded_kernel<T, BC, KC, G, HALO, 1>
         <<<blocks_for(n * G), THREADS, k * sizeof(int), st>>>(
@@ -350,7 +361,8 @@ extern "C" int omg_spmv_banded(
 //   y[i] = sum_s data[s, i] * xe[i + d_s + H],   xe = [lo | x | hi]
 //
 // data (k, m), x (m,), lo and hi (H,) of one type; the received rows are
-// read where they lie.  The same slot order and round-to-nearest products
+// read where they lie.  members: nb vectors (K6hb: x (nb, m), lo and hi
+// (nb, H)), 1 for one.  The same slot order and round-to-nearest products
 // and sums as the whole-vector kernel, so a slab's rows equal that
 // kernel's rows of the whole vector bit for bit.  Replaces no TPU kernel:
 // the JAX package forms these shifted slices with jnp outside any Pallas
@@ -360,9 +372,10 @@ extern "C" int omg_spmv_banded(
 extern "C" int omg_spmv_banded_halo(
     const void* data, const int* offs_host, const int* offs_dev, int k,
     const void* x, const void* lo, const void* hi, long long H, void* y,
-    long long m, int is_double, void* stream)
+    long long m, int members, int is_double, void* stream)
 {
     if (k < 1 || m < 1 || H < 0) return -1;
+    if (members < 1 || (members + 7) / 8 > 65535) return -2;
     if (y == x || (H > 0 && (y == lo || y == hi))) return -3;
     for (int i = 0; i < k; ++i)
         if (offs_host[i] > H || -offs_host[i] > H) return -4;
@@ -372,10 +385,10 @@ extern "C" int omg_spmv_banded_halo(
     if (is_double)
         ell<double, true>(
             (const double*)data, sl, offs_dev, k, (const double*)x, (double*)y,
-            m, 1, st, Halo<double>{(const double*)lo, (const double*)hi, H});
+            m, members, st, Halo<double>{(const double*)lo, (const double*)hi, H});
     else
         ell<float, true>(
             (const float*)data, sl, offs_dev, k, (const float*)x, (float*)y,
-            m, 1, st, Halo<float>{(const float*)lo, (const float*)hi, H});
+            m, members, st, Halo<float>{(const float*)lo, (const float*)hi, H});
     return (int)cudaGetLastError();
 }

@@ -26,7 +26,11 @@ K6h (:func:`spmv_banded_halo`) is its halo form on a rank's slab of rows
 of the distributed sparse engine (:mod:`openmg_tpu_torch.parallel.
 sparse_dist`): the same sum over the slab's ``m`` rows with ``x`` extended
 by the ``H`` rows received from each neighbour, read in place by the
-kernel.  ``LAUNCHES_K6H`` counts its launches.
+kernel.  ``LAUNCHES_K6H`` counts its launches.  K6hb
+(:func:`spmv_banded_halo_batch`) is K6h on a batch: ``(K, m)`` slabs, each
+member's ``(K, H)`` received rows its own, one launch with the batched
+form's eight members a thread, each member bit-equal to K6h on it;
+``LAUNCHES_K6H_BATCH`` counts its launches.
 
 The JAX package's tile-height and VMEM rules (``pick_tile_rows``), its size
 gate (``prefer_kernel``) and its lane shifts (``_shift_rows``) are that
@@ -54,16 +58,21 @@ __all__ = [
     "check_operands",
     "spmv_banded_cuda",
     "LAUNCHES_K6H",
+    "LAUNCHES_K6H_BATCH",
     "band_halo",
     "spmv_banded_halo_plain",
     "spmv_banded_halo",
+    "spmv_banded_halo_batch_plain",
+    "spmv_banded_halo_batch",
 ]
 
-# launches of the slot-offset ELL kernel (K6), of its halo form (K6h) and
-# of its batched form (K6b: K vectors a launch)
+# launches of the slot-offset ELL kernel (K6), of its halo form (K6h), of
+# its batched form (K6b: K vectors a launch) and of the halo form on a batch
+# (K6hb)
 LAUNCHES_K6 = 0
 LAUNCHES_K6H = 0
 LAUNCHES_K6_BATCH = 0
+LAUNCHES_K6H_BATCH = 0
 
 
 def detect_slot_offsets(data, cols):
@@ -139,8 +148,9 @@ def _kernel_halo():
 
         fn = _build.load().omg_spmv_banded_halo
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # data, offs (host), offs (device), k, x, lo, hi, H, y, m, dbl, stream
-        fn.argtypes = [p, p, p, i, p, p, p, ll, p, ll, i, p]
+        # data, offs (host), offs (device), k, x, lo, hi, H, y, m, members,
+        # dbl, stream
+        fn.argtypes = [p, p, p, i, p, p, p, ll, p, ll, i, i, p]
         fn.restype = i
         _fn_halo = fn
     return _fn_halo
@@ -286,11 +296,12 @@ def spmv_banded_halo_plain(data, slot_offsets, x, lo, hi):
     return acc
 
 
-def check_halo_operands(data, slot_offsets, x, lo, hi):
+def check_halo_operands(data, slot_offsets, x, lo, hi, batch=False):
     """Raise unless ``data`` ``(k, m)``, ``x`` ``(m,)`` and the received
-    rows ``lo``, ``hi`` ``(H,)`` are what K6h takes: float32 or float64
+    rows ``lo``, ``hi`` ``(H,)`` are what K6h takes (with ``batch``, K6hb:
+    ``x`` ``(K, m)``, ``lo`` and ``hi`` ``(K, H)``): float32 or float64
     alike, one device, contiguous, ``k`` slot offsets none beyond ``H``."""
-    what = "spmv_banded_halo"
+    what = "spmv_banded_halo_batch" if batch else "spmv_banded_halo"
     ts = (data, x, lo, hi)
     if data.dtype not in (torch.float32, torch.float64) or any(
             t.dtype != data.dtype for t in ts):
@@ -302,12 +313,15 @@ def check_halo_operands(data, slot_offsets, x, lo, hi):
         raise ValueError(f"{what}: operands on {[str(t.device) for t in ts]}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{what} takes contiguous operands")
-    if x.ndim != 1 or lo.ndim != 1 or hi.ndim != 1 or lo.shape != hi.shape:
+    nd = 1 + int(batch)
+    if x.ndim != nd or lo.ndim != nd or hi.ndim != nd or lo.shape != hi.shape \
+            or lo.shape[:-1] != x.shape[:-1] or x.shape[0] < 1:
+        each = " a member" if batch else ""
         raise ValueError(
             f"{what}: x {tuple(x.shape)}, lo {tuple(lo.shape)}, hi "
-            f"{tuple(hi.shape)}: a slab and two halos of H rows"
+            f"{tuple(hi.shape)}: a slab and two halos of H rows{each}"
         )
-    m, H, k = x.shape[0], lo.shape[0], len(slot_offsets)
+    m, H, k = x.shape[-1], lo.shape[-1], len(slot_offsets)
     if tuple(data.shape) != (k, m):
         raise ValueError(
             f"{what}: data {tuple(data.shape)} for {k} slot offsets and {m} rows"
@@ -329,6 +343,13 @@ def spmv_banded_halo(data, slot_offsets, x, lo, hi):
     check_halo_operands(data, slot_offsets, x, lo, hi)
     if x.device.type == "cpu":
         return spmv_banded_halo_plain(data, slot_offsets, x, lo, hi)
+    y = _halo_cuda(data, slot_offsets, x, lo, hi, 1)
+    LAUNCHES_K6H += 1
+    return y
+
+
+def _halo_cuda(data, slot_offsets, x, lo, hi, members):
+    """One launch of ``omg_spmv_banded_halo`` on checked operands."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     dev = x.device
@@ -339,10 +360,30 @@ def spmv_banded_halo(data, slot_offsets, x, lo, hi):
         rc = _kernel_halo()(
             data.data_ptr(), _host_offsets(slot_offsets), offs.data_ptr(),
             len(slot_offsets), x.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            lo.shape[0], y.data_ptr(), x.shape[0],
+            lo.shape[-1], y.data_ptr(), x.shape[-1], members,
             int(x.dtype == torch.float64), stream,
         )
     if rc != 0:
         raise RuntimeError(f"omg_spmv_banded_halo failed with code {rc}")
-    LAUNCHES_K6H += 1
+    return y
+
+
+def spmv_banded_halo_batch_plain(data, slot_offsets, x, lo, hi):
+    """Plain version of K6hb: :func:`spmv_banded_halo_plain` on each member
+    of the ``(K, m)`` slabs with its ``(K, H)`` received rows, stacked."""
+    return torch.stack([spmv_banded_halo_plain(data, slot_offsets, x[m], lo[m], hi[m])
+                        for m in range(x.shape[0])])
+
+
+def spmv_banded_halo_batch(data, slot_offsets, x, lo, hi):
+    """K6hb: :func:`spmv_banded_halo` on K members of a rank's rows at once,
+    ``x`` ``(K, m)`` and each member's received rows ``lo`` / ``hi`` ``(K,
+    H)``, the slot planes shared: one launch on the card, each member
+    bit-equal to K6h on it; the plain version on the CPU."""
+    global LAUNCHES_K6H_BATCH
+    check_halo_operands(data, slot_offsets, x, lo, hi, batch=True)
+    if x.device.type == "cpu":
+        return spmv_banded_halo_batch_plain(data, slot_offsets, x, lo, hi)
+    y = _halo_cuda(data, slot_offsets, x, lo, hi, x.shape[0])
+    LAUNCHES_K6H_BATCH += 1
     return y

@@ -45,6 +45,14 @@ launch on it; its plain version :func:`fused_stages_const_3d_batch_plain`
 is the scalar plain version member by member.  Batch launches count apart,
 in ``LAUNCHES_BATCH``; :func:`last_shape` says which shape the C side took.
 
+**The halo form on a batch** (K1hb, the halo kernel under ``jax.vmap``):
+:func:`fused_stages_const_3d_batch` with ``halos=`` runs a visit of K
+members of a rank's slab in one launch, every member with its own received
+slabs stacked like its grids (``(K, D, ny, nx)`` of ``b`` and ``x``, ``(K,
+D/2 (+1), ny/2, nx/2)`` of ``ec``), the flags shared; marching shape only,
+as the halo form.  Its plain version is the scalar halo form's member by
+member.  Its launches count in ``LAUNCHES_HALO_BATCH``.
+
 The entry points (:func:`smooth_fused`, :func:`presmooth_residual_fused`,
 :func:`presmooth_restrict_fused`, :func:`residual_restrict_fused`,
 :func:`prolong_smooth_fused`) keep the JAX package's signatures.  A 2D
@@ -74,6 +82,7 @@ __all__ = [
     "LAUNCHES",
     "LAUNCHES_HALO",
     "LAUNCHES_BATCH",
+    "LAUNCHES_HALO_BATCH",
     "fused_stages_const_3d_batch",
     "fused_stages_const_3d_batch_plain",
     "gate_corner",
@@ -96,6 +105,8 @@ LAUNCHES = 0
 LAUNCHES_HALO = 0
 # ... of its batched form (K members of one level a launch)
 LAUNCHES_BATCH = 0
+# ... of its halo form on a batch (K members of a rank's slab a launch)
+LAUNCHES_HALO_BATCH = 0
 # the deepest visit one launch of csrc/fused_stages.cu takes (stages, +1
 # with a residual, +1 more with a restriction); its MAX_DEPTH
 MAX_DEPTH = 6
@@ -438,13 +449,11 @@ def _fused_stages_cuda(
 ):
     """One launch of ``csrc/fused_stages.cu``: a visit of depth at most
     ``MAX_DEPTH`` on a 3D grid, or with ``batch`` on a ``(K, nz, ny, nx)``
-    stack of them."""
-    global LAUNCHES, LAUNCHES_HALO, LAUNCHES_BATCH
+    stack of them (with ``halos``, each member's slabs stacked alike)."""
+    global LAUNCHES, LAUNCHES_HALO, LAUNCHES_BATCH, LAUNCHES_HALO_BATCH
     dev = b.device
     if b.ndim != 3 + int(batch):
         raise ValueError(f"b must be {3 + int(batch)}D, got shape {tuple(b.shape)}")
-    if batch and halos is not None:
-        raise ValueError("a batch takes no halos")
     shape = tuple(b.shape)
     lead = shape[:1] if batch else ()
     nz, ny, nx = shape[-3:]
@@ -486,25 +495,30 @@ def _fused_stages_cuda(
     slabs, flags = [None] * 6, [0] * 6
     if halos is not None:
         (open_lo, open_hi), b_pair, x_pair, ec_pair = halos
+        if b_pair is None:
+            raise ValueError("halos without the slabs of b")
         flags[:2] = int(bool(open_lo)), int(bool(open_hi))
-        trail = shape[1:]
+        # a slab's planes: axis 0, or axis 1 of a batch's (K, D, ...) slabs
+        za = len(lead)
+        trail = shape[za + 1:]
         for j, (name, pair) in enumerate((("b", b_pair), ("x", x_pair), ("ec", ec_pair))):
             if pair is None:
                 continue
             for side, t in enumerate(pair):
                 _check(f"{name} halo", t, None, dev)
                 want = trail if name != "ec" else tuple(s // 2 for s in trail)
-                if tuple(t.shape[1:]) != want:
+                if t.ndim != za + 3 or tuple(t.shape[:za]) != lead or \
+                        tuple(t.shape[za + 1:]) != want:
                     raise ValueError(f"{name} halo of shape {tuple(t.shape)}")
                 slabs[2 * j + side] = t.data_ptr()
-        flags[2], flags[3] = b_pair[0].shape[0], b_pair[1].shape[0]
+        flags[2], flags[3] = b_pair[0].shape[za], b_pair[1].shape[za]
         if x is not None and (x_pair is None or tuple(
-                t.shape[0] for t in x_pair) != tuple(flags[2:4])):
+                t.shape[za] for t in x_pair) != tuple(flags[2:4])):
             raise ValueError("x needs halo slabs as deep as b's")
         if ec is not None:
             if ec_pair is None:
                 raise ValueError("ec needs its halo slabs")
-            flags[4], flags[5] = ec_pair[0].shape[0], ec_pair[1].shape[0]
+            flags[4], flags[5] = ec_pair[0].shape[za], ec_pair[1].shape[za]
         need = n + int(bool(emit_residual)) + int(restrict_transfer is not None)
         if min(flags[2:4]) < need or (ec is not None and (
                 flags[4] < (need + 1) // 2 or flags[5] < need // 2 + 1)):
@@ -532,7 +546,9 @@ def _fused_stages_cuda(
         )
     if rc != 0:
         raise RuntimeError(f"omg_fused_stages failed with code {rc}")
-    if batch:
+    if batch and halos is not None:
+        LAUNCHES_HALO_BATCH += 1
+    elif batch:
         LAUNCHES_BATCH += 1
     elif halos is None:
         LAUNCHES += 1
@@ -654,25 +670,57 @@ def _batch_operands(offsets, tensors, what):
     return nd
 
 
+def _member_halos(halos, m):
+    """Member ``m``'s ``halos`` of a batch's: its slabs, the flags shared."""
+    flags, *pairs = halos
+    return (flags,) + tuple(None if p is None else (p[0][m], p[1][m]) for p in pairs)
+
+
+def _halo_batch_ok(halos, K, depth):
+    """Raise unless ``halos`` are a batch's: K members' slabs each, and a
+    visit one launch takes."""
+    for p in halos[1:]:
+        if p is not None and any(t.ndim != 4 or t.shape[0] != K for t in p):
+            raise ValueError(
+                f"K1hb: halo slabs of shapes {[tuple(t.shape) for t in p]} for "
+                f"{K} members; each (K, planes, ny, nx)"
+            )
+    if depth > MAX_DEPTH:
+        raise ValueError(f"a halo visit of depth {depth}: one launch takes {MAX_DEPTH}")
+
+
 def fused_stages_const_3d_batch_plain(
     values, offsets, b, x, stages, emit_residual: bool = False,
     corner=None, restrict_transfer=None, ec=None, prolong_transfer=None,
-    emit_x: bool = True,
+    emit_x: bool = True, halos=None,
 ):
     """Plain version of :func:`fused_stages_const_3d_batch`: the scalar
-    plain version on each member (in the same chunks), stacked."""
+    plain version on each member (in the same chunks; with ``halos``, the
+    scalar halo form on each member's slabs, ``corner`` gated), stacked."""
     offsets = tuple(tuple(int(o) for o in off) for off in offsets)
     stages = _norm_stages(stages)
     if _batch_operands(offsets, (b,) if x is None else (b, x), "K1b") != 3:
         raise ValueError("K1b takes a batch of 3D grids")
     _visit_ok(stages, emit_residual, restrict_transfer, ec, emit_x)
-    outs = [
-        _chunked(fused_stages_const_3d_plain, values, offsets, b[m],
-                 None if x is None else x[m], stages, emit_residual, corner,
-                 restrict_transfer, None if ec is None else ec[m],
-                 prolong_transfer, emit_x)
-        for m in range(b.shape[0])
-    ]
+    if halos is not None:
+        _halo_batch_ok(halos, b.shape[0], len(stages) + int(bool(emit_residual))
+                       + int(restrict_transfer is not None))
+        outs = [
+            fused_stages_const_3d_plain(
+                values, offsets, b[m], None if x is None else x[m], stages,
+                emit_residual, corner, restrict_transfer,
+                None if ec is None else ec[m], prolong_transfer, emit_x,
+                _member_halos(halos, m))
+            for m in range(b.shape[0])
+        ]
+    else:
+        outs = [
+            _chunked(fused_stages_const_3d_plain, values, offsets, b[m],
+                     None if x is None else x[m], stages, emit_residual, corner,
+                     restrict_transfer, None if ec is None else ec[m],
+                     prolong_transfer, emit_x)
+            for m in range(b.shape[0])
+        ]
     if isinstance(outs[0], tuple):
         return tuple(torch.stack([o[j] for o in outs]) for j in range(len(outs[0])))
     return torch.stack(outs)
@@ -681,18 +729,26 @@ def fused_stages_const_3d_batch_plain(
 def fused_stages_const_3d_batch(
     values, offsets, b, x, stages, emit_residual: bool = False,
     corner=None, restrict_transfer=None, ec=None, prolong_transfer=None,
-    emit_x: bool = True,
+    emit_x: bool = True, halos=None,
 ):
     """K1b: :func:`fused_stages_const_3d` on K members of one level at
     once: ``b`` and ``x`` ``(K, nz, ny, nx)``, ``ec`` ``(K, nz/2, ny/2,
     nx/2)``, the outputs stacked likewise; one operator, stage list and
     transfer for all.  On a CUDA tensor one launch a chunk for the whole
     batch (every visit of a V(2,2) cycle is one), each member bit-equal to
-    the scalar launch on it; on a CPU tensor the plain version.  No halos."""
+    the scalar launch on it; on a CPU tensor the plain version.
+
+    ``halos`` (K1hb: K members of a rank's slab): as the scalar halo form's
+    (:func:`fused_stages_const_3d`), each slab a stack of the members'
+    ``(K, D, ny, nx)`` (``ec``'s ``(K, D/2 (+1), ny/2, nx/2)``), the flags
+    shared, ``corner`` gated here; one launch, each member bit-equal to the
+    scalar halo launch on its slabs."""
+    if halos is not None:
+        corner = gate_corner(corner, halos[0][0])
     if b.device.type == "cpu":
         return fused_stages_const_3d_batch_plain(
             values, offsets, b, x, stages, emit_residual, corner,
-            restrict_transfer, ec, prolong_transfer, emit_x,
+            restrict_transfer, ec, prolong_transfer, emit_x, halos,
         )
     if b.device.type != "cuda":
         raise ValueError(f"unsupported device {b.device}")
@@ -701,6 +757,13 @@ def fused_stages_const_3d_batch(
     if _batch_operands(offsets, (b,) if x is None else (b, x), "K1b") != 3:
         raise ValueError("K1b takes a batch of 3D grids")
     _visit_ok(stages, emit_residual, restrict_transfer, ec, emit_x)
+    if halos is not None:
+        _halo_batch_ok(halos, b.shape[0], len(stages) + int(bool(emit_residual))
+                       + int(restrict_transfer is not None))
+        return _fused_stages_cuda(
+            values, offsets, b, x, stages, emit_residual, corner,
+            restrict_transfer, ec, prolong_transfer, emit_x, halos, batch=True,
+        )
 
     def one(*a):
         return _fused_stages_cuda(*a, batch=True)
@@ -735,9 +798,9 @@ def _stencil_ok(op, b) -> bool:
 
 def _visit_3d(op, b, halos=None, **kw):
     """The 3D visit function for ``b``: K1b's for a batch, else K1's (with
-    ``halos``, a rank's slab)."""
+    ``halos``, a rank's slab: K1hb, K1h)."""
     if _batched(op, b):
-        return lambda *a: fused_stages_const_3d_batch(*a, **kw)
+        return lambda *a: fused_stages_const_3d_batch(*a, halos=halos, **kw)
     return lambda *a: fused_stages_const_3d(*a, halos=halos, **kw)
 
 

@@ -79,6 +79,16 @@ plane (no boundary epilogue, no concatenated slab).  Their plain versions
 concatenate the planes and slice the result.  They count apart:
 ``LAUNCHES_K3_HALO``, ``LAUNCHES_K4_HALO``, ``LAUNCHES_K2_HALO``.
 
+**The halo forms on a batch** (the halo kernels under ``jax.vmap``):
+:func:`halo_half_sweep_batch` (K3hb), :func:`halo_half_sweep_vary_batch`
+(K4hb, a pass a launch as K4h) and ``df_update_residual_batch(...,
+halos=...)`` (K2hb) run K members of a rank's slab in one launch, every
+member with its own received planes (``(K, 1, *plane)``) and the operator
+shared; each member equals the scalar halo launch on it bit for bit.  Their
+plain versions are the scalar halo forms member by member.  They count
+apart: ``LAUNCHES_K3_HALO_BATCH``, ``LAUNCHES_K4_HALO_BATCH``,
+``LAUNCHES_K2_HALO_BATCH``.
+
 The JAX package's folded-2D tier is its own hardware's layout and is not
 ported.
 """
@@ -107,6 +117,13 @@ __all__ = [
     "LAUNCHES_K3_BATCH",
     "LAUNCHES_K4_BATCH",
     "LAUNCHES_K5_BATCH",
+    "LAUNCHES_K2_HALO_BATCH",
+    "LAUNCHES_K3_HALO_BATCH",
+    "LAUNCHES_K4_HALO_BATCH",
+    "halo_half_sweep_batch",
+    "halo_half_sweep_batch_plain",
+    "halo_half_sweep_vary_batch",
+    "halo_half_sweep_vary_batch_plain",
     "half_sweep_batch",
     "half_sweep_batch_plain",
     "half_sweep_vary_batch",
@@ -163,6 +180,11 @@ LAUNCHES_K2_BATCH = 0
 LAUNCHES_K3_BATCH = 0
 LAUNCHES_K4_BATCH = 0
 LAUNCHES_K5_BATCH = 0
+# launches of the halo forms on a batch (K members of a rank's slab a
+# launch): K2, K3, K4
+LAUNCHES_K2_HALO_BATCH = 0
+LAUNCHES_K3_HALO_BATCH = 0
+LAUNCHES_K4_HALO_BATCH = 0
 
 
 def df_update_residual_const_3d_plain(
@@ -247,15 +269,16 @@ def _kernel():
 def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm,
                              halos=None, batch=False):
     """One launch of ``csrc/df_update.cu``: a 3D grid, or with ``batch`` a
-    ``(K, nz, ny, nx)`` stack of them (partials ``(K, P)``)."""
-    global LAUNCHES, LAUNCHES_K2_HALO, LAUNCHES_K2_BATCH
+    ``(K, nz, ny, nx)`` stack of them (partials ``(K, P)``; with ``halos``
+    each member's planes ``(K, 1, ny, nx)``)."""
+    global LAUNCHES, LAUNCHES_K2_HALO, LAUNCHES_K2_BATCH, LAUNCHES_K2_HALO_BATCH
     dev = x_hi.device
     if x_hi.ndim != 3 + int(batch):
         what = "(K, nz, ny, nx) batches" if batch else "3D grids"
         raise ValueError(f"the kernel takes {what}, got shape {tuple(x_hi.shape)}")
     shape = tuple(x_hi.shape)
-    if batch and (halos is not None or shape[0] < 1):
-        raise ValueError("a batch of at least one member, and no halos")
+    if batch and shape[0] < 1:
+        raise ValueError("a batch of at least one member")
     for name, t in (("x_hi", x_hi), ("x_lo", x_lo), ("e", e),
                     ("b_hi", b_hi), ("b_lo", b_lo)):
         if not isinstance(t, torch.Tensor):
@@ -272,10 +295,11 @@ def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_nor
     if halos is not None:
         from openmg_tpu_torch.ops.fused import _check
 
-        # x_hi, x_lo, e: lower then upper; each one (1, ny, nx) plane
+        # x_hi, x_lo, e: lower then upper; each one (1, ny, nx) plane (a
+        # member's, on a batch)
         for j, (name, pair) in enumerate(zip(("x_hi", "x_lo", "e"), halos)):
             for side, t in enumerate(pair):
-                _check(f"{name} halo", t, (1,) + shape[1:], dev)
+                _check(f"{name} halo", t, shape[:-3] + (1,) + shape[-2:], dev)
                 planes[3 * side + j] = t.data_ptr()
     K = len(offsets)
     if K > 27 or any(abs(o) > 1 for off in offsets for o in off):
@@ -320,7 +344,9 @@ def _df_update_residual_cuda(offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_nor
         )
     if rc != 0:
         raise RuntimeError(f"omg_df_update_residual failed with code {rc}")
-    if batch:
+    if batch and halos is not None:
+        LAUNCHES_K2_HALO_BATCH += 1
+    elif batch:
         LAUNCHES_K2_BATCH += 1
     elif halos is None:
         LAUNCHES += 1
@@ -378,16 +404,38 @@ def df_update_residual_const_3d(
     )
 
 
+def _df_batch_halos(nd, halos, K):
+    """Raise unless ``halos`` are K2hb's: a 3D batch's ``(K, 1, ny, nx)``
+    planes (a 2D or 1D grid refuses halos, as the scalar form)."""
+    if halos is None:
+        return
+    if nd != 3:
+        raise ValueError(
+            "halos on a 2D or 1D grid: the lift maps the partition axis to "
+            "the kernel's y axis (partitioned 2D slabs take the tensor "
+            "double-float residual)"
+        )
+    for pair in halos:
+        if any(t.ndim != 4 or t.shape[0] != K for t in pair):
+            raise ValueError(
+                f"K2hb: halo planes of shapes {[tuple(t.shape) for t in pair]} "
+                f"for {K} members; each (K, 1, ny, nx)"
+            )
+
+
 def df_update_residual_batch_plain(offsets, terms, x_hi, x_lo, e, b_hi, b_lo,
-                                   emit_norm: bool = False):
+                                   emit_norm: bool = False, halos=None):
     """Plain version of :func:`df_update_residual_batch`: the scalar plain
-    version on each member (on its 3D lift), stacked; partials ``(K, nz)``."""
+    version on each member (on its 3D lift; with ``halos``, on its planes),
+    stacked; partials ``(K, nz)``."""
     nd = _batch_operands(offsets, (x_hi, x_lo, e, b_hi, b_lo), "K2b")
+    _df_batch_halos(nd, halos, x_hi.shape[0])
     offs3 = _lift(offsets) if nd < 3 else offsets
     outs = [
         df_update_residual_const_3d_plain(
             offs3, terms, *(_up(t[m]) for t in (x_hi, x_lo, e, b_hi, b_lo)),
             emit_norm=emit_norm,
+            halos=None if halos is None else tuple((lo[m], hi[m]) for lo, hi in halos),
         )
         for m in range(x_hi.shape[0])
     ]
@@ -396,20 +444,24 @@ def df_update_residual_batch_plain(offsets, terms, x_hi, x_lo, e, b_hi, b_lo,
 
 
 def df_update_residual_batch(offsets, terms, x_hi, x_lo, e, b_hi, b_lo,
-                             emit_norm: bool = False):
+                             emit_norm: bool = False, halos=None):
     """K2b: :func:`df_update_residual_const_3d` on K right-hand sides of
     one grid at once, every operand ``(K, *grid)`` (a grid of 1, 2 or 3
     dimensions, by the offsets).  Returns ``(x_hi', x_lo', r_hi)`` stacked
     and, with ``emit_norm``, partials ``(K, P)`` whose row k sums to member
     k's ‖r_hi‖² (:func:`df_norms`).  On a CUDA tensor one launch for the
     batch, each member bit-equal to the scalar launch; on a CPU tensor the
-    plain version."""
+    plain version.
+
+    ``halos`` (K2hb: K members of a rank's 3D slab): as the scalar halo
+    form's, each plane a stack of the members' ``(K, 1, ny, nx)``."""
     offsets = tuple(tuple(int(o) for o in off) for off in offsets)
     terms = tuple(tuple(t) for t in terms)
     nd = _batch_operands(offsets, (x_hi, x_lo, e, b_hi, b_lo), "K2b")
+    _df_batch_halos(nd, halos, x_hi.shape[0])
     if x_hi.device.type == "cpu":
         return df_update_residual_batch_plain(
-            offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm
+            offsets, terms, x_hi, x_lo, e, b_hi, b_lo, emit_norm, halos
         )
     if x_hi.device.type != "cuda":
         raise ValueError(f"unsupported device {x_hi.device}")
@@ -418,7 +470,7 @@ def df_update_residual_batch(offsets, terms, x_hi, x_lo, e, b_hi, b_lo,
     out = _df_update_residual_cuda(
         _lift(offsets) if nd < 3 else offsets, terms,
         *(t.reshape(lift) for t in (x_hi, x_lo, e, b_hi, b_lo)),
-        emit_norm, batch=True,
+        emit_norm, halos, batch=True,
     )
     return tuple(a.reshape(x_hi.shape) for a in out[:3]) + tuple(out[3:])
 
@@ -628,9 +680,11 @@ def _half_sweep_cuda(coef, offsets, b, x, mode, omega, color, vary, corner,
     """Launch one pass of ``csrc/half_sweep.cu``; returns the new array.
     ``halos``: the ``(lower, upper)`` planes a halo form reads.  ``batch``:
     ``b`` and ``x`` are ``(K, nz, ny, nx)`` stacks, one launch for all
-    members (K3b, K4b), the operator shared."""
+    members (K3b, K4b; with ``halos``, each member's ``(K, 1, ny, nx)``
+    planes: K3hb, K4hb), the operator shared."""
     global LAUNCHES_K3, LAUNCHES_K4, LAUNCHES_K3_HALO, LAUNCHES_K4_HALO
     global LAUNCHES_K3_BATCH, LAUNCHES_K4_BATCH
+    global LAUNCHES_K3_HALO_BATCH, LAUNCHES_K4_HALO_BATCH
     from openmg_tpu_torch.ops.fused import _check, _row_map
 
     if mode not in _MODE_CODE:
@@ -641,8 +695,8 @@ def _half_sweep_cuda(coef, offsets, b, x, mode, omega, color, vary, corner,
         raise ValueError(
             f"the kernel takes {what} and 3D taps, got shape {tuple(x.shape)}"
         )
-    if batch and (halos is not None or x.shape[0] < 1):
-        raise ValueError("a batch of at least one member, and no halos")
+    if batch and x.shape[0] < 1:
+        raise ValueError("a batch of at least one member")
     full = tuple(x.shape)
     shape = full[-3:]
     K = len(offsets)
@@ -664,8 +718,8 @@ def _half_sweep_cuda(coef, offsets, b, x, mode, omega, color, vary, corner,
     lower = upper = None
     if halos is not None:
         lower, upper = halos
-        _check("lower halo", lower, (1,) + shape[1:], dev)
-        _check("upper halo", upper, (1,) + shape[1:], dev)
+        _check("lower halo", lower, full[:-3] + (1,) + shape[1:], dev)
+        _check("upper halo", upper, full[:-3] + (1,) + shape[1:], dev)
     out = torch.empty_like(x)
     zc = 0 if vary else sweep_plan(*shape, _sms(dev))[0]
     offs_c = (ctypes.c_int * (3 * K))(*[o for off in offsets for o in off])
@@ -683,7 +737,12 @@ def _half_sweep_cuda(coef, offsets, b, x, mode, omega, color, vary, corner,
         )
     if rc != 0:
         raise RuntimeError(f"omg_half_sweep failed with code {rc}")
-    if batch:
+    if batch and halos is not None:
+        if vary:
+            LAUNCHES_K4_HALO_BATCH += 1
+        else:
+            LAUNCHES_K3_HALO_BATCH += 1
+    elif batch:
         if vary:
             LAUNCHES_K4_BATCH += 1
         else:
@@ -1231,6 +1290,103 @@ def half_sweep_vary_batch(coeffs, offsets, b, x, mode, omega=0.0, color=0):
                            xx.contiguous(), mode, omega, color, True, None,
                            batch=True)
     return out.reshape(x.shape)
+
+
+def _halo_batch_operands(offsets, b, x, lower, upper, what):
+    """The slab's dimension of a halo batch (by the offsets: 3, or 2 for a
+    2D slab cut along y), after checking that ``b`` and ``x`` are ``(K,
+    *slab)`` and the received planes ``(K, 1, *plane)``."""
+    nd = _batch_operands(offsets, (b, x), what)
+    if nd not in (2, 3):
+        raise ValueError(f"{what} takes 3D slabs, or 2D slabs cut along y")
+    want = (x.shape[0], 1) + tuple(x.shape[2:])
+    for name, t in (("lower", lower), ("upper", upper)):
+        if tuple(t.shape) != want:
+            raise ValueError(
+                f"{what}: {name} planes of shape {tuple(t.shape)}, expected {want}"
+            )
+    return nd
+
+
+def halo_half_sweep_batch_plain(values, offsets, b, x, mode, omega, color,
+                                lower, upper, corner=None):
+    """Plain version of :func:`halo_half_sweep_batch`: the scalar halo
+    form's plain version on each member (``corner`` already gated),
+    stacked."""
+    offsets = _norm_offsets(offsets)
+    shape = x.shape
+    if _halo_batch_operands(offsets, b, x, lower, upper, "K3hb") == 2:
+        offsets, corner, (b, x, lower, upper) = _slab_lift(
+            offsets, corner, b, x, lower, upper)
+    return torch.stack([
+        half_sweep_plain(values, offsets, b[m], x[m], mode, omega, color, corner,
+                         halos=(lower[m], upper[m]))
+        for m in range(shape[0])
+    ]).reshape(shape)
+
+
+def halo_half_sweep_batch(values, offsets, b, x, mode: str, omega: float,
+                          color: int, lower, upper, corner=None, open_lo=0):
+    """K3hb: :func:`halo_half_sweep_const_3d` on K members of a rank's slab
+    at once: ``b`` and ``x`` ``(K, *slab)``, each member's received planes
+    ``lower`` / ``upper`` ``(K, 1, *plane)``, the operator shared.  A 2D
+    slab (by the offsets) runs as ``(K, ny, 1, nx)``.  On a CUDA tensor one
+    launch for the batch, each member bit-equal to the scalar halo launch
+    on it; on a CPU tensor the plain version."""
+    from openmg_tpu_torch.ops.fused import gate_corner
+
+    offsets = _norm_offsets(offsets)
+    corner = gate_corner(corner, open_lo)
+    if x.device.type == "cpu":
+        return halo_half_sweep_batch_plain(values, offsets, b, x, mode, omega,
+                                           color, lower, upper, corner)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if _halo_batch_operands(offsets, b, x, lower, upper, "K3hb") == 2:
+        offs, corner, (bb, xx, lo, up) = _slab_lift(offsets, corner, b, x, lower, upper)
+        out = _half_sweep_cuda(values, offs, bb, xx, mode, omega, color, False, corner,
+                               halos=(lo, up), batch=True)
+        return out.reshape(x.shape)
+    return _half_sweep_cuda(values, offsets, b, x, mode, omega, color, False, corner,
+                            halos=(lower, upper), batch=True)
+
+
+def halo_half_sweep_vary_batch_plain(coeffs, offsets, b, x, mode, omega, color,
+                                     lower, upper):
+    """Plain version of :func:`halo_half_sweep_vary_batch`: the scalar halo
+    form's plain version on each member, stacked."""
+    offsets = _norm_offsets(offsets)
+    shape = x.shape
+    if _halo_batch_operands(offsets, b, x, lower, upper, "K4hb") == 2:
+        offsets, _, (coeffs, b, x, lower, upper) = _slab_lift(
+            offsets, None, coeffs, b, x, lower, upper)
+    return torch.stack([
+        half_sweep_vary_plain(coeffs, offsets, b[m], x[m], mode, omega, color,
+                              halos=(lower[m], upper[m]))
+        for m in range(shape[0])
+    ]).reshape(shape)
+
+
+def halo_half_sweep_vary_batch(coeffs, offsets, b, x, mode: str, omega: float,
+                               color: int, lower, upper):
+    """K4hb: :func:`halo_half_sweep_vary_3d` on K members of a rank's slab
+    at once (``coeffs`` the slab's own coefficient grids, shared; the rest
+    as :func:`halo_half_sweep_batch`): one launch of ``csrc/half_sweep.cu``'s
+    varying pass for the batch, a pass a launch as K4h."""
+    offsets = _norm_offsets(offsets)
+    if x.device.type == "cpu":
+        return halo_half_sweep_vary_batch_plain(coeffs, offsets, b, x, mode, omega,
+                                                color, lower, upper)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if _halo_batch_operands(offsets, b, x, lower, upper, "K4hb") == 2:
+        offs, _, (cc, bb, xx, lo, up) = _slab_lift(offsets, None, coeffs, b, x,
+                                                   lower, upper)
+        out = _half_sweep_cuda(cc, offs, bb, xx, mode, omega, color, True, None,
+                               halos=(lo, up), batch=True)
+        return out.reshape(x.shape)
+    return _half_sweep_cuda(coeffs, offsets, b, x, mode, omega, color, True, None,
+                            halos=(lower, upper), batch=True)
 
 
 def sweeps_vary_batch_plain(coeffs, offsets, b, x, passes, mode="rbgs",

@@ -27,6 +27,19 @@ Design, as in the JAX package:
 
 :meth:`DistributedSolver.solve` takes the whole right-hand side on every
 rank and returns the whole solution on every rank (gathered at the end).
+
+:meth:`~_RankLoop.solve_many` (both distributed solvers) runs a batch as
+one ``(K, *slab)`` stack (:class:`_DistBatch`), as the JAX package runs
+its batch as one ``vmap`` over the ``shard_map`` loop: a step of the stack
+makes the exchanges of one scalar step, each carrying every member's planes
+(partition axis 1), one launch of each kernel's halo form on a batch (K1hb,
+K2hb, K3hb, K4hb; K6hb on the sparse engine) a visit, pass or product, the
+replicated levels through the single-device cycle on the stack, and one
+reduction of the members' norms with one host read.  Every member's
+arithmetic is its scalar solve's on the same ranks (every per-member sum is
+the scalar call on the member's rows; :class:`~openmg_tpu_torch.parallel.
+halo.Comm` reduces each member's as its scalar solve does), so a member is
+bit-equal to its scalar distributed solve.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ from openmg_tpu_torch.core.config import MeshConfig, SolverConfig
 from openmg_tpu_torch.core.cycle import v_cycle
 from openmg_tpu_torch.core.hierarchy import Hierarchy
 from openmg_tpu_torch.core.solver import (
+    _Batch,
     _Checkpointer,
     exact_residual_terms,
     lockstep,
@@ -146,12 +160,18 @@ def _unfaced(level):
     return dataclasses.replace(level, A=A, inv_diag=1.0 / A.coeff(di))
 
 
+def _sums(t):
+    """Each member's sum of a stack ``(K, ...)``, a ``(K,)`` tensor: the
+    scalar ``torch.sum`` on every member's rows (one reduction over the
+    stack need not add in that order)."""
+    return torch.stack([torch.sum(row) for row in t])
+
+
 class _DistStep:
     """One right-hand side's outer loop on this rank's slab (of either
-    distributed solver: ``solver`` provides ``dtype``, ``_error_solve``,
-    ``_residual_df`` and ``_fused_terms``, None where the outer step is not
-    K2's).  ``rn`` is the slab's LOCAL sum of ``r_hi²``; the loop reduces it
-    over the ranks (:meth:`_RankLoop._norms`)."""
+    distributed solver, through :meth:`_RankLoop._update`).  ``rn`` is the
+    slab's LOCAL sum of ``r_hi²``; the loop reduces it over the ranks
+    (:meth:`_RankLoop._norms`)."""
 
     def __init__(self, solver, b_pair, x_pair):
         self.s, self.b = solver, b_pair
@@ -166,57 +186,144 @@ class _DistStep:
 
     def advance(self):
         s = self.s
-        e = s._error_solve(self.r.to(s.dtype))
-        if s._fused_terms is not None:
-            planes = s.comm.exchange([(t, 1, 1) for t in (self.x[0], self.x[1], e)])
-            xh, xl, self.r, pn = kernels.df_update_residual_const_3d(
-                s._fine_offsets, s._fused_terms, self.x[0], self.x[1], e,
-                self.b[0], self.b[1], emit_norm=True, halos=tuple(planes),
-            )
-            self.x = (xh, xl)
-            self.rn = torch.sum(pn)
-        else:
-            self.x = df_add_f32(self.x, e)
-            self.r, self.rn = s._residual_df(self.b, self.x)
+        self.x, self.r, self.rn = s._update(self.x, self.b, s._inner(self.r))
+
+
+class _DistBatch(_Batch):
+    """The outer loops of a batch on this rank's slabs as one ``(n,
+    *slab)`` stack of the members still running: the single-device
+    :class:`~openmg_tpu_torch.core.solver._Batch` (narrowing by stacking
+    views, frozen members, one host read a step), its step the solver's
+    :meth:`_RankLoop._update` on the stack and ``rn`` the members' LOCAL
+    sums, reduced over the ranks by :meth:`norms`.  Every rank narrows the
+    same members, as it reads the same reduced norms: checked at each
+    narrowing."""
+
+    def __init__(self, solver, x, b, r, rn):
+        super().__init__(x, b, r, rn, solver._update, solver._inner)
+        self.solver = solver
+
+    def norms(self, pending):
+        if pending != self.members:
+            raise RuntimeError(f"members {pending} read, {self.members} in the batch")
+        return self.solver._norms(self.rn)
+
+    def narrow(self, keep):
+        if keep != self.members:
+            self.solver._same_on_every_rank(keep, len(self.frozen))
+        super().narrow(keep)
 
 
 class _RankLoop:
     """What the two distributed solvers share around their outer loops
     (this one and :class:`~openmg_tpu_torch.parallel.sparse_dist.
-    DistributedAlgebraicSolver`): the reduction of the members' norms, the
-    delivery of the whole solution on every rank, and ``solve_many``.  A
-    subclass sets ``comm``, ``plan``, ``grid_shape``, ``config``, ``mesh``
-    and ``_tag`` and provides ``_step(b, x0)`` and ``_info(seconds)``."""
+    DistributedAlgebraicSolver`): the outer update, the reduction of the
+    members' norms, the delivery of the whole solution on every rank, and
+    ``solve_many``.  A subclass sets ``comm``, ``plan``, ``grid_shape``,
+    ``config``, ``mesh``, ``dtype``, ``_tag`` and ``_fused_terms`` (None
+    where the outer step is not K2's) and provides ``_error_solve(r)``,
+    ``_residual_df(b, x) -> (r_hi, local Σ r_hi²)`` (on a slab or a
+    stack), ``_inputs(b, x0) -> (b_pair, x_pair or None, native)`` and
+    ``_info(seconds)``."""
+
+    def _stacked(self, t) -> bool:
+        """Whether ``t`` is a stack of members (one axis more than a slab)."""
+        return t.ndim == len(self.grid_shape) + 1
+
+    def _inner(self, r):
+        return self._error_solve(r.to(self.dtype))
+
+    def _update(self, x, b, e):
+        """One outer step's update and residual of the slab (or stack):
+        ``(x, r_hi, local Σ r_hi²)``, a member's sum each for a stack.
+        K2's halo form (K2hb on a stack) where the fine operator takes it,
+        its ``(x_hi, x_lo, e)`` planes in one exchange; else ``x + e`` in
+        double-float and :meth:`_residual_df`."""
+        if self._fused_terms is None:
+            x = df_add_f32(x, e)
+            return (x, *self._residual_df(b, x))
+        axis = int(self._stacked(e))
+        planes = self.comm.exchange([(t, 1, 1) for t in (x[0], x[1], e)], axis)
+        run = kernels.df_update_residual_batch if axis else kernels.df_update_residual_const_3d
+        xh, xl, r, pn = run(self._fine_offsets, self._fused_terms, x[0], x[1], e,
+                            b[0], b[1], emit_norm=True, halos=tuple(planes))
+        return (xh, xl), r, _sums(pn) if axis else torch.sum(pn)
 
     def _norms(self, rns):
-        """The pending members' ‖r‖ from their local sums: one reduction
-        and one host read for all of them."""
-        sums = torch.stack(rns)
-        total = self.comm.host_sums(sums) if self.plan[0] else sums.cpu()
+        """The members' ‖r‖ from their local sums (a list of 0-d tensors,
+        or a stack's ``(n,)``): one host read, each member's sum over the
+        ranks as its scalar solve's."""
+        sums = torch.stack(rns) if isinstance(rns, list) else rns
+        total = self.comm.host_sums(sums, members=True) if self.plan[0] else sums.cpu()
         return total.double().sqrt().tolist()
 
-    def _gather(self, t):
-        """The whole fine grid from every rank's slab."""
-        return self.comm.all_gather(t.contiguous()) if self.plan[0] else t
+    def _same_on_every_rank(self, keep, K):
+        """Raise unless every rank keeps the members ``keep`` of ``K``."""
+        if not self.plan[0]:
+            return
+        mask = torch.zeros(K, dtype=torch.float64, device=self.comm.device)
+        mask[list(keep)] = 1.0
+        both = torch.cat([mask, -mask])
+        if not torch.equal(self.comm.all_max(both), both):
+            raise RuntimeError(f"the ranks keep different members of the batch: {keep} here")
 
-    def _deliver(self, x_pair, native, info):
+    def _gather(self, t):
+        """The whole fine grid (a stack's: each member's) from every rank's
+        slab."""
+        if not self.plan[0]:
+            return t
+        return self.comm.all_gather(t.contiguous(), int(self._stacked(t)))
+
+    def _deliver(self, x_pair, native, info, lead=()):
         """The whole solution on every rank: float64 numpy (the exact merge
         of the pair) for a host caller; for a float32 tensor caller the hi
-        part on the device, the pair in ``info['x_df']``."""
+        part on the device, the pair in ``info['x_df']``.  ``lead``:
+        ``(K,)`` for a stack."""
         xh, xl = (self._gather(t) for t in x_pair)
-        shape = self.grid_shape
+        shape = tuple(lead) + tuple(self.grid_shape)
         if native:
             info["x_df"] = (xh.reshape(shape), xl.reshape(shape))
             return info["x_df"][0]
         return df_merge((xh, xl)).reshape(shape)
 
+    def _step(self, b, x0):
+        b_pair, x_pair, native = self._inputs(b, x0)
+        return _DistStep(self, b_pair, x_pair), native
+
+    def _batch(self, members, x0s):
+        """The outer loops of ``members`` from ``x0s`` as one
+        :class:`_DistBatch`, started as each member's scalar step starts:
+        ``r = b`` from zero, the double-float residual from an ``x0`` (of
+        the members given one, as one stack)."""
+        ins = [self._inputs(b, x0) for b, x0 in zip(members, x0s)]
+        b = tuple(torch.stack([i[0][j] for i in ins]) for j in (0, 1))
+        zero = torch.zeros_like(b[0][0])
+        x = tuple(torch.stack([zero if i[1] is None else i[1][j] for i in ins])
+                  for j in (0, 1))
+        r, rn = b[0], _sums(b[0] * b[0])
+        given = [m for m, i in enumerate(ins) if i[1] is not None]
+        if given:
+            def pick(t):
+                return torch.stack([t[m] for m in given])
+
+            r_x, rn_x = self._residual_df(tuple(map(pick, b)), tuple(map(pick, x)))
+            at = {m: p for p, m in enumerate(given)}
+            r = torch.stack([r_x[at[m]] if m in at else r[m] for m in range(len(ins))])
+            rn = torch.stack([rn_x[at[m]] if m in at else rn[m] for m in range(len(ins))])
+        return _DistBatch(self, x, b, r, rn)
+
     def solve_many(self, bs, x0s=None):
-        """A batch of right-hand sides in lockstep: every round advances
-        each member not yet converged one outer step and reduces the
-        members' norms in one ``all_reduce`` and one host read.  Returns
+        """A batch of right-hand sides as one stack (:class:`_DistBatch`):
+        every step advances the members not yet converged in one outer step
+        of the stack (the exchanges of one scalar step, each with every
+        member's planes; a launch of each kernel's batched halo form) and
+        reduces their norms in one reduction and one host read.  Returns
         ``(xs, info)`` stacked as :meth:`solve` returns one (whole grids on
-        every rank), with per-member ``cycles``, ``converged``,
-        ``final_norm`` and ``residual_norms``."""
+        every rank: stacked float64 numpy, or for a float32 tensor batch on
+        the solver's device its hi parts with the pairs in
+        ``info['x_df']``), with per-member ``cycles``, ``converged``,
+        ``final_norm`` and ``residual_norms``.  Each member is bit-equal to
+        its scalar :meth:`solve` on the same ranks."""
         cfg = self.config
         shape = self.grid_shape
         native = isinstance(bs, torch.Tensor) and bs.dtype == torch.float32
@@ -228,10 +335,11 @@ class _RankLoop:
             raise ValueError(f"{len(x0s)} initial guesses for {K} right-hand sides")
         limit = cfg.cycles if cfg.cycles > 0 else 10_000
         t_start = time.perf_counter()
-        steps = [self._step(b, x0)[0] for b, x0 in zip(members, x0s)]
+        batch = self._batch(members, x0s)
         histories, converged, _, reads = lockstep(
-            steps, limit, float(cfg.threshold),
-            lambda i, k, v: self._say(i, k, v, batch=True), None, self._norms,
+            list(range(K)), limit, float(cfg.threshold),
+            lambda i, k, v: self._say(i, k, v, batch=True),
+            norms=batch.norms, advance=batch.advance,
         )
         info = {
             "batch": K,
@@ -242,16 +350,7 @@ class _RankLoop:
             **self._info(time.perf_counter() - t_start),
             "host_reads": reads,
         }
-        outs, pairs = [], []
-        for s in steps:
-            one = {}
-            outs.append(self._deliver(s.x, native, one))
-            pairs.append(one.get("x_df"))
-        if native:
-            info["x_df"] = (torch.stack([p[0] for p in pairs]),
-                            torch.stack([p[1] for p in pairs]))
-            return info["x_df"][0], info
-        return np.stack(outs), info
+        return self._deliver(batch.iterates(), native, info, (K,)), info
 
     def _say(self, i, k, rnorm, batch=False):
         if self.config.verbose and self.mesh.index == 0:
@@ -428,18 +527,25 @@ class DistributedSolver(_RankLoop):
             return fast.residual_part(op, b, x, self.comm)
         return fast.residual_part_vary(op, b, x, self.comm)
 
+    def _lead(self, level, t) -> int:
+        """Leading axes of ``t`` before level ``level``'s grid: 1 for a
+        stack of members (the level's dimension decides), else 0.  A
+        stack's partition axis is axis 1."""
+        return t.ndim - len(self.stats[level][0])
+
     def _restrict(self, level, r):
         """Level → level + 1, axis 0 by halo taps on a partitioned level;
         the gather at the partitioned → replicated transition."""
         taps = self.transfer.r_taps
+        k = self._lead(level, r)
         out = r
         for a in self.coarsened_axes[level]:
             if a == 0 and self.plan[level]:
-                out = restrict_axis0_ext(halo_exchange(out, self.comm), taps)
+                out = restrict_axis0_ext(halo_exchange(out, self.comm, k), taps, k)
             else:
-                out = _restrict_axis(out, a, taps)
+                out = _restrict_axis(out, a + k, taps)
         if self.plan[level] and not self.plan[level + 1]:
-            out = self.comm.all_gather(out)
+            out = self.comm.all_gather(out, k)
         return out
 
     def _prolong(self, level, ec):
@@ -447,19 +553,20 @@ class DistributedSolver(_RankLoop):
         whole prolongation and this rank's rows below a replicated level."""
         taps = self.transfer.p_taps
         axes = self.coarsened_axes[level]
+        k = self._lead(level + 1, ec)
         up = ec
         if self.plan[level] and self.plan[level + 1]:
             for a in reversed(axes):
                 if a == 0:
-                    up = prolong_axis0_ext(halo_exchange(up, self.comm), taps)
+                    up = prolong_axis0_ext(halo_exchange(up, self.comm, k), taps, k)
                 else:
-                    up = _prolong_axis(up, a, taps)
+                    up = _prolong_axis(up, a + k, taps)
             return up
         for a in reversed(axes):
-            up = _prolong_axis(up, a, taps)
+            up = _prolong_axis(up, a + k, taps)
         if self.plan[level]:
             lo, hi = self.rows[level]
-            up = up[lo:hi].contiguous()
+            up = up.narrow(k, lo, hi - lo).contiguous()
         return up
 
     def _vc(self, level, b, x, x_zero=False):
@@ -528,8 +635,14 @@ class DistributedSolver(_RankLoop):
         return -self._residual(0, torch.zeros_like(p), p)
 
     def _pdot(self, a, b):
-        s = torch.sum(a * b)
-        return self.comm.all_reduce(s) if self.plan[0] else s
+        """``a·b`` over the ranks; on a stack each member's, shaped to
+        broadcast against it."""
+        if not self._stacked(a):
+            s = torch.sum(a * b)
+            return self.comm.all_reduce(s) if self.plan[0] else s
+        s = _sums(a * b)
+        s = self.comm.all_reduce(s, members=True) if self.plan[0] else s
+        return s.reshape((-1,) + (1,) * (a.ndim - 1))
 
     def _pcg(self, r0):
         """``krylov_iters`` CG steps on ``A e = r0`` from zero, each
@@ -564,22 +677,25 @@ class DistributedSolver(_RankLoop):
 
     def _residual_df(self, b_pair, x_pair):
         """Double-float ``r = b − A x`` on the fine slab (tensor code over
-        one-plane halos) and its local ``Σ r_hi²``."""
+        one-plane halos) and its local ``Σ r_hi²`` (each member's on a
+        stack)."""
         offsets = self._fine_offsets
         xh, xl = x_pair
+        k = int(self._stacked(xh))
         if self.plan[0]:
-            eh, el = (halo_exchange(t, self.comm) for t in (xh, xl))
-            samples = [(shifted_ext(eh, o), shifted_ext(el, o)) for o in offsets]
+            eh, el = (halo_exchange(t, self.comm, k) for t in (xh, xl))
+            samples = [(shifted_ext(eh, o, k), shifted_ext(el, o, k)) for o in offsets]
         else:
             samples = [(shift(xh, o), shift(xl, o)) for o in offsets]
         acc = b_pair
-        for k, xs in enumerate(samples):
+        for j, xs in enumerate(samples):
             if self._exact_terms is not None:
-                for p in self._exact_terms[k]:
+                for p in self._exact_terms[j]:
                     acc = df_sub(acc, (float(p) * xs[0], float(p) * xs[1]))
             else:
-                acc = df_sub(acc, df_mul((self.fine_hi.coeff(k), self.fine_lo.coeff(k)), xs))
-        return acc[0], torch.sum(acc[0] * acc[0])
+                acc = df_sub(acc, df_mul((self.fine_hi.coeff(j), self.fine_lo.coeff(j)), xs))
+        sq = acc[0] * acc[0]
+        return acc[0], _sums(sq) if k else torch.sum(sq)
 
     def _local(self, a):
         """This rank's rows of a whole fine grid (numpy float64 or a tensor
@@ -587,7 +703,9 @@ class DistributedSolver(_RankLoop):
         lo, hi = self.rows[0]
         return a[lo:hi]
 
-    def _step(self, b, x0):
+    def _inputs(self, b, x0):
+        """One member's ``(b_pair, x_pair or None, native)`` on this rank's
+        slab."""
         shape = self.grid_shape
         native = isinstance(b, torch.Tensor) and b.dtype == torch.float32
         if native:
@@ -606,7 +724,7 @@ class DistributedSolver(_RankLoop):
                 x0 = x0.detach().cpu().numpy()
             x_np = self._local(np.asarray(x0, dtype=np.float64).reshape(shape))
             x_pair = df_split(np.ascontiguousarray(x_np), self.device)
-        return _DistStep(self, b_pair, x_pair), native
+        return b_pair, x_pair, native
 
     def _info(self, solve_time):
         return {

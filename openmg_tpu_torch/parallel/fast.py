@@ -23,6 +23,14 @@ are planes the kernels read in place (the JAX package corrects the two
 boundary rows of a zero-halo pass afterwards instead; the port has no such
 epilogue).  The fused visits take 3D slabs only, as in the JAX package.
 
+**A stack of members** (``solve_many``): every function takes ``b`` and
+``x`` as a ``(K, *slab)`` stack too, decided by the operator's dimension
+(the tensor has one axis more), and then runs each launch in its halo form
+on a batch (K3hb, K4hb, K1hb) after one exchange of the stack's planes
+(partition axis 1).  A member runs the scalar plan: the predicates below
+read the slab's shape, never the stack's.  λmax and the 1/diag of
+Chebyshev stay one per operator; its updates are tensor code on the stack.
+
 Every function takes the partition axis as a
 :class:`~openmg_tpu_torch.parallel.halo.Comm`.  Whether K1h takes a visit,
 and at which halo depth, is a static function of the slab's shape, the
@@ -68,10 +76,19 @@ def is_fast_op(op) -> bool:
     )
 
 
+def _axis(op, t) -> int:
+    """The partition axis of ``t``: 1 for a stack of ``op``'s slabs (one
+    axis more than the operator), else 0."""
+    return int(t.ndim == op.ndim + 1)
+
+
 def _pass(op, b, x, mode, omega, color, comm):
-    """One constant or cornered pass on the slab: K3's halo form."""
-    lower, upper = halo_planes(x, comm)
-    return kernels.halo_half_sweep_const_3d(
+    """One constant or cornered pass on the slab: K3's halo form (K3hb on
+    a stack)."""
+    axis = _axis(op, x)
+    lower, upper = halo_planes(x, comm, axis)
+    run = kernels.halo_half_sweep_batch if axis else kernels.halo_half_sweep_const_3d
+    return run(
         op.values, op.offsets, b, x, _KMODE[mode], omega, color, lower, upper,
         corner=fused._corner_info(op), open_lo=open_flags(comm)[0],
     )
@@ -129,7 +146,7 @@ def smooth_part(name, op, b, x, iterations, omega, comm):
     if name == "chebyshev":
         di = diag_index(op.offsets)
         invd = (
-            _inv_diag_part(op, tuple(x.shape), comm)
+            _inv_diag_part(op, tuple(x.shape[_axis(op, x):]), comm)
             if isinstance(op, CorneredOperator) else 1.0 / op.values[di]
         )
         lam = gershgorin_lambda_max(op, 1.0 / op.values[di]).to(x.dtype)
@@ -144,10 +161,10 @@ def smooth_part(name, op, b, x, iterations, omega, comm):
 
 
 def _pass_vary(op, b, x, mode, omega, color, comm):
-    lower, upper = halo_planes(x, comm)
-    return kernels.halo_half_sweep_vary_3d(
-        op.coeffs, op.offsets, b, x, _KMODE[mode], omega, color, lower, upper
-    )
+    axis = _axis(op, x)
+    lower, upper = halo_planes(x, comm, axis)
+    run = kernels.halo_half_sweep_vary_batch if axis else kernels.halo_half_sweep_vary_3d
+    return run(op.coeffs, op.offsets, b, x, _KMODE[mode], omega, color, lower, upper)
 
 
 def residual_part_vary(op, b, x, comm):
@@ -241,16 +258,16 @@ def residual_restrict_depth(op, shape, dtype, transfer):
     return depth if depth <= shape[0] else None
 
 
-def _halos(comm, b, x, depth, ec=None):
+def _halos(comm, op, b, x, depth, ec=None):
     """K1's ``halos`` argument: the flags and the depth-deep slabs of ``b``
     (and ``x``; and of ``ec``, ``depth // 2`` below and ``depth // 2 + 1``
-    above), all in one exchange."""
+    above), all in one exchange (of the whole stack for a stack)."""
     items = [(b, depth, depth)]
     if x is not None:
         items.append((x, depth, depth))
     if ec is not None:
         items.append((ec, depth // 2, depth // 2 + 1))
-    got = comm.exchange(items)
+    got = comm.exchange(items, _axis(op, b))
     x_pair = got[1] if x is not None else None
     ec_pair = got[-1] if ec is not None else None
     return open_flags(comm), got[0], x_pair, ec_pair
@@ -263,14 +280,17 @@ def smooth_chunks_part(name, op, b, x, iterations, omega, comm, sizes):
     stages = fused.stages_for(name, iterations, omega)
     c_max = sizes[0]
     flags = open_flags(comm)
-    b_lo, b_hi = comm.exchange([(b, c_max, c_max)])[0]
+    axis = _axis(op, b)
+    b_lo, b_hi = comm.exchange([(b, c_max, c_max)], axis)[0]
+    visit = fused.fused_stages_const_3d_batch if axis else fused.fused_stages_const_3d
     rest = list(stages)
     for c in sizes:
         chunk, rest = rest[:c], rest[c:]
         # the b slabs of a shorter chunk: the neighbours' last / first c
-        b_pair = (b_lo[c_max - c:], b_hi[:c])
-        x_pair = comm.exchange([(x, c, c)])[0]
-        x = fused.fused_stages_const_3d(
+        b_pair = (b_lo.narrow(axis, c_max - c, c).contiguous(),
+                  b_hi.narrow(axis, 0, c).contiguous())
+        x_pair = comm.exchange([(x, c, c)], axis)[0]
+        x = visit(
             op.values, op.offsets, b, x, chunk, corner=fused._corner_info(op),
             halos=(flags, b_pair, x_pair, None),
         )
@@ -285,7 +305,7 @@ def presmooth_restrict_part(name, op, b, x, iterations, omega, transfer, comm, d
     slabs are even).  Returns ``(x, bc_local)``."""
     return fused.presmooth_restrict_fused(
         name, op, b, x, iterations, omega, transfer,
-        halos=_halos(comm, b, x, depth),
+        halos=_halos(comm, op, b, x, depth),
     )
 
 
@@ -295,7 +315,7 @@ def prolong_smooth_part(name, op, b, x, ec, iterations, omega, transfer, comm, d
     :func:`prolong_depth`.  Returns the smoothed ``x``."""
     return fused.prolong_smooth_fused(
         name, op, b, x, ec, iterations, omega, transfer,
-        halos=_halos(comm, b, x, depth, ec),
+        halos=_halos(comm, op, b, x, depth, ec),
     )
 
 
@@ -304,5 +324,5 @@ def residual_restrict_part(op, b, x, transfer, comm, depth):
     of K1's halo form (slabs of ``b`` and ``x`` at the depth of
     :func:`residual_restrict_depth`).  Returns the coarse slab ``bc``."""
     return fused.residual_restrict_fused(
-        op, b, x, transfer, halos=_halos(comm, b, x, depth)
+        op, b, x, transfer, halos=_halos(comm, op, b, x, depth)
     )

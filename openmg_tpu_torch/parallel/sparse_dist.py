@@ -37,6 +37,15 @@ Design, as in the JAX package:
 ``MeshConfig(force_partition=True)`` keeps the levels partitioned on one
 rank (zero halos, gathers the identity): the per-rank program of a larger
 mesh on one card.
+
+``solve_many`` runs its batch as one ``(K, m)`` stack of the ranks' rows
+(:class:`~openmg_tpu_torch.parallel.dist._DistBatch`, shared with the
+stencil engine): a banded ``Ax`` is one exchange of the stack's rows and
+one launch of K6hb, a replicated one K6b (or K7b), the transfers gather the
+stack once; the gathered tier's row gathers and sums, and the coarsest
+product, run member by member on the gathered stack (a sum over the stack's
+slots need not add in the scalar call's order, and a matrix product over
+the batch need not keep each column's bits).
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ from openmg_tpu_torch.core.solver import lockstep
 from openmg_tpu_torch.ops import ell
 from openmg_tpu_torch.ops.doublefloat import df_add, df_mul, df_split, df_sub
 from openmg_tpu_torch.ops.sparse import ELLMatrix, matvec_full, spmv, spmv_df
-from openmg_tpu_torch.parallel.dist import _DistStep, _RankLoop, rank_device
+from openmg_tpu_torch.parallel.dist import _RankLoop, _sums, rank_device
 from openmg_tpu_torch.parallel.halo import Comm
 from openmg_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, make_mesh_2d
 
@@ -318,28 +327,41 @@ class DistributedAlgebraicSolver(_RankLoop):
     # -- level products ----------------------------------------------------
 
     def _full(self, v, part):
-        """The whole vector of a level from every rank's rows."""
-        return self.comm.all_gather(v) if part else v
+        """The whole vector of a level from every rank's rows (each
+        member's, for a stack ``(K, m)``)."""
+        return self.comm.all_gather(v, v.ndim - 1) if part else v
 
     def _local(self, v, level):
-        """This rank's rows of a whole vector of ``level``."""
+        """This rank's rows of a whole vector of ``level`` (or stack)."""
         if not self.plan[level]:
             return v
         lo, hi = self.rows[level]
-        return v[lo:hi].contiguous()
+        return v[..., lo:hi].contiguous()
 
     def _Ax(self, level, v):
         lv = self.levels[level]
         if lv.tier == "replicated":
             return spmv(lv.whole, v)
         if lv.tier == "gathered":
-            # the block's rows against the whole vector
-            return torch.sum(lv.data * self._full(v, True)[lv.cols], dim=0)
+            # the block's rows against the whole vector, a member at a time
+            full = self._full(v, True)
+            if v.ndim == 1:
+                return torch.sum(lv.data * full[lv.cols], dim=0)
+            return torch.stack([torch.sum(lv.data * f[lv.cols], dim=0) for f in full])
+        stack = v.ndim == 2
         if lv.halo:
-            lo, hi = self.comm.exchange([(v, lv.halo, lv.halo)])[0]
+            lo, hi = self.comm.exchange([(v, lv.halo, lv.halo)], int(stack))[0]
         else:
-            lo = hi = v[:0]
-        return ell.spmv_banded_halo(lv.data, lv.offsets, v, lo, hi)
+            lo = hi = v[..., :0]
+        run = ell.spmv_banded_halo_batch if stack else ell.spmv_banded_halo
+        return run(lv.data, lv.offsets, v, lo, hi)
+
+    def _coarse(self, b):
+        """The coarsest level's product with the dense inverse, one a
+        member for a stack."""
+        if b.ndim == 2:
+            return torch.stack([matvec_full(self.coarse_inv, bm) for bm in b])
+        return matvec_full(self.coarse_inv, b)
 
     def _smooth(self, level, b, x, iterations):
         """The single-device smoother (``core.algebraic._smooth_sparse``) on
@@ -387,7 +409,7 @@ class DistributedAlgebraicSolver(_RankLoop):
         """One µ-cycle from ``level`` (``core.algebraic.sparse_v_cycle``)."""
         cfg = self.config
         if level == self.hierarchy.num_levels - 1:
-            return matvec_full(self.coarse_inv, b)
+            return self._coarse(b)
         x = self._smooth(level, b, x, cfg.pre_iterations)
         bc = self._restrict(level, b - self._Ax(level, x))
         ec = torch.zeros_like(bc)
@@ -404,7 +426,7 @@ class DistributedAlgebraicSolver(_RankLoop):
         bs = [r]
         for level in range(L - 1):
             bs.append(self._restrict(level, bs[-1]))
-        x = matvec_full(self.coarse_inv, bs[-1])
+        x = self._coarse(bs[-1])
         for level in range(L - 2, -1, -1):
             x = self._prolong(level, x)
             x = self._vc(level, bs[level], x, 1)
@@ -416,8 +438,13 @@ class DistributedAlgebraicSolver(_RankLoop):
         return self._vc(0, r, torch.zeros_like(r), self.gamma)
 
     def _pdot(self, a, b):
-        s = torch.sum(a * b)
-        return self.comm.all_reduce(s) if self.plan[0] else s
+        """``a·b`` over the ranks; on a stack each member's, ``(K, 1)``."""
+        if a.ndim == 1:
+            s = torch.sum(a * b)
+            return self.comm.all_reduce(s) if self.plan[0] else s
+        s = _sums(a * b)
+        s = self.comm.all_reduce(s, members=True) if self.plan[0] else s
+        return s.reshape(-1, 1)
 
     def _pcg(self, r0):
         """``krylov_iters`` MG-preconditioned CG steps on ``A e = r0`` from
@@ -453,19 +480,23 @@ class DistributedAlgebraicSolver(_RankLoop):
     def _residual_df(self, b_pair, x_pair):
         """Double-float ``r = b − A x`` on this rank's rows (the terms of
         ``ops.sparse.spmv_df`` in slot order, then ``df_sub``) and its local
-        ``Σ r_hi²``.  Banded: one batch of ``(x_hi, x_lo)`` H-row slabs;
+        ``Σ r_hi²`` (each member's on a stack ``(K, m)``, whose rows are its
+        last axis).  Banded: one batch of ``(x_hi, x_lo)`` H-row slabs;
         irregular: the gathered pair."""
         xh, xl = x_pair
+        stack = xh.ndim == 2
         if not self.plan[0]:
             ax = spmv_df(self.fine_hi, self.fine_lo, xh, xl)
         elif self.fine_offsets:
-            H, m = self.fine_halo, xh.shape[0]
+            H, m = self.fine_halo, xh.shape[-1]
             if H:
-                (lh, hh), (ll, hl) = self.comm.exchange([(xh, H, H), (xl, H, H)])
-                xh, xl = torch.cat([lh, xh, hh]), torch.cat([ll, xl, hl])
+                (lh, hh), (ll, hl) = self.comm.exchange([(xh, H, H), (xl, H, H)],
+                                                        int(stack))
+                xh = torch.cat([lh, xh, hh], dim=-1)
+                xl = torch.cat([ll, xl, hl], dim=-1)
             ax = None
             for j, d in enumerate(self.fine_offsets):
-                xs = (xh[H + d: H + d + m], xl[H + d: H + d + m])
+                xs = (xh[..., H + d: H + d + m], xl[..., H + d: H + d + m])
                 term = df_mul((self.fine_hi[j], self.fine_lo[j]), xs)
                 ax = term if ax is None else df_add(ax, term)
         else:
@@ -473,12 +504,15 @@ class DistributedAlgebraicSolver(_RankLoop):
             ax = None
             for j in range(self.fine_hi.shape[0]):
                 c = self.fine_cols[j]
-                term = df_mul((self.fine_hi[j], self.fine_lo[j]), (xh[c], xl[c]))
+                term = df_mul((self.fine_hi[j], self.fine_lo[j]), (xh[..., c], xl[..., c]))
                 ax = term if ax is None else df_add(ax, term)
         r = df_sub(b_pair, ax)
-        return r[0], torch.sum(r[0] * r[0])
+        sq = r[0] * r[0]
+        return r[0], _sums(sq) if stack else torch.sum(sq)
 
-    def _step(self, b, x0):
+    def _inputs(self, b, x0):
+        """One member's ``(b_pair, x_pair or None, native)`` on this rank's
+        rows."""
         lo, hi = self.rows[0]
         native = isinstance(b, torch.Tensor) and b.dtype == torch.float32
         if native:
@@ -496,7 +530,7 @@ class DistributedAlgebraicSolver(_RankLoop):
             else:
                 x_pair = df_split(
                     np.ascontiguousarray(_host(x0).reshape(-1)[lo:hi]), self.device)
-        return _DistStep(self, b_pair, x_pair), native
+        return b_pair, x_pair, native
 
     def _info(self, solve_time):
         h = self.hierarchy

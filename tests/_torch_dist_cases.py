@@ -113,19 +113,55 @@ def port_cases(world):
         if P == world:
             out.append({"name": name, "shape": shape_of(P), "config": config_of(name),
                         "mesh": mesh})
+    v2d = {"name": "v2d", "shape": SHAPE_2D, "config": CFG_2D, "mesh": {"n_devices": 2}}
     if world == 2:
         out.append({"name": "v_resumed", "shape": shape_of(2), "config": config_of("v"),
                     "mesh": CASES["v"][2], "cut": 3})
-        out.append({"name": "v2d", "shape": SHAPE_2D, "config": CFG_2D,
-                    "mesh": {"n_devices": 2}})
-        out.append({"name": "v_many", "shape": shape_of(2), "config": config_of("v"),
-                    "mesh": CASES["v"][2], "many": [0, 5]})
-    out += [sparse_case(name) for name, c in SPARSE_CASES.items() if c[0] == world]
+        out.append(v2d)
+    by_name = {c["name"]: c for c in out}
+    out += [many_case(by_name[n], n) for n in MANY if n in by_name]
     if world == 2:
-        out.append(dict(sparse_case("sp_rbgs"), name="sp_many", many=[SPARSE_SEED, 5]))
+        out.append(many_case(by_name["v"], "v", native_x0=True))
+    sparse = [sparse_case(name) for name, c in SPARSE_CASES.items() if c[0] == world]
+    out += sparse
+    by_name = {c["name"]: c for c in sparse}
+    out += [many_case(by_name[n], n) for n in SPARSE_MANY if n in by_name]
+    if world == 2:
+        out.append(many_case(by_name["sp_rbgs"], "sp_rbgs", native_x0=True))
         # 1001 rows do not split over two ranks: the constructor raises
         out.append(dict(sparse_case("sp_jacobi"), name="sp_indivisible",
                         shape=[1001], expect_error=True))
+    return out
+
+
+# -- solve_many: one stack of MANY_K members ------------------------------
+
+MANY_K = 3
+# the cases whose solver also runs a batch (``<name>_many``): the seeds of
+# its scalar case and two more, the scalar solves of the two run beside it
+MANY = ("v", "w", "f", "v2d", "pcg2_mesh2x2")
+SPARSE_MANY = ("sp_rbgs", "sp_cheb", "sp_irregular", "sp_pcg2_mesh2x2")
+
+
+def many_seeds(case):
+    first = case.get("seed", 0)
+    return [first] + [first + 10 + m for m in range(1, MANY_K)]
+
+
+def many_name(name, native_x0=False):
+    return f"{name}_many_native_x0" if native_x0 else f"{name}_many"
+
+
+def many_case(case, name, native_x0=False):
+    """``solve_many`` of ``many_seeds`` on the solver of ``case``, and the
+    scalar solves of the members its scalar case does not solve (every
+    member where the batch is a float32 tensor from host ``x0s``: the
+    card-batch contract, run on CPU tensors)."""
+    seeds = many_seeds(case)
+    out = dict(case, name=many_name(name, native_x0), many=seeds,
+               scalars=list(range(0 if native_x0 else 1, len(seeds))))
+    if native_x0:
+        out.update(native=True, x0=True)
     return out
 
 
@@ -196,3 +232,28 @@ def assert_solves_agree(hist, x, want_hist, want_x, lam):
     assert hist[-1] < 1e-10
     assert x.shape == want_x.shape
     assert np.linalg.norm((x - want_x).ravel()) <= 2e-10 / lam
+
+
+def assert_many_equals_scalars(port, case_name, native_x0=False):
+    """The batch of ``case_name``'s solver against the scalar solves of its
+    members on the same ranks: every member converged, bit-equal (iterate
+    and norm history, so its cycles too); one host read a step; the
+    exchanges of the longest member's scalar solve (one a step carries every
+    member's planes); and the bytes sent, staged and gathered the sum of
+    the members' scalar solves."""
+    name = many_name(case_name, native_x0)
+    xs, cycles = port[f"{name}/x"], port[f"{name}/cycles"]
+    assert xs.shape[0] == MANY_K == len(cycles)
+    assert port[f"{name}/converged"].all()
+    scalars = []
+    for m in range(MANY_K):
+        key = case_name if m == 0 and not native_x0 else f"{name}/scalar{m}"
+        scalars.append(key)
+        np.testing.assert_array_equal(xs[m], port[f"{key}/x"], err_msg=f"{name} member {m}")
+        np.testing.assert_array_equal(port[f"{name}/hist{m}"], port[f"{key}/hist"])
+        assert cycles[m] == len(port[f"{key}/hist"]) - 1
+    assert int(port[f"{name}/host_reads"]) == int(cycles.max()) + 1
+    assert int(port[f"{name}/exchanges"]) == max(int(port[f"{k}/exchanges"]) for k in scalars)
+    for k in ("bytes_sent", "staged_bytes", "gathered_bytes"):
+        assert int(port[f"{name}/{k}"]) == sum(int(port[f"{s}/{k}"]) for s in scalars), k
+    return name

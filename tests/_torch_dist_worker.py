@@ -10,12 +10,16 @@ through ``openmg_tpu_torch.distributed_setup(..., device="cpu")``, or with
 general-sparse solve through ``setup_sparse_distributed``.  Optionally
 ``"cut": k`` (the solve is first cut after k cycles with a checkpoint, then
 resumed from it), ``"many": seeds`` (``solve_many`` of those right-hand
-sides) or ``"expect_error": true`` (the constructor's error is recorded).
+sides, as a float32 tensor batch with ``"native"``, from host initial
+guesses with ``"x0"``; then the scalar solves of the members listed in
+``"scalars"``, each with its own ``Comm.stats``) or ``"expect_error": true``
+(the constructor's error is recorded).
 
 Per case: the solution, the residual history, the cycle count, the
 partition plan and this rank's ``Comm.stats``, and for a scalar solve from
 zero the communication model's numbers for the same solver
-(``openmg_tpu_torch.parallel.model``); and the names of the modules loaded
+(``openmg_tpu_torch.parallel.model``); a batch's per member (``hist{m}``,
+``cycles`` a vector, ``host_reads``); and the names of the modules loaded
 (so a test can check that no JAX module was)."""
 
 import json
@@ -39,6 +43,43 @@ def _model(result, name, solver, sparse):
     result[f"{name}/model/keys"] = np.asarray(sorted(m), dtype=str)
     result[f"{name}/model/deep_fused"] = np.asarray(
         [lv.get("deep_fused", False) for lv in m["per_level"]])
+
+
+def _stats(result, key, solver):
+    for k in ("exchanges", "bytes_sent", "staged_bytes", "gathered_bytes"):
+        result[f"{key}/{k}"] = np.int64(solver.comm.stats[k])
+
+
+def _merged(x, info, native):
+    if not native:
+        return x
+    hi, lo = info["x_df"]
+    return hi.double().numpy() + lo.double().numpy()
+
+
+def _many(result, name, solver, case, rhs):
+    """A batch's solve_many and the scalar solves of its ``scalars``."""
+    native = bool(case.get("native"))
+    bs = [rhs(sd) for sd in case["many"]]
+    x0s = [0.01 * rhs(sd + 1000) for sd in case["many"]] if case.get("x0") else None
+    if native:
+        bs = torch.from_numpy(np.stack(bs).astype(np.float32))
+    x, info = solver.solve_many(bs, x0s)
+    result[f"{name}/x"] = _merged(x, info, native)
+    for m, h in enumerate(info["residual_norms"]):
+        result[f"{name}/hist{m}"] = np.asarray(h)
+    result[f"{name}/cycles"] = np.asarray(info["cycles"], dtype=np.int64)
+    result[f"{name}/converged"] = np.asarray(info["converged"])
+    result[f"{name}/host_reads"] = np.int64(info["host_reads"])
+    result[f"{name}/plan"] = np.asarray(info["partition_plan"])
+    _stats(result, name, solver)
+    for m in case["scalars"]:
+        solver.comm.reset_stats()
+        xm, im = solver.solve(bs[m], None if x0s is None else x0s[m])
+        key = f"{name}/scalar{m}"
+        result[f"{key}/x"] = _merged(xm, im, native)
+        result[f"{key}/hist"] = np.asarray(im["residual_norms"])
+        _stats(result, key, solver)
 
 
 def main(argv):
@@ -95,10 +136,9 @@ def main(argv):
         solver.comm.reset_stats()
         scalar = False
         if "many" in case:
-            x, info = solver.solve_many([rhs(sd) for sd in case["many"]])
-            info = dict(info, residual_norms=info["residual_norms"][0],
-                        cycles=info["cycles"][0])
-        elif "cut" in case:
+            _many(result, name, solver, case, rhs)
+            continue
+        if "cut" in case:
             import dataclasses
 
             path = f"{out}_{name}.npz"
@@ -113,8 +153,7 @@ def main(argv):
         result[f"{name}/hist"] = np.asarray(info["residual_norms"])
         result[f"{name}/cycles"] = np.int64(info["cycles"])
         result[f"{name}/plan"] = np.asarray(info["partition_plan"])
-        for key in ("exchanges", "bytes_sent", "staged_bytes", "gathered_bytes"):
-            result[f"{name}/{key}"] = np.int64(solver.comm.stats[key])
+        _stats(result, name, solver)
         if scalar:
             _model(result, name, solver, sparse)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "openmg_tpu"))

@@ -207,7 +207,8 @@ def test_batched_stencil_wrappers_refuse_before_launching(levels, monkeypatch):
     with pytest.raises(ValueError, match="batches"):
         tkernels._half_sweep_cuda(V, O, b[0], b[0], "residual", 0.0, 0, False,
                                   None, batch=True)
-    with pytest.raises(ValueError, match="no halos"):
+    # a batch's halos are every member's planes, (K, 1, ny, nx)
+    with pytest.raises(ValueError, match="lower halo has shape"):
         tkernels._half_sweep_cuda(V, O, b, b, "residual", 0.0, 0, False, None,
                                   halos=(b[:1, 0], b[:1, 0]), batch=True)
     with pytest.raises(ValueError, match="shape"):

@@ -31,10 +31,13 @@ import pytest
 from _torch_dist_cases import (
     CASES,
     CFG_2D,
+    MANY,
     SHAPE_2D,
+    assert_many_equals_scalars,
     assert_solves_agree as _agree,
     config_of,
     lam_min,
+    many_seeds,
     results,
     shape_of,
 )
@@ -62,6 +65,8 @@ def port(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def reference():
+    """The JAX package's solve of each reference case, and its ``v``
+    solver (``v_solver``, for its ``solve_many``)."""
     from openmg_tpu import MeshConfig, SolverConfig
     from openmg_tpu.models.poisson import rhs_random
     from openmg_tpu.parallel.dist import distributed_setup
@@ -75,6 +80,8 @@ def reference():
         b = rhs_random(shape, seed=0)
         x, info = solver.solve(b / np.linalg.norm(b.ravel()))
         out[name] = (np.asarray(x), info)
+        if name == "v":
+            out["v_solver"] = solver
     return out
 
 
@@ -155,11 +162,36 @@ def test_2d_slabs_match_single_device(port):
     assert np.linalg.norm((port["v2d/x"] - x).ravel()) <= 2e-10 / lam_min(SHAPE_2D)
 
 
-def test_solve_many_members_equal_scalar_solves(port):
-    """``solve_many`` in lockstep (one reduction and one host read of the
-    members' norms a round): member 0 is bit-equal to the scalar solve of
-    the same right-hand side."""
-    xs = port["v_many/x"]
-    assert xs.shape == (2,) + shape_of(2)
-    np.testing.assert_array_equal(xs[0], port["v/x"])
-    assert int(port["v_many/cycles"]) == int(port["v/cycles"])
+@pytest.mark.parametrize("name,native_x0", [(n, False) for n in MANY] + [("v", True)])
+def test_solve_many_members_equal_scalar_solves(port, name, native_x0):
+    """``solve_many`` as one stack (one exchange of every member's planes a
+    scalar exchange, one reduction and one host read of the members' norms
+    a step): every member is bit-equal to the scalar solve of its
+    right-hand side on the same ranks, and the bytes moved are the
+    members' sums.  ``native_x0``: a float32 tensor batch from host
+    initial guesses, against the scalar solves of the same inputs."""
+    many = assert_many_equals_scalars(port, name, native_x0)
+    shape = SHAPE_2D if name == "v2d" else shape_of(CASES[name][0])
+    assert port[f"{many}/x"].shape == (3,) + tuple(shape)
+    assert tuple(port[f"{many}/plan"]) == (True, True, False)
+    if not native_x0:
+        np.testing.assert_array_equal(port[f"{many}/x"][0], port[f"{name}/x"])
+
+
+def test_solve_many_matches_reference(port, reference):
+    """The V batch against the JAX package's ``DistributedSolver.
+    solve_many`` (its device loop under ``vmap``) on the module's ``v``
+    build: each member's cycles, and ‖x_port − x_ref‖₂ ≤ 2e-10/λ_min."""
+    from openmg_tpu.models.poisson import rhs_random
+
+    shape = shape_of(2)
+    bs = []
+    for sd in many_seeds({}):
+        b = rhs_random(shape, seed=sd)
+        bs.append(b / np.linalg.norm(b.ravel()))
+    xs, info = reference["v_solver"].solve_many(np.stack(bs))
+    assert all(info["converged"])
+    assert list(port["v_many/cycles"]) == list(info["cycles"])
+    for m in range(len(bs)):
+        diff = np.linalg.norm((port["v_many/x"][m] - np.asarray(xs[m])).ravel())
+        assert diff <= 2e-10 / lam_min(shape), m

@@ -25,6 +25,8 @@ import torch
 
 from _torch_dist_cases import (
     SPARSE_CASES,
+    SPARSE_MANY,
+    assert_many_equals_scalars,
     assert_solves_agree,
     irregular_spd,
     lam_min,
@@ -229,11 +231,19 @@ def test_sparse_tiers(port):
     assert list(port["jax_modules"]) == []
 
 
-def test_sparse_solve_many_member_equals_scalar_solve(port):
-    xs = port["sp_many/x"]
-    assert xs.shape == (2, 512)
-    np.testing.assert_array_equal(xs[0], port["sp_rbgs/x"])
-    assert int(port["sp_many/cycles"]) == int(port["sp_rbgs/cycles"])
+@pytest.mark.parametrize("name,native_x0",
+                         [(n, False) for n in SPARSE_MANY] + [("sp_rbgs", True)])
+def test_sparse_solve_many_member_equals_scalar_solve(port, name, native_x0):
+    """``solve_many`` as one stack (K6hb on banded levels, the gathered
+    tier member by member): every member bit-equal to its scalar solve on
+    the same ranks, one host read a step, the scalar exchanges, the
+    members' bytes; with ``native_x0`` a float32 tensor batch from host
+    initial guesses (the reference's card batch with host ``x0s``)."""
+    many = assert_many_equals_scalars(port, name, native_x0)
+    assert port[f"{many}/x"].shape == (3, 512)
+    assert bool(port[f"{many}/plan"][0])
+    if not native_x0:
+        np.testing.assert_array_equal(port[f"{many}/x"][0], port[f"{name}/x"])
 
 
 def test_fine_level_that_does_not_split_raises(port):
